@@ -1,0 +1,43 @@
+"""Reference weights into the port: ``from_jax_params``.
+
+Turns a ``repro.models.model_init`` params tree, handed over as numpy
+arrays (``jax.tree_util.tree_map(np.asarray, params)``), into the port's
+nested dicts of tensors. The two packages share one layout, so this is a
+leaf-wise conversion that keeps the structure: the scanned ``groups``
+stack (leading layer-group axis) stays stacked, the unrolled ``layers``
+list stays a list, and ``w_q8``/``w_scale`` leaves convert like any
+other. bfloat16 leaves arrive as ml_dtypes arrays numpy cannot hand to
+torch directly; they go through float32, which holds them exactly.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import ModelConfig, check_supported
+from repro_torch.nn.module import tree_map
+
+
+def _leaf(x, device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def from_jax_params(tree: Any, cfg: ModelConfig, device="cuda") -> Any:
+    """Numpy params tree of the JAX package -> the port's params on
+    ``device``. ``cfg`` must be the config the tree was built for: a
+    scanned config needs the ``groups`` stack, an unrolled one the
+    ``layers`` list."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    scanned = cfg.scan_layers and cfg.n_groups > 0
+    if scanned != ("groups" in tree):
+        raise ValueError(
+            f"params layout {'groups' if 'groups' in tree else 'layers'} does "
+            f"not match cfg.scan_layers={cfg.scan_layers}")
+    return tree_map(lambda x: _leaf(x, dev), tree)

@@ -1,0 +1,505 @@
+"""Decoder transformer over a paged KV cache (port of
+``repro.models.transformer``, all-``attn`` patterns).
+
+One ``ModelConfig`` — the same fields and defaults as the JAX package's —
+describes the model; the paper's knobs (``softmax_cfg``, ``gate_cfg``)
+apply to every attention block. Params are nested dicts of tensors in the
+JAX layout: scanned configs stack their layer groups along a leading axis
+under ``"groups"``, unrolled ones keep a ``"layers"`` list.
+
+This slice ports the serving path: ``model_apply`` without a cache, or
+with a paged cache (``init_paged_cache``), per-row ``pos`` and a
+per-token ``active`` mask. Dense per-row caches, ring (``local_attn``),
+recurrent and MoE blocks, embeds inputs and the W8A8 path raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+
+Cache writes update the pools IN PLACE (``aux["cache"]`` is the cache
+that was passed in): the paged pool is the largest tensor of a serving
+engine, and copying it every layer of every tick would double it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core.attention import (
+    AttentionConfig,
+    dense_attention,
+    paged_attention,
+)
+from repro_torch.core.gating import GateConfig, gate_probs, init_gate
+from repro_torch.core.softmax import ClippedSoftmaxConfig, softcap
+from repro_torch.device import resolve_device
+from repro_torch.nn.layers import (
+    apply_rope,
+    embedding_apply,
+    embedding_attend,
+    embedding_init,
+    linear_apply,
+    linear_init,
+    norm_apply,
+    norm_init,
+    rmsnorm_apply,
+    rmsnorm_init,
+    rope_angles,
+)
+from repro_torch.nn.mlp import mlp_apply, mlp_init
+from repro_torch.nn.module import (
+    Params,
+    split_keys,
+    tree_map,
+    tree_slice,
+)
+from repro_torch.quant.kv_cache import kv_quant
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: Optional[int] = None
+
+    # block pattern (one "group"); kinds: attn | local_attn | griffin | mlstm | slstm
+    pattern: Tuple[str, ...] = ("attn",)
+
+    # attention
+    causal: bool = True
+    window: Optional[int] = None                # for local_attn kind
+    attn_logit_softcap: Optional[float] = None
+    final_logit_softcap: Optional[float] = None
+    qk_norm: bool = False
+    pos: str = "rope"                           # rope | learned | none
+    rope_theta: float = 10000.0
+    max_seq_len: int = 131072
+    attn_chunk_size: int = 1024
+
+    # norms / residual
+    norm: str = "rmsnorm"                       # rmsnorm | layernorm
+    norm_position: str = "pre"                  # pre | post (BERT)
+    post_block_norm: bool = False               # gemma-2 sandwich norms
+
+    # mlp
+    mlp_kind: str = "swiglu"                    # gelu | gelu_tanh | swiglu | none
+    moe: Optional[Any] = None
+
+    # paper knobs
+    softmax_cfg: ClippedSoftmaxConfig = ClippedSoftmaxConfig()
+    gate_cfg: GateConfig = GateConfig(kind="none")
+
+    # paged-KV read path: "auto" (the CUDA kernel for CUDA tensors, the
+    # plain gather path for CPU tensors) | "kernel" | "gather"
+    paged_backend: str = "auto"
+
+    # embedding / io
+    tie_embeddings: bool = True
+    embed_scale: bool = False                   # gemma: * sqrt(d_model)
+    input_kind: str = "tokens"                  # tokens | embeds | mixed
+    frontend_dim: Optional[int] = None
+    n_prefix_embeds: int = 0
+
+    # sub-configs for non-attention mixers (not ported in this slice)
+    rglru: Optional[Any] = None
+    xlstm: Optional[Any] = None
+
+    vocab_pad_to: int = 1
+
+    # execution
+    scan_layers: bool = True
+    remat: bool = True
+    remat_policy: str = "nothing"
+    param_dtype: Any = torch.float32
+    compute_dtype: Any = torch.float32
+    init_std: float = 0.02
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_to
+        return (self.vocab_size + m - 1) // m * m
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head if self.d_head is not None else self.d_model // self.n_heads
+
+    @property
+    def n_groups(self) -> int:
+        return self.n_layers // len(self.pattern)
+
+    @property
+    def tail_pattern(self) -> Tuple[str, ...]:
+        return self.pattern[: self.n_layers % len(self.pattern)]
+
+    def attn_cfg(self, kind: str) -> AttentionConfig:
+        return AttentionConfig(
+            n_heads=self.n_heads, n_kv_heads=self.n_kv_heads,
+            d_head=self.head_dim, causal=self.causal,
+            window=self.window if kind == "local_attn" else None,
+            logit_softcap=self.attn_logit_softcap, softmax=self.softmax_cfg,
+            chunk_size=self.attn_chunk_size)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Refuse what this slice of the port does not run."""
+    kinds = tuple(cfg.pattern)
+    if any(k != "attn" for k in kinds):
+        raise NotImplementedError(
+            f"block kinds {sorted(set(kinds) - {'attn'})} are not ported yet "
+            f"(ROADMAP queue 1, item 9: ring/Griffin/xLSTM)")
+    if cfg.moe is not None:
+        raise NotImplementedError("MoE blocks are not ported yet "
+                                  "(ROADMAP queue 1, item 9: nn/moe.py)")
+    unported = {"input_kind": cfg.input_kind != "tokens",
+                "pos": cfg.pos == "learned",
+                "norm_position": cfg.norm_position != "pre",
+                "post_block_norm": cfg.post_block_norm,
+                "embed_scale": cfg.embed_scale,
+                "tail_pattern": bool(cfg.tail_pattern)}
+    bad = sorted(k for k, v in unported.items() if v)
+    if bad:
+        raise NotImplementedError(f"ModelConfig settings {bad} are not ported "
+                                  f"yet (ROADMAP queue 1, item 9)")
+
+
+# ==========================================================================
+# Positions and masks
+# ==========================================================================
+def _positions(pos, t: int, device) -> torch.Tensor:
+    """Absolute positions of a length-``t`` block: (T,) for a scalar
+    ``pos``, (B, T) for a per-row (B,) tensor."""
+    p = torch.as_tensor(pos, dtype=torch.int64, device=device)
+    return p[..., None] + torch.arange(t, dtype=torch.int64, device=device)
+
+
+def _token_mask(active, b: int, t: int) -> Optional[torch.Tensor]:
+    """``active`` as a per-token (B, T) bool mask: per-row (B,) masks are
+    broadcast over the row's tokens."""
+    if active is None:
+        return None
+    act = torch.as_tensor(active)
+    if act.ndim == 1:
+        act = act[:, None]
+    return torch.broadcast_to(act.bool(), (b, t))
+
+
+def _paged_targets(table: torch.Tensor, tpos: torch.Tensor,
+                   act_tok: Optional[torch.Tensor], nb: int, bs: int):
+    """The masked paged write as explicit indices. Token (b, j) at logical
+    position p goes to pool block ``table[b, p // bs]``, slot ``p % bs``;
+    entries past the table, ``-1`` entries, padding tokens and dead rows
+    are dropped by filtering them out (torch has no ``mode="drop"``
+    scatter). Returns (row idx, token idx, block idx, slot idx)."""
+    w = table.shape[-1]
+    entry = tpos // bs
+    phys = torch.gather(table.long(), 1, torch.clamp(entry, max=w - 1))
+    keep = (entry < w) & (phys >= 0) & (phys < nb)
+    if act_tok is not None:
+        keep &= act_tok
+    bi, ti = keep.nonzero(as_tuple=True)
+    return bi, ti, phys[bi, ti], (tpos % bs)[bi, ti]
+
+
+def _paged_write(cache: dict, k: torch.Tensor, v: torch.Tensor, targets
+                 ) -> None:
+    """Write the kept tokens of (B, T, Hkv, Dh) ``k``/``v`` into the pools
+    at ``targets`` (from ``_paged_targets``), in place. An int8 pool
+    quantizes each token exactly once, here, and stores its scale beside
+    it, so stored bits are a pure function of (value, position)."""
+    bi, ti, blk, slot = targets
+    if "k_scale" in cache:
+        for name, x in (("k", k), ("v", v)):
+            q, scale = kv_quant(x[bi, ti])
+            cache[name][blk, slot] = q
+            cache[name + "_scale"][blk, slot] = scale
+    else:
+        cache["k"][blk, slot] = k[bi, ti].to(cache["k"].dtype)
+        cache["v"][blk, slot] = v[bi, ti].to(cache["v"].dtype)
+
+
+# ==========================================================================
+# Block init / apply
+# ==========================================================================
+def _attn_block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ks = split_keys(gen, 8)
+    std, dt, dev = cfg.init_std, cfg.param_dtype, gen.device
+    bias = cfg.norm == "layernorm"
+    p: Params = {
+        "ln1": norm_init(cfg.norm, d, dt, dev),
+        "q": linear_init(ks[0], d, hq * dh, bias=bias, std=std, dtype=dt),
+        "k": linear_init(ks[1], d, hkv * dh, bias=bias, std=std, dtype=dt),
+        "v": linear_init(ks[2], d, hkv * dh, bias=bias, std=std, dtype=dt),
+        "o": linear_init(ks[3], hq * dh, d, bias=bias, std=std, dtype=dt),
+    }
+    if cfg.qk_norm:
+        p["qnorm"] = rmsnorm_init(dh, dt, dev)
+        p["knorm"] = rmsnorm_init(dh, dt, dev)
+    if cfg.gate_cfg.enabled:
+        p["gate"] = init_gate(ks[4], cfg.gate_cfg, hq, dh, d, dt)
+    if cfg.mlp_kind != "none":
+        p["ln2"] = norm_init(cfg.norm, d, dt, dev)
+        p["mlp"] = mlp_init(ks[5], d, cfg.d_ff, cfg.mlp_kind, dt)
+    return p
+
+
+def _attn_block_apply(
+    p: Params, x: torch.Tensor, cfg: ModelConfig,
+    rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
+    cache: Optional[dict], pos, write_idx: Dict,
+    act_tok: Optional[torch.Tensor],
+    paged_live_width: Optional[int] = None,
+    paged_live_widths: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    b, t, d = x.shape
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    acfg = cfg.attn_cfg("attn")
+
+    h = norm_apply(cfg.norm, p["ln1"], x)
+    q = linear_apply(p["q"], h).reshape(b, t, hq, dh)
+    k = linear_apply(p["k"], h).reshape(b, t, hkv, dh)
+    v = linear_apply(p["v"], h).reshape(b, t, hkv, dh)
+    if cfg.qk_norm:
+        q = rmsnorm_apply(p["qnorm"], q)
+        k = rmsnorm_apply(p["knorm"], k)
+    if rope is not None:
+        q = apply_rope(q, *rope)
+        k = apply_rope(k, *rope)
+
+    gate_pi = None
+    if cfg.gate_cfg.enabled:
+        # per-head view of the attention input (paper Sec 4.2); when
+        # n_heads*d_head != d_model the per-head query is the view instead
+        x_heads = h.reshape(b, t, hq, dh) if hq * dh == d else q
+        gate_pi = gate_probs(p["gate"], cfg.gate_cfg, x_heads, h)
+
+    if cache is None:
+        attn_out = dense_attention(q, k, v, acfg, q_offset=0, gate_pi=gate_pi)
+    else:
+        if "block_table" not in cache:
+            raise NotImplementedError(
+                "dense per-row KV caches are not ported yet (ROADMAP: "
+                "generate with the dense cache and paged=False)")
+        nb, bs = cache["k"].shape[0], cache["k"].shape[1]
+        table = cache["block_table"]
+        key = (table.data_ptr(), tuple(table.shape), table.stride())
+        if key not in write_idx:
+            tpos = torch.broadcast_to(_positions(pos, t, x.device), (b, t))
+            write_idx[key] = _paged_targets(table, tpos, act_tok, nb, bs)
+        _paged_write(cache, k, v, write_idx[key])
+        scales = {n: cache[n] for n in ("k_scale", "v_scale") if n in cache}
+        attn_out = paged_attention(
+            q, cache["k"], cache["v"], table, acfg, q_offset=pos,
+            gate_pi=gate_pi, live_width=paged_live_width,
+            live_widths=paged_live_widths, backend=cfg.paged_backend, **scales)
+
+    x = x + linear_apply(p["o"], attn_out.reshape(b, t, hq * dh))
+    if cfg.mlp_kind != "none":
+        x = x + mlp_apply(p["mlp"], norm_apply(cfg.norm, p["ln2"], x), cfg.mlp_kind)
+    return x
+
+
+# ==========================================================================
+# Whole model
+# ==========================================================================
+def _stacked(make, n: int) -> Params:
+    """Stack ``make(0) .. make(n-1)`` along a new leading axis, filling a
+    preallocated stack one tree at a time so that at most one unstacked
+    tree exists at once (the scanned ``groups`` layout of full-size
+    models would otherwise need twice its weights in memory)."""
+    first = make(0)
+    out = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), first)
+    for i in range(n):
+        tree = first if i == 0 else make(i)
+        tree_map(lambda dst, src: dst[i].copy_(src), out, tree)
+    return out
+
+
+def model_init(seed, cfg: ModelConfig, device="cuda") -> Params:
+    """Random weights from ``seed`` (an int, or a ``torch.Generator`` on
+    the target device), drawn on ``device``. The key tree mirrors the JAX
+    package's, but the numbers differ: tests that compare the two
+    packages convert the JAX weights (``repro_torch.convert``)."""
+    check_supported(cfg)
+    if isinstance(seed, torch.Generator):
+        gen = seed
+    else:
+        gen = torch.Generator(device=resolve_device(device))
+        gen.manual_seed(int(seed))
+    keys = split_keys(gen, cfg.n_layers + 4)
+    dt = cfg.param_dtype
+    p: Params = {"embed": embedding_init(keys[-1], cfg.padded_vocab,
+                                         cfg.d_model, cfg.init_std, dt)}
+    glen = len(cfg.pattern)
+
+    def group(g: int) -> Params:
+        return {f"b{i}": _attn_block_init(keys[g * glen + i], cfg)
+                for i in range(glen)}
+
+    if cfg.scan_layers and cfg.n_groups > 0:
+        p["groups"] = _stacked(group, cfg.n_groups)
+    else:
+        p["layers"] = [group(g) for g in range(cfg.n_groups)]
+    p["final_norm"] = norm_init(cfg.norm, cfg.d_model, dt, gen.device)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = linear_init(keys[-4], cfg.d_model, cfg.padded_vocab,
+                                   bias=False, std=cfg.init_std, dtype=dt)
+    return p
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
+                     num_blocks: int, block_size: int = 16, dtype=None,
+                     kv_int8: bool = False, device="cuda") -> Params:
+    """Paged decode state: each attention layer holds a block pool
+    ``k``/``v`` (num_blocks, block_size, Hkv, Dh) shared by all rows plus a
+    per-row ``block_table`` (batch, max_len // block_size) of physical ids
+    (-1 = unallocated). ``kv_int8=True`` stores int8 pools plus per-slot
+    f32 scale vectors ``k_scale``/``v_scale`` (num_blocks, block_size).
+    The layout mirrors the params: scanned configs stack the groups."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = dtype or cfg.compute_dtype
+    if max_len % block_size:
+        raise ValueError(
+            f"max_len={max_len} must be a multiple of block_size="
+            f"{block_size}: the virtual KV length (table width * block_size) "
+            f"must equal the logical cap, because softmax_cfg.alpha resolves "
+            f"gamma = -alpha/T from it")
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    n_entries = max_len // block_size
+    scanned = cfg.scan_layers and cfg.n_groups > 0
+
+    def one(lead=()) -> Params:
+        pool_dtype = torch.int8 if kv_int8 else dtype
+        shape = lead + (num_blocks, block_size, hkv, dh)
+        c = {"k": torch.zeros(shape, dtype=pool_dtype, device=dev),
+             "v": torch.zeros(shape, dtype=pool_dtype, device=dev),
+             "block_table": torch.full(lead + (batch, n_entries), -1,
+                                       dtype=torch.int32, device=dev)}
+        if kv_int8:
+            for name in ("k_scale", "v_scale"):
+                c[name] = torch.zeros(lead + (num_blocks, block_size),
+                                      dtype=torch.float32, device=dev)
+        return c
+
+    cache: Params = {}
+    if scanned:
+        cache["groups"] = {f"b{i}": one((cfg.n_groups,))
+                           for i in range(len(cfg.pattern))}
+    else:
+        cache["layers"] = [{f"b{i}": one() for i in range(len(cfg.pattern))}
+                           for _ in range(cfg.n_groups)]
+    return cache
+
+
+def paged_kv_block_bytes(cfg: ModelConfig, block_size: int = 16,
+                         kv_int8: bool = False, dtype=None) -> int:
+    """Bytes ONE pool block costs per attention layer (k + v and, for
+    int8, the two per-slot scale vectors)."""
+    dtype = dtype or cfg.compute_dtype
+    elems = block_size * cfg.n_kv_heads * cfg.head_dim
+    if kv_int8:
+        return 2 * elems * 1 + 2 * block_size * 4
+    return 2 * elems * torch.empty((), dtype=dtype).element_size()
+
+
+def paged_entries(cache: Params):
+    """Every paged attention entry (a dict holding ``block_table``) of
+    ``cache``, in layer order."""
+    if isinstance(cache, dict):
+        if "block_table" in cache:
+            yield cache
+            return
+        for v in cache.values():
+            yield from paged_entries(v)
+    elif isinstance(cache, (list, tuple)):
+        for v in cache:
+            yield from paged_entries(v)
+
+
+def copy_pool_blocks(cache: Params, src: torch.Tensor, dst: torch.Tensor
+                     ) -> Params:
+    """Copy physical pool blocks ``src[i] -> dst[i]`` in every paged pool
+    of ``cache`` (K/V and, for int8 KV, their scale vectors), in place.
+    All sources are gathered before any destination is written, so a
+    pair whose source is another pair's destination still copies
+    pre-copy content. Returns ``cache``."""
+    for entry in paged_entries(cache):
+        stacked = entry["block_table"].ndim == 3        # scanned: (G, B, W)
+        for name in ("k", "v", "k_scale", "v_scale"):
+            leaf = entry.get(name)
+            if leaf is None:
+                continue
+            if stacked:
+                leaf[:, dst] = leaf[:, src]
+            else:
+                leaf[dst] = leaf[src]
+    return cache
+
+
+def model_apply(
+    params: Params,
+    cfg: ModelConfig,
+    batch: Dict[str, torch.Tensor],
+    cache: Optional[Params] = None,
+    pos: Any = 0,
+    active: Optional[torch.Tensor] = None,
+    paged_live_width: Optional[int] = None,
+    paged_live_widths: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Forward pass. Returns (logits (B, T, vocab) f32, aux).
+
+    ``batch``: {"tokens": (B, T) int}. ``cache``/``pos``: a paged cache
+    and the block's start position, a shared int or a per-row (B,)
+    tensor. ``active``: optional per-row (B,) or per-token (B, T) bool
+    mask; masked tokens still compute, but their cache writes are
+    dropped. ``paged_live_width`` bounds the paged read to the first N
+    table entries, ``paged_live_widths`` masks each row's read at its own
+    count. Without a cache the attention is dense and causal. ``aux``
+    holds "cache" (the same, in-place updated cache) when one is given."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    b, t = tokens.shape
+    dev = tokens.device
+    x = embedding_apply(params["embed"], tokens).to(cfg.compute_dtype)
+    rope = None
+    if cfg.pos == "rope":
+        rope = rope_angles(_positions(pos, t, dev), cfg.head_dim, cfg.rope_theta)
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to(dev)
+    act_tok = _token_mask(active, b, t)
+    if act_tok is not None:
+        act_tok = act_tok.to(dev)
+    write_idx: Dict = {}
+
+    def run(x, p, c):
+        return _attn_block_apply(p, x, cfg, rope, c, pos, write_idx, act_tok,
+                                 paged_live_width, paged_live_widths)
+
+    for g in range(cfg.n_groups):
+        gp = params["layers"][g] if "layers" in params \
+            else tree_slice(params["groups"], g)
+        gc = None
+        if cache is not None:
+            gc = cache["layers"][g] if "layers" in cache \
+                else tree_slice(cache["groups"], g)
+        for i in range(len(cfg.pattern)):
+            x = run(x, gp[f"b{i}"], None if gc is None else gc[f"b{i}"])
+
+    x = norm_apply(cfg.norm, params["final_norm"], x)
+    if "lm_head" in params:
+        logits = linear_apply(params["lm_head"], x).float()
+    else:
+        logits = embedding_attend(params["embed"], x)
+    logits = softcap(logits, cfg.final_logit_softcap)
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab, device=dev) >= cfg.vocab_size
+        logits = torch.where(pad, -1e30, logits)
+    aux: Dict[str, Any] = {}
+    if cache is not None:
+        aux["cache"] = cache
+    return logits, aux

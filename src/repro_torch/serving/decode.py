@@ -1,0 +1,163 @@
+"""The serving tick and its samplers (port of ``repro.serving.decode``,
+the parts the continuous batcher runs).
+
+``step_rows_full`` runs one ``model_apply`` over a (B, T) token block in
+which every row sits at its own position ``pos[b]`` and contributes
+``counts[b]`` real tokens (the rest is padding whose cache writes are
+dropped). ``make_mixed_step`` and ``make_spec_step`` build the batcher's
+tick from it: plain callables, since PyTorch runs eagerly.
+
+Sampling rule: the token that will sit at logical position p is a pure
+function of (request seed, p) and that position's logits, so a
+recomputed or speculated continuation resamples identical tokens. The
+JAX package draws it with ``fold_in(key, p)`` over threefry; torch cannot
+give those bits, so this port draws Gumbel noise from a counter-based
+integer hash of (seed, p, vocab index) of its own. Greedy decoding
+(``temperature == 0``) is argmax and matches the JAX package; sampled
+tokens are tested within the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.models.transformer import ModelConfig, model_apply
+
+_M32 = 0xFFFFFFFF
+
+
+@dataclasses.dataclass(frozen=True)
+class GenerateConfig:
+    max_new_tokens: int = 32
+    temperature: float = 0.0       # 0 => greedy
+    top_k: Optional[int] = None    # sample only among the k best logits
+    eos_id: Optional[int] = None   # a row stops after emitting this token
+    pad_id: int = 0                # fills positions after EOS
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer finalizer on int64 tensors holding values in
+    [0, 2^32). Both multipliers are below 2^31, so no product overflows."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x5BD1E995) & _M32
+    return x ^ (x >> 16)
+
+
+def _uniform(keys: torch.Tensor, target_pos: torch.Tensor, n: int
+             ) -> torch.Tensor:
+    """(B, n) uniforms in (0, 1), a pure function of (key, position,
+    index): the port's counter-based stand-in for ``fold_in``."""
+    k = keys.long()
+    h = _mix32((k & _M32) ^ _mix32(((k >> 32) & _M32) + 0x632BE5AB & _M32))
+    h = _mix32(h ^ _mix32((target_pos.long() + 0x27D4EB2F) & _M32))
+    idx = torch.arange(n, dtype=torch.int64, device=k.device)
+    h = _mix32(h[:, None] ^ _mix32((idx + 0x165667B1) & _M32)[None, :])
+    return ((h >> 8).float() + 0.5) / float(1 << 24)
+
+
+def sample_logits(logits: torch.Tensor, gen: GenerateConfig,
+                  keys: Optional[torch.Tensor] = None,
+                  target_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, vocab) logits -> (B,) int64 tokens. Sampling (temperature > 0)
+    needs per-row ``keys`` (request seeds) and ``target_pos``."""
+    if gen.temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    if keys is None or target_pos is None:
+        raise ValueError("sampling needs per-row keys and target positions "
+                         "when temperature > 0")
+    logits = logits.float()
+    if gen.top_k is not None and 0 < gen.top_k < logits.shape[-1]:
+        kth = torch.topk(logits, gen.top_k, dim=-1).values[:, -1:]
+        logits = torch.where(logits < kth, -float("inf"), logits)
+    u = _uniform(keys.to(logits.device), target_pos.to(logits.device),
+                 logits.shape[-1])
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(logits / gen.temperature + gumbel, dim=-1)
+
+
+def sample_rows(logits: torch.Tensor, gen: GenerateConfig, keys: torch.Tensor,
+                target_pos: torch.Tensor) -> torch.Tensor:
+    """Per-row sampler of the mixed tick: (B, vocab) logits, (B,) request
+    seeds, (B,) target positions -> (B,) tokens."""
+    return sample_logits(logits, gen, keys, target_pos)
+
+
+def sample_rows_all(logits: torch.Tensor, gen: GenerateConfig,
+                    keys: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Every-position sampler of the speculative tick: (B, T, vocab)
+    logits -> (B, T) tokens, entry [b, j] being the token plain decoding
+    would place at position ``pos[b] + j + 1``."""
+    b, t, v = logits.shape
+    if gen.temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    tpos = pos.to(logits.device)[:, None] + 1 + \
+        torch.arange(t, device=logits.device)[None, :]
+    rows = sample_logits(logits.reshape(b * t, v), gen,
+                         keys.to(logits.device).repeat_interleave(t),
+                         tpos.reshape(-1))
+    return rows.reshape(b, t)
+
+
+def step_rows_full(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
+                   pos: torch.Tensor, counts: torch.Tensor,
+                   paged_live_width: Optional[int] = None,
+                   paged_live_widths: Optional[torch.Tensor] = None):
+    """Variable-Tq fused step returning ALL positions' logits (B, T,
+    vocab) and the (in place updated) cache. Row b holds ``counts[b]``
+    real tokens at positions ``pos[b]..``; padding tokens write nothing."""
+    t = tokens.shape[1]
+    active = torch.arange(t, device=tokens.device)[None, :] < counts[:, None]
+    logits, aux = model_apply(params, cfg, {"tokens": tokens}, cache=cache,
+                              pos=pos, active=active,
+                              paged_live_width=paged_live_width,
+                              paged_live_widths=paged_live_widths)
+    return logits, aux["cache"]
+
+
+def step_rows(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
+              pos: torch.Tensor, counts: torch.Tensor,
+              paged_live_width: Optional[int] = None,
+              paged_live_widths: Optional[torch.Tensor] = None):
+    """``step_rows_full`` keeping only each row's LAST real token's logits:
+    returns (last_logits (B, vocab), cache)."""
+    logits, cache = step_rows_full(params, cfg, cache, tokens, pos, counts,
+                                   paged_live_width, paged_live_widths)
+    idx = torch.clamp(counts - 1, min=0)
+    last = logits[torch.arange(logits.shape[0], device=logits.device), idx]
+    return last, cache
+
+
+def make_mixed_step(cfg: ModelConfig, gen: GenerateConfig):
+    """The batcher's tick: one ``step_rows`` forward advancing every
+    runnable row (decode rows by 1 token, prefill rows by a chunk), then
+    position-keyed sampling of each row's next token."""
+
+    def mixed_step(params, cache, tokens, pos, counts, keys, live_width,
+                   live_widths):
+        last, cache = step_rows(params, cfg, cache, tokens, pos, counts,
+                                paged_live_width=live_width,
+                                paged_live_widths=live_widths)
+        return sample_rows(last, gen, keys, pos + counts), cache
+
+    return mixed_step
+
+
+def make_spec_step(cfg: ModelConfig, gen: GenerateConfig):
+    """The speculative tick: one ``step_rows_full`` forward verifying up to
+    k drafts per decode row, returning the (B, T) target-token matrix.
+    Rejected drafts have written their K/V; that is sound because every
+    read masks keys by logical position and the row's next writes replace
+    them with identical bits (see ``repro.serving.decode.make_spec_step``)."""
+
+    def spec_step(params, cache, tokens, pos, counts, keys, live_width,
+                  live_widths):
+        logits, cache = step_rows_full(params, cfg, cache, tokens, pos, counts,
+                                       paged_live_width=live_width,
+                                       paged_live_widths=live_widths)
+        return sample_rows_all(logits, gen, keys, pos), cache
+
+    return spec_step
