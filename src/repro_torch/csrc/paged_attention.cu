@@ -12,7 +12,7 @@
 //
 // Layout (the TPU kernel's): q (B, Hkv, TQG, Dh) with TQG = Tq * G and
 // query row r = token r / G, head lane r % G; pools (NB, BS, Hkv, Dh) f32,
-// bf16 or int8; scales (NB, BS) f32; table (B, W) int32; q_off (B,)
+// bf16 or int8 (bf16 pools also under f32 q, read into f32); scales (NB, BS) f32; table (B, W) int32; q_off (B,)
 // int32; live_widths (B,) int32 or null; gate (B, Hkv, TQG) f32 or null;
 // out like q.
 //
@@ -356,6 +356,7 @@ extern "C" int paged_attention_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && kv_dtype == 0) return (int)dispatch<float, float>(a, clipped != 0, s);
   if (q_dtype == 1 && kv_dtype == 1) return (int)dispatch<__nv_bfloat16, __nv_bfloat16>(a, clipped != 0, s);
+  if (q_dtype == 0 && kv_dtype == 1) return (int)dispatch<float, __nv_bfloat16>(a, clipped != 0, s);
   if (q_dtype == 0 && kv_dtype == 2) return (int)dispatch<float, int8_t>(a, clipped != 0, s);
   if (q_dtype == 1 && kv_dtype == 2) return (int)dispatch<__nv_bfloat16, int8_t>(a, clipped != 0, s);
   return (int)cudaErrorInvalidValue;

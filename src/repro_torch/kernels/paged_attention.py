@@ -10,8 +10,9 @@ window masks over logical positions; ``-1`` entries masked; logit
 softcap; vanilla softmax in one online pass, the clipped softmax in two
 passes ((m, Z), then ``clip((zeta-gamma)*p+gamma, 0, 1) @ V``); the gate
 multiplies the output; int8 pools are dequantized on load by per-slot
-``(NB, BS)`` scales. ``gamma`` arrives already resolved from the logical
-length; nothing here recomputes it. ``live_widths`` lets each row stop
+``(NB, BS)`` scales. f32 queries may read a bf16 pool; everything is
+computed in f32 and the output has q's dtype. ``gamma`` arrives already
+resolved from the logical length; nothing here recomputes it. ``live_widths`` lets each row stop
 at its own block count; masked entries contribute exact zeros, so that
 early exit is exact. A row with nothing live outputs exact zeros.
 
@@ -131,9 +132,12 @@ def _check(q, k_pool, v_pool, block_table, q_off, gate_pi, k_scale, v_scale,
     if k_pool.dtype != v_pool.dtype:
         raise TypeError("k_pool and v_pool dtypes differ")
     quantized = k_pool.dtype == torch.int8
-    if not quantized and k_pool.dtype != q.dtype:
-        raise TypeError(f"fp pools must match q's dtype {q.dtype}, got "
-                        f"{k_pool.dtype}")
+    # fp pools hold q's dtype, or bf16 under f32 queries (the W8A8 tick's
+    # f32 projections over a bf16 pool), computed in f32
+    if not quantized and k_pool.dtype != q.dtype and \
+            (q.dtype, k_pool.dtype) != (torch.float32, torch.bfloat16):
+        raise TypeError(f"fp pools must match q's dtype {q.dtype} (or be "
+                        f"bfloat16 under float32 q), got {k_pool.dtype}")
     if quantized != (k_scale is not None) or (k_scale is None) != (v_scale is None):
         raise ValueError("int8 pools need k_scale and v_scale, fp pools none")
     nb, bs = k_pool.shape[:2]

@@ -7,10 +7,12 @@ apply to every attention block. Params are nested dicts of tensors in the
 JAX layout: scanned configs stack their layer groups along a leading axis
 under ``"groups"``, unrolled ones keep a ``"layers"`` list.
 
-This slice ports the serving path: ``model_apply`` without a cache, or
+This port covers the serving path: ``model_apply`` without a cache, or
 with a paged cache (``init_paged_cache``), per-row ``pos`` and a
-per-token ``active`` mask. Dense per-row caches, ring (``local_attn``),
-recurrent and MoE blocks, embeds inputs and the W8A8 path raise
+per-token ``active`` mask, with a ``QuantContext`` whose site names are
+the reference's byte for byte (a block is named by its index inside the
+pattern, ``layer_attn0``, in every group). Dense per-row caches, ring
+(``local_attn``), recurrent and MoE blocks and embeds inputs raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Cache writes update the pools IN PLACE (``aux["cache"]`` is the cache
@@ -53,6 +55,7 @@ from repro_torch.nn.module import (
     tree_slice,
 )
 from repro_torch.quant.kv_cache import kv_quant
+from repro_torch.quant.qconfig import NO_QUANT, QuantContext
 
 
 @dataclasses.dataclass(frozen=True)
@@ -252,6 +255,7 @@ def _attn_block_apply(
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
     cache: Optional[dict], pos, write_idx: Dict,
     act_tok: Optional[torch.Tensor],
+    ctx: QuantContext, name: str,
     paged_live_width: Optional[int] = None,
     paged_live_widths: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
@@ -259,13 +263,13 @@ def _attn_block_apply(
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     acfg = cfg.attn_cfg("attn")
 
-    h = norm_apply(cfg.norm, p["ln1"], x)
-    q = linear_apply(p["q"], h).reshape(b, t, hq, dh)
-    k = linear_apply(p["k"], h).reshape(b, t, hkv, dh)
-    v = linear_apply(p["v"], h).reshape(b, t, hkv, dh)
+    h = norm_apply(cfg.norm, p["ln1"], x, ctx, name + "/ln1")
+    q = linear_apply(p["q"], h, ctx, name + "/q").reshape(b, t, hq, dh)
+    k = linear_apply(p["k"], h, ctx, name + "/k").reshape(b, t, hkv, dh)
+    v = linear_apply(p["v"], h, ctx, name + "/v").reshape(b, t, hkv, dh)
     if cfg.qk_norm:
-        q = rmsnorm_apply(p["qnorm"], q)
-        k = rmsnorm_apply(p["knorm"], k)
+        q = rmsnorm_apply(p["qnorm"], q, ctx=ctx, name=name + "/qnorm")
+        k = rmsnorm_apply(p["knorm"], k, ctx=ctx, name=name + "/knorm")
     if rope is not None:
         q = apply_rope(q, *rope)
         k = apply_rope(k, *rope)
@@ -297,9 +301,11 @@ def _attn_block_apply(
             gate_pi=gate_pi, live_width=paged_live_width,
             live_widths=paged_live_widths, backend=cfg.paged_backend, **scales)
 
-    x = x + linear_apply(p["o"], attn_out.reshape(b, t, hq * dh))
+    attn_out = ctx.act(name + "/attn.out", attn_out.reshape(b, t, hq * dh))
+    x = x + linear_apply(p["o"], attn_out, ctx, name + "/o")
     if cfg.mlp_kind != "none":
-        x = x + mlp_apply(p["mlp"], norm_apply(cfg.norm, p["ln2"], x), cfg.mlp_kind)
+        h2 = norm_apply(cfg.norm, p["ln2"], x, ctx, name + "/ln2")
+        x = x + mlp_apply(p["mlp"], h2, cfg.mlp_kind, ctx, name + "/mlp")
     return x
 
 
@@ -445,6 +451,7 @@ def model_apply(
     params: Params,
     cfg: ModelConfig,
     batch: Dict[str, torch.Tensor],
+    ctx: QuantContext = NO_QUANT,
     cache: Optional[Params] = None,
     pos: Any = 0,
     active: Optional[torch.Tensor] = None,
@@ -459,13 +466,16 @@ def model_apply(
     mask; masked tokens still compute, but their cache writes are
     dropped. ``paged_live_width`` bounds the paged read to the first N
     table entries, ``paged_live_widths`` masks each row's read at its own
-    count. Without a cache the attention is dense and causal. ``aux``
-    holds "cache" (the same, in-place updated cache) when one is given."""
+    count. Without a cache the attention is dense and causal. ``ctx``
+    quantizes at the reference's sites ('collect', 'apply') or runs the
+    W8A8 linears ('int8'); ``lm_head`` stays fp through
+    ``QConfig.skip_patterns``. ``aux`` holds "cache" (the same, in-place
+    updated cache) when one is given."""
     check_supported(cfg)
     tokens = batch["tokens"]
     b, t = tokens.shape
     dev = tokens.device
-    x = embedding_apply(params["embed"], tokens).to(cfg.compute_dtype)
+    x = embedding_apply(params["embed"], tokens, ctx, "embed").to(cfg.compute_dtype)
     rope = None
     if cfg.pos == "rope":
         rope = rope_angles(_positions(pos, t, dev), cfg.head_dim, cfg.rope_theta)
@@ -476,9 +486,9 @@ def model_apply(
         act_tok = act_tok.to(dev)
     write_idx: Dict = {}
 
-    def run(x, p, c):
+    def run(x, p, c, name):
         return _attn_block_apply(p, x, cfg, rope, c, pos, write_idx, act_tok,
-                                 paged_live_width, paged_live_widths)
+                                 ctx, name, paged_live_width, paged_live_widths)
 
     for g in range(cfg.n_groups):
         gp = params["layers"][g] if "layers" in params \
@@ -487,14 +497,15 @@ def model_apply(
         if cache is not None:
             gc = cache["layers"][g] if "layers" in cache \
                 else tree_slice(cache["groups"], g)
-        for i in range(len(cfg.pattern)):
-            x = run(x, gp[f"b{i}"], None if gc is None else gc[f"b{i}"])
+        for i, kind in enumerate(cfg.pattern):
+            x = run(x, gp[f"b{i}"], None if gc is None else gc[f"b{i}"],
+                    f"layer_{kind}{i}")
 
-    x = norm_apply(cfg.norm, params["final_norm"], x)
+    x = norm_apply(cfg.norm, params["final_norm"], x, ctx, "final_norm")
     if "lm_head" in params:
-        logits = linear_apply(params["lm_head"], x).float()
+        logits = linear_apply(params["lm_head"], x, ctx, "lm_head").float()
     else:
-        logits = embedding_attend(params["embed"], x)
+        logits = embedding_attend(params["embed"], x, ctx, "lm_head")
     logits = softcap(logits, cfg.final_logit_softcap)
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=dev) >= cfg.vocab_size

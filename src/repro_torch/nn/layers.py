@@ -1,10 +1,12 @@
 """Basic layers: linear, norms, embeddings, rotary embeddings (port of
-``repro.nn.layers``, fp path).
+``repro.nn.layers``).
 
 Weights keep the JAX package's layout: a linear's ``w`` is (d_in, d_out)
 and ``y = x @ w``. Norms accumulate in f32 whatever the compute dtype.
-The W8A8 linear (``_linear_int8_apply`` over the ``int8_matmul`` kernel)
-is the next slice of the port.
+Every layer takes a ``QuantContext`` and a site name, with the
+reference's sites (``name + ".in"``, ``".out"``, ``"#w"``); in 'int8'
+mode a linear that carries ``w_q8`` runs the W8A8 kernel
+(``_linear_int8_apply``).
 """
 from __future__ import annotations
 
@@ -13,7 +15,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.int8_matmul import int8_matmul
 from repro_torch.nn.module import Params, normal_init
+from repro_torch.quant.qconfig import NO_QUANT, QuantContext
 
 
 # --------------------------------------------------------------------------
@@ -29,14 +33,36 @@ def linear_init(gen: torch.Generator, d_in: int, d_out: int, *,
     return p
 
 
-def linear_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    w = p["w"]
+def linear_apply(p: Params, x: torch.Tensor, ctx: QuantContext = NO_QUANT,
+                 name: str = "linear") -> torch.Tensor:
+    if ctx.mode == "int8" and "w_q8" in p:
+        return _linear_int8_apply(p, x, ctx, name)
+    w = ctx.weight(name, p["w"])
+    x = ctx.act(name + ".in", x)
     if x.dtype != w.dtype:
         # mixed operands promote as in JAX (f32 @ bf16 -> f32): the plain
         # attention path returns f32 over a dequantized int8 KV pool
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
     y = x @ w
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return ctx.act(name + ".out", y)
+
+
+def _linear_int8_apply(p: Params, x: torch.Tensor, ctx: QuantContext,
+                       name: str) -> torch.Tensor:
+    """Hardware W8A8 path: the pre-quantized ``w_q8``/``w_scale`` leaves
+    and the STATIC per-tensor input range calibrated for this site (python
+    floats, so the tick reads nothing back from the device); dynamic
+    ranging only for a site calibration never saw. Returns f32, which
+    promotes the residual stream as in the reference."""
+    qp = ctx.act_qparams(name + ".in")
+    s_x, z_x = qp if qp is not None else (None, None)
+    lead = x.shape[:-1]
+    y = int8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), p["w_q8"],
+                    p["w_scale"], x_scale=s_x, x_zero=z_x)
+    y = y.reshape(*lead, p["w_q8"].shape[-1])
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -50,13 +76,14 @@ def layernorm_init(d: int, dtype=torch.float32, device=None) -> Params:
             "bias": torch.zeros((d,), dtype=dtype, device=device)}
 
 
-def layernorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def layernorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-6,
+                    ctx: QuantContext = NO_QUANT, name: str = "ln") -> torch.Tensor:
     dt = x.dtype
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * p["scale"].float() + p["bias"].float()).to(dt)
+    return ctx.act(name + ".out", (y * p["scale"].float() + p["bias"].float()).to(dt))
 
 
 def rmsnorm_init(d: int, dtype=torch.float32, device=None) -> Params:
@@ -64,6 +91,7 @@ def rmsnorm_init(d: int, dtype=torch.float32, device=None) -> Params:
 
 
 def rmsnorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-6,
+                  ctx: QuantContext = NO_QUANT, name: str = "rms",
                   zero_centered: bool = False) -> torch.Tensor:
     """RMSNorm; ``zero_centered=True`` stores the scale as gamma-1."""
     dt = x.dtype
@@ -73,7 +101,7 @@ def rmsnorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-6,
     scale = p["scale"].float()
     if zero_centered:
         scale = scale + 1.0
-    return (y * scale).to(dt)
+    return ctx.act(name + ".out", (y * scale).to(dt))
 
 
 def norm_init(kind: str, d: int, dtype=torch.float32, device=None) -> Params:
@@ -82,11 +110,11 @@ def norm_init(kind: str, d: int, dtype=torch.float32, device=None) -> Params:
     return rmsnorm_init(d, dtype, device)
 
 
-def norm_apply(kind: str, p: Params, x: torch.Tensor,
-               zero_centered: bool = False) -> torch.Tensor:
+def norm_apply(kind: str, p: Params, x: torch.Tensor, ctx: QuantContext = NO_QUANT,
+               name: str = "norm", zero_centered: bool = False) -> torch.Tensor:
     if kind == "layernorm":
-        return layernorm_apply(p, x)
-    return rmsnorm_apply(p, x, zero_centered=zero_centered)
+        return layernorm_apply(p, x, ctx=ctx, name=name)
+    return rmsnorm_apply(p, x, ctx=ctx, name=name, zero_centered=zero_centered)
 
 
 # --------------------------------------------------------------------------
@@ -97,17 +125,21 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int, std: float = 0.02,
     return {"table": normal_init(gen, (vocab, d), std, dtype)}
 
 
-def embedding_apply(p: Params, ids: torch.Tensor,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    y = p["table"][ids]
+def embedding_apply(p: Params, ids: torch.Tensor, ctx: QuantContext = NO_QUANT,
+                    name: str = "embed", scale: Optional[float] = None) -> torch.Tensor:
+    table = ctx.weight(name, p["table"])
+    y = table[ids]
     if scale is not None:
         y = y * torch.tensor(scale, dtype=y.dtype, device=y.device)
-    return y
+    return ctx.act(name + ".out", y)
 
 
-def embedding_attend(p: Params, x: torch.Tensor) -> torch.Tensor:
+def embedding_attend(p: Params, x: torch.Tensor, ctx: QuantContext = NO_QUANT,
+                     name: str = "lm_head") -> torch.Tensor:
     """Tied-softmax output head: logits = x @ table^T, in f32."""
-    return x.float() @ p["table"].float().T
+    table = ctx.weight(name, p["table"])
+    x = ctx.act(name + ".in", x)
+    return x.float() @ table.float().T
 
 
 # --------------------------------------------------------------------------

@@ -7,6 +7,7 @@ import torch.nn.functional as F
 
 from repro_torch.nn.layers import linear_apply, linear_init
 from repro_torch.nn.module import Params, split_keys
+from repro_torch.quant.qconfig import NO_QUANT, QuantContext
 
 
 def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, kind: str = "gelu",
@@ -35,9 +36,13 @@ def _act(kind: str, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(kind)
 
 
-def mlp_apply(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
+def mlp_apply(p: Params, x: torch.Tensor, kind: str, ctx: QuantContext = NO_QUANT,
+              name: str = "mlp") -> torch.Tensor:
     if kind in ("gelu", "gelu_tanh", "relu"):
-        return linear_apply(p["down"], _act(kind, linear_apply(p["up"], x)))
-    g = _act(kind, linear_apply(p["gate"], x))
-    u = linear_apply(p["up"], x)
-    return linear_apply(p["down"], g * u)
+        h = _act(kind, linear_apply(p["up"], x, ctx, name + "/up"))
+        h = ctx.act(name + "/act.out", h)
+        return linear_apply(p["down"], h, ctx, name + "/down")
+    g = _act(kind, linear_apply(p["gate"], x, ctx, name + "/gate"))
+    u = linear_apply(p["up"], x, ctx, name + "/up")
+    h = ctx.act(name + "/act.out", g * u)
+    return linear_apply(p["down"], h, ctx, name + "/down")

@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models.transformer import ModelConfig, model_apply
+from repro_torch.quant.qconfig import NO_QUANT, QuantContext
 
 _M32 = 0xFFFFFFFF
 
@@ -105,13 +106,15 @@ def sample_rows_all(logits: torch.Tensor, gen: GenerateConfig,
 def step_rows_full(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
                    pos: torch.Tensor, counts: torch.Tensor,
                    paged_live_width: Optional[int] = None,
-                   paged_live_widths: Optional[torch.Tensor] = None):
+                   paged_live_widths: Optional[torch.Tensor] = None,
+                   ctx: QuantContext = NO_QUANT):
     """Variable-Tq fused step returning ALL positions' logits (B, T,
     vocab) and the (in place updated) cache. Row b holds ``counts[b]``
-    real tokens at positions ``pos[b]..``; padding tokens write nothing."""
+    real tokens at positions ``pos[b]..``; padding tokens write nothing.
+    ``ctx`` in 'int8' mode makes it the W8A8 tick."""
     t = tokens.shape[1]
     active = torch.arange(t, device=tokens.device)[None, :] < counts[:, None]
-    logits, aux = model_apply(params, cfg, {"tokens": tokens}, cache=cache,
+    logits, aux = model_apply(params, cfg, {"tokens": tokens}, ctx=ctx, cache=cache,
                               pos=pos, active=active,
                               paged_live_width=paged_live_width,
                               paged_live_widths=paged_live_widths)
@@ -121,32 +124,36 @@ def step_rows_full(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
 def step_rows(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
               pos: torch.Tensor, counts: torch.Tensor,
               paged_live_width: Optional[int] = None,
-              paged_live_widths: Optional[torch.Tensor] = None):
+              paged_live_widths: Optional[torch.Tensor] = None,
+              ctx: QuantContext = NO_QUANT):
     """``step_rows_full`` keeping only each row's LAST real token's logits:
     returns (last_logits (B, vocab), cache)."""
     logits, cache = step_rows_full(params, cfg, cache, tokens, pos, counts,
-                                   paged_live_width, paged_live_widths)
+                                   paged_live_width, paged_live_widths, ctx)
     idx = torch.clamp(counts - 1, min=0)
     last = logits[torch.arange(logits.shape[0], device=logits.device), idx]
     return last, cache
 
 
-def make_mixed_step(cfg: ModelConfig, gen: GenerateConfig):
+def make_mixed_step(cfg: ModelConfig, gen: GenerateConfig,
+                    ctx: QuantContext = NO_QUANT):
     """The batcher's tick: one ``step_rows`` forward advancing every
     runnable row (decode rows by 1 token, prefill rows by a chunk), then
-    position-keyed sampling of each row's next token."""
+    position-keyed sampling of each row's next token. ``ctx`` carries the
+    calibrated int8 ranges of the W8A8 tick as python floats."""
 
     def mixed_step(params, cache, tokens, pos, counts, keys, live_width,
                    live_widths):
         last, cache = step_rows(params, cfg, cache, tokens, pos, counts,
                                 paged_live_width=live_width,
-                                paged_live_widths=live_widths)
+                                paged_live_widths=live_widths, ctx=ctx)
         return sample_rows(last, gen, keys, pos + counts), cache
 
     return mixed_step
 
 
-def make_spec_step(cfg: ModelConfig, gen: GenerateConfig):
+def make_spec_step(cfg: ModelConfig, gen: GenerateConfig,
+                   ctx: QuantContext = NO_QUANT):
     """The speculative tick: one ``step_rows_full`` forward verifying up to
     k drafts per decode row, returning the (B, T) target-token matrix.
     Rejected drafts have written their K/V; that is sound because every
@@ -157,7 +164,7 @@ def make_spec_step(cfg: ModelConfig, gen: GenerateConfig):
                   live_widths):
         logits, cache = step_rows_full(params, cfg, cache, tokens, pos, counts,
                                        paged_live_width=live_width,
-                                       paged_live_widths=live_widths)
+                                       paged_live_widths=live_widths, ctx=ctx)
         return sample_rows_all(logits, gen, keys, pos), cache
 
     return spec_step

@@ -20,10 +20,18 @@ speculative decoding and ``audit()``. The token at position p is a pure
 function of (request seed, p) (see ``serving.decode``), so preemption,
 chunking, prefix sharing and speculation are all bitwise invisible.
 
-This slice refuses, outright and with the ROADMAP item that ports each:
-``qconfig=`` (W8A8), ``paged=False`` (the dense per-row cache), block
-kinds other than ``"attn"`` and MoE. Host bookkeeping is numpy; the
-tick's tensors live on ``device`` (default ``"cuda"``).
+W8A8 serving: ``qconfig=`` calibrates static per-site activation ranges
+once at construction (``_calibrate_engine``: a few synthetic batches
+through the fp model in 'collect' mode, then ``use_int8_runtime``, which
+leaves the ranges as python floats), attaches int8 weights beside the fp
+ones (``attach_int8_weights``) and runs every q/k/v/o/gate/up/down linear
+of the tick through the ``int8_matmul`` kernel; ``kv_int8`` defaults to
+on with it. Nothing in the tick reads a range back from the device.
+
+This port refuses, outright and with the ROADMAP item that ports each:
+``paged=False`` (the dense per-row cache), block kinds other than
+``"attn"`` and MoE. Host bookkeeping is numpy; the tick's tensors live on
+``device`` (default ``"cuda"``).
 """
 from __future__ import annotations
 
@@ -39,8 +47,12 @@ from repro_torch.models.transformer import (
     check_supported,
     copy_pool_blocks,
     init_paged_cache,
+    model_apply,
     paged_entries,
 )
+from repro_torch.quant.int8_weights import attach_int8_weights
+from repro_torch.quant.ptq import calibrate
+from repro_torch.quant.qconfig import NO_QUANT, QConfig, QuantContext
 from repro_torch.serving.decode import (
     GenerateConfig,
     make_mixed_step,
@@ -223,6 +235,36 @@ def _pool_leaves(cache):
                 yield (e, name), entry[name], ax
 
 
+def _calibration_batches(cfg: ModelConfig, t: int, n: int, device
+                         ) -> List[Dict[str, torch.Tensor]]:
+    """``n`` synthetic calibration batches of (2, t) uniform token ids,
+    drawn from a ``torch.Generator`` seeded 0. The reference draws them
+    with ``jax.random``, whose bits these are not; tests that hold the
+    engines against each other replace this function with the
+    reference's tokens."""
+    gen = torch.Generator().manual_seed(0)
+    return [{"tokens": torch.randint(0, cfg.vocab_size, (2, t), generator=gen
+                                     ).to(device)}
+            for _ in range(n)]
+
+
+def _calibrate_engine(params, cfg: ModelConfig, qconfig: QConfig,
+                      max_len: int, num_batches: int, device) -> QuantContext:
+    """PTQ-calibrate the activation ranges of the W8A8 tick, once, at
+    engine construction: synthetic batches through the fp forward in
+    'collect' mode, then the context flips to 'int8', where every range
+    is a python float."""
+    t = max(1, min(32, max_len, cfg.max_seq_len))
+    batches = _calibration_batches(cfg, t, num_batches, device)
+
+    def apply_fn(p, batch, ctx):
+        return model_apply(p, cfg, batch, ctx=ctx)[0]
+
+    ctx = calibrate(apply_fn, params, batches, qconfig, num_batches=num_batches)
+    ctx.use_int8_runtime()
+    return ctx
+
+
 class ContinuousBatcher:
     """Token-budget slot-pool scheduler over a paged KV cache: one fused
     forward per tick advances every runnable row — decode rows by one
@@ -236,8 +278,9 @@ class ContinuousBatcher:
                  token_budget: int = 256,
                  prefill_chunk: Optional[int] = None,
                  admit_watermark: int = 0,
-                 qconfig=None,
+                 qconfig: Optional[QConfig] = None,
                  kv_int8: Optional[bool] = None,
+                 calib_batches: int = 4,
                  prefill_budget: Optional[int] = None,
                  swap_break_even_tokens: Optional[int] = None,
                  swap_pool_bytes: Optional[int] = None,
@@ -249,17 +292,25 @@ class ContinuousBatcher:
                  spec: Optional[SpecConfig] = None,
                  debug_audit: bool = False,
                  device="cuda") -> None:
-        if qconfig is not None:
-            raise NotImplementedError(
-                "qconfig= (the W8A8 tick) is not ported yet (ROADMAP queue "
-                "1, item 7: the W8A8 slice)")
         if not paged:
             raise NotImplementedError(
                 "paged=False (the dense per-row cache) is not ported yet "
                 "(ROADMAP: generate with the dense cache and paged=False)")
         check_supported(cfg)
         self.device = resolve_device(device)
+        if kv_int8 is None:
+            kv_int8 = qconfig is not None
         self.kv_int8 = bool(kv_int8)
+        self.qconfig = qconfig
+        self._qctx = NO_QUANT
+        if qconfig is not None:
+            # per-layer int8 weight slices: the unrolled layer path (the
+            # stacked params are tree_slice'd per group by model_apply)
+            if cfg.scan_layers:
+                cfg = dataclasses.replace(cfg, scan_layers=False)
+            self._qctx = _calibrate_engine(params, cfg, qconfig, max_len,
+                                           calib_batches, self.device)
+            params = attach_int8_weights(params, skip=qconfig.skip_patterns)
         self.params = params
         self.cfg = cfg
         self.B = batch_size
@@ -324,7 +375,7 @@ class ContinuousBatcher:
         self.shared_tokens = 0
         self._chunk_cap = min(prefill_chunk or token_budget, token_budget)
         make_step = make_mixed_step if spec is None else make_spec_step
-        self._step_fn = make_step(cfg, self._gen)
+        self._step_fn = make_step(cfg, self._gen, self._qctx)
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:

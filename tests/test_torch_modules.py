@@ -232,7 +232,7 @@ def test_linear_norms_embeddings():
     emb = {"table": jnp.asarray(_rand((40, 16), 13))}
     ids = np.random.default_rng(14).integers(0, 40, (2, 5))
     for scale in (None, 4.0):
-        _close(tlay.embedding_apply(_tree_t(emb), _t(ids), scale),
+        _close(tlay.embedding_apply(_tree_t(emb), _t(ids), scale=scale),
                jlay.embedding_apply(emb, jnp.asarray(ids), scale=scale))
     _close(tlay.embedding_attend(_tree_t(emb), _t(x)),
            jlay.embedding_attend(emb, jnp.asarray(x)))

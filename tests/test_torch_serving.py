@@ -34,6 +34,8 @@ jserve = importlib.import_module("repro.serving")
 ttr = importlib.import_module("repro_torch.models.transformer")
 tserve = importlib.import_module("repro_torch.serving")
 tpa = importlib.import_module("repro_torch.kernels.paged_attention")
+tqc = importlib.import_module("repro_torch.quant.qconfig")
+tw8 = importlib.import_module("repro_torch.quant.int8_weights")
 
 METHODS = {"vanilla": {}, "clipped": {"alpha": 4.0}, "gated": {}}
 _METHOD_NAME = {"vanilla": "vanilla", "clipped": "clipped_softmax",
@@ -230,7 +232,6 @@ def test_sampling_is_a_pure_function_of_seed_and_position():
 def test_refuses_what_this_slice_does_not_port(models):
     _, _, tc, tp = models["vanilla"]
     cases = [
-        (dict(qconfig=object()), tc),
         (dict(paged=False), tc),
         ({}, dataclasses.replace(tc, pattern=("attn", "local_attn"), window=8)),
         ({}, dataclasses.replace(tc, moe=object())),
@@ -246,6 +247,8 @@ def test_refuses_what_this_slice_does_not_port(models):
 def test_entry_points_default_to_cuda(models):
     _, _, tc, tp = models["vanilla"]
     calls = [lambda: tserve.ContinuousBatcher(tp, tc, batch_size=2, max_len=64),
+             lambda: tserve.ContinuousBatcher(tp, tc, batch_size=2, max_len=64,
+                                               qconfig=tqc.QConfig()),
              lambda: ttr.init_paged_cache(tc, 2, 64, 8),
              lambda: ttr.model_init(0, tc)]
     for call in calls:
@@ -254,3 +257,8 @@ def test_entry_points_default_to_cuda(models):
         else:
             with pytest.raises(RuntimeError, match="cuda"):
                 call()
+    # attach_int8_weights takes no device: the int8 leaves follow the params
+    attached = tw8.attach_int8_weights(tp)
+    assert all(t.device == torch.device("cpu") for t in
+               (attached["layers"][0]["b0"]["q"]["w_q8"],
+                attached["layers"][0]["b0"]["q"]["w_scale"]))
