@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
   1. Card: name and power limit, as ``nvidia-smi`` gives them.
-  2. Build: every CUDA kernel of the serving path is compiled by ``nvcc``
+  2. Build: every CUDA kernel of the port is compiled by ``nvcc``
      from ``src/repro_torch/csrc`` (one ``nvcc`` per source, started
      together) into ``src/repro_torch/_build``.
   3. Kernel against plain version, at qwen3-14b's attention shapes (Hkv 8,
@@ -30,6 +30,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      never calls) on the same codes plus the f32 epilogue; ``_int_mm``
      needs M > 16, so decode is timed for it at M padded to 32. Bound:
      max(bytes / 3.35 TB/s, int8 ops / 1979 TOP/s).
+  3c. The flash-attention kernel against its plain version at qwen3-14b's
+     attention shapes (B 1, Hq 40, Hkv 8, Dh 128, causal) at T 2048 (the
+     evaluation's length) and 4096 (where the reference's CPU route turns
+     to chunked attention): vanilla, clipped (alpha 4, gamma = -4/T),
+     gated, clipped+gated; float32 at atol 3e-5 (the reference kernel's
+     own) and bfloat16 at atol 2e-2; then a small float32 set with a
+     window, a softcap, q_offset > 0 (scalar and per row), no causal mask
+     and Dh 64/256; and the option the model's attention() dispatcher
+     uses (q scaled in its dtype, ``scale_q``). Then device times at (1, 2048) bf16 of the kernel, its
+     plain version and ``F.scaled_dot_product_attention(is_causal=True,
+     enable_gqa=True)`` (vanilla only; a yardstick the port never calls),
+     beside the bound (flops of the causally visible pairs / 989 TFLOP/s,
+     or bytes / 3.35 TB/s, the larger).
+  3d. The fake-quant kernel against its plain version, bitwise, at the
+     evaluation's shapes (MLP activation (2048, 17408) bf16, residual
+     (2048, 5120) f32, gate/up weight (5120, 17408) bf16) and ragged n
+     777 / 1000; 4 and 8 bits; both forms (the TPU kernel's and the
+     model sites' straight-through one); per-tensor and per-channel;
+     inputs built to land exactly half-way between codes. Then device
+     times of the kernel, its plain version and
+     ``torch.fake_quantize_per_tensor_affine`` (a yardstick for time only:
+     it multiplies by 1/s), beside the bound (bytes / 3.35 TB/s).
+  3e. ``kv_quant`` of 2^20 bf16 K and V tokens (Hkv 8, Dh 128) on the card
+     and on the CPU: codes and scales bitwise equal (the scale divides by
+     a device tensor; a multiplication by 1/127 would differ on the
+     counted tokens).
   4. Serving: ``ContinuousBatcher(paged=True)`` at qwen3-14b's full width
      and 40 layers in bfloat16 with random weights from a seed: 12 greedy
      requests (prompts of 32..512 tokens from a numpy seed, 32 new tokens
@@ -48,7 +74,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      read must give bitwise equal logits with the int8 kernel and with its
      plain version, and a W8A8 tick's logits must stay within
      W8A8_VS_FP_REL_RMS of the fp tick's on the same weights.
-  5. The kernels line, then the device line.
+  5. Evaluation, the paper's protocol, at qwen3-14b's full width and 40
+     layers in bfloat16 (random weights from seed 0, unrolled layers, as
+     PTQ needs), for vanilla, clipped softmax (alpha 4) and gated
+     attention, one model at a time: ``train.evaluate`` on 2 held-out
+     ``SyntheticLM`` batches (vocab 151936, T 2048, batch 1) gives the FP
+     perplexity, max inf-norm and average kurtosis; ``quant.calibrate``
+     (``QConfig()``, 4 batches) then ``quant.evaluate_perplexity`` on the
+     2 held-out batches gives the W8A8 fake-quant perplexity. Every value
+     must be finite; the flash kernel must launch once per layer per
+     forward and the fake-quant kernel once per site per W8A8 forward
+     (sites counted on the CPU at a tiny width); one FP forward's logits
+     with the flash kernel and with the plain attention must agree within
+     LOGIT_REL_RMS, and one W8A8 forward with only the fake-quant kernel
+     swapped for its plain version must give bitwise equal logits.
+  6. The kernels line, then the device line.
 
 TF32 is switched off for matmuls and convolutions, so float32 compares
 are full float32. Requires ``torch.cuda.is_available()``; exits non-zero
@@ -104,9 +144,15 @@ INT8_OPS = 1979e12                 # H100 SXM dense int8 tensor-core peak
 INT8_SHAPES = [(8, 5120, 5120), (8, 5120, 1024), (8, 5120, 17408), (8, 17408, 5120),
                (2048, 5120, 17408), (2048, 17408, 5120), (5, 64, 16), (37, 96, 80)]
 KERNEL_SOURCES = {"paged_attention": "src/repro_torch/csrc/paged_attention.cu",
-                  "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu"}
+                  "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu",
+                  "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+                  "fake_quant": "src/repro_torch/csrc/fake_quant.cu"}
 REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:177",
-            "int8_matmul": "src/repro/kernels/int8_matmul.py:61"}
+            "int8_matmul": "src/repro/kernels/int8_matmul.py:61",
+            "flash_attention": "src/repro/kernels/flash_attention.py:157",
+            "fake_quant": "src/repro/kernels/fake_quant.py:22"}
+FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+EVAL_SEQ, EVAL_BATCHES, CALIB_BATCHES = 2048, 2, 4
 
 
 def check(ok, msg: str) -> None:
@@ -395,6 +441,242 @@ def phase_int8_times(torch, im):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the flash-attention kernel against its plain version
+# ---------------------------------------------------------------------------
+def flash_case(torch, t, dtype, variant, seed, b=1, hq=40, hkv=8, dh=128, tk=None,
+               copies=1):
+    """q (B, T, Hq, Dh), ``copies`` K/V sets (B, Tk, Hkv, Dh), the gate
+    (B, T, Hq) for gated variants and the resolved (gamma, zeta). q is
+    scaled by 2 so that attention is peaked rather than near uniform."""
+    gen = torch.Generator().manual_seed(seed)
+    tk = tk or t
+    q = (torch.randn(b, t, hq, dh, generator=gen) * 2).to(dtype).cuda()
+    sets = [tuple(torch.randn(b, tk, hkv, dh, generator=gen).to(dtype).cuda()
+                  for _ in range(2)) for _ in range(copies)]
+    gate = torch.sigmoid(torch.randn(b, t, hq, generator=gen)).cuda() \
+        if "gated" in variant else None
+    gamma, zeta = (-4.0 / tk, 1.0) if "clipped" in variant else (0.0, 1.0)
+    return dict(q=q, sets=sets, gate=gate, kw=dict(gamma=gamma, zeta=zeta))
+
+
+def flash_bound_ms(c, q_offset=0):
+    """Least time on an H100: q, k, v and the gate read once and the output
+    written once, against 3.35 TB/s; the QK and PV flops of every causally
+    visible (query, key) pair (the clipped softmax computes QK twice)
+    against the dense bf16 (or f32) peak. The larger of the two."""
+    q, (k, v) = c["q"], c["sets"][0]
+    b, t, hq, dh = q.shape
+    tk = k.shape[1]
+    pairs = sum(max(0, min(tk, q_offset + i + 1)) for i in range(t))
+    per_pair = 6 if c["kw"]["gamma"] != 0.0 else 4
+    flops = per_pair * dh * hq * b * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    if c["gate"] is not None:
+        nbytes += c["gate"].numel() * 4
+    peak = BF16_FLOPS if q.element_size() == 2 else F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_flash_checks(torch, fa):
+    bad, max_err = [], 0.0
+    cases = [(t, dtype, variant, {}) for t in (2048, 4096)
+             for dtype in (torch.float32, torch.bfloat16)
+             for variant in ("vanilla", "clipped", "gated", "clipped+gated")]
+    # the paths the evaluation does not take, small and in f32: window,
+    # softcap (with the clipped softmax), scalar and per-row q_offset with
+    # Tq < Tk, no causal mask, the other head dims
+    small = dict(b=2, hq=8, hkv=2)
+    cases += [(256, torch.float32, "vanilla", dict(small, window=100)),
+              (256, torch.float32, "clipped", dict(small, softcap=30.0)),
+              (256, torch.float32, "gated", dict(small, tk=384, q_offset=128)),
+              (256, torch.float32, "clipped", dict(small, tk=384, q_offset="rows")),
+              (256, torch.float32, "vanilla", dict(small, tk=320, causal=False)),
+              (256, torch.float32, "clipped+gated", dict(small, dh=64)),
+              (200, torch.float32, "vanilla", dict(small, dh=256, window=64))]
+    # q scaled in its dtype before the products (what the model's
+    # attention() dispatcher asks for), at the evaluation's shape
+    cases += [(2048, dtype, variant, dict(scale_q=True))
+              for dtype in (torch.float32, torch.bfloat16)
+              for variant in ("vanilla", "clipped+gated")]
+    for i, (t, dtype, variant, extra) in enumerate(cases):
+        extra = dict(extra)
+        shape = {k: extra.pop(k) for k in ("b", "hq", "hkv", "dh", "tk") if k in extra}
+        c = flash_case(torch, t, dtype, variant, seed=100 + i, **shape)
+        kw = dict(c["kw"], **extra)
+        if kw.get("q_offset") == "rows":
+            kw["q_offset"] = torch.tensor([0, 128], dtype=torch.int32, device="cuda")
+        k, v = c["sets"][0]
+        out = fa.mha_flash(c["q"], k, v, c["gate"], **kw)
+        torch.cuda.synchronize()
+        ref = fa.mha_flash_ref(c["q"], k, v, c["gate"], **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        name = str(dtype).replace("torch.", "")
+        ok = err <= FLASH_TOL[name] and bool(torch.isfinite(out).all())
+        max_err = max(max_err, err)
+        desc = f"q {tuple(c['q'].shape)} kv {tuple(k.shape)} {variant} {name}" + \
+            "".join(f" {key}={val if not hasattr(val, 'tolist') else val.tolist()}"
+                    for key, val in extra.items())
+        print(f"flash check {desc}: max_abs_err={err:.3e} tol={FLASH_TOL[name]:.0e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            bad.append((desc, err))
+        del c, out, ref
+    torch.cuda.empty_cache()
+    check(not bad, f"flash_attention kernel disagrees with its plain version: {bad}")
+    return max_err
+
+
+def phase_flash_times(torch, fa):
+    import torch.nn.functional as F
+    times = {}
+    for variant in ("vanilla", "clipped"):
+        c = flash_case(torch, EVAL_SEQ, torch.bfloat16, variant, seed=7, copies=3)
+        q, kw = c["q"], c["kw"]
+        kern = device_ms(torch, [lambda s=s: fa.mha_flash(q, s[0], s[1], **kw)
+                                 for s in c["sets"]], 10)
+        plain = device_ms(torch, [lambda s=s: fa.mha_flash_ref(q, s[0], s[1], **kw)
+                                  for s in c["sets"]], 3)
+        lib = None
+        if variant == "vanilla":
+            ins = [(q.transpose(1, 2).contiguous(), s[0].transpose(1, 2).contiguous(),
+                    s[1].transpose(1, 2).contiguous()) for s in c["sets"]]
+            lib = device_ms(torch, [lambda a=a: F.scaled_dot_product_attention(
+                a[0], a[1], a[2], is_causal=True, enable_gqa=True) for a in ins], 10)
+            del ins
+        bound, by = flash_bound_ms(c)
+        times[variant] = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                              bound_by=by)
+        print(f"flash time (1, {EVAL_SEQ}, 40/8, 128) {variant} bf16 causal: kernel "
+              f"{kern:.4f} ms, plain {plain:.4f} ms, SDPA "
+              f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {bound:.4f} ms ({by})",
+              flush=True)
+        del c
+        torch.cuda.empty_cache()
+    return times
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the fake-quant kernel against its plain version
+# ---------------------------------------------------------------------------
+FQ_SHAPES = [((2048, 17408), "bfloat16"), ((2048, 5120), "float32"),
+             ((5120, 17408), "bfloat16"), ((777,), "float32"), ((1000,), "bfloat16")]
+
+
+def fq_case(torch, shape, dtype, bits, per_channel, ties, seed):
+    """x and its (s, z): activation-like normals over a range that clips
+    some values; with ``ties`` s is a power of two and a third of x sits
+    exactly half-way between codes after x / s + z."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=gen) * 1.5
+    top = 2 ** bits - 1
+    c = shape[-1] if per_channel else 1
+    if ties:
+        s = torch.full((c,), 2.0 ** -4)
+        z = torch.full((c,), float(top // 2))
+        flat = x.reshape(-1)
+        n = flat.numel() // 3
+        k = torch.randint(-2, top + 2, (n,), generator=gen).float()
+        zc = z.expand(shape).reshape(-1)[:n]
+        flat[:n] = (k + 0.5 - zc) * s[0]
+    else:
+        s = (torch.rand(c, generator=gen) * 0.02 + 3.0 / top)
+        z = torch.randint(0, top + 1, (c,), generator=gen).float()
+    x = x.to(getattr(torch, dtype)).cuda()
+    return x, s.cuda(), z.cuda()
+
+
+def phase_fq_checks(torch, fq):
+    bad, max_err, n = [], 0.0, 0
+    for shape, dtype in FQ_SHAPES:
+        for bits in (4, 8):
+            for ste in (False, True):
+                for per_channel in (False, True):
+                    for ties in (False, True):
+                        x, s, z = fq_case(torch, shape, dtype, bits, per_channel, ties,
+                                          seed=n)
+                        n += 1
+                        out = fq.fake_quant(x, s, z, bits, ste=ste)
+                        torch.cuda.synchronize()
+                        ref = fq.fake_quant_ref(x, s, z, bits, ste=ste)
+                        torch.cuda.synchronize()
+                        err = (out.float() - ref.float()).abs().max().item()
+                        same = torch.equal(out, ref)
+                        max_err = max(max_err, err)
+                        if not same:
+                            bad.append((shape, dtype, bits, ste, per_channel, ties, err))
+                        del x, out, ref
+        print(f"fake_quant check {shape} {dtype}: 16 cases (bits 4/8, both forms, "
+              f"per-tensor/per-channel, with and without ties) bitwise "
+              f"{'ok' if not bad else 'FAIL'}", flush=True)
+    torch.cuda.empty_cache()
+    check(not bad, f"fake_quant kernel disagrees with its plain version: {bad}")
+    return max_err
+
+
+def phase_fq_times(torch, fq):
+    """Per-tensor model-site form at the evaluation's largest activation
+    and weight, two copies each (L2-cold): kernel, plain version, and
+    ``torch.fake_quantize_per_tensor_affine`` on the same bf16 tensor."""
+    times = {}
+    for shape in ((2048, 17408), (5120, 17408)):
+        sets = [fq_case(torch, shape, "bfloat16", 8, False, False, seed=k) for k in range(2)]
+        kern = device_ms(torch, [lambda a=a: fq.fake_quant(a[0], a[1], a[2], 8, ste=True)
+                                 for a in sets], 20)
+        plain = device_ms(torch, [lambda a=a: fq.fake_quant_ref(a[0], a[1], a[2], 8, ste=True)
+                                  for a in sets], 5)
+        zi = [a[2].to(torch.int32) for a in sets]
+        lib = device_ms(torch, [lambda a=a, zz=zz: torch.fake_quantize_per_tensor_affine(
+            a[0], a[1], zz, 0, 255) for a, zz in zip(sets, zi)], 20)
+        nbytes = 2 * sets[0][0].numel() * sets[0][0].element_size()
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        times[shape] = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                            bound_by="bytes")
+        print(f"fake_quant time {shape} bf16 (site form, 8 bits): kernel {kern:.4f} ms, "
+              f"plain {plain:.4f} ms, fake_quantize_per_tensor_affine {lib:.4f} ms, "
+              f"bound {bound:.4f} ms (bytes)", flush=True)
+        del sets, zi
+        torch.cuda.empty_cache()
+    return times
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: kv_quant on the card and on the CPU
+# ---------------------------------------------------------------------------
+def phase_kv_quant(torch):
+    """2^20 random bf16 tokens each of K and V (Hkv 8, Dh 128): codes and
+    scales bitwise equal on the card and on the CPU (the CPU side in
+    chunks of 2^16 tokens; each token is quantized on its own). Also
+    counts the tokens whose scale a multiplication by 1/127 (what CUDA
+    makes of a division by a python float) would change: the check can
+    tell the two apart only if that count is not 0."""
+    from repro_torch.quant.kv_cache import kv_quant
+    n, chunk = 1 << 20, 1 << 16
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    differ = 0
+    for name in ("k", "v"):
+        xc = (torch.randn(n, 8, 128, generator=gen, device="cuda") * 0.7).to(torch.bfloat16)
+        x = xc.cpu()
+        q_d, s_d = kv_quant(xc)
+        q_d, s_d = q_d.cpu(), s_d.cpu()
+        amax = xc.float().abs().amax(dim=(-2, -1))
+        recip = torch.clamp(amax * (1.0 / 127.0), min=1e-8)
+        differ += int((recip.cpu() != s_d).sum())
+        del xc, amax, recip
+        torch.cuda.empty_cache()
+        for i in range(0, n, chunk):
+            q_h, s_h = kv_quant(x[i:i + chunk])
+            check(torch.equal(q_h, q_d[i:i + chunk]) and torch.equal(s_h, s_d[i:i + chunk]),
+                  f"kv_quant on the card differs from the CPU ({name}, tokens {i}..)")
+    print(f"kv_quant check: 2 x {n} bf16 tokens (8 x 128), card vs CPU codes and scales "
+          f"bitwise equal; a reciprocal multiplication would change {differ} scales",
+          flush=True)
+    check(differ > 0, "no token tells a true division from a reciprocal multiplication")
+    return differ
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serving at qwen3-14b full width
 # ---------------------------------------------------------------------------
 def phase_serving(torch, np, pa, im, name, method, kv_int8, w8a8=False, **method_kw):
@@ -556,6 +838,154 @@ def phase_serving(torch, np, pa, im, name, method, kv_int8, w8a8=False, **method
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the paper's evaluation at qwen3-14b full width
+# ---------------------------------------------------------------------------
+def count_fake_quant_sites(torch, cfg):
+    """Fake-quant calls of one W8A8 forward of ``cfg``'s structure,
+    counted on the CPU at a tiny width (the sites depend on the layer
+    pattern, not on the widths): calibrate one batch, then count the calls
+    of one 'apply'-mode forward."""
+    from repro_torch.models.transformer import model_apply, model_init
+    from repro_torch.quant import quantizer
+    from repro_torch.quant.ptq import calibrate
+    from repro_torch.quant.qconfig import QConfig
+
+    tiny = dataclasses.replace(cfg, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
+                               d_ff=128, vocab_size=256, vocab_pad_to=1,
+                               param_dtype=torch.float32, compute_dtype=torch.float32)
+    params = model_init(0, tiny, device="cpu")
+    batch = {"tokens": torch.randint(0, 256, (1, 16), generator=torch.Generator().manual_seed(0))}
+
+    def apply_fn(p, b, ctx):
+        return model_apply(p, tiny, b, ctx=ctx)[0]
+
+    ctx = calibrate(apply_fn, params, [batch], QConfig(), num_batches=1)
+    calls = []
+    real = quantizer.fake_quant_kernel
+    quantizer.fake_quant_kernel = lambda *a, **kw: (calls.append(1), real(*a, **kw))[1]
+    try:
+        with torch.no_grad():
+            apply_fn(params, batch, ctx)
+    finally:
+        quantizer.fake_quant_kernel = real
+    return len(calls)
+
+
+def phase_eval(torch, np, fa, fq, pa, im, name, method, **method_kw):
+    from repro_torch.configs.base import apply_method
+    from repro_torch.configs.qwen3_14b import full
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    from repro_torch.models import transformer
+    from repro_torch.quant import quantizer
+    from repro_torch.quant.ptq import calibrate, evaluate_perplexity
+    from repro_torch.quant.qconfig import NO_QUANT, QConfig
+    from repro_torch.train import TrainTask, evaluate
+    from repro_torch.train.losses import loss_for
+    from repro_torch.core.attention import dense_attention
+
+    cfg = dataclasses.replace(apply_method(full(), method, **method_kw), scan_layers=False)
+    sites = count_fake_quant_sites(torch, cfg)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.model_init(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=EVAL_SEQ,
+                                         batch_size=1, seed=0))
+
+    def batches(start, n):
+        return [{k: torch.as_tensor(v).cuda() for k, v in data.batch(start + i, "clm").items()}
+                for i in range(n)]
+
+    def apply_fn(p, batch, ctx):
+        return transformer.model_apply(p, cfg, batch, ctx=ctx)[0]
+
+    def loss_fn(p, batch, ctx):
+        logits = apply_fn(p, batch, ctx if ctx is not None else NO_QUANT)
+        return loss_for("clm")(logits, batch["labels"])
+
+    cal, held_out = batches(5_000_000, CALIB_BATCHES), batches(10_000_000, EVAL_BATCHES)
+    # the path, with every count at 0 just before it and read just after
+    fa.launches = fq.launches = pa.launches = im.launches = 0
+    t0 = time.perf_counter()
+    ppl, ostats = evaluate(TrainTask(cfg=cfg), params, data, EVAL_BATCHES, "clm")
+    torch.cuda.synchronize()
+    fp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctx = calibrate(apply_fn, params, cal, QConfig(), num_batches=CALIB_BATCHES)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q_ppl = evaluate_perplexity(loss_fn, params, held_out, ctx)
+    torch.cuda.synchronize()
+    q_s = time.perf_counter() - t0
+    launches = dict(flash=fa.launches, fake_quant=fq.launches, paged=pa.launches,
+                    int8=im.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    forwards = 2 * EVAL_BATCHES + CALIB_BATCHES + EVAL_BATCHES
+    tokens = EVAL_BATCHES * EVAL_SEQ
+    print(f"eval {name} ({cfg.n_layers} layers, T {EVAL_SEQ}): FP ppl {ppl:.4f}, max "
+          f"inf-norm {ostats['max_inf_norm']:.4f}, avg kurtosis {ostats['avg_kurtosis']:.4f}, "
+          f"W8A8 ppl {q_ppl:.4f}; FP eval {fp_s:.3f} s ({tokens / fp_s:.1f} tok/s over "
+          f"{2 * EVAL_BATCHES} forwards), calibration {calib_s:.3f} s, W8A8 eval {q_s:.3f} s "
+          f"({tokens / q_s:.1f} tok/s); launches {launches} over {forwards} forwards, "
+          f"{sites} fake-quant sites per W8A8 forward; weights init {init_s:.2f} s",
+          flush=True)
+    values = [ppl, q_ppl, ostats["max_inf_norm"], ostats["avg_kurtosis"]]
+    check(all(np.isfinite(v) for v in values), f"{name}: non-finite evaluation {values}")
+    check(ostats["max_inf_norm"] > 0, f"{name}: no attention-layer outputs were measured")
+    check(launches["flash"] == cfg.n_layers * forwards,
+          f"{name}: {launches['flash']} flash launches for {forwards} forwards")
+    check(launches["fake_quant"] == sites * EVAL_BATCHES,
+          f"{name}: {launches['fake_quant']} fake-quant launches, expected {sites} x "
+          f"{EVAL_BATCHES}")
+    check(launches["paged"] == 0 and launches["int8"] == 0,
+          f"{name}: serving kernels launched during evaluation: {launches}")
+
+    batch = held_out[0]
+    with torch.no_grad():
+        # one FP forward with the flash kernel and with the plain attention
+        kern = apply_fn(params, batch, NO_QUANT)
+        real_attention = transformer.attention
+        transformer.attention = lambda q, k, v, c, q_offset=0, gate_pi=None: dense_attention(
+            q, k, v, c, q_offset=q_offset, gate_pi=gate_pi)
+        try:
+            plain = apply_fn(params, batch, NO_QUANT)
+        finally:
+            transformer.attention = real_attention
+        rel_rms = ((kern - plain).square().mean().sqrt() / plain.square().mean().sqrt()).item()
+        agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+        del kern, plain
+        # one W8A8 forward with only the fake-quant kernel swapped for its
+        # plain version: every site is bitwise, so the logits are
+        q_kern = apply_fn(params, batch, ctx)
+        quantizer.fake_quant_kernel = fq.fake_quant_ref
+        try:
+            q_plain = apply_fn(params, batch, ctx)
+        finally:
+            quantizer.fake_quant_kernel = fq.fake_quant
+        same = torch.equal(q_kern, q_plain)
+        del q_kern, q_plain
+    wall = time.perf_counter() - t_phase
+    print(f"eval {name}: FP logits, flash kernel vs plain attention: relative RMS "
+          f"{rel_rms:.4f} (tol {LOGIT_REL_RMS}), argmax agreement {agree:.4f}; W8A8 logits "
+          f"with the fake-quant kernel vs its plain version bitwise equal: {same}; phase "
+          f"{wall:.1f} s, peak memory {peak_gb:.2f} GB", flush=True)
+    check(rel_rms <= LOGIT_REL_RMS, f"{name}: flash and plain attention logits differ: "
+                                    f"relative RMS {rel_rms}")
+    check(same, f"{name}: the fake-quant kernel changed the W8A8 logits")
+    del params, ctx, cal, held_out, batch
+    torch.cuda.empty_cache()
+    return dict(model=name, layers=cfg.n_layers, fp_ppl=ppl, w8a8_ppl=q_ppl,
+                max_inf_norm=ostats["max_inf_norm"], avg_kurtosis=ostats["avg_kurtosis"],
+                fp_eval_s=fp_s, calib_s=calib_s, w8a8_eval_s=q_s,
+                fp_tok_per_s=tokens / fp_s, w8a8_tok_per_s=tokens / q_s, wall_s=wall,
+                peak_gb=peak_gb, init_s=init_s, sites=sites, forwards=forwards,
+                logit_rel_rms=rel_rms, argmax_agreement=agree, **{
+                    f"{k}_launches": v for k, v in launches.items()})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -566,6 +996,8 @@ def main() -> int:
     try:
         import numpy as np
         from repro_torch.kernels import build
+        from repro_torch.kernels import fake_quant as fq
+        from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import int8_matmul as im
         from repro_torch.kernels import paged_attention as pa
     except ImportError as e:
@@ -594,6 +1026,11 @@ def main() -> int:
     times = phase_kernel_times(torch, pa)
     int8_err = phase_int8_checks(torch, im)
     int8_times = phase_int8_times(torch, im)
+    flash_err = phase_flash_checks(torch, fa)
+    flash_times = phase_flash_times(torch, fa)
+    fq_err = phase_fq_checks(torch, fq)
+    fq_times = phase_fq_times(torch, fq)
+    phase_kv_quant(torch)
 
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     engines = [
@@ -604,6 +1041,9 @@ def main() -> int:
                       w8a8=True, alpha=4.0),
         phase_serving(torch, np, pa, im, "gated-w8a8-int8kv", "gated_attention", None,
                       w8a8=True)]
+    evals = [phase_eval(torch, np, fa, fq, pa, im, "vanilla", "vanilla"),
+             phase_eval(torch, np, fa, fq, pa, im, "clipped", "clipped_softmax", alpha=4.0),
+             phase_eval(torch, np, fa, fq, pa, im, "gated", "gated_attention")]
 
     dec = times[("decode", "vanilla")]
     i8 = int8_times[(8, 5120, 17408)]
@@ -620,7 +1060,17 @@ def main() -> int:
                     launches=sum(e["int8_launches"] for e in engines),
                     max_abs_err=int8_err, ms=i8["ms"], plain_ms=i8["plain_ms"],
                     bound_ms=i8["bound_ms"], bound_by=i8["bound_by"],
-                    library_ms=i8["library_ms"])]
+                    library_ms=i8["library_ms"]),
+               dict(name="flash_attention", route="cuda",
+                    source=KERNEL_SOURCES["flash_attention"],
+                    replaces=REPLACES["flash_attention"],
+                    launches=sum(e["flash_launches"] for e in evals),
+                    max_abs_err=flash_err, **flash_times["vanilla"]),
+               dict(name="fake_quant", route="cuda",
+                    source=KERNEL_SOURCES["fake_quant"],
+                    replaces=REPLACES["fake_quant"],
+                    launches=sum(e["fake_quant_launches"] for e in evals),
+                    max_abs_err=fq_err, **fq_times[(2048, 17408)])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,19 @@
 """Multi-head attention with the paper's modifications, GQA, local
 windows and logit soft-capping (port of ``repro.core.attention``).
 
-Two read paths are ported in this slice:
+Read paths:
 
   * ``dense_attention`` — materializes the (Tq, Tk) probabilities; the
     reference semantics.
+  * ``chunked_attention`` — the plain blockwise version over KV chunks,
+    O(T) memory: one online (m, Z, acc) pass for the vanilla softmax; for
+    the clipped softmax a second pass applies the stretch-and-clip to the
+    globally normalized probabilities chunk by chunk.
+  * ``attention`` — the dispatcher of every cache-free forward. CUDA
+    tensors go to the hand-written flash kernel
+    (``repro_torch.kernels.flash_attention``); CPU tensors route exactly
+    as the reference does, to ``dense_attention`` for small problems and
+    ``chunked_attention`` above tq*tk = 2048^2.
   * ``paged_attention`` — serving reads over a paged KV cache: K/V live in
     a global block pool ``(num_blocks, block_size, Hkv, Dh)`` and each
     batch row owns a block table of physical ids (-1 = unallocated). It
@@ -13,7 +22,7 @@ Two read paths are ported in this slice:
     to ``paged_attention_gather``, the plain PyTorch path that gathers
     each row's virtual KV sequence and masks it. The plain path is the
     CPU path only when the caller put the tensors there; it is never a
-    fallback for CUDA tensors.
+    fallback for CUDA tensors (nor are dense and chunked attention).
 
 Layout: q (B, Tq, Hq, Dh); k/v (B, Tk, Hkv, Dh) with Hq = G * Hkv.
 Every ``q_offset`` may be a shared python int or a per-row (B,) int32
@@ -23,9 +32,10 @@ attends at its own absolute position.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.softmax import (
     ClippedSoftmaxConfig,
@@ -112,6 +122,123 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if gate_pi is not None:
         out = out * gate_pi[..., None].to(out.dtype)
     return out
+
+
+def _chunk_mask(idx: int, c: int, tk: int, tq: int, q_offset, cfg: AttentionConfig,
+                device) -> torch.Tensor:
+    """Validity mask of one KV chunk: (Tq, c) for a scalar ``q_offset``,
+    (B, Tq, c) for a per-row tensor."""
+    off = torch.as_tensor(q_offset, dtype=torch.int64, device=device)
+    q_pos = (off[..., None] + torch.arange(tq, device=device))[..., :, None]
+    k_pos = idx * c + torch.arange(c, device=device)
+    mask = torch.broadcast_to(k_pos < tk, q_pos.shape[:-1] + (c,))
+    if cfg.causal:
+        mask = mask & (k_pos <= q_pos)
+    if cfg.window is not None:
+        mask = mask & (k_pos > q_pos - cfg.window)
+    return mask
+
+
+def _lift_mask(mask: torch.Tensor) -> torch.Tensor:
+    """Lift a (Tq, c) / (B, Tq, c) mask against (B, Hkv, G, Tq, c) logits."""
+    return mask[None, None, None] if mask.ndim == 2 else mask[:, None, None]
+
+
+def _chunks(q, k, v, cfg: AttentionConfig):
+    """q grouped and scaled in its dtype, then f32: (B, Tq, Hkv, G, D);
+    and the KV chunks, zero-padded to a whole number of chunks."""
+    b, tq, hq, d = q.shape
+    c, tk = cfg.chunk_size, k.shape[1]
+    n_chunks = (tk + c - 1) // c
+    pad = n_chunks * c - tk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qg = (q * d ** -0.5).reshape(b, tq, cfg.n_kv_heads, cfg.group_size, d).float()
+    return qg, [(i, k[:, i * c:(i + 1) * c], v[:, i * c:(i + 1) * c])
+                for i in range(n_chunks)]
+
+
+def _online_pass(q, k, v, cfg: AttentionConfig, q_offset
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """1-pass online softmax over KV chunks. Returns (acc, m, z) with
+    acc = sum exp(s - m) v per query: acc (B, Hkv, G, Tq, D); m, z
+    (B, Hkv, G, Tq)."""
+    b, tq, _, d = q.shape
+    g, hkv, c, tk = cfg.group_size, cfg.n_kv_heads, cfg.chunk_size, k.shape[1]
+    qg, chunks = _chunks(q, k, v, cfg)
+    acc = torch.zeros((b, hkv, g, tq, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, hkv, g, tq), NEG_INF, dtype=torch.float32, device=q.device)
+    z = torch.zeros((b, hkv, g, tq), dtype=torch.float32, device=q.device)
+    for idx, kb, vb in chunks:
+        s = softcap(torch.einsum("bqhgd,bkhd->bhgqk", qg, kb.float()), cfg.logit_softcap)
+        mask = _chunk_mask(idx, c, tk, tq, q_offset, cfg, q.device)
+        s = torch.where(_lift_mask(mask), s, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        z = z * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vb.float())
+        m = m_new
+    return acc, m, z
+
+
+def _clipped_second_pass(q, k, v, m, z, cfg: AttentionConfig, q_offset) -> torch.Tensor:
+    """Pass 2 of the clipped softmax: accumulate clip((zeta-gamma)p + gamma)·V
+    chunk by chunk, gamma resolved from the KV length."""
+    b, tq, _, d = q.shape
+    g, hkv, c, tk = cfg.group_size, cfg.n_kv_heads, cfg.chunk_size, k.shape[1]
+    gamma, zeta = cfg.softmax.resolve_gamma(tk), cfg.softmax.zeta
+    qg, chunks = _chunks(q, k, v, cfg)
+    z_safe = torch.clamp(z, min=torch.finfo(torch.float32).tiny)
+    acc = torch.zeros((b, hkv, g, tq, d), dtype=torch.float32, device=q.device)
+    for idx, kb, vb in chunks:
+        s = softcap(torch.einsum("bqhgd,bkhd->bhgqk", qg, kb.float()), cfg.logit_softcap)
+        mask = _chunk_mask(idx, c, tk, tq, q_offset, cfg, q.device)
+        p = stretch_and_clip(torch.exp(s - m[..., None]) / z_safe[..., None], gamma, zeta)
+        p = torch.where(_lift_mask(mask), p, 0.0)
+        acc = acc + torch.einsum("bhgqk,bkhd->bhgqd", p, vb.float())
+    return acc
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      cfg: AttentionConfig, q_offset=0,
+                      gate_pi: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Flash-style O(T)-memory attention with the vanilla or the clipped
+    softmax, in plain PyTorch. Returns (B, Tq, Hq, Dh) in v's dtype."""
+    b, tq, hq, d = q.shape
+    acc, m, z = _online_pass(q, k, v, cfg, q_offset)
+    if cfg.softmax.is_vanilla:
+        out = acc / torch.clamp(z, min=torch.finfo(torch.float32).tiny)[..., None]
+    else:
+        out = _clipped_second_pass(q, k, v, m, z, cfg, q_offset)
+    out = out.movedim(3, 1).reshape(b, tq, hq, d).to(v.dtype)
+    if gate_pi is not None:
+        out = out * gate_pi[..., None].to(out.dtype)
+    return out
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              cfg: AttentionConfig, q_offset=0,
+              gate_pi: Optional[torch.Tensor] = None,
+              force_dense: bool = False) -> torch.Tensor:
+    """Dispatcher of the cache-free read. Returns (B, Tq, Hq, Dh).
+
+    CUDA tensors: always the flash kernel, with gamma resolved from the
+    KV length and q scaled in its dtype, as the plain paths do both. CPU tensors: the reference's
+    routing, dense when forced, when decoding (tq == 1) with tk <= 8192,
+    or when tq > 1 and tq*tk <= 2048^2; chunked otherwise."""
+    tq, tk = q.shape[1], k.shape[1]
+    if q.is_cuda:
+        from repro_torch.kernels.flash_attention import mha_flash
+        sm = cfg.softmax
+        gamma, zeta = (0.0, 1.0) if sm.is_vanilla else (sm.resolve_gamma(tk), sm.zeta)
+        return mha_flash(q, k, v, gate_pi, causal=cfg.causal, window=cfg.window,
+                         softcap=cfg.logit_softcap, gamma=gamma, zeta=zeta,
+                         q_offset=q_offset, scale_q=True)
+    if force_dense or (tq == 1 and tk <= 8192) or (tq > 1 and tq * tk <= 2048 * 2048):
+        return dense_attention(q, k, v, cfg, q_offset=q_offset, gate_pi=gate_pi)
+    return chunked_attention(q, k, v, cfg, q_offset=q_offset, gate_pi=gate_pi)
 
 
 def paged_attention_gather(q: torch.Tensor, k_pool: torch.Tensor,

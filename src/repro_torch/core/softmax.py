@@ -64,7 +64,10 @@ def clipped_softmax(logits: torch.Tensor, gamma: float, zeta: float = 1.0,
 
 
 def softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
-    """Gemma-2 style logit soft-capping: cap * tanh(x / cap)."""
+    """Gemma-2 style logit soft-capping: cap * tanh(x / cap). The divisor
+    is a tensor on the logits' device, so CUDA divides as the reference
+    does (a python-float divisor becomes a reciprocal multiplication)."""
     if cap is None:
         return logits
-    return cap * torch.tanh(logits / cap)
+    div = torch.full((), cap, dtype=logits.dtype, device=logits.device)
+    return cap * torch.tanh(logits / div)

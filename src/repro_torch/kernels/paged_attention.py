@@ -95,7 +95,7 @@ def paged_flash_attention_ref(
     k, v = gather(k_pool, k_scale), gather(v_pool, v_scale)
     s = torch.einsum("bhrd,bhkd->bhrk", q.float(), k) * dh ** -0.5
     if softcap is not None:
-        s = softcap * torch.tanh(s / softcap)
+        s = softcap * torch.tanh(s / torch.full((), softcap, device=dev))
     q_pos = q_off.to(dev).long()[:, None] + \
         torch.arange(tq_g, device=dev) // group              # (B, R)
     k_pos = torch.arange(tk, device=dev)

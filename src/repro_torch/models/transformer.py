@@ -7,9 +7,10 @@ apply to every attention block. Params are nested dicts of tensors in the
 JAX layout: scanned configs stack their layer groups along a leading axis
 under ``"groups"``, unrolled ones keep a ``"layers"`` list.
 
-This port covers the serving path: ``model_apply`` without a cache, or
-with a paged cache (``init_paged_cache``), per-row ``pos`` and a
-per-token ``active`` mask, with a ``QuantContext`` whose site names are
+This port covers the serving and evaluation paths: ``model_apply``
+without a cache (the ``attention`` dispatcher: the flash kernel on the
+card), or with a paged cache (``init_paged_cache``), per-row ``pos`` and
+a per-token ``active`` mask, with a ``QuantContext`` whose site names are
 the reference's byte for byte (a block is named by its index inside the
 pattern, ``layer_attn0``, in every group). Dense per-row caches, ring
 (``local_attn``), recurrent and MoE blocks and embeds inputs raise
@@ -28,7 +29,7 @@ import torch
 
 from repro_torch.core.attention import (
     AttentionConfig,
-    dense_attention,
+    attention,
     paged_attention,
 )
 from repro_torch.core.gating import GateConfig, gate_probs, init_gate
@@ -258,7 +259,10 @@ def _attn_block_apply(
     ctx: QuantContext, name: str,
     paged_live_width: Optional[int] = None,
     paged_live_widths: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x_out, attention-layer output): the residual-stream value
+    after the attention sub-block, the tensor whose outliers the paper
+    measures."""
     b, t, d = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     acfg = cfg.attn_cfg("attn")
@@ -282,7 +286,7 @@ def _attn_block_apply(
         gate_pi = gate_probs(p["gate"], cfg.gate_cfg, x_heads, h)
 
     if cache is None:
-        attn_out = dense_attention(q, k, v, acfg, q_offset=0, gate_pi=gate_pi)
+        attn_out = attention(q, k, v, acfg, q_offset=0, gate_pi=gate_pi)
     else:
         if "block_table" not in cache:
             raise NotImplementedError(
@@ -303,10 +307,11 @@ def _attn_block_apply(
 
     attn_out = ctx.act(name + "/attn.out", attn_out.reshape(b, t, hq * dh))
     x = x + linear_apply(p["o"], attn_out, ctx, name + "/o")
+    attn_layer_out = x
     if cfg.mlp_kind != "none":
         h2 = norm_apply(cfg.norm, p["ln2"], x, ctx, name + "/ln2")
         x = x + mlp_apply(p["mlp"], h2, cfg.mlp_kind, ctx, name + "/mlp")
-    return x
+    return x, attn_layer_out
 
 
 # ==========================================================================
@@ -455,6 +460,7 @@ def model_apply(
     cache: Optional[Params] = None,
     pos: Any = 0,
     active: Optional[torch.Tensor] = None,
+    collect_acts: bool = False,
     paged_live_width: Optional[int] = None,
     paged_live_widths: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -470,7 +476,13 @@ def model_apply(
     quantizes at the reference's sites ('collect', 'apply') or runs the
     W8A8 linears ('int8'); ``lm_head`` stays fp through
     ``QConfig.skip_patterns``. ``aux`` holds "cache" (the same, in-place
-    updated cache) when one is given."""
+    updated cache) when one is given. As in the reference, the outlier
+    telemetry depends on the layout: a scanned config (``scan_layers``)
+    gives "act_stats", the (n_groups, len(pattern)) max |attention-layer
+    output| (here for cache-free forwards, the ones that read it), and an
+    unrolled one gives "attn_outputs", the per-layer attention-layer
+    outputs, when ``collect_acts`` is set; a scanned config never returns
+    "attn_outputs"."""
     check_supported(cfg)
     tokens = batch["tokens"]
     b, t = tokens.shape
@@ -490,6 +502,8 @@ def model_apply(
         return _attn_block_apply(p, x, cfg, rope, c, pos, write_idx, act_tok,
                                  ctx, name, paged_live_width, paged_live_widths)
 
+    scanned = cfg.scan_layers and cfg.n_groups > 0
+    stats, acts = [], []
     for g in range(cfg.n_groups):
         gp = params["layers"][g] if "layers" in params \
             else tree_slice(params["groups"], g)
@@ -497,9 +511,16 @@ def model_apply(
         if cache is not None:
             gc = cache["layers"][g] if "layers" in cache \
                 else tree_slice(cache["groups"], g)
+        gstats = []
         for i, kind in enumerate(cfg.pattern):
-            x = run(x, gp[f"b{i}"], None if gc is None else gc[f"b{i}"],
-                    f"layer_{kind}{i}")
+            x, a = run(x, gp[f"b{i}"], None if gc is None else gc[f"b{i}"],
+                       f"layer_{kind}{i}")
+            if scanned and cache is None:
+                gstats.append(torch.amax(torch.abs(a)))
+            elif not scanned and collect_acts:
+                acts.append(a)
+        if gstats:
+            stats.append(torch.stack(gstats))
 
     x = norm_apply(cfg.norm, params["final_norm"], x, ctx, "final_norm")
     if "lm_head" in params:
@@ -511,6 +532,10 @@ def model_apply(
         pad = torch.arange(cfg.padded_vocab, device=dev) >= cfg.vocab_size
         logits = torch.where(pad, -1e30, logits)
     aux: Dict[str, Any] = {}
+    if stats:
+        aux["act_stats"] = torch.stack(stats)
+    if acts:
+        aux["attn_outputs"] = acts
     if cache is not None:
         aux["cache"] = cache
     return logits, aux

@@ -148,8 +148,9 @@ def embedding_attend(p: Params, x: torch.Tensor, ctx: QuantContext = NO_QUANT,
 def rope_angles(positions: torch.Tensor, d_head: int, theta: float = 10000.0
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables, shape (..., T, d_head/2), f32."""
-    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
-                        device=positions.device) / d_head
+    dev = positions.device
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32, device=dev) / \
+        torch.full((), d_head, dtype=torch.float32, device=dev)   # true f32 division on CUDA
     freqs = 1.0 / (theta ** exps)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)

@@ -8,7 +8,12 @@ from repro_torch.quant.int8_weights import (
     linear_int8,
 )
 from repro_torch.quant.kv_cache import kv_dequant, kv_quant
-from repro_torch.quant.ptq import calibrate, make_quantized_apply
+from repro_torch.quant.ptq import (
+    calibrate,
+    evaluate_perplexity,
+    make_quantized_apply,
+    ptq_sweep,
+)
 from repro_torch.quant.qconfig import NO_QUANT, QConfig, QuantContext
 from repro_torch.quant.quantizer import (
     QuantSpec,
@@ -32,7 +37,8 @@ __all__ = [
     "scale_zero_point",
     "MinMaxEstimator", "MSEEstimator", "PercentileEstimator", "RangeEstimator",
     "RunningMinMaxEstimator", "make_estimator",
-    "NO_QUANT", "QConfig", "QuantContext", "calibrate", "make_quantized_apply",
+    "NO_QUANT", "QConfig", "QuantContext", "calibrate", "evaluate_perplexity",
+    "make_quantized_apply", "ptq_sweep",
     "attach_int8_weights", "build_int8_cache", "int8_cache_bytes",
     "linear_int8", "kv_quant", "kv_dequant",
 ]

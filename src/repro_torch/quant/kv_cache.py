@@ -30,7 +30,11 @@ def kv_quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scales); the last two axes share one scale."""
     xf = x.float()
     amax = torch.amax(torch.abs(xf), dim=(-2, -1))
-    scale = torch.clamp(amax / KV_QMAX, min=KV_EPS)
+    # divide by a tensor on amax's device: on CUDA, torch divides by a
+    # python float as a multiplication by its reciprocal, which is not the
+    # reference's f32 division
+    qmax = torch.full((), KV_QMAX, dtype=torch.float32, device=amax.device)
+    scale = torch.clamp(amax / qmax, min=KV_EPS)
     q = torch.clamp(torch.round(xf / scale[..., None, None]), -KV_QMAX, KV_QMAX)
     return q.to(torch.int8), scale
 

@@ -73,6 +73,11 @@ class QuantContext:
         self.mode = mode if qconfig is not None else "off"
         self._estimators: Dict[str, RangeEstimator] = {}
         self._ranges: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        # site -> (scale, zero) f32 tensors, computed once from the ranges
+        # (``_set_ranges``), and their copies per device, made in one
+        # transfer at a device's first forward
+        self._qparams: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._qparams_on: Dict[torch.device, Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = {}
         # site -> (scale, zero) python floats, made by use_int8_runtime so
         # that the serving tick reads no device value
         self._act_qp: Dict[str, Tuple[float, float]] = {}
@@ -86,17 +91,42 @@ class QuantContext:
 
     def finalize(self) -> None:
         """Close all estimators into static ranges; switch to 'apply'."""
-        for name, est in self._estimators.items():
-            self._ranges[name] = est.finalize()
-        self.mode = "apply"
+        self._set_ranges({name: est.finalize() for name, est in self._estimators.items()})
 
     @property
     def ranges(self) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
         return dict(self._ranges)
 
     def load_ranges(self, ranges: Dict[str, Tuple[torch.Tensor, torch.Tensor]]) -> None:
-        self._ranges = dict(ranges)
+        self._set_ranges(dict(ranges))
+
+    def _set_ranges(self, ranges: Dict[str, Tuple[torch.Tensor, torch.Tensor]]) -> None:
+        """Static ranges in; each site's (s, z) computed once, here, by
+        ``scale_zero_point`` (so the values are those it gives), and the
+        context switched to 'apply'."""
+        self._ranges = ranges
+        self._qparams = {}
+        for name, (lo, hi) in (ranges.items() if self.qconfig is not None else ()):
+            spec = self.qconfig.weight_spec() if name.endswith("#w") \
+                else self.qconfig.act_spec()
+            self._qparams[name] = scale_zero_point(lo, hi, spec)
+        self._qparams_on = {}
         self.mode = "apply"
+
+    def _site_qparams(self, name: str, device: torch.device
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A site's (s, z) on ``device``. All sites move together, in one
+        copy, the first time a device asks: a forward then makes no
+        host-to-device copy and no sync per site."""
+        on = self._qparams_on.get(device)
+        if on is None:
+            leaves = [t for pair in self._qparams.values() for t in pair]
+            flat = torch.cat([t.reshape(-1).float() for t in leaves]).to(device)
+            chunks = iter(flat.split([t.numel() for t in leaves]))
+            on = {n: tuple(next(chunks).reshape(t.shape) for t in pair)
+                  for n, pair in self._qparams.items()}
+            self._qparams_on[device] = on
+        return on[name]
 
     def use_int8_runtime(self) -> None:
         """Switch a calibrated context to the hardware int8 path: the
@@ -104,13 +134,8 @@ class QuantContext:
         (s, z) is materialized here as python floats."""
         if not (self._ranges or self.mode == "apply"):
             raise RuntimeError("use_int8_runtime needs finalized calibration ranges")
-        spec = self.qconfig.act_spec()
-        self._act_qp = {}
-        for name, (lo, hi) in self._ranges.items():
-            if name.endswith("#w"):     # weight ranges: not activation sites
-                continue
-            s, z = scale_zero_point(lo, hi, spec)
-            self._act_qp[name] = (float(s), float(z))
+        self._act_qp = {name: (float(s), float(z)) for name, (s, z) in self._qparams.items()
+                        if not name.endswith("#w")}     # weight ranges: not activation sites
         self.mode = "int8"
 
     def act_qparams(self, name: str) -> Optional[Tuple[float, float]]:
@@ -132,8 +157,7 @@ class QuantContext:
             return x
         if name not in self._ranges:   # site unseen during calibration
             return x
-        lo, hi = self._ranges[name]
-        s, z = scale_zero_point(lo, hi, spec)
+        s, z = self._site_qparams(name, x.device)
         return fake_quant(x, s, z, spec)
 
     def weight(self, name: str, w: torch.Tensor) -> torch.Tensor:
@@ -147,9 +171,9 @@ class QuantContext:
             return w
         if wname not in self._ranges:
             lo, hi = torch.aminmax(w)       # weights are static: min-max
+            s, z = scale_zero_point(lo, hi, spec)
         else:
-            lo, hi = self._ranges[wname]
-        s, z = scale_zero_point(lo, hi, spec)
+            s, z = self._site_qparams(wname, w.device)
         return fake_quant(w, s, z, spec)
 
 

@@ -17,6 +17,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.fake_quant import fake_quant as fake_quant_kernel
+
 
 @dataclasses.dataclass(frozen=True)
 class QuantSpec:
@@ -84,17 +86,17 @@ def dequantize(q: torch.Tensor, s, z, spec: QuantSpec) -> torch.Tensor:
 def fake_quant(x: torch.Tensor, s, z, spec: QuantSpec) -> torch.Tensor:
     """Simulated quantization q(x) (Eq. 1) with a straight-through
     gradient: identity inside the representable range, zero for clipped
-    values."""
-    dtype = x.dtype
-    xf = x.float()
+    values. x is clipped to the range, then ``x_clip + (qd - x_clip)`` in
+    f32, cast to x's dtype (``kernels.fake_quant``'s ``ste`` form). CUDA
+    tensors go to the hand-written kernel (per-tensor, or per-channel along
+    the last axis), CPU tensors to its plain version; the two are bitwise
+    equal."""
+    if x.is_cuda and spec.per_channel_axis not in (None, x.ndim - 1):
+        raise NotImplementedError(
+            f"the fake-quant kernel takes per-channel ranges along the last "
+            f"axis only, not axis {spec.per_channel_axis} of a {x.ndim}-d tensor")
     s_b, z_b = _broadcast(_f32(s, x.device), _f32(z, x.device), x.ndim, spec)
-    lo = s_b * (0.0 - z_b)
-    hi = s_b * (spec.n_levels - 1 - z_b)
-    x_clip = torch.minimum(torch.maximum(xf, lo), hi)
-    qd = s_b * (torch.clamp(torch.round(x_clip / s_b + z_b), 0,
-                            spec.n_levels - 1) - z_b)
-    out = x_clip + (qd - x_clip).detach()
-    return out.to(dtype)
+    return fake_quant_kernel(x, s_b, z_b, spec.bits, ste=True)
 
 
 def quantization_error(x: torch.Tensor, s, z, spec: QuantSpec) -> torch.Tensor:

@@ -8,13 +8,12 @@ dropped). ``make_mixed_step`` and ``make_spec_step`` build the batcher's
 tick from it: plain callables, since PyTorch runs eagerly.
 
 Sampling rule: the token that will sit at logical position p is a pure
-function of (request seed, p) and that position's logits, so a
-recomputed or speculated continuation resamples identical tokens. The
-JAX package draws it with ``fold_in(key, p)`` over threefry; torch cannot
-give those bits, so this port draws Gumbel noise from a counter-based
-integer hash of (seed, p, vocab index) of its own. Greedy decoding
-(``temperature == 0``) is argmax and matches the JAX package; sampled
-tokens are tested within the port.
+function of (request key, p) and that position's logits, so a
+recomputed or speculated continuation resamples identical tokens. As in
+the JAX package it is drawn with ``categorical(fold_in(key, p),
+logits / temperature)`` over threefry (``repro_torch.random``, whose keys
+and bits are JAX's); a request's key is ``PRNGKey(seed)``. Greedy
+decoding (``temperature == 0``) is argmax.
 """
 from __future__ import annotations
 
@@ -25,8 +24,7 @@ import torch
 
 from repro_torch.models.transformer import ModelConfig, model_apply
 from repro_torch.quant.qconfig import NO_QUANT, QuantContext
-
-_M32 = 0xFFFFFFFF
+from repro_torch.random import PRNGKey, categorical, fold_in
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,46 +36,28 @@ class GenerateConfig:
     pad_id: int = 0                # fills positions after EOS
 
 
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit integer finalizer on int64 tensors holding values in
-    [0, 2^32). Both multipliers are below 2^31, so no product overflows."""
-    x = x ^ (x >> 16)
-    x = (x * 0x7FEB352D) & _M32
-    x = x ^ (x >> 15)
-    x = (x * 0x5BD1E995) & _M32
-    return x ^ (x >> 16)
-
-
-def _uniform(keys: torch.Tensor, target_pos: torch.Tensor, n: int
-             ) -> torch.Tensor:
-    """(B, n) uniforms in (0, 1), a pure function of (key, position,
-    index): the port's counter-based stand-in for ``fold_in``."""
-    k = keys.long()
-    h = _mix32((k & _M32) ^ _mix32(((k >> 32) & _M32) + 0x632BE5AB & _M32))
-    h = _mix32(h ^ _mix32((target_pos.long() + 0x27D4EB2F) & _M32))
-    idx = torch.arange(n, dtype=torch.int64, device=k.device)
-    h = _mix32(h[:, None] ^ _mix32((idx + 0x165667B1) & _M32)[None, :])
-    return ((h >> 8).float() + 0.5) / float(1 << 24)
-
-
 def sample_logits(logits: torch.Tensor, gen: GenerateConfig,
                   keys: Optional[torch.Tensor] = None,
                   target_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, vocab) logits -> (B,) int64 tokens. Sampling (temperature > 0)
-    needs per-row ``keys`` (request seeds) and ``target_pos``."""
+    needs per-row ``keys`` ((B,) request seeds) and ``target_pos``: row b
+    draws ``categorical(fold_in(PRNGKey(seed_b), pos_b), logits_b /
+    temperature)`` after the top-k cut, as the reference's
+    ``sample_token_at`` does under the request key ``PRNGKey(seed)``."""
     if gen.temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
     if keys is None or target_pos is None:
         raise ValueError("sampling needs per-row keys and target positions "
                          "when temperature > 0")
-    logits = logits.float()
+    dev = logits.device
     if gen.top_k is not None and 0 < gen.top_k < logits.shape[-1]:
         kth = torch.topk(logits, gen.top_k, dim=-1).values[:, -1:]
         logits = torch.where(logits < kth, -float("inf"), logits)
-    u = _uniform(keys.to(logits.device), target_pos.to(logits.device),
-                 logits.shape[-1])
-    gumbel = -torch.log(-torch.log(u))
-    return torch.argmax(logits / gen.temperature + gumbel, dim=-1)
+    keys = fold_in(PRNGKey(torch.as_tensor(keys, device=dev).long()),
+                   torch.as_tensor(target_pos, device=dev).long())
+    # a divisor tensor on the logits' device: a true f32 division on CUDA
+    temp = torch.full((), gen.temperature, dtype=logits.dtype, device=dev)
+    return categorical(keys, logits / temp)
 
 
 def sample_rows(logits: torch.Tensor, gen: GenerateConfig, keys: torch.Tensor,

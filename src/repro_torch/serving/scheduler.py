@@ -53,6 +53,7 @@ from repro_torch.models.transformer import (
 from repro_torch.quant.int8_weights import attach_int8_weights
 from repro_torch.quant.ptq import calibrate
 from repro_torch.quant.qconfig import NO_QUANT, QConfig, QuantContext
+from repro_torch.random import PRNGKey, fold_in, randint
 from repro_torch.serving.decode import (
     GenerateConfig,
     make_mixed_step,
@@ -238,14 +239,12 @@ def _pool_leaves(cache):
 def _calibration_batches(cfg: ModelConfig, t: int, n: int, device
                          ) -> List[Dict[str, torch.Tensor]]:
     """``n`` synthetic calibration batches of (2, t) uniform token ids,
-    drawn from a ``torch.Generator`` seeded 0. The reference draws them
-    with ``jax.random``, whose bits these are not; tests that hold the
-    engines against each other replace this function with the
-    reference's tokens."""
-    gen = torch.Generator().manual_seed(0)
-    return [{"tokens": torch.randint(0, cfg.vocab_size, (2, t), generator=gen
-                                     ).to(device)}
-            for _ in range(n)]
+    the reference's: batch i is ``randint(fold_in(PRNGKey(0), i), (2, t),
+    0, vocab)`` over threefry (``repro_torch.random``), drawn on the CPU."""
+    key = PRNGKey(0)
+    return [{"tokens": randint(fold_in(key, i), (2, t), 0, cfg.vocab_size
+                               ).long().to(device)}
+            for i in range(n)]
 
 
 def _calibrate_engine(params, cfg: ModelConfig, qconfig: QConfig,

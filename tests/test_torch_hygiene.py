@@ -1,6 +1,6 @@
 """Import hygiene of the PyTorch port: nothing under ``src/repro_torch/``
 nor ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and
-importing the serving stack leaves JAX unloaded."""
+importing the serving and evaluation stacks leaves JAX unloaded."""
 import ast
 import os
 import subprocess
@@ -45,7 +45,9 @@ def test_serving_import_leaves_jax_unloaded():
     env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src")] +
                                         [p for p in sys.path if p])
     code = ("import sys, repro_torch.serving.scheduler, repro_torch.convert, "
-            "repro_torch.configs.qwen3_14b; "
+            "repro_torch.configs.qwen3_14b, repro_torch.train, repro_torch.quant.ptq, "
+            "repro_torch.data, repro_torch.core.outliers, repro_torch.optim, "
+            "repro_torch.kernels.flash_attention, repro_torch.kernels.fake_quant; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "print(bad)")
     out = subprocess.run([sys.executable, "-c", code], env=env,

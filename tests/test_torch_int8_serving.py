@@ -2,11 +2,11 @@
 
 ``repro_torch.serving.ContinuousBatcher(qconfig=QConfig(), device="cpu")``
 and the reference ``repro.serving.ContinuousBatcher(qconfig=QConfig())``
-get the same converted qwen3 smoke weights and the same requests. The
-engines calibrate on synthetic tokens that the port draws from a torch
-generator and the reference from ``jax.random``; here the port's
-``_calibration_batches`` is replaced by the reference's tokens, so both
-engines calibrate on the same data. Greedy tokens must then be equal for
+get the same converted qwen3 smoke weights and the same requests. Each
+engine calibrates on its own synthetic tokens, which the port draws with
+its threefry (``repro_torch.random``) bit for bit as the reference draws
+them with ``jax.random``, so both calibrate on the same data under the
+default calibration, nothing substituted. Greedy tokens must be equal for
 vanilla, clipped (alpha = 4) and gated attention with int8 KV on (the
 default under ``qconfig``) and off, with speculation and with the prefix
 cache. On the CPU every int8 linear runs the kernel's plain version.
@@ -37,7 +37,6 @@ jqc = importlib.import_module("repro.quant.qconfig")
 jw8 = importlib.import_module("repro.quant.int8_weights")
 ttr = importlib.import_module("repro_torch.models.transformer")
 tserve = importlib.import_module("repro_torch.serving")
-tsched = importlib.import_module("repro_torch.serving.scheduler")
 tqc = importlib.import_module("repro_torch.quant.qconfig")
 tw8 = importlib.import_module("repro_torch.quant.int8_weights")
 tim = importlib.import_module("repro_torch.kernels.int8_matmul")
@@ -80,11 +79,6 @@ def _reference_tokens(cfg, t, n, device):
         for i in range(n)]
 
 
-@pytest.fixture
-def ref_calibration(monkeypatch):
-    monkeypatch.setattr(tsched, "_calibration_batches", _reference_tokens)
-
-
 def _prompts():
     rng = np.random.default_rng(5)
     return [rng.integers(1, 120, size=n).astype(np.int32) for n in (5, 19)]
@@ -114,7 +108,7 @@ def _both(jp, jc, tp, tc, prompts, max_new=6, **kw):
 
 @pytest.mark.parametrize("kv_int8", [None, False], ids=["int8kv-default", "fpkv"])
 @pytest.mark.parametrize("method", list(METHODS))
-def test_w8a8_greedy_tokens_equal_reference_batcher(models, ref_calibration, method,
+def test_w8a8_greedy_tokens_equal_reference_batcher(models, method,
                                                     kv_int8):
     jc, jp, tc, tp = models[method]
     ref, out, b = _both(jp, jc, tp, tc, _prompts(), kv_int8=kv_int8)
@@ -128,7 +122,7 @@ def _motif(n, motif=(3, 7, 11, 5)):
     return np.asarray((list(motif) * (-(-n // len(motif))))[:n], np.int32)
 
 
-def test_w8a8_with_speculation_equals_reference(models, ref_calibration):
+def test_w8a8_with_speculation_equals_reference(models):
     jc, jp, tc, tp = models["vanilla"]
     prompts = [_motif(12 + u) for u in range(3)]
     ref, out, b = _both(jp, jc, tp, tc, prompts, max_new=16, token_budget=16,
@@ -137,7 +131,7 @@ def test_w8a8_with_speculation_equals_reference(models, ref_calibration):
     assert b.spec_drafted > 0 and b.spec_accepted > 0
 
 
-def test_w8a8_with_prefix_cache_equals_reference(models, ref_calibration):
+def test_w8a8_with_prefix_cache_equals_reference(models):
     jc, jp, tc, tp = models["gated"]
     rng = np.random.default_rng(9)
     shared = rng.integers(1, 120, size=19).astype(np.int32)
@@ -158,7 +152,7 @@ def test_w8a8_with_prefix_cache_equals_reference(models, ref_calibration):
     assert b.shared_admissions > 0
 
 
-def test_w8a8_f32_queries_over_bf16_pool(ref_calibration, monkeypatch):
+def test_w8a8_f32_queries_over_bf16_pool(monkeypatch):
     """bf16 weights, int8 KV off: the W8A8 projections return f32, so the
     tick's paged read gets f32 queries over a bf16 pool through the
     dispatcher, in the port as in the reference."""
@@ -176,7 +170,7 @@ def test_w8a8_f32_queries_over_bf16_pool(ref_calibration, monkeypatch):
     assert seen and set(seen) == {(torch.float32, torch.bfloat16)}
 
 
-def test_w8a8_tick_reads_no_scalar_back(models, ref_calibration, monkeypatch):
+def test_w8a8_tick_reads_no_scalar_back(models, monkeypatch):
     """Calibration leaves every range a python float: the serving tick
     never reads a scalar from a tensor (on the card each read is a host
     sync, 280 of them per qwen3-14b forward)."""
