@@ -225,7 +225,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dispatcher of the cache-free read. Returns (B, Tq, Hq, Dh).
 
     CUDA tensors: always the flash kernel, with gamma resolved from the
-    KV length and q scaled in its dtype, as the plain paths do both. CPU tensors: the reference's
+    KV length, as the plain paths do. CPU tensors: the reference's
     routing, dense when forced, when decoding (tq == 1) with tk <= 8192,
     or when tq > 1 and tq*tk <= 2048^2; chunked otherwise."""
     tq, tk = q.shape[1], k.shape[1]
@@ -235,7 +235,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         gamma, zeta = (0.0, 1.0) if sm.is_vanilla else (sm.resolve_gamma(tk), sm.zeta)
         return mha_flash(q, k, v, gate_pi, causal=cfg.causal, window=cfg.window,
                          softcap=cfg.logit_softcap, gamma=gamma, zeta=zeta,
-                         q_offset=q_offset, scale_q=True)
+                         q_offset=q_offset)
     if force_dense or (tq == 1 and tk <= 8192) or (tq > 1 and tq * tk <= 2048 * 2048):
         return dense_attention(q, k, v, cfg, q_offset=q_offset, gate_pi=gate_pi)
     return chunked_attention(q, k, v, cfg, q_offset=q_offset, gate_pi=gate_pi)

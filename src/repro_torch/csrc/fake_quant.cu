@@ -41,7 +41,8 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float
 __device__ __forceinline__ void from_f(float* p, float x) { *p = x; }
 __device__ __forceinline__ void from_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
-// NaN-propagating max/min, as torch.maximum / torch.minimum
+// NaN-propagating max/min, as torch.maximum / torch.minimum / torch.clamp
+// (fmaxf / fminf would turn a NaN code into a bound)
 __device__ __forceinline__ float nmax(float a, float b) { return (a != a || a > b) ? a : b; }
 __device__ __forceinline__ float nmin(float a, float b) { return (a != a || a < b) ? a : b; }
 
@@ -50,13 +51,11 @@ __device__ __forceinline__ float fq(float x, float s, float z, float top, int st
     const float lo = __fmul_rn(s, __fsub_rn(0.f, z));
     const float hi = __fmul_rn(s, __fsub_rn(top, z));
     const float xc = nmin(nmax(x, lo), hi);
-    float q = rintf(__fadd_rn(__fdiv_rn(xc, s), z));
-    q = fminf(fmaxf(q, 0.f), top);
+    const float q = nmin(nmax(rintf(__fadd_rn(__fdiv_rn(xc, s), z)), 0.f), top);
     const float qd = __fmul_rn(s, __fsub_rn(q, z));
     return __fadd_rn(xc, __fsub_rn(qd, xc));
   }
-  float q = rintf(__fadd_rn(__fdiv_rn(x, s), z));
-  q = fminf(fmaxf(q, 0.f), top);
+  const float q = nmin(nmax(rintf(__fadd_rn(__fdiv_rn(x, s), z)), 0.f), top);
   return __fmul_rn(s, __fsub_rn(q, z));
 }
 

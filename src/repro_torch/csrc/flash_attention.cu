@@ -9,9 +9,10 @@
 // clipped softmax clip((zeta - gamma) * p + gamma, 0, 1) in two passes
 // ((m, Z) first, then the clipped P.V); the gate pi multiplied in the
 // epilogue. Masked logits are -1e30 and Z is floored at 1e-30, as in the
-// TPU kernel. The scores are q.k scaled in f32 (the TPU kernel), or, with
-// scale_q, products of q * Dh^-0.5 rounded to q's dtype (the model's XLA
-// attention paths, which the port's attention() dispatcher stands for).
+// TPU kernel. q is multiplied by Dh^-0.5 and rounded to its own dtype
+// before the products, as the model's XLA attention paths (dense and
+// chunked) scale it; the TPU kernel scales the f32 scores instead, which
+// is the same in f32 up to an ulp and differs by that rounding in bf16.
 //
 // Layout: q (B, Tq, Hq, Dh), k and v (B, Tk, Hkv, Dh), out like q, gate
 // (B, Tq, Hq) f32, each addressed through element strides with a unit
@@ -63,8 +64,7 @@ struct Args {
   int q_offset, causal, window;  // window < 0: none
   float softcap;                 // <= 0: none
   float zg, gamma;               // zeta - gamma, gamma
-  float scale;
-  int scale_q;                   // 1: q * scale rounded to q's dtype (XLA paths)
+  float scale;                   // Dh^-0.5
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -206,11 +206,8 @@ __global__ void __launch_bounds__(NT, 2) flash_kernel(Args a) {
   if (a.window >= 0) k_lo = max(0, q_first - a.window + 1);
   k_lo = (k_lo / BK) * BK;
 
-  // scale_q: q * scale rounded to q's dtype before the products, as the
-  // XLA attention paths compute it; else the f32 scores are scaled, as the
-  // TPU kernel does
-  stage_t<T, D, BQ>(qg, a.sqt, q0, a.Tq, qT, a.scale_q ? a.scale : 0.f);
-  const float s_scale = a.scale_q ? 1.f : a.scale;
+  // q * scale rounded to q's dtype before the products
+  stage_t<T, D, BQ>(qg, a.sqt, q0, a.Tq, qT, a.scale);
 
   float m[4], z[4], acc[4][NCG][4];
 #pragma unroll
@@ -267,7 +264,7 @@ __global__ void __launch_bounds__(NT, 2) flash_kernel(Args a) {
           bool ok = kp < a.Tk;
           if (a.causal) ok = ok && kp <= qp;
           if (a.window >= 0) ok = ok && kp > qp - a.window;
-          float x = s[i][j] * s_scale;
+          float x = s[i][j];
           if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
           s[i][j] = ok ? x : NEG_INF;
           valid[i][j] = ok;
@@ -389,14 +386,14 @@ extern "C" int flash_attention_launch(
     long long sqh, long long skb, long long skt, long long skh, long long svb, long long svt,
     long long svh, long long sob, long long sot, long long soh, long long sgb, long long sgt,
     long long sgh, int q_offset, int causal, int window, float softcap, int clipped,
-    float zg, float gamma, float scale, int scale_q, int dtype, void* stream) {
+    float zg, float gamma, float scale, int dtype, void* stream) {
   if (B < 1 || Tq < 1 || Tk < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || B > 65535 ||
       Hq > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   Args a{q, k, v, gate, q_offs, out, B, Tq, Tk, Hq, Hkv, sqb, sqt, sqh, skb, skt, skh,
          svb, svt, svh, sob, sot, soh, sgb, sgt, sgh, q_offset, causal, window, softcap,
-         zg, gamma, scale, scale_q};
+         zg, gamma, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch<float>(a, Dh, clipped != 0, s);
   if (dtype == 1) return (int)dispatch<__nv_bfloat16>(a, Dh, clipped != 0, s);

@@ -9,7 +9,11 @@ window masks with a query offset, logit softcap, the vanilla softmax in
 one online pass, the clipped softmax ``clip((zeta-gamma)*p+gamma, 0, 1)``
 in two passes, the gate multiplying the output; everything is computed in
 f32 and the output has q's dtype. (gamma, zeta) = (0, 1) selects the
-vanilla path; ``gamma`` arrives resolved.
+vanilla path; ``gamma`` arrives resolved. q is multiplied by Dh^-0.5 in
+its own dtype before the products, as the model's attention paths
+(``dense_attention``, ``chunked_attention``) scale it; the TPU kernel
+scales the f32 scores instead, which differs by an ulp in f32 and by
+that rounding of q in bf16.
 
 ``flash_attention`` (TPU layout (BH, T, Dh)) and ``mha_flash`` (model
 layout (B, T, H, Dh) with GQA) launch the kernel for CUDA tensors, and
@@ -49,7 +53,7 @@ def _kernel_lib() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 15 + [ctypes.c_int] * 3
                        + [ctypes.c_float, ctypes.c_int] + [ctypes.c_float] * 3
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -58,18 +62,14 @@ def _kernel_lib() -> ctypes.CDLL:
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   gate_pi: Optional[torch.Tensor] = None, *, causal: bool = True,
                   window: Optional[int] = None, softcap: Optional[float] = None,
-                  gamma: float = 0.0, zeta: float = 1.0, q_offset=0,
-                  scale_q: bool = False) -> torch.Tensor:
+                  gamma: float = 0.0, zeta: float = 1.0, q_offset=0) -> torch.Tensor:
     """The plain version: (BH, Tq, Dh) x (BH, Tk, Dh) -> (BH, Tq, Dh),
     materializing the (Tq, Tk) scores in f32. ``q_offset`` is an int or a
-    per-row (BH,) tensor. ``scale_q``: see ``mha_flash``."""
+    per-row (BH,) tensor."""
     bh, tq, dh = q.shape
     tk = k.shape[1]
     dev = q.device
-    if scale_q:
-        s = torch.einsum("bqd,bkd->bqk", (q * dh ** -0.5).float(), k.float())
-    else:
-        s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * dh ** -0.5
+    s = torch.einsum("bqd,bkd->bqk", (q * dh ** -0.5).float(), k.float())
     if softcap is not None:
         s = softcap * torch.tanh(s / torch.full((), softcap, device=dev))
     off = torch.as_tensor(q_offset, dtype=torch.int64, device=dev)
@@ -93,7 +93,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
-def _launch(q, k, v, gate_pi, q_offset, causal, window, softcap, gamma, zeta, scale_q):
+def _launch(q, k, v, gate_pi, q_offset, causal, window, softcap, gamma, zeta):
     """Launch the kernel over model-layout (B, T, H, Dh) tensors (views of
     any strides with a unit last stride); returns a new (B, Tq, Hq, Dh)."""
     if torch.is_grad_enabled() and any(
@@ -140,7 +140,7 @@ def _launch(q, k, v, gate_pi, q_offset, causal, window, softcap, gamma, zeta, sc
             *out.stride()[:3], *gs, int(q_offset), int(causal),
             -1 if window is None else int(window), 0.0 if softcap is None else float(softcap),
             int(clipped), float(zeta - gamma), float(gamma), float(dh ** -0.5),
-            int(scale_q), _DTYPE_CODE[q.dtype], stream)
+            _DTYPE_CODE[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     global launches
@@ -163,28 +163,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     out = _launch(q[:, :, None], k[:, :, None], v[:, :, None],
-                  None if gate_pi is None else gate_pi[:, :, None], scale_q=False, **kw)
+                  None if gate_pi is None else gate_pi[:, :, None], **kw)
     return out[:, :, 0]
 
 
 def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               gate_pi: Optional[torch.Tensor] = None, *, causal: bool = True,
               window: Optional[int] = None, softcap: Optional[float] = None,
-              gamma: float = 0.0, zeta: float = 1.0, q_offset=0,
-              scale_q: bool = False) -> torch.Tensor:
+              gamma: float = 0.0, zeta: float = 1.0, q_offset=0) -> torch.Tensor:
     """Model-layout adapter: q (B, T, Hq, Dh), k/v (B, S, Hkv, Dh), gate
     (B, T, Hq); ``q_offset`` an int or a per-row (B,) tensor. Returns
     (B, T, Hq, Dh). On the card the kernel indexes KV heads itself; on the
-    CPU the plain version ``mha_flash_ref`` runs.
-
-    ``scale_q=False`` scales the f32 scores by Dh^-0.5, as the TPU kernel
-    does. ``scale_q=True`` multiplies q by Dh^-0.5 in q's dtype first, as
-    the model's XLA attention paths (``dense_attention``,
-    ``chunked_attention``) do; in bf16 the two differ by that rounding,
-    which the clipped softmax amplifies where probabilities sit near its
-    clip threshold. The ``attention`` dispatcher asks for it."""
+    CPU the plain version ``mha_flash_ref`` runs."""
     kw = dict(causal=causal, window=window, softcap=softcap, gamma=gamma, zeta=zeta,
-              q_offset=q_offset, scale_q=scale_q)
+              q_offset=q_offset)
     if q.is_cuda:
         return _launch(q, k, v, gate_pi, **kw)
     if q.device.type != "cpu":
@@ -195,8 +187,7 @@ def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def mha_flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   gate_pi: Optional[torch.Tensor] = None, *, causal: bool = True,
                   window: Optional[int] = None, softcap: Optional[float] = None,
-                  gamma: float = 0.0, zeta: float = 1.0, q_offset=0,
-                  scale_q: bool = False) -> torch.Tensor:
+                  gamma: float = 0.0, zeta: float = 1.0, q_offset=0) -> torch.Tensor:
     """The plain version of ``mha_flash`` on any device: K/V repeated per
     query head and ``attention_ref`` over the flattened (B*H, T, Dh)
     layout, as the reference adapter does."""
@@ -212,5 +203,5 @@ def mha_flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if isinstance(q_offset, torch.Tensor):
         q_offset = torch.broadcast_to(q_offset.reshape(-1), (b,)).repeat_interleave(h)
     out = attention_ref(qf, kf, vf, gf, causal=causal, window=window, softcap=softcap,
-                        gamma=gamma, zeta=zeta, q_offset=q_offset, scale_q=scale_q)
+                        gamma=gamma, zeta=zeta, q_offset=q_offset)
     return out.reshape(b, h, t, d).transpose(1, 2)

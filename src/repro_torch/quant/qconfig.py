@@ -74,10 +74,11 @@ class QuantContext:
         self._estimators: Dict[str, RangeEstimator] = {}
         self._ranges: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
         # site -> (scale, zero) f32 tensors, computed once from the ranges
-        # (``_set_ranges``), and their copies per device, made in one
-        # transfer at a device's first forward
+        # (``_set_ranges``); ``_placed`` holds them on the forwards' device
+        # with that device, moved there in one copy by the first forward
         self._qparams: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
-        self._qparams_on: Dict[torch.device, Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = {}
+        self._placed: Optional[Tuple[torch.device,
+                                     Dict[str, Tuple[torch.Tensor, torch.Tensor]]]] = None
         # site -> (scale, zero) python floats, made by use_int8_runtime so
         # that the serving tick reads no device value
         self._act_qp: Dict[str, Tuple[float, float]] = {}
@@ -110,23 +111,21 @@ class QuantContext:
             spec = self.qconfig.weight_spec() if name.endswith("#w") \
                 else self.qconfig.act_spec()
             self._qparams[name] = scale_zero_point(lo, hi, spec)
-        self._qparams_on = {}
+        self._placed = None
         self.mode = "apply"
 
     def _site_qparams(self, name: str, device: torch.device
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """A site's (s, z) on ``device``. All sites move together, in one
-        copy, the first time a device asks: a forward then makes no
+        copy, when the forwards' device is new: a forward then makes no
         host-to-device copy and no sync per site."""
-        on = self._qparams_on.get(device)
-        if on is None:
+        if self._placed is None or self._placed[0] != device:
             leaves = [t for pair in self._qparams.values() for t in pair]
             flat = torch.cat([t.reshape(-1).float() for t in leaves]).to(device)
             chunks = iter(flat.split([t.numel() for t in leaves]))
-            on = {n: tuple(next(chunks).reshape(t.shape) for t in pair)
-                  for n, pair in self._qparams.items()}
-            self._qparams_on[device] = on
-        return on[name]
+            self._placed = (device, {n: tuple(next(chunks).reshape(t.shape) for t in pair)
+                                     for n, pair in self._qparams.items()})
+        return self._placed[1][name]
 
     def use_int8_runtime(self) -> None:
         """Switch a calibrated context to the hardware int8 path: the

@@ -96,3 +96,23 @@ def test_straight_through_gradient_on_cpu():
     spec = tqz.QuantSpec(bits=8, symmetric=False)
     tqz.fake_quant(x, 0.01, 100.0, spec).sum().backward()
     np.testing.assert_array_equal(x.grad.numpy(), [0.0, 1.0, 1.0, 1.0, 0.0])
+
+
+@pytest.mark.parametrize("ste", [False, True], ids=["pallas-form", "site-form"])
+def test_nan_and_inf_carried_like_the_reference(ste):
+    """NaN stays NaN in both forms (the code clamp carries it, as
+    ``jnp.clip`` and ``torch.clamp`` do), and an infinity clips to the
+    end of the grid."""
+    bits, s, z = 8, 0.05, 128.0
+    x = _x(64, bits, s, z, ties=False, seed=3)
+    x[[0, 9, 17]] = [np.nan, np.inf, -np.inf]
+    got = tfq.fake_quant_ref(torch.from_numpy(x), s, z, bits, ste=ste).numpy()
+    if ste:
+        spec = jqz.QuantSpec(bits=bits, symmetric=False)
+        want = np.asarray(jqz.fake_quant(jnp.asarray(x), jnp.float32(s), jnp.float32(z), spec))
+    else:
+        want = np.asarray(fake_quant_pallas(jnp.asarray(x), s, z, bits))
+        np.testing.assert_array_equal(got, np.asarray(jref(jnp.asarray(x), s, z, bits)))
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(got[0]) and np.isfinite(got[1:]).all()
+    assert got[9] == np.float32(s) * (2 ** bits - 1 - z) and got[17] == np.float32(s) * -z

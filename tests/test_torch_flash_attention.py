@@ -155,9 +155,8 @@ def test_attention_dispatcher_vs_reference(route, monkeypatch):
 
 def test_attention_routes_cuda_tensors_to_the_kernel(monkeypatch):
     """The device decides: a CUDA tensor goes to ``mha_flash`` with gamma
-    resolved from the KV length and q scaled in its dtype (checked here
-    with a stand-in tensor whose ``is_cuda`` is true, since this machine
-    has no card)."""
+    resolved from the KV length (checked here with a stand-in tensor whose
+    ``is_cuda`` is true, since this machine has no card)."""
     seen = {}
 
     def fake_mha(q, k, v, gate_pi, **kw):
@@ -176,7 +175,6 @@ def test_attention_routes_cuda_tensors_to_the_kernel(monkeypatch):
     kv = torch.zeros(1, 10, 2, 8)
     tatt.attention(q, kv, kv, tc)
     assert seen["gamma"] == pytest.approx(-0.4) and seen["zeta"] == 1.0
-    assert seen["scale_q"] is True         # q scaled in its dtype, as dense/chunked
     tatt.attention(q, kv, kv, dataclasses.replace(tc, softmax=tsm.ClippedSoftmaxConfig()))
     assert (seen["gamma"], seen["zeta"]) == (0.0, 1.0)
 
@@ -184,10 +182,10 @@ def test_attention_routes_cuda_tensors_to_the_kernel(monkeypatch):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("sm_kw", [{}, {"alpha": 4.0}], ids=["vanilla", "clipped"])
 def test_scale_q_plain_version_matches_dense_attention(dtype, sm_kw):
-    """``scale_q=True`` (what the dispatcher asks of the kernel) is the
-    dense path's arithmetic: q * Dh^-0.5 in q's dtype, then f32 scores.
-    Against the port's ``dense_attention``: f32 at 3e-5, bf16 at 2e-2 (the
-    dense path also rounds P to bf16 before P.V)."""
+    """The kernel's plain version scales q as the dense path does: q *
+    Dh^-0.5 in q's dtype, then f32 scores. Against the port's
+    ``dense_attention``: f32 at 3e-5, bf16 at 2e-2 (the dense path also
+    rounds P to bf16 before P.V)."""
     _, tc = _cfgs(sm_kw, h=8, hkv=2, d=32)
     rng = np.random.default_rng(5)
     dt = getattr(torch, dtype)
@@ -196,7 +194,7 @@ def test_scale_q_plain_version_matches_dense_attention(dtype, sm_kw):
     v = torch.from_numpy(rng.standard_normal((2, 48, 2, 32)).astype(np.float32)).to(dt)
     sm = tc.softmax
     gamma, zeta = (0.0, 1.0) if sm.is_vanilla else (sm.resolve_gamma(48), sm.zeta)
-    got = tfa.mha_flash(q, k, v, gamma=gamma, zeta=zeta, scale_q=True)
+    got = tfa.mha_flash(q, k, v, gamma=gamma, zeta=zeta)
     want = tatt.dense_attention(q, k, v, tc)
     assert got.dtype == dt
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
