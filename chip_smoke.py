@@ -57,6 +57,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      and on the CPU: codes and scales bitwise equal (the scale divides by
      a device tensor; a multiplication by 1/127 would differ on the
      counted tokens).
+  3f. The RG-LRU scan kernel against its plain version, bitwise (max abs
+     difference 0), at the serving prefill shape (B 8, T 256, D 4096), a
+     long one-shot (1, 4096, 4096), a ragged D (3, 33, 777) and T 1
+     (8, 1, 4096), each without and with h0, and a state carried across
+     two calls (T 9 then 7 equals T 16). Then device times at (8, 256,
+     4096) and (1, 4096, 4096) of the kernel and its plain version beside
+     the bound (12 B T D bytes / 3.35 TB/s); no single PyTorch call
+     computes a linear recurrence, so there is no library time.
   4. Serving: ``ContinuousBatcher(paged=True)`` at qwen3-14b's full width
      and 40 layers in bfloat16 with random weights from a seed: 12 greedy
      requests (prompts of 32..512 tokens from a numpy seed, 32 new tokens
@@ -94,6 +102,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      within LOGIT_REL_RMS, and
      one W8A8 forward with only the fake-quant kernel swapped for its
      plain version must give bitwise equal logits.
+  4b. Serving recurrentgemma-9b at full width and all 38 layers in
+     bfloat16 (random weights from seed 0): ``ContinuousBatcher(paged=True)``
+     with batch 8, max_len 4096 (so the ring holds the 2048-token window),
+     block 16, token budget 256; 10 greedy requests of 32 new tokens,
+     prompts of 32..3000 tokens from a numpy seed, three of them past
+     2304 tokens; three engines one after another: vanilla, clipped softmax
+     (alpha 4, so gamma = -4/2048 on the ring) and gated attention. Each
+     must finish every request, pass ``audit()`` with no block leak, and
+     launch the RG-LRU kernel once per Griffin layer (26) on every forward
+     of T > 1 and never on a T = 1 forward. At the prefill sub-step where
+     a row's last chunk starts past the window, the logits with the kernel
+     and with its plain version swapped in must be bitwise equal, and
+     that row's logits must agree with a cache-free ``model_apply`` over
+     its whole prefix (the flash kernel, window 2048; for the clipped
+     engine a static gamma = -4/2048, the ring's) within RG_LOGIT_REL_RMS;
+     on the clipped engine the same sub-step with one fault put in (the
+     ring emptied, the recurrent state or conv history lost, gamma from
+     max_len) must land above that bound.
   6. The kernels line, then the device line.
 
 TF32 is switched off for matmuls and convolutions, so float32 compares
@@ -152,11 +178,13 @@ INT8_SHAPES = [(8, 5120, 5120), (8, 5120, 1024), (8, 5120, 17408), (8, 17408, 51
 KERNEL_SOURCES = {"paged_attention": "src/repro_torch/csrc/paged_attention.cu",
                   "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu",
                   "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
-                  "fake_quant": "src/repro_torch/csrc/fake_quant.cu"}
+                  "fake_quant": "src/repro_torch/csrc/fake_quant.cu",
+                  "rg_lru": "src/repro_torch/csrc/rg_lru.cu"}
 REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:177",
             "int8_matmul": "src/repro/kernels/int8_matmul.py:61",
             "flash_attention": "src/repro/kernels/flash_attention.py:157",
-            "fake_quant": "src/repro/kernels/fake_quant.py:22"}
+            "fake_quant": "src/repro/kernels/fake_quant.py:22",
+            "rg_lru": "src/repro/kernels/rg_lru.py:38"}
 FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 # The evaluation forward's attention, held in two ways against the kernel's
 # own plain version (mha_flash_ref: q scaled in bf16, P in f32, as the
@@ -175,6 +203,29 @@ FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 FLASH_LAYER_REL_RMS = 5e-4
 FLASH_VS_OWN_PLAIN_REL_RMS = 0.05
 EVAL_SEQ, EVAL_BATCHES, CALIB_BATCHES = 2048, 2, 4
+# (B, T, D) of the RG-LRU checks: the serving prefill step, a long
+# one-shot, a ragged D, and decode-sized T 1
+RG_SHAPES = [(8, 256, 4096), (1, 4096, 4096), (3, 33, 777), (8, 1, 4096)]
+# Phase 4b: a past-the-window row's last-chunk logits, served (ring read
+# through dense_attention, P rounded to bf16, chunked recurrence carrying
+# h) against a cache-free forward over its whole prefix (flash kernel, P
+# in f32, one recurrence), 38 random bf16 layers. Measured on an H100 80GB
+# HBM3 at 700 W: relative RMS 0.0280 (vanilla), 0.0302 (clipped), 0.0292
+# (gated), the same in two calls. The clipped engine then serves the same
+# sub-step with one fault put in (RG_FAULTS); the smallest reading among
+# them, gamma resolved from max_len rather than the ring length, was
+# 0.0809. Bounded at 0.05: 1.7x the largest correct reading, below every
+# fault's, and each fault is checked to land above it.
+RG_LOGIT_REL_RMS = 0.05
+# faults the check must tell from a correct read: the ring emptied
+# (pos_ids -1), the recurrent state h or the conv history lost, gamma
+# resolved from max_len. A ring rolled by one slot is printed but not
+# held: RoPE is baked into the cached keys, so it moves only the key at
+# the window's edge (1 of 2048), below any bound the bf16 noise allows;
+# the CPU tests hold the ring write against the reference at window 8.
+RG_FAULTS = ("ring emptied", "h lost", "conv lost", "gamma from max_len",
+             "ring rolled one slot")
+RG_GRIFFIN_LAYERS = 26             # 12 groups x 2 griffin blocks + the 2-block tail
 
 
 def check(ok, msg: str) -> None:
@@ -870,6 +921,254 @@ def phase_serving(torch, np, pa, im, name, method, kv_int8, w8a8=False, **method
 
 
 # ---------------------------------------------------------------------------
+# phase 3f: the RG-LRU scan kernel against its plain version
+# ---------------------------------------------------------------------------
+def rg_case(torch, shape, seed, copies=1):
+    """``copies`` sets of a (in (0, 1), as the RG-LRU's gates give it), b
+    and h0 (B, D), f32 on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    b, _, d = shape
+    return [(torch.sigmoid(torch.randn(shape, generator=gen) * 2).cuda(),
+             torch.randn(shape, generator=gen).cuda(),
+             torch.randn(b, d, generator=gen).cuda()) for _ in range(copies)]
+
+
+def rg_bound_ms(shape):
+    """Least time on an H100: a and b read once and h written once (12
+    bytes per element; h0 and h_last are 1/T of that) against 3.35 TB/s;
+    2 flops per element are far below the f32 rate."""
+    b, t, d = shape
+    return 12 * b * t * d / HBM_BYTES_PER_S * 1e3
+
+
+def phase_rg_checks(torch, rl):
+    bad, max_err = [], 0.0
+    for n, shape in enumerate(RG_SHAPES):
+        a, b, h0 = rg_case(torch, shape, seed=50 + n)[0]
+        for init in (None, h0):
+            out, last = rl.rglru(a, b, init)
+            torch.cuda.synchronize()
+            ref, ref_last = rl.rglru_ref(a, b, init)
+            torch.cuda.synchronize()
+            same = torch.equal(out, ref) and torch.equal(last, ref_last)
+            err = max((out - ref).abs().max().item(), (last - ref_last).abs().max().item())
+            max_err = max(max_err, err)
+            print(f"rg_lru check {shape} {'h0' if init is not None else 'zero state'}: "
+                  f"max_abs_err={err:.3e} (bitwise) {'ok' if same else 'FAIL'}", flush=True)
+            if not same:
+                bad.append((shape, init is not None, err))
+        del a, b, h0
+    # a state carried across two calls: T 9 then 7 equals T 16, bitwise
+    a, b, h0 = rg_case(torch, (2, 16, 4096), seed=60)[0]
+    whole, whole_last = rl.rglru(a, b, h0)
+    h1, l1 = rl.rglru(a[:, :9], b[:, :9], h0)
+    h2, l2 = rl.rglru(a[:, 9:], b[:, 9:], l1)
+    torch.cuda.synchronize()
+    ref, _ = rl.rglru_ref(a, b, h0)
+    carry = torch.equal(torch.cat([h1, h2], 1), whole) and torch.equal(l2, whole_last) \
+        and torch.equal(whole, ref)
+    print(f"rg_lru check (2, 9 + 7, 4096) carried state == (2, 16, 4096) one call, "
+          f"bitwise {'ok' if carry else 'FAIL'}", flush=True)
+    check(carry, "rg_lru kernel: a carried state differs from one call")
+    check(not bad, f"rg_lru kernel disagrees with its plain version: {bad}")
+    torch.cuda.empty_cache()
+    return max_err
+
+
+def phase_rg_times(torch, rl):
+    times = {}
+    for shape, reps, plain_reps in (((8, 256, 4096), 20, 3), ((1, 4096, 4096), 5, 1)):
+        sets = rg_case(torch, shape, seed=70, copies=2)
+        kern = device_ms(torch, [lambda s=s: rl.rglru(s[0], s[1], s[2]) for s in sets], reps)
+        plain = device_ms(torch, [lambda s=s: rl.rglru_ref(s[0], s[1], s[2]) for s in sets],
+                          plain_reps)
+        bound = rg_bound_ms(shape)
+        times[shape] = dict(ms=kern, plain_ms=plain, library_ms=None, bound_ms=bound,
+                            bound_by="bytes")
+        print(f"rg_lru time {shape} f32: kernel {kern:.4f} ms, plain {plain:.4f} ms, "
+              f"library n/a (no PyTorch call computes a linear recurrence), bound "
+              f"{bound:.4f} ms (bytes)", flush=True)
+        del sets
+        torch.cuda.empty_cache()
+    return times
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: serving recurrentgemma-9b at full width
+# ---------------------------------------------------------------------------
+def rg_prompts(np, vocab):
+    """10 prompts from numpy seed 0: three of 2305..3000 tokens (so their
+    last chunk of at most 256 starts past the 2048-token window), seven of
+    32..3000."""
+    rng = np.random.default_rng(0)
+    lengths = np.concatenate([rng.integers(2305, 3001, size=3),
+                              rng.integers(32, 3001, size=7)])
+    return [rng.integers(0, vocab, size=int(n)).astype(np.int32) for n in lengths]
+
+
+def phase_rg_serving(torch, np, rl, fa, pa, name, method, **method_kw):
+    from repro_torch.configs.base import apply_method
+    from repro_torch.configs.recurrentgemma_9b import full
+    from repro_torch.models.transformer import model_apply, model_init, row_leaves
+    from repro_torch.nn.module import tree_map
+    from repro_torch.serving import ContinuousBatcher, Request
+    from repro_torch.serving.decode import step_rows_full
+
+    cfg = apply_method(full(), method, **method_kw)
+    t0 = time.perf_counter()
+    params = model_init(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = rg_prompts(np, cfg.vocab_size)
+    b = ContinuousBatcher(params, cfg, batch_size=8, max_len=4096, block_size=16,
+                          token_budget=256, device="cuda")
+    step_fn, per_forward, snapshot = b._step_fn, [], {}
+
+    def observe(params_, cache, tokens, pos, counts, keys, lw, lws):
+        # the prefill sub-step where a row's last chunk starts past the
+        # window: keep its inputs and a copy of the cache it reads, for
+        # the comparisons below, outside the counted run
+        t = tokens.shape[1]
+        if not snapshot and t > 1:
+            c = counts.cpu()
+            for i, s in enumerate(b.slots):
+                st = s.prefill
+                if c[i] > 1 and st is not None and s.pos >= cfg.window and \
+                        st.done + int(c[i]) == len(st.feed):
+                    snapshot.update(cache=tree_map(lambda x: x.clone(), cache), row=i,
+                                    prefix=st.feed[:st.done + int(c[i])].copy(),
+                                    args=(tokens.clone(), pos.clone(), counts.clone(), lw,
+                                          lws.clone()))
+                    break
+        before = rl.launches
+        out = step_fn(params_, cache, tokens, pos, counts, keys, lw, lws)
+        per_forward.append((t, rl.launches - before))
+        return out
+
+    b._step_fn = observe
+    for u, p in enumerate(prompts):
+        b.submit(Request(uid=u, prompt=p, max_new_tokens=32))
+    torch.cuda.reset_peak_memory_stats()
+    rl.launches = fa.launches = pa.launches = 0
+    ticks = 0
+    t0 = time.perf_counter()
+    while b.queue or any(s.req is not None for s in b.slots):
+        b.step()
+        ticks += 1
+        if ticks > 2000:
+            raise RuntimeError(f"{name}: engine did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, other = rl.launches, (fa.launches, pa.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    outs = {r.uid: r.output for r in b.done}
+    n_tokens = sum(len(o) for o in outs.values())
+    multi = sum(1 for t, _ in per_forward if t > 1)
+    print(f"serving rg {name} ({cfg.n_layers} layers): {ticks} ticks, {b.forward_calls} "
+          f"forwards ({multi} of T > 1), {n_tokens} generated tokens in {wall:.3f} s = "
+          f"{n_tokens / wall:.2f} tok/s, peak memory {peak_gb:.2f} GB, weights init "
+          f"{init_s:.2f} s, rg_lru kernel launches {launches}", flush=True)
+    check(len(outs) == 10 and all(len(o) == 32 for o in outs.values()),
+          f"{name}: not every request finished with 32 tokens")
+    check(all(((o >= 0) & (o < cfg.vocab_size)).all() for o in outs.values()),
+          f"{name}: token ids outside the vocabulary")
+    check(not b.failed, f"{name}: failed requests {[r.status for r in b.failed]}")
+    b.audit()
+    check(b.allocator.available == b.num_blocks and (b.tables == -1).all(),
+          f"{name}: block leak")
+    check(len(per_forward) == b.forward_calls and multi > 0,
+          f"{name}: {len(per_forward)} observed forwards, {multi} of T > 1")
+    wrong = [(t, n) for t, n in per_forward if n != (RG_GRIFFIN_LAYERS if t > 1 else 0)]
+    check(not wrong, f"{name}: rg_lru launches per forward (T, launches) off: {wrong[:8]}")
+    check(launches == RG_GRIFFIN_LAYERS * multi,
+          f"{name}: {launches} rg_lru launches for {multi} forwards of T > 1")
+    check(other == (0, 0), f"{name}: flash/paged kernels launched while serving: {other}")
+    check(snapshot, f"{name}: no last chunk past the window was seen")
+
+    # the snapshot sub-step again: with the kernel, and with only the
+    # kernel swapped for its plain version
+    tokens, pos, counts, lw, lws = snapshot["args"]
+    live = torch.arange(tokens.shape[1], device=tokens.device)[None, :] < counts[:, None]
+    logits, real_rglru = {}, rl.rglru
+    with torch.no_grad():
+        for key in ("kernel", "plain"):
+            cache = tree_map(lambda x: x.clone(), snapshot["cache"])
+            if key == "plain":
+                rl.rglru = rl.rglru_ref
+            try:
+                out, _ = step_rows_full(b.params, b.cfg, cache, tokens, pos, counts, lw, lws)
+            finally:
+                rl.rglru = real_rglru
+            logits[key] = out
+            del cache
+    same = torch.equal(logits["kernel"][live], logits["plain"][live])
+    r, prefix = snapshot["row"], snapshot["prefix"]
+    c = int(counts[r])
+    served = logits["kernel"][r, :c, :cfg.vocab_size].float()
+    del logits
+    # the row's whole prefix, cache-free; the clipped engine's reference
+    # holds gamma at the ring's -alpha / 2048
+    ref_cfg = cfg if method != "clipped_softmax" else \
+        apply_method(full(), method, gamma=-method_kw["alpha"] / cfg.window)
+    with torch.no_grad():
+        full_logits, _ = model_apply(params, ref_cfg, {
+            "tokens": torch.as_tensor(prefix, dtype=torch.long, device="cuda")[None]})
+    ref = full_logits[0, -c:, :cfg.vocab_size].float()
+    del full_logits
+    def rel(a):
+        return ((a - ref).square().mean().sqrt() / ref.square().mean().sqrt()).item()
+
+    rel_rms = rel(served)
+    agree = (served.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    print(f"serving rg {name}: prefill sub-step (counts {counts.tolist()}): logits with the "
+          f"rg_lru kernel vs its plain version bitwise equal: {same}; row {r} (last chunk "
+          f"of {c} at positions {int(pos[r])}..{int(pos[r]) + c - 1}, window {cfg.window}) vs "
+          f"cache-free forward over its {len(prefix)}-token prefix: relative RMS "
+          f"{rel_rms:.4f} (tol {RG_LOGIT_REL_RMS}), argmax agreement {agree:.4f}",
+          flush=True)
+    check(same, f"{name}: the rg_lru kernel changed the prefill logits")
+    check(rel_rms <= RG_LOGIT_REL_RMS,
+          f"{name}: served logits differ from the cache-free forward: relative RMS {rel_rms}")
+    faults = {}
+    if method == "clipped_softmax":
+        def leaves(cache, name_):
+            return [leaf for path, leaf, _ in row_leaves(cache) if path[-1] == name_]
+
+        def roll(cache):
+            for k_or_v in ("k", "v"):
+                for leaf in leaves(cache, k_or_v):
+                    leaf.copy_(torch.roll(leaf, 1, dims=-3))
+
+        mutate = {"ring emptied": lambda c: [x.fill_(-1) for x in leaves(c, "pos_ids")],
+                  "h lost": lambda c: [x.zero_() for x in leaves(c, "h")],
+                  "conv lost": lambda c: [x.zero_() for x in leaves(c, "conv")],
+                  "gamma from max_len": None, "ring rolled one slot": roll}
+        for fault in RG_FAULTS:
+            cache = tree_map(lambda x: x.clone(), snapshot["cache"])
+            run_cfg = b.cfg
+            if mutate[fault] is None:
+                run_cfg = apply_method(full(), method, gamma=-method_kw["alpha"] / b.L)
+            else:
+                mutate[fault](cache)
+            with torch.no_grad():
+                out, _ = step_rows_full(b.params, run_cfg, cache, tokens, pos, counts, lw, lws)
+            faults[fault] = rel(out[r, :c, :cfg.vocab_size].float())
+            del cache, out
+        print(f"serving rg {name}: the same row with one fault put in, relative RMS: " +
+              ", ".join(f"{k} {v:.4f}" for k, v in faults.items()), flush=True)
+        held = {k: v for k, v in faults.items() if k != "ring rolled one slot"}
+        check(all(v > RG_LOGIT_REL_RMS for v in held.values()),
+              f"{name}: the logits check cannot tell a fault from a correct read: {held}")
+    del b, params, snapshot, served, ref
+    torch.cuda.empty_cache()
+    return dict(engine=name, layers=cfg.n_layers, ticks=ticks, forwards=len(per_forward),
+                multi_forwards=multi, tokens=n_tokens, wall_s=wall,
+                tok_per_s=n_tokens / wall, peak_gb=peak_gb, launches=launches,
+                logit_rel_rms=rel_rms, argmax_agreement=agree, init_s=init_s,
+                faults=faults)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the paper's evaluation at qwen3-14b full width
 # ---------------------------------------------------------------------------
 def count_fake_quant_sites(torch, cfg):
@@ -1067,6 +1366,7 @@ def main() -> int:
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import int8_matmul as im
         from repro_torch.kernels import paged_attention as pa
+        from repro_torch.kernels import rg_lru as rl
     except ImportError as e:
         print(f"chip_smoke: the port is not importable next to this script "
               f"({e})", file=sys.stderr)
@@ -1098,6 +1398,8 @@ def main() -> int:
     fq_err = phase_fq_checks(torch, fq)
     fq_times = phase_fq_times(torch, fq)
     phase_kv_quant(torch)
+    rg_err = phase_rg_checks(torch, rl)
+    rg_times = phase_rg_times(torch, rl)
 
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     engines = [
@@ -1108,6 +1410,10 @@ def main() -> int:
                       w8a8=True, alpha=4.0),
         phase_serving(torch, np, pa, im, "gated-w8a8-int8kv", "gated_attention", None,
                       w8a8=True)]
+    rg_engines = [
+        phase_rg_serving(torch, np, rl, fa, pa, "vanilla", "vanilla"),
+        phase_rg_serving(torch, np, rl, fa, pa, "clipped", "clipped_softmax", alpha=4.0),
+        phase_rg_serving(torch, np, rl, fa, pa, "gated", "gated_attention")]
     evals = [phase_eval(torch, np, fa, fq, pa, im, "vanilla", "vanilla"),
              phase_eval(torch, np, fa, fq, pa, im, "clipped", "clipped_softmax", alpha=4.0),
              phase_eval(torch, np, fa, fq, pa, im, "gated", "gated_attention")]
@@ -1137,7 +1443,11 @@ def main() -> int:
                     source=KERNEL_SOURCES["fake_quant"],
                     replaces=REPLACES["fake_quant"],
                     launches=sum(e["fake_quant_launches"] for e in evals),
-                    max_abs_err=fq_err, **fq_times[(2048, 17408)])]
+                    max_abs_err=fq_err, **fq_times[(2048, 17408)]),
+               dict(name="rg_lru", route="cuda", source=KERNEL_SOURCES["rg_lru"],
+                    replaces=REPLACES["rg_lru"],
+                    launches=sum(e["launches"] for e in rg_engines),
+                    max_abs_err=rg_err, **rg_times[(8, 256, 4096)])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

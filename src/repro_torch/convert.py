@@ -5,8 +5,9 @@ arrays (``jax.tree_util.tree_map(np.asarray, params)``), into the port's
 nested dicts of tensors. The two packages share one layout, so this is a
 leaf-wise conversion that keeps the structure: the scanned ``groups``
 stack (leading layer-group axis) stays stacked, the unrolled ``layers``
-list stays a list, and ``w_q8``/``w_scale`` leaves convert like any
-other. bfloat16 leaves arrive as ml_dtypes arrays numpy cannot hand to
+list stays a list, an unrolled ``tail`` stays a dict, and Griffin's
+leaves and ``w_q8``/``w_scale`` convert like any other. Every leaf keeps
+its dtype (Griffin's ``lambda`` stays f32 in a bf16 model). bfloat16 leaves arrive as ml_dtypes arrays numpy cannot hand to
 torch directly; they go through float32, which holds them exactly.
 """
 from __future__ import annotations

@@ -1,28 +1,39 @@
 """Decoder transformer over a paged KV cache (port of
-``repro.models.transformer``, all-``attn`` patterns).
+``repro.models.transformer``).
 
 One ``ModelConfig`` — the same fields and defaults as the JAX package's —
 describes the model; the paper's knobs (``softmax_cfg``, ``gate_cfg``)
 apply to every attention block. Params are nested dicts of tensors in the
 JAX layout: scanned configs stack their layer groups along a leading axis
-under ``"groups"``, unrolled ones keep a ``"layers"`` list.
+under ``"groups"``, unrolled ones keep a ``"layers"`` list, and a depth
+the pattern does not divide keeps its last blocks, always unrolled, under
+``"tail"``.
+
+Block kinds: ``attn`` (global attention over a paged pool),
+``local_attn`` (windowed attention over a per-row ring) and ``griffin``
+(the RG-LRU recurrent block, ``repro_torch.nn.recurrent``), in any
+pattern; ``embed_scale`` multiplies the embeddings by sqrt(d_model).
 
 This port covers the serving and evaluation paths: ``model_apply``
 without a cache (the ``attention`` dispatcher: the flash kernel on the
 card), or with a paged cache (``init_paged_cache``), per-row ``pos`` and
 a per-token ``active`` mask, with a ``QuantContext`` whose site names are
 the reference's byte for byte (a block is named by its index inside the
-pattern, ``layer_attn0``, in every group). Dense per-row caches, ring
-(``local_attn``), recurrent and MoE blocks and embeds inputs raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+pattern, ``layer_attn0``, in every group; a tail block ``tail_griffin0``).
+Dense per-row caches, MoE and xLSTM blocks, embeds inputs, learned
+positions and post-norm raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 
-Cache writes update the pools IN PLACE (``aux["cache"]`` is the cache
+Cache writes update the cache IN PLACE (``aux["cache"]`` is the cache
 that was passed in): the paged pool is the largest tensor of a serving
-engine, and copying it every layer of every tick would double it.
+engine, and copying it every layer of every tick would double it. Ring
+KV, ring position ids and recurrent states are per row ("batch-led"),
+updated in place for the rows the ``active`` mask keeps.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -30,6 +41,7 @@ import torch
 from repro_torch.core.attention import (
     AttentionConfig,
     attention,
+    dense_attention,
     paged_attention,
 )
 from repro_torch.core.gating import GateConfig, gate_probs, init_gate
@@ -49,6 +61,11 @@ from repro_torch.nn.layers import (
     rope_angles,
 )
 from repro_torch.nn.mlp import mlp_apply, mlp_init
+from repro_torch.nn.recurrent import (
+    griffin_block_apply,
+    griffin_block_init,
+    griffin_init_state,
+)
 from repro_torch.nn.module import (
     Params,
     split_keys,
@@ -108,7 +125,7 @@ class ModelConfig:
     frontend_dim: Optional[int] = None
     n_prefix_embeds: int = 0
 
-    # sub-configs for non-attention mixers (not ported in this slice)
+    # sub-configs for non-attention mixers (RGLRUConfig; xlstm not ported)
     rglru: Optional[Any] = None
     xlstm: Optional[Any] = None
 
@@ -148,26 +165,31 @@ class ModelConfig:
             chunk_size=self.attn_chunk_size)
 
 
+_KINDS = {"attn", "local_attn", "griffin"}
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse what this slice of the port does not run."""
-    kinds = tuple(cfg.pattern)
-    if any(k != "attn" for k in kinds):
+    """Refuse what the port does not run yet, naming the ROADMAP item
+    (queue 1) that ports it."""
+    kinds = set(cfg.pattern) | set(cfg.tail_pattern)
+    if kinds - _KINDS:
         raise NotImplementedError(
-            f"block kinds {sorted(set(kinds) - {'attn'})} are not ported yet "
-            f"(ROADMAP queue 1, item 9: ring/Griffin/xLSTM)")
+            f"block kinds {sorted(kinds - _KINDS)} are not ported yet "
+            f"(ROADMAP queue 1, item 5.3: nn/xlstm.py)")
+    if "griffin" in kinds and cfg.rglru is None:
+        raise ValueError("griffin blocks need cfg.rglru (an RGLRUConfig)")
     if cfg.moe is not None:
         raise NotImplementedError("MoE blocks are not ported yet "
-                                  "(ROADMAP queue 1, item 9: nn/moe.py)")
-    unported = {"input_kind": cfg.input_kind != "tokens",
-                "pos": cfg.pos == "learned",
-                "norm_position": cfg.norm_position != "pre",
-                "post_block_norm": cfg.post_block_norm,
-                "embed_scale": cfg.embed_scale,
-                "tail_pattern": bool(cfg.tail_pattern)}
-    bad = sorted(k for k, v in unported.items() if v)
+                                  "(ROADMAP queue 1, item 5.2: nn/moe.py)")
+    unported = {"pos": (cfg.pos == "learned", "4"),
+                "norm_position": (cfg.norm_position != "pre", "4"),
+                "input_kind": (cfg.input_kind != "tokens", "5.4"),
+                "post_block_norm": (cfg.post_block_norm, "5.4")}
+    bad = sorted((k, item) for k, (hit, item) in unported.items() if hit)
     if bad:
-        raise NotImplementedError(f"ModelConfig settings {bad} are not ported "
-                                  f"yet (ROADMAP queue 1, item 9)")
+        raise NotImplementedError(
+            "ModelConfig settings not ported yet: " + ", ".join(
+                f"{k} (ROADMAP queue 1, item {item})" for k, item in bad))
 
 
 # ==========================================================================
@@ -225,6 +247,55 @@ def _paged_write(cache: dict, k: torch.Tensor, v: torch.Tensor, targets
         cache["v"][blk, slot] = v[bi, ti].to(cache["v"].dtype)
 
 
+def _ring_targets(tpos: torch.Tensor, act_tok: Optional[torch.Tensor], length: int):
+    """The masked per-row ring write as explicit indices: token (b, j) at
+    position p goes to slot ``p % length`` of row b; padding tokens and
+    dead rows are dropped. Returns (row idx, token idx, slot idx)."""
+    keep = torch.ones_like(tpos, dtype=torch.bool) if act_tok is None else act_tok
+    bi, ti = keep.nonzero(as_tuple=True)
+    return bi, ti, (tpos % length)[bi, ti]
+
+
+def _ring_attention(cache: dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    acfg: AttentionConfig, cfg: ModelConfig, tpos: torch.Tensor,
+                    act_tok: Optional[torch.Tensor], targets,
+                    gate_pi: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per-row ring (``local_attn``) write and read, the reference's
+    ``transformer.py:370-427``. ``tpos`` (B, T) are the tokens' positions.
+    Decode (T == 1) writes first and reads the updated ring: the fresh
+    token never evicts in-window history. A chunk (T > 1) can evict
+    history that its earlier queries still need, so it reads the PRE-write
+    ring concatenated with the fresh chunk (padding tagged -1), and the
+    clipped softmax's gamma is pinned to the ring length, the axis every
+    other ring read resolves it from. The position-id mask picks the
+    in-window, causal, live keys of both."""
+    length = cache["k"].shape[1]
+    t = q.shape[1]
+    bi, ti, slot = targets
+
+    def write():
+        cache["k"][bi, slot] = k[bi, ti].to(cache["k"].dtype)
+        cache["v"][bi, slot] = v[bi, ti].to(cache["v"].dtype)
+        cache["pos_ids"][bi, slot] = tpos[bi, ti].to(cache["pos_ids"].dtype)
+
+    if t == 1:
+        write()
+        kp = cache["pos_ids"].long()[:, None, :]                   # (B, 1, L)
+        k_all, v_all = cache["k"], cache["v"]
+    else:
+        fpos = tpos if act_tok is None else torch.where(act_tok, tpos, -1)
+        kp = torch.cat([cache["pos_ids"].long(), fpos], dim=1)[:, None, :]
+        k_all = torch.cat([cache["k"], k.to(cache["k"].dtype)], dim=1)
+        v_all = torch.cat([cache["v"], v.to(cache["v"].dtype)], dim=1)
+        if not acfg.softmax.is_vanilla:
+            acfg = dataclasses.replace(acfg, softmax=ClippedSoftmaxConfig(
+                gamma=acfg.softmax.resolve_gamma(length), zeta=acfg.softmax.zeta))
+        write()
+    q_pos = tpos[:, :, None]
+    mask = (kp >= 0) & (kp <= q_pos) & (kp > q_pos - cfg.window)   # (B, T, Tk)
+    return dense_attention(q, k_all, v_all, acfg, mask=mask, gate_pi=gate_pi)
+
+
 # ==========================================================================
 # Block init / apply
 # ==========================================================================
@@ -251,21 +322,51 @@ def _attn_block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
+def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
+    if kind in ("attn", "local_attn"):
+        return _attn_block_init(gen, cfg)
+    g1, g2, _ = split_keys(gen, 3)
+    dt, dev = cfg.param_dtype, gen.device
+    return {"ln1": norm_init(cfg.norm, cfg.d_model, dt, dev),
+            "griffin": griffin_block_init(g1, cfg.d_model, cfg.rglru, dt),
+            "ln2": norm_init(cfg.norm, cfg.d_model, dt, dev),
+            "mlp": mlp_init(g2, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dt)}
+
+
+class _Step:
+    """What every block of one forward shares: positions, RoPE, the token
+    mask, its per-row reduction, and the write indices (computed once per
+    forward and cache layout, then reused by every layer)."""
+
+    def __init__(self, cfg: ModelConfig, b: int, t: int, pos, active, device,
+                 paged_live_width, paged_live_widths):
+        self.pos = pos.to(device) if isinstance(pos, torch.Tensor) else pos
+        self.tpos = torch.broadcast_to(_positions(self.pos, t, device), (b, t))
+        self.rope = rope_angles(_positions(self.pos, t, device), cfg.head_dim,
+                                cfg.rope_theta) if cfg.pos == "rope" else None
+        self.act_tok = _token_mask(active, b, t)
+        if self.act_tok is not None:
+            self.act_tok = self.act_tok.to(device)
+        # recurrent states have no per-token write index: a row keeps its
+        # new state if ANY of its tokens is live (the reference's
+        # _row_active); the scheduler feeds recurrent rows uniform steps
+        self.act_row = None if self.act_tok is None else self.act_tok.any(dim=1)
+        self.per_row = isinstance(self.pos, torch.Tensor) and self.pos.ndim >= 1
+        self.live_width = paged_live_width
+        self.live_widths = paged_live_widths
+        self.write_idx: Dict = {}
+
+
 def _attn_block_apply(
-    p: Params, x: torch.Tensor, cfg: ModelConfig,
-    rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
-    cache: Optional[dict], pos, write_idx: Dict,
-    act_tok: Optional[torch.Tensor],
-    ctx: QuantContext, name: str,
-    paged_live_width: Optional[int] = None,
-    paged_live_widths: Optional[torch.Tensor] = None,
+    p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
+    cache: Optional[dict], st: _Step, ctx: QuantContext, name: str,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x_out, attention-layer output): the residual-stream value
     after the attention sub-block, the tensor whose outliers the paper
     measures."""
     b, t, d = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    acfg = cfg.attn_cfg("attn")
+    acfg = cfg.attn_cfg(kind)
 
     h = norm_apply(cfg.norm, p["ln1"], x, ctx, name + "/ln1")
     q = linear_apply(p["q"], h, ctx, name + "/q").reshape(b, t, hq, dh)
@@ -274,9 +375,9 @@ def _attn_block_apply(
     if cfg.qk_norm:
         q = rmsnorm_apply(p["qnorm"], q, ctx=ctx, name=name + "/qnorm")
         k = rmsnorm_apply(p["knorm"], k, ctx=ctx, name=name + "/knorm")
-    if rope is not None:
-        q = apply_rope(q, *rope)
-        k = apply_rope(k, *rope)
+    if st.rope is not None:
+        q = apply_rope(q, *st.rope)
+        k = apply_rope(k, *st.rope)
 
     gate_pi = None
     if cfg.gate_cfg.enabled:
@@ -287,23 +388,33 @@ def _attn_block_apply(
 
     if cache is None:
         attn_out = attention(q, k, v, acfg, q_offset=0, gate_pi=gate_pi)
+    elif "pos_ids" in cache:
+        if not st.per_row:
+            raise NotImplementedError(
+                "a ring (local_attn) cache with a shared scalar pos is the dense "
+                "generate path, not ported yet (ROADMAP queue 1, item 2); pass a "
+                "per-row (B,) pos tensor")
+        key = ("ring", cache["k"].shape[1])
+        if key not in st.write_idx:
+            st.write_idx[key] = _ring_targets(st.tpos, st.act_tok, key[1])
+        attn_out = _ring_attention(cache, q, k, v, acfg, cfg, st.tpos, st.act_tok,
+                                   st.write_idx[key], gate_pi)
     else:
         if "block_table" not in cache:
             raise NotImplementedError(
-                "dense per-row KV caches are not ported yet (ROADMAP: "
-                "generate with the dense cache and paged=False)")
+                "dense per-row KV caches are not ported yet (ROADMAP queue 1, "
+                "item 2: generate with the dense cache and paged=False)")
         nb, bs = cache["k"].shape[0], cache["k"].shape[1]
         table = cache["block_table"]
         key = (table.data_ptr(), tuple(table.shape), table.stride())
-        if key not in write_idx:
-            tpos = torch.broadcast_to(_positions(pos, t, x.device), (b, t))
-            write_idx[key] = _paged_targets(table, tpos, act_tok, nb, bs)
-        _paged_write(cache, k, v, write_idx[key])
+        if key not in st.write_idx:
+            st.write_idx[key] = _paged_targets(table, st.tpos, st.act_tok, nb, bs)
+        _paged_write(cache, k, v, st.write_idx[key])
         scales = {n: cache[n] for n in ("k_scale", "v_scale") if n in cache}
         attn_out = paged_attention(
-            q, cache["k"], cache["v"], table, acfg, q_offset=pos,
-            gate_pi=gate_pi, live_width=paged_live_width,
-            live_widths=paged_live_widths, backend=cfg.paged_backend, **scales)
+            q, cache["k"], cache["v"], table, acfg, q_offset=st.pos,
+            gate_pi=gate_pi, live_width=st.live_width,
+            live_widths=st.live_widths, backend=cfg.paged_backend, **scales)
 
     attn_out = ctx.act(name + "/attn.out", attn_out.reshape(b, t, hq * dh))
     x = x + linear_apply(p["o"], attn_out, ctx, name + "/o")
@@ -312,6 +423,37 @@ def _attn_block_apply(
         h2 = norm_apply(cfg.norm, p["ln2"], x, ctx, name + "/ln2")
         x = x + mlp_apply(p["mlp"], h2, cfg.mlp_kind, ctx, name + "/mlp")
     return x, attn_layer_out
+
+
+def _griffin_block_apply(
+    p: Params, x: torch.Tensor, cfg: ModelConfig, cache: Optional[dict],
+    st: _Step, ctx: QuantContext, name: str,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x_out, mixer output): the residual value after the
+    recurrent sub-block. With a cache, the rows ``st.act_row`` keeps take
+    their new recurrent state (h, conv), in place."""
+    h = norm_apply(cfg.norm, p["ln1"], x, ctx, name + "/ln1")
+    y, new_state = griffin_block_apply(p["griffin"], h, cfg.rglru, cache, ctx,
+                                       name + "/griffin")
+    if cache is not None:
+        for leaf, new in new_state.items():
+            if st.act_row is not None:
+                m = st.act_row.reshape(-1, *([1] * (new.ndim - 1)))
+                new = torch.where(m, new, cache[leaf].to(new.dtype))
+            cache[leaf].copy_(new)
+    x = x + y
+    mix_out = x
+    h2 = norm_apply(cfg.norm, p["ln2"], x, ctx, name + "/ln2")
+    x = x + mlp_apply(p["mlp"], h2, cfg.mlp_kind, ctx, name + "/mlp")
+    return x, mix_out
+
+
+def _block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                 cache: Optional[dict], st: _Step, ctx: QuantContext, name: str
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if kind == "griffin":
+        return _griffin_block_apply(p, x, cfg, cache, st, ctx, name)
+    return _attn_block_apply(p, x, cfg, kind, cache, st, ctx, name)
 
 
 # ==========================================================================
@@ -327,6 +469,22 @@ def _stacked(make, n: int) -> Params:
     for i in range(n):
         tree = first if i == 0 else make(i)
         tree_map(lambda dst, src: dst[i].copy_(src), out, tree)
+    return out
+
+
+def _assemble(cfg: ModelConfig, one) -> Params:
+    """A params-shaped tree of ``one(kind, lead)``: the scanned ``groups``
+    stack (lead = (n_groups,)) or the unrolled ``layers`` list, then the
+    unrolled ``tail``."""
+    out: Params = {}
+    if cfg.scan_layers and cfg.n_groups > 0:
+        out["groups"] = {f"b{i}": one(kind, (cfg.n_groups,))
+                         for i, kind in enumerate(cfg.pattern)}
+    else:
+        out["layers"] = [{f"b{i}": one(kind, ()) for i, kind in enumerate(cfg.pattern)}
+                         for _ in range(cfg.n_groups)]
+    if cfg.tail_pattern:
+        out["tail"] = {f"t{i}": one(kind, ()) for i, kind in enumerate(cfg.tail_pattern)}
     return out
 
 
@@ -348,13 +506,16 @@ def model_init(seed, cfg: ModelConfig, device="cuda") -> Params:
     glen = len(cfg.pattern)
 
     def group(g: int) -> Params:
-        return {f"b{i}": _attn_block_init(keys[g * glen + i], cfg)
-                for i in range(glen)}
+        return {f"b{i}": _block_init(keys[g * glen + i], cfg, kind)
+                for i, kind in enumerate(cfg.pattern)}
 
     if cfg.scan_layers and cfg.n_groups > 0:
         p["groups"] = _stacked(group, cfg.n_groups)
     else:
         p["layers"] = [group(g) for g in range(cfg.n_groups)]
+    if cfg.tail_pattern:
+        p["tail"] = {f"t{i}": _block_init(keys[cfg.n_groups * glen + i], cfg, kind)
+                     for i, kind in enumerate(cfg.tail_pattern)}
     p["final_norm"] = norm_init(cfg.norm, cfg.d_model, dt, gen.device)
     if not cfg.tie_embeddings:
         p["lm_head"] = linear_init(keys[-4], cfg.d_model, cfg.padded_vocab,
@@ -365,12 +526,20 @@ def model_init(seed, cfg: ModelConfig, device="cuda") -> Params:
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
                      num_blocks: int, block_size: int = 16, dtype=None,
                      kv_int8: bool = False, device="cuda") -> Params:
-    """Paged decode state: each attention layer holds a block pool
-    ``k``/``v`` (num_blocks, block_size, Hkv, Dh) shared by all rows plus a
-    per-row ``block_table`` (batch, max_len // block_size) of physical ids
-    (-1 = unallocated). ``kv_int8=True`` stores int8 pools plus per-slot
-    f32 scale vectors ``k_scale``/``v_scale`` (num_blocks, block_size).
-    The layout mirrors the params: scanned configs stack the groups."""
+    """Paged decode state, in the params' layout (scanned configs stack
+    the groups in front, the tail is unrolled):
+
+      * ``attn``: a block pool ``k``/``v`` (num_blocks, block_size, Hkv,
+        Dh) shared by all rows plus a per-row ``block_table`` (batch,
+        max_len // block_size) of physical ids (-1 = unallocated);
+        ``kv_int8=True`` stores int8 pools plus per-slot f32 scale vectors
+        ``k_scale``/``v_scale`` (num_blocks, block_size);
+      * ``local_attn``: a per-row ring ``k``/``v`` (batch, L, Hkv, Dh) of
+        L = min(max_len, window) slots with ``pos_ids`` (batch, L), -1 =
+        empty; it stays in ``dtype`` under ``kv_int8``, as in the
+        reference;
+      * ``griffin``: the recurrent state ``h`` (batch, width) f32 and the
+        conv history ``conv`` (batch, conv_width - 1, width)."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.compute_dtype
@@ -382,9 +551,23 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
             f"gamma = -alpha/T from it")
     hkv, dh = cfg.n_kv_heads, cfg.head_dim
     n_entries = max_len // block_size
-    scanned = cfg.scan_layers and cfg.n_groups > 0
 
-    def one(lead=()) -> Params:
+    def one(kind: str, lead: Tuple[int, ...]) -> Params:
+        if kind == "griffin":
+            state = griffin_init_state(batch, cfg.rglru, dtype, dev)
+            return {k: v.expand(lead + tuple(v.shape)).clone() for k, v in state.items()}
+        if kind == "local_attn":
+            length = min(max_len, cfg.window) if cfg.window else max_len
+            if not cfg.window or length >= cfg.max_seq_len:
+                raise NotImplementedError(
+                    "a local_attn layer without a ring (no window, or a window "
+                    "past max_seq_len) keeps a dense per-row cache, not ported yet "
+                    "(ROADMAP queue 1, item 2)")
+            shape = lead + (batch, length, hkv, dh)
+            return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                    "v": torch.zeros(shape, dtype=dtype, device=dev),
+                    "pos_ids": torch.full(lead + (batch, length), -1,
+                                          dtype=torch.int32, device=dev)}
         pool_dtype = torch.int8 if kv_int8 else dtype
         shape = lead + (num_blocks, block_size, hkv, dh)
         c = {"k": torch.zeros(shape, dtype=pool_dtype, device=dev),
@@ -397,14 +580,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
                                       dtype=torch.float32, device=dev)
         return c
 
-    cache: Params = {}
-    if scanned:
-        cache["groups"] = {f"b{i}": one((cfg.n_groups,))
-                           for i in range(len(cfg.pattern))}
-    else:
-        cache["layers"] = [{f"b{i}": one() for i in range(len(cfg.pattern))}
-                           for _ in range(cfg.n_groups)]
-    return cache
+    return _assemble(cfg, one)
 
 
 def paged_kv_block_bytes(cfg: ModelConfig, block_size: int = 16,
@@ -432,13 +608,32 @@ def paged_entries(cache: Params):
             yield from paged_entries(v)
 
 
+def row_leaves(cache: Params, path: Tuple = ()):
+    """(path, leaf, batch axis) of every batch-led leaf of ``cache``: ring
+    K/V and ``pos_ids``, recurrent ``h``/``conv`` — every leaf outside a
+    paged entry. Scanned caches stack the groups in front, so the batch is
+    axis 1 under ``"groups"``, else 0."""
+    if isinstance(cache, dict):
+        if "block_table" in cache:
+            return
+        items = cache.items()
+    elif isinstance(cache, (list, tuple)):
+        items = enumerate(cache)
+    else:
+        yield path, cache, 1 if path[0] == "groups" else 0
+        return
+    for k, v in items:
+        yield from row_leaves(v, path + (k,))
+
+
 def copy_pool_blocks(cache: Params, src: torch.Tensor, dst: torch.Tensor
                      ) -> Params:
     """Copy physical pool blocks ``src[i] -> dst[i]`` in every paged pool
     of ``cache`` (K/V and, for int8 KV, their scale vectors), in place.
     All sources are gathered before any destination is written, so a
     pair whose source is another pair's destination still copies
-    pre-copy content. Returns ``cache``."""
+    pre-copy content. Batch-led leaves (ring, recurrent state) are left
+    alone. Returns ``cache``."""
     for entry in paged_entries(cache):
         stacked = entry["block_table"].ndim == 3        # scanned: (G, B, W)
         for name in ("k", "v", "k_scale", "v_scale"):
@@ -468,39 +663,32 @@ def model_apply(
 
     ``batch``: {"tokens": (B, T) int}. ``cache``/``pos``: a paged cache
     and the block's start position, a shared int or a per-row (B,)
-    tensor. ``active``: optional per-row (B,) or per-token (B, T) bool
-    mask; masked tokens still compute, but their cache writes are
-    dropped. ``paged_live_width`` bounds the paged read to the first N
-    table entries, ``paged_live_widths`` masks each row's read at its own
-    count. Without a cache the attention is dense and causal. ``ctx``
-    quantizes at the reference's sites ('collect', 'apply') or runs the
-    W8A8 linears ('int8'); ``lm_head`` stays fp through
-    ``QConfig.skip_patterns``. ``aux`` holds "cache" (the same, in-place
-    updated cache) when one is given. As in the reference, the outlier
-    telemetry depends on the layout: a scanned config (``scan_layers``)
-    gives "act_stats", the (n_groups, len(pattern)) max |attention-layer
-    output| (here for cache-free forwards, the ones that read it), and an
-    unrolled one gives "attn_outputs", the per-layer attention-layer
-    outputs, when ``collect_acts`` is set; a scanned config never returns
-    "attn_outputs"."""
+    tensor (ring caches need the per-row form). ``active``: optional
+    per-row (B,) or per-token (B, T) bool mask; masked tokens still
+    compute, but their cache writes are dropped; recurrent blocks keep the
+    new state of a row if any of its tokens is live, so ragged rows are
+    for attention caches only (the scheduler feeds recurrent models
+    uniform steps). ``paged_live_width`` bounds the paged read to the
+    first N table entries, ``paged_live_widths`` masks each row's read at
+    its own count. Without a cache the attention is dense and causal
+    (windowed for ``local_attn``). ``ctx`` quantizes at the reference's
+    sites ('collect', 'apply') or runs the W8A8 linears ('int8');
+    ``lm_head`` stays fp through ``QConfig.skip_patterns``. ``aux`` holds
+    "cache" (the same, in-place updated cache) when one is given. As in
+    the reference, the outlier telemetry depends on the layout: a scanned
+    config (``scan_layers``) gives "act_stats", the (n_groups,
+    len(pattern)) max |block output| of the groups (here for cache-free
+    forwards, the ones that read it), and with ``collect_acts``
+    "attn_outputs" lists the block outputs of the unrolled layers and of
+    the tail (for a scanned config, the tail's only)."""
     check_supported(cfg)
     tokens = batch["tokens"]
     b, t = tokens.shape
     dev = tokens.device
-    x = embedding_apply(params["embed"], tokens, ctx, "embed").to(cfg.compute_dtype)
-    rope = None
-    if cfg.pos == "rope":
-        rope = rope_angles(_positions(pos, t, dev), cfg.head_dim, cfg.rope_theta)
-    if isinstance(pos, torch.Tensor):
-        pos = pos.to(dev)
-    act_tok = _token_mask(active, b, t)
-    if act_tok is not None:
-        act_tok = act_tok.to(dev)
-    write_idx: Dict = {}
-
-    def run(x, p, c, name):
-        return _attn_block_apply(p, x, cfg, rope, c, pos, write_idx, act_tok,
-                                 ctx, name, paged_live_width, paged_live_widths)
+    scale = math.sqrt(cfg.d_model) if cfg.embed_scale else None
+    x = embedding_apply(params["embed"], tokens, ctx, "embed", scale
+                        ).to(cfg.compute_dtype)
+    st = _Step(cfg, b, t, pos, active, dev, paged_live_width, paged_live_widths)
 
     scanned = cfg.scan_layers and cfg.n_groups > 0
     stats, acts = [], []
@@ -513,14 +701,21 @@ def model_apply(
                 else tree_slice(cache["groups"], g)
         gstats = []
         for i, kind in enumerate(cfg.pattern):
-            x, a = run(x, gp[f"b{i}"], None if gc is None else gc[f"b{i}"],
-                       f"layer_{kind}{i}")
+            x, a = _block_apply(gp[f"b{i}"], x, cfg, kind,
+                                None if gc is None else gc[f"b{i}"], st, ctx,
+                                f"layer_{kind}{i}")
             if scanned and cache is None:
                 gstats.append(torch.amax(torch.abs(a)))
             elif not scanned and collect_acts:
                 acts.append(a)
         if gstats:
             stats.append(torch.stack(gstats))
+    for i, kind in enumerate(cfg.tail_pattern):
+        x, a = _block_apply(params["tail"][f"t{i}"], x, cfg, kind,
+                            None if cache is None else cache["tail"][f"t{i}"], st,
+                            ctx, f"tail_{kind}{i}")
+        if collect_acts:
+            acts.append(a)
 
     x = norm_apply(cfg.norm, params["final_norm"], x, ctx, "final_norm")
     if "lm_head" in params:

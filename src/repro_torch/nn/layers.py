@@ -1,5 +1,5 @@
-"""Basic layers: linear, norms, embeddings, rotary embeddings (port of
-``repro.nn.layers``).
+"""Basic layers: linear, norms, embeddings, rotary embeddings and the
+causal depthwise temporal conv (port of ``repro.nn.layers``).
 
 Weights keep the JAX package's layout: a linear's ``w`` is (d_in, d_out)
 and ``y = x @ w``. Norms accumulate in f32 whatever the compute dtype.
@@ -168,3 +168,31 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
         cos = cos[:, :, None, :]
         sin = sin[:, :, None, :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(dt)
+
+
+# --------------------------------------------------------------------------
+# Depthwise causal temporal conv (griffin)
+# --------------------------------------------------------------------------
+def conv1d_init(gen: torch.Generator, d: int, width: int, dtype=torch.float32) -> Params:
+    return {"w": normal_init(gen, (width, d), 1.0 / math.sqrt(width), dtype),
+            "b": torch.zeros((d,), dtype=dtype, device=gen.device)}
+
+
+def conv1d_apply(p: Params, x: torch.Tensor, state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Causal depthwise conv over time in x's dtype. x: (B, T, D);
+    ``state``: the (B, width-1, D) history, cast to x's dtype (zeros when
+    None). Returns (y, new_state)."""
+    w = p["w"]
+    width = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], width - 1, x.shape[-1]), dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
+    t = x.shape[1]
+    y = torch.zeros_like(x)
+    for i in range(width):
+        y = y + xp[:, i:i + t] * w[i].to(x.dtype)
+    y = y + p["b"].to(x.dtype)
+    new_state = xp[:, -(width - 1):] if width > 1 else state
+    return y, new_state

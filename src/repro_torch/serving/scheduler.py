@@ -1,5 +1,5 @@
 """Token-budget continuous-batching scheduler over one fused mixed step
-(port of ``repro.serving.scheduler``, paged all-``attn`` engines).
+(port of ``repro.serving.scheduler``, paged engines).
 
 Every engine tick assembles ONE forward of up to ``token_budget`` tokens:
 decoding rows contribute 1 token each (1 + drafts under speculation),
@@ -28,10 +28,23 @@ ones (``attach_int8_weights``) and runs every q/k/v/o/gate/up/down linear
 of the tick through the ``int8_matmul`` kernel; ``kv_int8`` defaults to
 on with it. Nothing in the tick reads a range back from the device.
 
+Ring (``local_attn``) and recurrent (``griffin``) layers keep per-row
+("batch-led") state beside the shared pools: the ring's K/V and position
+ids, the recurrence's h and conv history. Admission resets a slot's rows
+to a fresh template, and swap preemption carries them to the host and
+back. A recurrence has no per-token write index to mask, so a config
+with recurrent blocks cannot run ragged rows: its tick is a decode
+sub-step (T = 1) followed by a uniform prefill sub-step in which every
+prefilling row takes the same chunk length, fed at its exact length.
+Such configs refuse ``spec=`` and ``prefix_cache=True`` as the reference
+does (a ring or recurrent write cannot be hidden or shared), and run
+``Request(n=k)`` branches as independent requests.
+
 This port refuses, outright and with the ROADMAP item that ports each:
-``paged=False`` (the dense per-row cache), block kinds other than
-``"attn"`` and MoE. Host bookkeeping is numpy; the tick's tensors live on
-``device`` (default ``"cuda"``).
+``paged=False`` (the dense per-row cache), W8A8 (``qconfig=``) on a
+config that is not all-``attn``, and the block kinds and settings
+``check_supported`` refuses. Host bookkeeping is numpy; the tick's
+tensors live on ``device`` (default ``"cuda"``).
 """
 from __future__ import annotations
 
@@ -49,6 +62,7 @@ from repro_torch.models.transformer import (
     init_paged_cache,
     model_apply,
     paged_entries,
+    row_leaves,
 )
 from repro_torch.quant.int8_weights import attach_int8_weights
 from repro_torch.quant.ptq import calibrate
@@ -141,9 +155,12 @@ class PrefillState:
 class SwappedState:
     """Host copy-out of a swap-preempted row: ``pool`` maps each pool
     leaf's path (layer entry index, leaf name) to the victim's blocks in
-    table order. The device blocks are freed at swap-out; swap-in
-    restores them bit-exactly into freshly allocated blocks."""
+    table order, ``row`` each batch-led leaf's path (ring K/V and
+    position ids, recurrent h/conv) to the victim's row. The device
+    blocks are freed at swap-out; swap-in restores both bit-exactly, the
+    blocks into freshly allocated ones."""
     pool: Dict[Tuple, torch.Tensor]
+    row: Dict[Tuple, torch.Tensor]
     n_blocks: int
     pos: int
     generated: List[int]
@@ -294,8 +311,13 @@ class ContinuousBatcher:
         if not paged:
             raise NotImplementedError(
                 "paged=False (the dense per-row cache) is not ported yet "
-                "(ROADMAP: generate with the dense cache and paged=False)")
+                "(ROADMAP queue 1, item 2: generate with the dense cache)")
         check_supported(cfg)
+        kinds = cfg.pattern + cfg.tail_pattern
+        if qconfig is not None and any(k != "attn" for k in kinds):
+            raise NotImplementedError(
+                "W8A8 serving (qconfig=) of ring/Griffin configs is not ported "
+                "yet (ROADMAP queue 1, item 1)")
         self.device = resolve_device(device)
         if kv_int8 is None:
             kv_int8 = qconfig is not None
@@ -361,6 +383,32 @@ class ContinuousBatcher:
         self.cache = init_paged_cache(cfg, batch_size, max_len, self.num_blocks,
                                       block_size, kv_int8=self.kv_int8,
                                       device=self.device)
+        # a fresh batch-1 state: admission resets the slot's batch-led rows
+        # (ring K/V and pos_ids, recurrent h/conv) from it, so the previous
+        # occupant cannot leak into the new request; a 1-block pool, since
+        # its pool leaves are never read
+        self._row_template = dict(
+            (path, leaf) for path, leaf, _ in row_leaves(init_paged_cache(
+                cfg, 1, max_len, 1, block_size, kv_int8=self.kv_int8,
+                device=self.device)))
+        # recurrent states have no per-token write index to mask, so ragged
+        # steps are not expressible: split decode / uniform prefill ticks
+        self._uniform = "griffin" in kinds
+        # sharing rides on the paged attn pools only: ring and recurrent
+        # layers keep per-row state a shared block cannot carry
+        self._can_share = all(k == "attn" for k in kinds)
+        if spec is not None and not self._can_share:
+            raise ValueError(
+                "spec=SpecConfig(...) requires an all-'attn' layer "
+                "pattern: rejected draft writes are only causally "
+                "hidden in a global-attn KV cache — a local_attn "
+                "ring write clobbers in-window history and "
+                "recurrent states have no per-token write to mask")
+        if prefix_cache and not self._can_share:
+            raise ValueError(
+                "prefix_cache=True requires paged=True and an "
+                "all-'attn' layer pattern: ring/recurrent layers keep "
+                "per-row state a shared block cannot carry")
         self.spec = spec
         self._drafter = NGramDrafter(spec) if spec is not None else None
         self._tick_drafts: Dict[int, List[int]] = {}
@@ -372,7 +420,12 @@ class ContinuousBatcher:
         self.cow_copies = 0
         self.shared_admissions = 0
         self.shared_tokens = 0
-        self._chunk_cap = min(prefill_chunk or token_budget, token_budget)
+        # a prefill chunk on a local_attn layer must fit the ring, and its
+        # own writes must not collide inside it
+        ring_cap = min(max_len, cfg.window) \
+            if (any(k == "local_attn" for k in kinds) and cfg.window) \
+            else token_budget
+        self._chunk_cap = min(prefill_chunk or token_budget, token_budget, ring_cap)
         make_step = make_mixed_step if spec is None else make_spec_step
         self._step_fn = make_step(cfg, self._gen, self._qctx)
 
@@ -559,16 +612,24 @@ class ContinuousBatcher:
                 break
 
     def _admissible(self, r: Request) -> bool:
-        """Sampling siblings wait for their leader's prefill."""
+        """Sampling siblings wait for their leader's prefill on engines
+        that can share; elsewhere the branches are independent requests."""
         g = r.group
-        if g is None:
+        if g is None or not self._can_share:
             return True
         return g.ready or r.branch == g.leader
 
+    def _reset_row(self, i: int) -> None:
+        """Reset slot ``i``'s batch-led rows (ring K/V and pos_ids,
+        recurrent h/conv) to the fresh template; pool leaves are shared
+        and left alone (new blocks are written before any causally
+        reachable read)."""
+        for path, leaf, ax in row_leaves(self.cache):
+            src = self._row_template[path]
+            leaf[(slice(None),) * ax + (i,)] = src[(slice(None),) * ax + (0,)]
+
     def _bind_slot(self, i: int, req: Request) -> None:
-        """Fresh (or recompute-resume) admission into slot ``i``. A paged
-        all-attn engine has no batch-led row state to reset: new blocks
-        are written before any causally reachable read."""
+        """Fresh (or recompute-resume) admission into slot ``i``."""
         resume = req.resume_generated
         req.resume_generated = None
         if resume:
@@ -576,6 +637,7 @@ class ContinuousBatcher:
                                    np.asarray(resume[:-1], np.int32)])
         else:
             feed = np.asarray(req.prompt, np.int32)
+        self._reset_row(i)
         key = int(req.seed if req.seed is not None else req.uid)
         self.slots[i] = _Slot(
             req=req, pos=0, generated=[], blocks=[], order=self._order,
@@ -595,8 +657,8 @@ class ContinuousBatcher:
         g = req.group
         blocks: List[int] = []
         start = 0
-        if (g is not None and not resumed and req.branch in g.unshared
-                and g.shared):
+        if (self._can_share and g is not None and not resumed
+                and req.branch in g.unshared and g.shared):
             blocks = list(g.shared)
             start = g.prompt_len - 1
             self.allocator.acquire(blocks)
@@ -635,20 +697,24 @@ class ContinuousBatcher:
 
     def _swap_out(self, i: int) -> SwappedState:
         """Copy slot ``i``'s pool blocks (K/V and int8 scales together) to
-        host memory in table order; the caller releases the blocks."""
+        host memory in table order, and its row of every batch-led leaf;
+        the caller releases the blocks."""
         s = self.slots[i]
         idx = torch.as_tensor(s.blocks, dtype=torch.long, device=self.device)
         pool = {path: leaf.index_select(ax, idx).cpu()
                 for path, leaf, ax in _pool_leaves(self.cache)}
+        row = {path: leaf.select(ax, i).cpu()
+               for path, leaf, ax in row_leaves(self.cache)}
         st = s.prefill
         return SwappedState(
-            pool=pool, n_blocks=len(s.blocks), pos=s.pos,
+            pool=pool, row=row, n_blocks=len(s.blocks), pos=s.pos,
             generated=list(s.generated),
             prefill=None if st is None else PrefillState(
                 feed=st.feed, done=st.done,
                 resume=list(st.resume) if st.resume else None),
             key=s.key,
-            nbytes=sum(a.numel() * a.element_size() for a in pool.values()))
+            nbytes=sum(a.numel() * a.element_size()
+                       for a in (*pool.values(), *row.values())))
 
     def _try_swap_in(self, i: int, j: int) -> Optional[bool]:
         """Restore queued request ``j`` into slot ``i``: True on success,
@@ -667,6 +733,8 @@ class ContinuousBatcher:
         idx = torch.as_tensor(blocks, dtype=torch.long, device=self.device)
         for path, leaf, ax in _pool_leaves(self.cache):
             leaf.index_copy_(ax, idx, sw.pool[path].to(self.device))
+        for path, leaf, ax in row_leaves(self.cache):
+            leaf.select(ax, i).copy_(sw.row[path])
         self.tables[i, :len(blocks)] = blocks
         self.tables[i, len(blocks):] = -1
         self._tables_dirty = True
@@ -773,14 +841,18 @@ class ContinuousBatcher:
                 self._tables_dirty = True
         return max(0, min(n_tokens, len(s.blocks) * self.block_size - s.pos))
 
-    def _plan(self) -> np.ndarray:
-        """Carve this tick's per-row token counts against the budget:
+    def _plan(self, want_decode: bool = True, want_prefill: bool = True,
+              allow_preempt: bool = True) -> np.ndarray:
+        """Carve this sub-step's per-row token counts against the budget:
         decode rows first (1 + drafts), then prefill chunks (earliest
         deadline first, then admission order) within the prefill budget.
-        If the pool is exhausted and NO row can advance, preempt the most
-        recently admitted stalled row and retry (a transient allocator
-        fault stalls the tick instead; a lone row that outgrows the whole
-        pool raises or is shed)."""
+        On a recurrent config every prefilling row takes the same chunk
+        (the shortest remaining prompt, capped), and a row whose blocks
+        cannot grow to it sits the sub-step out. If the pool is exhausted
+        and NO row can advance, preempt the most recently admitted stalled
+        row and retry (a transient allocator fault stalls the tick
+        instead; a lone row that outgrows the whole pool raises or is
+        shed)."""
         while True:
             counts = np.zeros(self.B, np.int32)
             stalled: List[int] = []
@@ -789,7 +861,7 @@ class ContinuousBatcher:
                 else self.token_budget
             self._tick_drafts = {}
             for i, s in enumerate(self.slots):
-                if s.req is None or s.prefill is not None:
+                if not want_decode or s.req is None or s.prefill is not None:
                     continue
                 drafts: List[int] = []
                 if self.spec is not None:
@@ -815,21 +887,34 @@ class ContinuousBatcher:
                 return (d, s.order)
             pre = sorted((i for i, s in enumerate(self.slots)
                           if s.req is not None and s.prefill is not None),
-                         key=edf)
+                         key=edf) if want_prefill else []
+            uniform_c = None
+            if self._uniform and pre:
+                uniform_c = min(min(self.slots[i].prefill.remaining for i in pre),
+                                self._chunk_cap, max(budget, 0), max(pleft, 0))
             for i in pre:
                 if budget <= 0 or pleft <= 0:
                     break
                 s = self.slots[i]
-                c = min(s.prefill.remaining, self._chunk_cap, budget, pleft)
+                if uniform_c is not None:
+                    if uniform_c > min(budget, pleft):
+                        break
+                    c = uniform_c
+                else:
+                    c = min(s.prefill.remaining, self._chunk_cap, budget, pleft)
                 if c > 0:
                     c = self._grow_blocks(i, c)
+                    if uniform_c is not None and 0 < c < uniform_c:
+                        # a short chunk would make the step ragged; the
+                        # recurrent row sits this sub-step out instead
+                        c = 0
                 if c <= 0:
                     stalled.append(i)
                     continue
                 counts[i] = c
                 budget -= c
                 pleft -= c
-            if counts.any() or not stalled or self._alloc_fault:
+            if counts.any() or not stalled or not allow_preempt or self._alloc_fault:
                 return counts
             if sum(s.req is not None for s in self.slots) == 1:
                 if self._drop_group_shares():
@@ -889,15 +974,20 @@ class ContinuousBatcher:
                 if old.ndim == 3 else table
         self._tables_dirty = False
 
-    def _substep(self) -> int:
+    def _substep(self, want_decode: bool = True, want_prefill: bool = True,
+                 allow_preempt: bool = True) -> int:
         """Plan, assemble and run ONE fused forward; apply its results to
         the slots. Returns the number of rows that advanced."""
-        counts = self._plan()
+        counts = self._plan(want_decode, want_prefill, allow_preempt)
         run = np.flatnonzero(counts)
         if run.size == 0:
             return 0
         self.last_counts = counts.copy()
-        t_step = _bucket(int(counts.max()))
+        # recurrent rows would feed a padding tail into their recurrence
+        # (no per-token write index to mask): uniform steps run at the
+        # exact chunk length
+        # repro: ignore[R002] uniform recurrent rows need the exact chunk length
+        t_step = int(counts.max()) if self._uniform else _bucket(int(counts.max()))
         tokens = np.zeros((self.B, t_step), np.int64)
         pos = np.zeros((self.B,), np.int64)
         final = {}
@@ -995,7 +1085,8 @@ class ContinuousBatcher:
                 self.prefix_cache.insert(prompt[:n_full * self.block_size],
                                          s.blocks[:n_full])
         g = req.group
-        if g is not None and not g.ready and req.branch == g.leader:
+        if (g is not None and self._can_share and not g.ready
+                and req.branch == g.leader):
             g.ready = True
             if g.unshared:
                 shared = s.blocks[:self._blocks_for(plen)]
@@ -1115,8 +1206,9 @@ class ContinuousBatcher:
                 f"but queued swaps sum to {swap_bytes}")
 
     def step(self, now: Optional[float] = None) -> int:
-        """One tick: enforce SLOs, retire, admit, run the fused step,
-        retire again. ``now`` is the caller's clock (default: a tick
+        """One tick: enforce SLOs, retire, admit, run the fused step (or
+        the split decode / uniform prefill sub-steps of a recurrent
+        config), retire again. ``now`` is the caller's clock (default: a tick
         counter). Returns the number of rows advanced."""
         now = self.now + 1.0 if now is None else float(now)
         dt = now - self.now
@@ -1130,7 +1222,16 @@ class ContinuousBatcher:
         self._retire()
         self._enforce_slos()
         self._admit()
-        n = self._substep()
+        if self._uniform:
+            # recurrent configs: a decode sub-step, then a uniform prefill
+            # sub-step; each may preempt only when the other cannot advance
+            has_pre = any(s.req is not None and s.prefill is not None
+                          for s in self.slots)
+            n = self._substep(want_prefill=False, allow_preempt=not has_pre)
+            if has_pre:
+                n += self._substep(want_decode=False, allow_preempt=(n == 0))
+        else:
+            n = self._substep()
         self._retire()
         self._prev_advanced = n > 0
         if self._alloc_fault and n == 0:

@@ -47,7 +47,9 @@ def test_serving_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch.serving.scheduler, repro_torch.convert, "
             "repro_torch.configs.qwen3_14b, repro_torch.train, repro_torch.quant.ptq, "
             "repro_torch.data, repro_torch.core.outliers, repro_torch.optim, "
-            "repro_torch.kernels.flash_attention, repro_torch.kernels.fake_quant; "
+            "repro_torch.kernels.flash_attention, repro_torch.kernels.fake_quant, "
+            "repro_torch.kernels.rg_lru, repro_torch.nn.recurrent, "
+            "repro_torch.configs.recurrentgemma_9b; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "print(bad)")
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -233,7 +233,7 @@ def test_refuses_what_this_slice_does_not_port(models):
     _, _, tc, tp = models["vanilla"]
     cases = [
         (dict(paged=False), tc),
-        ({}, dataclasses.replace(tc, pattern=("attn", "local_attn"), window=8)),
+        ({}, dataclasses.replace(tc, pattern=("attn", "mlstm"))),
         ({}, dataclasses.replace(tc, moe=object())),
         ({}, dataclasses.replace(tc, pos="learned")),
         ({}, dataclasses.replace(tc, post_block_norm=True)),
