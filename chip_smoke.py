@@ -8,7 +8,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   1. Card: name and power limit, as ``nvidia-smi`` gives them.
   2. Build: every CUDA kernel of the port is compiled by ``nvcc``
      from ``src/repro_torch/csrc`` (one ``nvcc`` per source, started
-     together) into ``src/repro_torch/_build``.
+     together) into ``src/repro_torch/_build``; the run fails if ptxas
+     reports spill stores in an attention instantiation that bf16 data at
+     Dh 128 runs.
   3. Kernel against plain version, at qwen3-14b's attention shapes (Hkv 8,
      G 5, Dh 128, block 16; 8 rows at ragged positions up to 1024 with
      scrambled tables and -1 tails): decode Tq = 1 and a prefill chunk
@@ -20,7 +22,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      K/V: a yardstick the port never calls), beside the bound (bytes of
      K/V visited / 3.35 TB/s, or flops / 989 TFLOP/s, the larger).
      A float32 query over a bfloat16 pool (the W8A8 tick without int8 KV)
-     is held at the float32 tolerance.
+     is held at the float32 tolerance. Further reads reach every route
+     (bf16 tensor cores for Tq*G > 16, CUDA cores, split-KV for Tq*G <=
+     16): decode rows of live lengths 1, 17, 255 and 1024 (across the
+     split chunks), a row whose table is all -1 (exact zeros), window and
+     softcap at Tq 1 and 128, int8 pools at both; each line names the
+     route and the number of KV splits. The tensor-core prefill read (Tq
+     128, bf16 q; vanilla, clipped and gated over bf16 and int8 pools) is
+     also held against the plain version (P in f32) within
+     PAGED_TC_REL_RMS, and the plain version with P rounded to bf16 (the
+     control: a kernel that dropped P's lo half) must land above it.
   3b. The W8A8 kernel against its plain version at the main path's
      (M, K, N): decode M = 8 and the padded mixed tick M = 2048 over
      qwen3-14b's projections, and two ragged shapes; static and dynamic
@@ -35,9 +46,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      evaluation's length) and 4096 (where the reference's CPU route turns
      to chunked attention): vanilla, clipped (alpha 4, gamma = -4/T),
      gated, clipped+gated; float32 at atol 3e-5 (the reference kernel's
-     own) and bfloat16 at atol 2e-2; then a small float32 set with a
-     window, a softcap, q_offset > 0 (scalar and per row), no causal mask
-     and Dh 64/256. Then device times at (1, 2048) bf16 of the kernel, its
+     own) and bfloat16 at atol 2e-2; then a small set, in float32 and in
+     bfloat16, with a window, a softcap, q_offset > 0 (scalar and per
+     row), no causal mask and Dh 64/256, and a ragged T 1000 in bfloat16;
+     each line names the route (bf16 Dh 64/128: tensor cores). Then device times at (1, 2048) bf16 of the kernel, its
      plain version and ``F.scaled_dot_product_attention(is_causal=True,
      enable_gqa=True)`` (vanilla only; a yardstick the port never calls),
      beside the bound (flops of the causally visible pairs / 989 TFLOP/s,
@@ -96,7 +108,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (sites counted on the CPU at a tiny width); in one FP forward each
      layer's flash output must agree with the kernel's plain version
      (``mha_flash_ref``, P in f32) on the same inputs within
-     FLASH_LAYER_REL_RMS, and its logits with the same forward through
+     FLASH_LAYER_REL_RMS (and, in some layer, that plain version with P
+     rounded to bf16 must land above it), and its logits with the same
+     forward through
      that plain version within FLASH_VS_OWN_PLAIN_REL_RMS and through the
      model's plain attention (``dense_attention``, P rounded to bf16)
      within LOGIT_REL_RMS, and
@@ -130,6 +144,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -189,19 +204,37 @@ FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 # The evaluation forward's attention, held in two ways against the kernel's
 # own plain version (mha_flash_ref: q scaled in bf16, P in f32, as the
 # kernel). Per layer, on the same inputs: the two round the same f32 values
-# (up to the order of f32 sums) to bf16, so only the rare element lying at
-# a bf16 rounding edge differs, by one ulp. Measured on an H100 80GB HBM3
-# at 700 W: a layer's relative RMS at most 5.77e-5 (gated), 5.67e-5
-# (vanilla), 2.39e-5 (clipped); bounded at 5e-4, about 9x the largest. A
-# wrong mask, gamma or scale moves a layer by percents. End to end, the
-# logits of a forward with the plain version in the kernel's place: 40
-# random bf16 layers amplify those rare one-ulp differences about as much
-# as the bf16 P of dense_attention does (relative RMS 0.0123 vanilla,
-# 0.0356 clipped, 0.0212 gated, against 0.0131, 0.0479, 0.0245 for
-# dense_attention; same card), so that bound cannot sit far below
-# LOGIT_REL_RMS, and the per-layer bound is the tight one.
+# (up to the order of f32 sums, and P carried as a hi/lo pair of bf16
+# operands on the tensor-core route) to bf16, so only the rare element
+# lying at a bf16 rounding edge differs, by one ulp. Measured on an H100
+# 80GB HBM3 at 700 W with the tensor-core route: a layer's relative RMS at
+# most 1.261e-4 (vanilla), 9.160e-5 (clipped), 1.296e-4 (gated); bounded
+# at 5e-4, about 3.9x the largest. The same plain version with P rounded
+# to bf16 (what a kernel feeding P to the tensor cores as one bf16
+# operand would compute) is read beside it in every layer and must exceed
+# the bound in some layer of each model, so the check tells the two
+# apart: on the same card it read 6.280e-4..2.535e-3 (vanilla),
+# 1.082e-3..2.545e-3 (clipped), 7.066e-4..2.559e-3 (gated), every layer
+# above the bound. A wrong mask, gamma or scale moves a layer by
+# percents. End to end, the logits of a forward with the plain version in
+# the kernel's place: 40 random bf16 layers amplify those rare one-ulp
+# differences about as much as the bf16 P of dense_attention does
+# (relative RMS 0.0124 vanilla, 0.0393 clipped, 0.0221 gated, against
+# 0.0131, 0.0479, 0.0245 for dense_attention; same card), so that bound
+# cannot sit far below LOGIT_REL_RMS, and the per-layer bound is the
+# tight one.
 FLASH_LAYER_REL_RMS = 5e-4
 FLASH_VS_OWN_PLAIN_REL_RMS = 0.05
+# The paged tensor-core prefill read (Tq 128, bf16 q, bf16 or int8 pool)
+# against paged_flash_attention_ref (P in f32) on the same inputs: as for
+# the flash kernel, only elements at a bf16 rounding edge may differ. The
+# plain version with P rounded to bf16 is the control that must land
+# above the bound in every case (the gather path of phase 4 rounds P to
+# bf16 itself, and the bf16 tolerance 2e-2 would pass either). Measured
+# on an H100 80GB HBM3 at 700 W over vanilla, clipped and gated, bf16 and
+# int8 pools: the kernel 8.798e-5..1.010e-4, the control 2.278e-3..2.609e-3;
+# the bound sits 5x above the one and 4.5x below the other.
+PAGED_TC_REL_RMS = 5e-4
 EVAL_SEQ, EVAL_BATCHES, CALIB_BATCHES = 2048, 2, 4
 # (B, T, D) of the RG-LRU checks: the serving prefill step, a long
 # one-shot, a ragged D, and decode-sized T 1
@@ -228,10 +261,69 @@ RG_FAULTS = ("ring emptied", "h lost", "conv lost", "gamma from max_len",
 RG_GRIFFIN_LAYERS = 26             # 12 groups x 2 griffin blocks + the 2-block tail
 
 
+def ptxas_report(log: str):
+    """(entry function, registers, spill-store bytes) of each kernel in
+    one build's ``ptxas -v`` output."""
+    out, name, spills = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spills = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spills = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1)), spills))
+            name = None
+    return out
+
+
+def bf16_dh128(name: str) -> bool:
+    """Is this (mangled) attention kernel an instantiation that bf16 data
+    at Dh 128 runs? Flash: the tensor-core kernel at Dh 128; paged: the
+    tensor-core kernel at Dh 128 (bf16 q over bf16 or int8 pools) and the
+    CUDA-core kernel for Dh <= 128 (one column per thread) with bf16 q or
+    pool."""
+    if "flash_kernel_tc" in name or "paged_attn_tc" in name:
+        return "Li128E" in name
+    if "paged_attn_cc" in name:
+        return "__nv_bfloat16" in name and re.search(r"Lb[01]ELi1ELi", name) is not None
+    return False
+
+
 def check(ok, msg: str) -> None:
     """A failed check ends the run (explicit, so it also holds under -O)."""
     if not ok:
         raise AssertionError(msg)
+
+
+def rel_rms(a, b) -> float:
+    """RMS of a - b relative to the RMS of b, in f32."""
+    a, b = a.float(), b.float()
+    return ((a - b).square().mean().sqrt() / b.square().mean().sqrt()).item()
+
+
+def bf16_p(torch):
+    """A mode under which the plain versions round P to bf16 before P.V:
+    what a kernel would compute that handed P to the tensor cores as one
+    bf16 operand, the control a check of P's precision must tell from a
+    sound kernel. It rounds the first operand of the plain versions' P.V
+    products (``attention_ref``'s "bqk,bkd->bqd" einsum and
+    ``paged_flash_attention_ref``'s matmul); their QK products are
+    einsums of other equations and pass through."""
+    from torch.overrides import TorchFunctionMode
+
+    class Bf16P(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.einsum and args[0] == "bqk,bkd->bqd":
+                args = (args[0], args[1].bfloat16().float(), *args[2:])
+            elif func in (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__):
+                args = (args[0].bfloat16().float(), *args[1:])
+            return func(*args, **(kwargs or {}))
+
+    return Bf16P()
 
 
 def nvidia_smi() -> str:
@@ -245,23 +337,30 @@ def nvidia_smi() -> str:
 # phase 3: the paged-attention kernel against its plain version
 # ---------------------------------------------------------------------------
 def attention_case(torch, tq, dtype, variant, seed, b=8, hkv=8, g=5, dh=128,
-                   bs=16, max_len=1024, copies=1, q_dtype=None):
+                   bs=16, max_len=1024, copies=1, q_dtype=None, lengths=None,
+                   dead_rows=(), **kw):
     """Inputs at qwen3-14b's shapes: rows at ragged positions up to
     max_len, scrambled prefix-dense tables with -1 tails. ``copies``
     independent pool sets let a timing loop find its K/V cold in L2.
-    ``q_dtype`` (default: ``dtype``) lets f32 queries read a bf16 pool."""
+    ``q_dtype`` (default: ``dtype``) lets f32 queries read a bf16 pool.
+    ``lengths`` sets each row's live length (its last query's position
+    + 1) instead; rows in ``dead_rows`` have tables of -1 only; ``kw``
+    (window, softcap) goes to the read."""
     gen = torch.Generator().manual_seed(seed)
     w = max_len // bs
     nb = b * w + 8
     pos = torch.randint(0, max_len - tq + 1, (b,), generator=gen, dtype=torch.int32)
+    if lengths is not None:
+        pos = torch.tensor([n - tq for n in lengths], dtype=torch.int32)
     table = torch.full((b, w), -1, dtype=torch.int32)
     perm = torch.randperm(nb, generator=gen).to(torch.int32)
     nxt = 0
     for i in range(b):
         need = -(-(int(pos[i]) + tq) // bs)
-        table[i, :need] = perm[nxt:nxt + need]
+        if i not in dead_rows:
+            table[i, :need] = perm[nxt:nxt + need]
         nxt += need
-    int8 = variant == "int8"
+    int8 = variant == "int8" or dtype == torch.int8
     sets = []
     for _ in range(copies):
         if int8:
@@ -279,21 +378,29 @@ def attention_case(torch, tq, dtype, variant, seed, b=8, hkv=8, g=5, dh=128,
         if variant == "gated" else None
     gamma = -4.0 / max_len if variant == "clipped" else 0.0   # alpha 4, logical length
     return dict(q=q, sets=sets, table=table.cuda(), pos=pos.cuda(), gate=gate,
-                gamma=gamma, group=g, bs=bs)
+                gamma=gamma, group=g, bs=bs, kw=kw)
 
 
 def run_kernel(pa, c, k=0):
     kp, vp, ks, vs = c["sets"][k]
     return pa.paged_flash_attention(c["q"], kp, vp, c["table"], c["pos"], c["gate"],
                                     group=c["group"], gamma=c["gamma"],
-                                    k_scale=ks, v_scale=vs)
+                                    k_scale=ks, v_scale=vs, **c["kw"])
 
 
 def run_plain(pa, c, k=0):
     kp, vp, ks, vs = c["sets"][k]
     return pa.paged_flash_attention_ref(c["q"], kp, vp, c["table"], c["pos"], c["gate"],
                                         group=c["group"], gamma=c["gamma"],
-                                        k_scale=ks, v_scale=vs)
+                                        k_scale=ks, v_scale=vs, **c["kw"])
+
+
+def paged_route(pa, c):
+    """The route and split count the wrapper takes for case c."""
+    q, kp = c["q"], c["sets"][0][0]
+    b, hkv, tqg, dh = q.shape
+    return pa.plan(q.dtype, kp.dtype, b, hkv, tqg, dh, c["table"].shape[1] * c["bs"],
+                   pa.sm_count(q.device))
 
 
 def library_inputs(torch, c, k=0):
@@ -361,38 +468,95 @@ def attention_bound_ms(c, elem_bytes):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# Phase 3's added reads: (name, Tq, variant, q dtype, pool dtype, extra
+# arguments of attention_case). Decode rows whose live lengths cross the
+# split-KV chunk boundaries (1, 17, 255 and 1024 tokens), a row whose
+# table is all -1 (its output must be exact zeros), window and softcap at
+# decode and at a prefill chunk (the split and the tensor-core routes),
+# and int8 pools at both.
+LIVE = [1, 17, 255, 1024, 1024, 255, 17, 1]
+PAGED_EXTRA = [
+    ("lengths", 1, "vanilla", "bfloat16", "bfloat16", dict(lengths=LIVE)),
+    ("lengths", 1, "clipped", "bfloat16", "bfloat16", dict(lengths=LIVE)),
+    ("lengths", 1, "gated", "float32", "float32", dict(lengths=LIVE)),
+    ("lengths", 1, "clipped", "float32", "bfloat16", dict(lengths=LIVE)),
+    ("lengths", 1, "int8", "bfloat16", "int8", dict(lengths=LIVE)),
+    ("lengths", 1, "int8", "float32", "int8", dict(lengths=LIVE)),
+    ("dead row", 1, "vanilla", "bfloat16", "bfloat16", dict(lengths=LIVE, dead_rows=(3,))),
+    ("dead row", 1, "clipped", "float32", "float32", dict(lengths=LIVE, dead_rows=(3,))),
+    ("dead row", 128, "vanilla", "bfloat16", "bfloat16", dict(dead_rows=(3,))),
+    ("dead row", 128, "clipped", "bfloat16", "int8", dict(dead_rows=(3,))),
+    ("window", 1, "vanilla", "bfloat16", "bfloat16", dict(lengths=LIVE, window=100)),
+    ("window", 1, "clipped", "float32", "float32", dict(window=100)),
+    ("window", 128, "vanilla", "bfloat16", "bfloat16", dict(window=100)),
+    ("window", 128, "clipped", "bfloat16", "int8", dict(window=100)),
+    ("softcap", 1, "clipped", "bfloat16", "bfloat16", dict(softcap=30.0)),
+    ("softcap", 1, "gated", "float32", "bfloat16", dict(softcap=30.0)),
+    ("softcap", 128, "clipped", "bfloat16", "bfloat16", dict(softcap=30.0)),
+    ("softcap", 128, "gated", "bfloat16", "int8", dict(softcap=30.0)),
+]
+
+
 def phase_kernel_checks(torch, pa):
     max_err = 0.0
     bad = []
     # (q dtype, pool dtype): matching pairs, and f32 queries over a bf16
     # pool, which compute in f32 and are held at the f32 tolerance
-    pairs = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-             (torch.float32, torch.bfloat16))
-    for tq in (1, 128):
-        for variant in ("vanilla", "clipped", "gated", "int8"):
-            for q_dtype, dtype in pairs:
-                if variant == "int8" and q_dtype != dtype:
-                    continue                   # int8 pools take either q
-                c = attention_case(torch, tq, dtype, variant, seed=tq + len(variant),
-                                   q_dtype=q_dtype)
-                out = run_kernel(pa, c)
-                torch.cuda.synchronize()
-                ref = run_plain(pa, c)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                name = str(q_dtype).replace("torch.", "")
-                if q_dtype != dtype:
-                    name += "/" + str(dtype).replace("torch.", "") + "-pool"
-                tol = TOL[str(q_dtype).replace("torch.", "")]
-                ok = err <= tol and bool(torch.isfinite(out).all())
-                max_err = max(max_err, err)
-                print(f"kernel check tq={tq:<3} {variant:<7} {name:<19} "
-                      f"max_abs_err={err:.3e} tol={tol:.0e} {'ok' if ok else 'FAIL'}",
-                      flush=True)
-                if not ok:
-                    bad.append((tq, variant, name, err))
+    pairs = (("float32", "float32"), ("bfloat16", "bfloat16"), ("float32", "bfloat16"))
+    cases = [("", tq, variant, q_dtype, dtype, {}) for tq in (1, 128)
+             for variant in ("vanilla", "clipped", "gated", "int8")
+             for q_dtype, dtype in pairs
+             if variant != "int8" or q_dtype == dtype]   # int8 pools take either q
+    cases += PAGED_EXTRA
+    for i, (label, tq, variant, q_dtype, dtype, extra) in enumerate(cases):
+        c = attention_case(torch, tq, getattr(torch, dtype), variant,
+                           seed=tq + len(variant) + (100 + i if label else 0),
+                           q_dtype=getattr(torch, q_dtype), **extra)
+        out = run_kernel(pa, c)
+        torch.cuda.synchronize()
+        ref = run_plain(pa, c)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        name = q_dtype if q_dtype == dtype or variant == "int8" else \
+            f"{q_dtype}/{dtype}-pool"
+        tol = TOL[q_dtype]
+        ok = err <= tol and bool(torch.isfinite(out).all())
+        for r in extra.get("dead_rows", ()):   # nothing live: exact zeros
+            ok = ok and not bool(out[r].any())
+        max_err = max(max_err, err)
+        route, splits = paged_route(pa, c)
+        what = [f"live lengths {v}" if k == "lengths" else f"{k}={v}" for k, v in extra.items()]
+        print(f"kernel check tq={tq:<3} {variant:<7} {name:<19} {label + ': ' if label else ''}"
+              f"{''.join(w + ' ' for w in what)}route={route} splits={splits} "
+              f"max_abs_err={err:.3e} tol={tol:.0e} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            bad.append((tq, variant, name, label, err))
     check(not bad, f"paged_attention kernel disagrees with its plain version: {bad}")
     return max_err
+
+
+def phase_paged_tc_precision(torch, pa):
+    """The tensor-core prefill read held tightly against its plain version
+    (P in f32), beside the bf16-P control."""
+    bad = []
+    for i, (pool, variant) in enumerate((p, v) for p in ("bfloat16", "int8")
+                                        for v in ("vanilla", "clipped", "gated")):
+        c = attention_case(torch, 128, getattr(torch, pool), variant, seed=300 + i,
+                           q_dtype=torch.bfloat16)
+        route, _ = paged_route(pa, c)
+        out = run_kernel(pa, c)
+        ref = run_plain(pa, c)
+        with bf16_p(torch):
+            control = rel_rms(run_plain(pa, c), ref)
+        sound = rel_rms(out, ref)
+        ok = route == "tensor-core" and sound <= PAGED_TC_REL_RMS < control
+        print(f"paged P precision tq=128 {variant:<7} {pool:<8} pool route={route}: kernel vs "
+              f"plain relative RMS {sound:.3e}, plain with bf16 P {control:.3e} (bound "
+              f"{PAGED_TC_REL_RMS:.0e}: kernel at or below, control above) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            bad.append((variant, pool, route, sound, control))
+    check(not bad, f"paged tensor-core read: P's precision not told apart: {bad}")
 
 
 def phase_kernel_times(torch, pa):
@@ -556,17 +720,23 @@ def phase_flash_checks(torch, fa):
     cases = [(t, dtype, variant, {}) for t in (2048, 4096)
              for dtype in (torch.float32, torch.bfloat16)
              for variant in ("vanilla", "clipped", "gated", "clipped+gated")]
-    # the paths the evaluation does not take, small and in f32: window,
-    # softcap (with the clipped softmax), scalar and per-row q_offset with
-    # Tq < Tk, no causal mask, the other head dims
+    # the paths the evaluation does not take, small, in f32 and in bf16:
+    # window, softcap (with the clipped softmax), scalar and per-row
+    # q_offset with Tq < Tk, no causal mask, the other head dims; and a
+    # ragged T 1000 in bf16 (a last query block of 104 rows, a last key
+    # tile of 40)
     small = dict(b=2, hq=8, hkv=2)
-    cases += [(256, torch.float32, "vanilla", dict(small, window=100)),
-              (256, torch.float32, "clipped", dict(small, softcap=30.0)),
-              (256, torch.float32, "gated", dict(small, tk=384, q_offset=128)),
-              (256, torch.float32, "clipped", dict(small, tk=384, q_offset="rows")),
-              (256, torch.float32, "vanilla", dict(small, tk=320, causal=False)),
-              (256, torch.float32, "clipped+gated", dict(small, dh=64)),
-              (200, torch.float32, "vanilla", dict(small, dh=256, window=64))]
+    cases += [(t, dtype, variant, extra) for dtype in (torch.float32, torch.bfloat16)
+              for t, variant, extra in (
+                  (256, "vanilla", dict(small, window=100)),
+                  (256, "clipped", dict(small, softcap=30.0)),
+                  (256, "gated", dict(small, tk=384, q_offset=128)),
+                  (256, "clipped", dict(small, tk=384, q_offset="rows")),
+                  (256, "vanilla", dict(small, tk=320, causal=False)),
+                  (256, "clipped+gated", dict(small, dh=64)),
+                  (200, "vanilla", dict(small, dh=256, window=64)))]
+    cases += [(1000, torch.bfloat16, "vanilla", dict(small)),
+              (1000, torch.bfloat16, "clipped+gated", dict(small, window=300))]
     for i, (t, dtype, variant, extra) in enumerate(cases):
         extra = dict(extra)
         shape = {k: extra.pop(k) for k in ("b", "hq", "hkv", "dh", "tk") if k in extra}
@@ -585,7 +755,8 @@ def phase_flash_checks(torch, fa):
         max_err = max(max_err, err)
         desc = f"q {tuple(c['q'].shape)} kv {tuple(k.shape)} {variant} {name}" + \
             "".join(f" {key}={val if not hasattr(val, 'tolist') else val.tolist()}"
-                    for key, val in extra.items())
+                    for key, val in extra.items()) + \
+            f" route={fa.route(dtype, c['q'].shape[-1])}"
         print(f"flash check {desc}: max_abs_err={err:.3e} tol={FLASH_TOL[name]:.0e} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
@@ -1273,16 +1444,16 @@ def phase_eval(torch, np, fa, fq, pa, im, name, method, **method_kw):
     check(launches["paged"] == 0 and launches["int8"] == 0,
           f"{name}: serving kernels launched during evaluation: {launches}")
 
-    def rel_rms_of(a, b):
-        a, b = a.float(), b.float()
-        return ((a - b).square().mean().sqrt() / b.square().mean().sqrt()).item()
-
-    real_mha_flash, layer_rms = fa.mha_flash, []
+    real_mha_flash, layer_rms, layer_control = fa.mha_flash, [], []
 
     def held(q, k, v, gate_pi=None, **kw):
-        """The kernel, held against its plain version on the same inputs."""
+        """The kernel, held against its plain version on the same inputs,
+        beside the plain version with P rounded to bf16."""
         out = real_mha_flash(q, k, v, gate_pi, **kw)
-        layer_rms.append(rel_rms_of(out, fa.mha_flash_ref(q, k, v, gate_pi, **kw)))
+        ref = fa.mha_flash_ref(q, k, v, gate_pi, **kw)
+        layer_rms.append(rel_rms(out, ref))
+        with bf16_p(torch):
+            layer_control.append(rel_rms(fa.mha_flash_ref(q, k, v, gate_pi, **kw), ref))
         return out
 
     batch = held_out[0]
@@ -1298,7 +1469,7 @@ def phase_eval(torch, np, fa, fq, pa, im, name, method, **method_kw):
             own = apply_fn(params, batch, NO_QUANT)
         finally:
             fa.mha_flash = real_mha_flash
-        own_rms = rel_rms_of(kern, own)
+        own_rms = rel_rms(kern, own)
         own_agree = (kern.argmax(-1) == own.argmax(-1)).float().mean().item()
         del own
         real_attention = transformer.attention
@@ -1308,7 +1479,7 @@ def phase_eval(torch, np, fa, fq, pa, im, name, method, **method_kw):
             plain = apply_fn(params, batch, NO_QUANT)
         finally:
             transformer.attention = real_attention
-        rel_rms = rel_rms_of(kern, plain)
+        logit_rms = rel_rms(kern, plain)
         agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
         del kern, plain
         # one W8A8 forward with only the fake-quant kernel swapped for its
@@ -1325,19 +1496,24 @@ def phase_eval(torch, np, fa, fq, pa, im, name, method, **method_kw):
     print(f"eval {name}: attention per layer, flash kernel vs its plain version on the "
           f"same inputs: relative RMS max {max(layer_rms):.3e}, mean "
           f"{sum(layer_rms) / len(layer_rms):.3e} over {len(layer_rms)} layers (tol "
-          f"{FLASH_LAYER_REL_RMS:.3e}); FP logits, flash kernel vs its plain version: "
+          f"{FLASH_LAYER_REL_RMS:.3e}); the plain version with bf16 P: relative RMS max "
+          f"{max(layer_control):.3e}, min {min(layer_control):.3e}, "
+          f"{sum(v > FLASH_LAYER_REL_RMS for v in layer_control)} layers above the tol; "
+          f"FP logits, flash kernel vs its plain version: "
           f"relative RMS {own_rms:.4f} (tol {FLASH_VS_OWN_PLAIN_REL_RMS}), argmax agreement "
           f"{own_agree:.4f}; flash kernel vs plain attention (dense_attention): relative "
-          f"RMS {rel_rms:.4f} (tol {LOGIT_REL_RMS}), argmax agreement {agree:.4f}; W8A8 "
+          f"RMS {logit_rms:.4f} (tol {LOGIT_REL_RMS}), argmax agreement {agree:.4f}; W8A8 "
           f"logits with the fake-quant kernel vs its plain version bitwise equal: {same}; "
           f"phase {wall:.1f} s, peak memory {peak_gb:.2f} GB", flush=True)
     check(len(layer_rms) == cfg.n_layers and max(layer_rms) <= FLASH_LAYER_REL_RMS,
           f"{name}: a layer's flash output differs from its plain version: {layer_rms}")
+    check(max(layer_control) > FLASH_LAYER_REL_RMS,
+          f"{name}: no layer tells bf16 P from f32 P at the bound: {layer_control}")
     check(own_rms <= FLASH_VS_OWN_PLAIN_REL_RMS,
           f"{name}: flash kernel and its plain version give different logits: relative "
           f"RMS {own_rms}")
-    check(rel_rms <= LOGIT_REL_RMS, f"{name}: flash and plain attention logits differ: "
-                                    f"relative RMS {rel_rms}")
+    check(logit_rms <= LOGIT_REL_RMS, f"{name}: flash and plain attention logits differ: "
+                                    f"relative RMS {logit_rms}")
     check(same, f"{name}: the fake-quant kernel changed the W8A8 logits")
     del params, ctx, cal, held_out, batch
     torch.cuda.empty_cache()
@@ -1346,9 +1522,10 @@ def phase_eval(torch, np, fa, fq, pa, im, name, method, **method_kw):
                 fp_eval_s=fp_s, calib_s=calib_s, w8a8_eval_s=q_s,
                 fp_tok_per_s=tokens / fp_s, w8a8_tok_per_s=tokens / q_s, wall_s=wall,
                 peak_gb=peak_gb, init_s=init_s, sites=sites, forwards=forwards,
-                logit_rel_rms=rel_rms, argmax_agreement=agree,
+                logit_rel_rms=logit_rms, argmax_agreement=agree,
                 own_plain_rel_rms=own_rms, own_plain_argmax_agreement=own_agree,
-                layer_rel_rms_max=max(layer_rms), **{
+                layer_rel_rms_max=max(layer_rms),
+                layer_bf16_p_rel_rms_max=max(layer_control), **{
                     f"{k}_launches": v for k, v in launches.items()})
 
 
@@ -1388,8 +1565,20 @@ def main() -> int:
         print(f"built {name}: {path.name} in {secs:.1f} s; ptxas per kernel: "
               f"{'; '.join(ptxas) or 'n/a'}", flush=True)
     print(f"build phase {time.perf_counter() - t0:.1f} s", flush=True)
+    # the instantiations bf16 data at Dh 128 runs must not spill
+    held = [(name, fn, regs, spills) for name in ("flash_attention", "paged_attention")
+            for fn, regs, spills in ptxas_report(build.BUILD_LOG.get(name, ""))
+            if bf16_dh128(fn)]
+    print(f"ptxas spill check: {len(held)} bf16 Dh-128 instantiations of flash_attention "
+          f"and paged_attention; registers {sorted({r for _, _, r, _ in held})}; spill "
+          f"stores {sorted({sp for _, _, _, sp in held})}", flush=True)
+    check(len(held) >= 8, f"expected the bf16 Dh-128 instantiations in the build log: {held}")
+    check(all(sp == 0 for _, _, _, sp in held),
+          f"ptxas spills in bf16 Dh-128 attention kernels: "
+          f"{[(n, f) for n, f, _, sp in held if sp]}")
 
     max_err = phase_kernel_checks(torch, pa)
+    phase_paged_tc_precision(torch, pa)
     times = phase_kernel_times(torch, pa)
     int8_err = phase_int8_checks(torch, im)
     int8_times = phase_int8_times(torch, im)

@@ -3,8 +3,13 @@ interface and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` at first
 use, into ``repro_torch/_build/`` (listed in ``.gitignore``), under a file
-name carrying a hash of the source and flags, so an edited source
-rebuilds and an unchanged one is loaded as it is. Nothing here runs at
+name carrying a hash of the source, of every local header it includes
+(``#include "..."`` resolved against ``csrc/``, transitively) and of the
+flags, so an edited source or header rebuilds and an unchanged one is
+loaded as it is. The compiler's output (``ptxas -v``: registers and
+spills of each kernel) is kept beside the library as
+``lib<name>-<hash>.ptxas.txt`` and read back when the library is found
+built, so ``BUILD_LOG`` holds it either way. Nothing here runs at
 import time, so a machine without the CUDA toolkit imports the kernel
 modules (and runs their plain versions on CPU tensors).
 """
@@ -13,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,7 +33,8 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
-# compiler output (ptxas register / shared-memory report) of each build
+# compiler output (ptxas register / shared-memory report) of each library
+# built or found built
 BUILD_LOG: Dict[str, str] = {}
 
 
@@ -43,22 +50,48 @@ def find_nvcc() -> str:
                        "machine with the GPU, from the CUDA toolkit")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the local headers it includes, transitively,
+    in a fixed order (the source first, then the headers by name)."""
+    top = CSRC / f"{name}.cu"
+    seen, todo = {top}, [top]
+    while todo:
+        for inc in _LOCAL_INCLUDE.findall(todo.pop().read_bytes()):
+            dep = CSRC / inc.decode()
+            if dep not in seen and dep.is_file():
+                seen.add(dep)
+                todo.append(dep)
+    return [top] + sorted(seen - {top})
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()
-                         ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.relative_to(CSRC).as_posix().encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def log_path(library: Path) -> Path:
+    """Where the compiler's output of ``library`` is kept."""
+    return library.with_suffix(".ptxas.txt")
 
 
 def build(name: str) -> Tuple[Path, float]:
-    """Compile ``csrc/<name>.cu`` unless the hashed library exists.
-    Returns (library path, seconds spent compiling; 0 if cached)."""
+    """Compile ``csrc/<name>.cu`` unless the hashed library and its
+    compiler log exist. Returns (library path, seconds spent compiling; 0
+    if cached) and leaves the compiler log in ``BUILD_LOG[name]``."""
     out = library_path(name)
-    if out.exists():
+    log = log_path(out)
+    if out.exists() and log.exists():
+        BUILD_LOG[name] = log.read_text()
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent build never
-    # loads a half-written library
+    # compile to private names, then rename, the log before the library:
+    # a concurrent build never loads a half-written library, and a library
+    # found built has its log
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [find_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp,
@@ -68,9 +101,14 @@ def build(name: str) -> Tuple[Path, float]:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-    os.replace(tmp, out)
+    secs = time.perf_counter() - t0
     BUILD_LOG[name] = proc.stderr + proc.stdout
-    return out, time.perf_counter() - t0
+    fd, tmp_log = tempfile.mkstemp(suffix=".txt", dir=BUILD_DIR)
+    with os.fdopen(fd, "w") as f:
+        f.write(BUILD_LOG[name])
+    os.replace(tmp_log, log)
+    os.replace(tmp, out)
+    return out, secs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -7,8 +7,10 @@ flash_attention`` (adapter ``repro/kernels/ops.py : mha_flash``, oracle
 ``repro/kernels/ref.py : attention_ref``). Same semantics: causal and
 window masks with a query offset, logit softcap, the vanilla softmax in
 one online pass, the clipped softmax ``clip((zeta-gamma)*p+gamma, 0, 1)``
-in two passes, the gate multiplying the output; everything is computed in
-f32 and the output has q's dtype. (gamma, zeta) = (0, 1) selects the
+in two passes, the gate multiplying the output; scores, softmax and
+products accumulate in f32 (bf16 inputs on the kernel's tensor-core
+route: products of bf16 data are exact, and P is carried at f32
+precision as two bf16 operands) and the output has q's dtype. (gamma, zeta) = (0, 1) selects the
 vanilla path; ``gamma`` arrives resolved. q is multiplied by Dh^-0.5 in
 its own dtype before the products, as the model's attention paths
 (``dense_attention``, ``chunked_attention``) scale it; the TPU kernel
@@ -53,10 +55,19 @@ def _kernel_lib() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 15 + [ctypes.c_int] * 3
                        + [ctypes.c_float, ctypes.c_int] + [ctypes.c_float] * 3
-                       + [ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def route(dtype: torch.dtype, dh: int) -> str:
+    """The kernel's route for q/k/v of ``dtype`` and head dim ``dh``, fixed
+    by the two alone: "tensor-core" (bf16 at Dh 64 or 128: wgmma products
+    over a TMA-fed K/V ring, P carried as a hi/lo pair of bf16 operands)
+    or "cuda-core" (f32, whose tolerance rules out bf16 products, and
+    bf16 at Dh 256)."""
+    return "tensor-core" if dtype == torch.bfloat16 and dh in (64, 128) else "cuda-core"
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -140,7 +151,7 @@ def _launch(q, k, v, gate_pi, q_offset, causal, window, softcap, gamma, zeta):
             *out.stride()[:3], *gs, int(q_offset), int(causal),
             -1 if window is None else int(window), 0.0 if softcap is None else float(softcap),
             int(clipped), float(zeta - gamma), float(gamma), float(dh ** -0.5),
-            _DTYPE_CODE[q.dtype], stream)
+            _DTYPE_CODE[q.dtype], int(route(q.dtype, dh) == "tensor-core"), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     global launches

@@ -9,9 +9,11 @@ through a per-row block table with a per-row ``q_off``; causal and
 window masks over logical positions; ``-1`` entries masked; logit
 softcap; vanilla softmax in one online pass, the clipped softmax in two
 passes ((m, Z), then ``clip((zeta-gamma)*p+gamma, 0, 1) @ V``); the gate
-multiplies the output; int8 pools are dequantized on load by per-slot
-``(NB, BS)`` scales. f32 queries may read a bf16 pool; everything is
-computed in f32 and the output has q's dtype. ``gamma`` arrives already
+multiplies the output; int8 pools carry per-slot ``(NB, BS)`` scales.
+f32 queries may read a bf16 pool. The plain version computes everything
+in f32; the kernel accumulates in f32 (its tensor-core route multiplies
+bf16 data exactly and carries P at f32 precision as two bf16 operands);
+the output has q's dtype. ``gamma`` arrives already
 resolved from the logical length; nothing here recomputes it. ``live_widths`` lets each row stop
 at its own block count; masked entries contribute exact zeros, so that
 early exit is exact. A row with nothing live outputs exact zeros.
@@ -21,11 +23,22 @@ raises if it cannot) and computes the plain version for CPU tensors —
 only because the tensors lie on the CPU. ``paged_flash_attention_ref`` is
 the plain version: a straight gather-and-dense translation, used by the
 CPU tests and by ``chip_smoke.py`` to hold the kernel on the card.
-``launches`` counts kernel launches, and nothing else.
+``plan`` chooses the kernel's route for a read and its number of KV
+splits, and is the one place that does (the kernel dispatches on what it
+is given and refuses a route not built for the inputs): bf16 queries over a bf16 or int8 pool with more than 16 head-packed rows
+(prefill chunks, speculative verification) and Dh 64/128 take the
+tensor-core route; every other read takes the CUDA-core route, and a read
+of at most 16 rows (decode) splits its KV walk so that the grid fills
+the card.
+``launches`` counts reads that launched the kernel, one per call of
+``paged_flash_attention`` whatever number of grid launches the read
+issues (a split clipped read issues two), so a forward of L layers
+counts L; it counts nothing else.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -34,11 +47,15 @@ from repro_torch.kernels.build import load
 
 NEG_INF = -1e30
 
-# kernel launches made by ``paged_flash_attention`` (plain integer)
+# reads that launched the kernel, one per ``paged_flash_attention`` call
+# (plain integer)
 launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _lib: Optional[ctypes.CDLL] = None
+ROWS_CC = 16         # head-packed query rows per CTA, CUDA-core route
+MAX_SPLITS = 16
+SPLIT_TILE = 32      # tokens per KV tile of a split read; a split covers whole tiles
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -46,13 +63,35 @@ def _kernel_lib() -> ctypes.CDLL:
     if _lib is None:
         lib = load("paged_attention")
         fn = lib.paged_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_int]
                        + [ctypes.c_float] * 3
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card ``device`` lies on."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def plan(q_dtype: torch.dtype, kv_dtype: torch.dtype, b: int, hkv: int, tq_g: int,
+         dh: int, width_tokens: int, sms: int) -> tuple:
+    """(route, splits) of a read: route "tensor-core" or "cuda-core", and
+    the number of chunks each row's KV walk is cut into (1 unless the
+    read has at most 16 head-packed rows). Splits aim at 4 CTAs per SM
+    of the card's ``sms`` (B * Hkv CTAs per split; at least 2 per SM where
+    16 splits allow), at most 16 and at most one per 32-token tile of the
+    table's width (``width_tokens`` = W * BS)."""
+    tc = (q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8)
+          and tq_g > ROWS_CC and dh in (64, 128))
+    if tq_g > ROWS_CC:
+        return ("tensor-core" if tc else "cuda-core"), 1
+    want = -(-4 * sms // (b * hkv))
+    return "cuda-core", max(1, min(want, MAX_SPLITS, -(-width_tokens // SPLIT_TILE)))
 
 
 def paged_flash_attention_ref(
@@ -208,7 +247,16 @@ def paged_flash_attention(
            live_widths)
     b, hkv, tq_g, dh = q.shape
     nb, bs = k_pool.shape[:2]
+    w = block_table.shape[1]
     out = torch.empty_like(q)
+    route, splits = plan(q.dtype, k_pool.dtype, b, hkv, tq_g, dh, w * bs,
+                         sm_count(q.device))
+    ws = tickets = None
+    if splits > 1:   # one row tile per (b, h): partial (m, Z) and acc per split
+        parts = b * hkv
+        ws = torch.empty(parts * splits * ROWS_CC * (dh + 2), dtype=torch.float32,
+                         device=q.device)
+        tickets = torch.zeros(parts, dtype=torch.int32, device=q.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -218,12 +266,12 @@ def paged_flash_attention(
         err = _kernel_lib().paged_attention_launch(
             ptr(q), ptr(k_pool), ptr(v_pool), ptr(k_scale), ptr(v_scale),
             ptr(block_table), ptr(q_off), ptr(live_widths), ptr(gate_pi),
-            ptr(out), b, hkv, tq_g, dh, nb, bs, block_table.shape[1], group,
+            ptr(out), ptr(ws), ptr(tickets), b, hkv, tq_g, dh, nb, bs, w, group,
             int(causal), -1 if window is None else int(window),
             0.0 if softcap is None else float(softcap),
             int(not (gamma == 0.0 and zeta == 1.0)), float(gamma), float(zeta),
             float(dh ** -0.5), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype],
-            stream)
+            int(route == "tensor-core"), splits, stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: cudaError {err}")
     global launches
