@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      from ``src/repro_torch/csrc`` (one ``nvcc`` per source, started
      together) into ``src/repro_torch/_build``; the run fails if ptxas
      reports spill stores in an attention instantiation that bf16 data at
-     Dh 128 runs.
+     Dh 128 runs, or in any int8_matmul instantiation, and prints ptxas's
+     notes that it serialized wgmma (C7515, C7520, ...) in int8_matmul.
   3. Kernel against plain version, at qwen3-14b's attention shapes (Hkv 8,
      G 5, Dh 128, block 16; 8 rows at ragged positions up to 1024 with
      scrambled tables and -1 tails): decode Tq = 1 and a prefill chunk
@@ -32,15 +33,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      also held against the plain version (P in f32) within
      PAGED_TC_REL_RMS, and the plain version with P rounded to bf16 (the
      control: a kernel that dropped P's lo half) must land above it.
-  3b. The W8A8 kernel against its plain version at the main path's
-     (M, K, N): decode M = 8 and the padded mixed tick M = 2048 over
-     qwen3-14b's projections, and two ragged shapes; static and dynamic
-     activation ranges, x in float32 and in bfloat16. The check is
-     bitwise (max abs difference 0). Then device times of the kernel, its
-     plain version and ``torch._int_mm`` (cuBLASLt, a yardstick the port
-     never calls) on the same codes plus the f32 epilogue; ``_int_mm``
-     needs M > 16, so decode is timed for it at M padded to 32. Bound:
-     max(bytes / 3.35 TB/s, int8 ops / 1979 TOP/s).
+  3b. The W8A8 kernel against its plain version at every (M, K, N) of a
+     layer's linears on the main path (decode M = 8 and the padded mixed
+     tick M = 2048 over qwen3-14b's q/o, k/v, gate/up and down), M on both
+     sides of the route boundary (16: mma.sync weight streaming; 17: TMA
+     + wgmma), an N no tile divides (130, 5120, 1040) and two ragged
+     shapes; static and dynamic activation ranges, x in float32 and in
+     bfloat16. The check is bitwise (max abs difference 0), and the
+     pre-pass's codes are held bitwise against ``quantize_activations``
+     on their own. Then device times at every tick shape of the kernel,
+     its plain version and ``torch._int_mm`` (cuBLASLt, a yardstick the
+     port never calls) on the same codes plus the f32 epilogue
+     (``_int_mm`` needs M > 16, so decode is timed for it at M padded to
+     32), and their sums over a layer's seven linears at M 8 and M 2048.
+     Bound: max(bytes / 3.35 TB/s, int8 ops / 1979 TOP/s).
   3c. The flash-attention kernel against its plain version at qwen3-14b's
      attention shapes (B 1, Hq 40, Hkv 8, Dh 128, causal) at T 2048 (the
      evaluation's length) and 4096 (where the reference's CPU route turns
@@ -94,7 +100,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (W8A8: W8A8_LOGIT_REL_RMS); under W8A8 the tick through the gather
      read must give bitwise equal logits with the int8 kernel and with its
      plain version, and a W8A8 tick's logits must stay within
-     W8A8_VS_FP_REL_RMS of the fp tick's on the same weights.
+     W8A8_VS_FP_REL_RMS of the fp tick's on the same weights. Under W8A8
+     every ``w_q8`` the engine reads must be K-major and the tree must
+     hold one int8 copy of each weight; the mixed tick and the first
+     all-decode tick are replayed once each under ``torch.profiler``
+     (outside the counted run), which gives device time by kernel family
+     (int8 GEMM with its pre-pass, paged read, the rest) and the device's
+     idle share over the tick.
   5. Evaluation, the paper's protocol, at qwen3-14b's full width and 40
      layers in bfloat16 (random weights from seed 0, unrolled layers, as
      PTQ needs), for vanilla, clipped softmax (alpha 4) and gated
@@ -184,12 +196,17 @@ W8A8_LOGIT_REL_RMS = 0.3
 # zero-point moves the logits by their own size (relative RMS near 1).
 W8A8_VS_FP_REL_RMS = 0.6
 INT8_OPS = 1979e12                 # H100 SXM dense int8 tensor-core peak
-# (M, K, N) of the W8A8 linears on the main path: decode (8 rows) and the
-# padded mixed tick (8 rows x 256 tokens) over qwen3-14b's projections
-# (q/o 5120x5120, k/v 5120x1024, gate/up 5120x17408, down 17408x5120),
-# then two shapes ragged against every tile
-INT8_SHAPES = [(8, 5120, 5120), (8, 5120, 1024), (8, 5120, 17408), (8, 17408, 5120),
-               (2048, 5120, 17408), (2048, 17408, 5120), (5, 64, 16), (37, 96, 80)]
+# (M, K, N) of a layer's seven W8A8 linears on the main path over
+# qwen3-14b's projections (q/o 5120x5120, k/v 5120x1024, gate/up
+# 5120x17408, down 17408x5120), at decode (8 rows) and at the padded mixed
+# tick (8 rows x 256 tokens); the weights each appears with in a layer
+LAYER_LINEARS = [((5120, 5120), 2), ((5120, 1024), 2), ((5120, 17408), 2), ((17408, 5120), 1)]
+INT8_TICK_SHAPES = [(m, k, n) for m in (8, 2048) for (k, n), _ in LAYER_LINEARS]
+# then M on both sides of the route boundary (16: mma.sync streaming, 17:
+# TMA + wgmma), an N no tile divides, and two shapes ragged against every
+# tile
+INT8_SHAPES = INT8_TICK_SHAPES + [(16, 5120, 5120), (17, 5120, 5120), (130, 5120, 1040),
+                                  (5, 64, 16), (37, 96, 80)]
 KERNEL_SOURCES = {"paged_attention": "src/repro_torch/csrc/paged_attention.cu",
                   "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu",
                   "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
@@ -616,42 +633,53 @@ def int8_bound_ms(m, k, n, x_elem):
 
 
 def phase_int8_checks(torch, im):
+    """The product against its plain version, bitwise, and the pre-pass's
+    codes against ``quantize_activations`` on their own (the codes come
+    from a second call through ``_launch``, which ``int8_matmul`` wraps)."""
     bad = []
     max_err = 0.0
+    sms = im.sm_count(torch.device("cuda"))
     for m, k, n in INT8_SHAPES:
+        p = im.plan(m, n, k, sms)
         for x_dtype in (torch.float32, torch.bfloat16):
             for static in (True, False):
                 x, sets, kw = int8_case(torch, im, m, k, n, x_dtype, static, seed=m + k + n)
                 wq, ws = sets[0]
                 out = im.int8_matmul(x, wq, ws, **kw)
+                _, codes = im._launch(x, wq, ws, kw.get("x_scale"), kw.get("x_zero"))
                 torch.cuda.synchronize()
                 ref = im.int8_matmul_ref(x, wq, ws, **kw)
+                s_x, z_x = im.activation_qparams(x, kw.get("x_scale"), kw.get("x_zero"))
+                ref_codes = im.quantize_activations(x, s_x, z_x)
                 torch.cuda.synchronize()
                 err = (out - ref).abs().max().item()
-                ok = torch.equal(out, ref) and bool(torch.isfinite(out).all())
+                same = torch.equal(out, ref) and bool(torch.isfinite(out).all())
+                codes_ok = torch.equal(codes[:m], ref_codes) and not bool(codes[m:].any())
+                ok = same and codes_ok
                 max_err = max(max_err, err)
                 name = str(x_dtype).replace("torch.", "")
                 print(f"int8 check ({m}, {k}, {n}) {name:<8} "
-                      f"{'static ' if static else 'dynamic'} max_abs_err={err:.3e} "
-                      f"(bitwise) {'ok' if ok else 'FAIL'}", flush=True)
+                      f"{'static ' if static else 'dynamic'} route {p.route} tile_n "
+                      f"{p.tile_n} ctas {p.ctas}: max_abs_err={err:.3e} (bitwise) "
+                      f"{'ok' if same else 'FAIL'}; pre-pass codes == quantize_activations: "
+                      f"{'ok' if codes_ok else 'FAIL'}", flush=True)
                 if not ok:
-                    bad.append((m, k, n, name, static, err))
-                del x, sets, out, ref
+                    bad.append((m, k, n, name, static, err, codes_ok))
+                del x, sets, out, ref, codes, ref_codes
     torch.cuda.empty_cache()
     check(not bad, f"int8_matmul kernel disagrees with its plain version: {bad}")
     return max_err
 
 
 def phase_int8_times(torch, im):
-    """Device times at the largest projection (5120 -> 17408, and back),
-    x in f32 (what the tick feeds every linear after layer 0's first
-    projections), static range: kernel, plain version, and torch._int_mm
-    on the same codes plus the f32 epilogue (cuBLASLt wants its B
-    K-contiguous, so it gets the same codes transposed; decode runs it at
-    M padded to 32, its least M)."""
+    """Device times at every shape the tick runs, x in f32 (what the tick
+    feeds every linear after layer 0's first projections), static range:
+    kernel, plain version, and torch._int_mm on the same codes plus the
+    f32 epilogue (cuBLASLt wants its B K-contiguous: the kernel's K-major
+    w_q as it is; decode runs it at M padded to 32, its least M), beside
+    the bound. Then a layer's seven linears summed, at M 8 and M 2048."""
     times = {}
-    for m, k, n in ((8, 5120, 17408), (2048, 5120, 17408), (8, 17408, 5120),
-                    (2048, 17408, 5120)):
+    for m, k, n in INT8_TICK_SHAPES:
         x, sets, kw = int8_case(torch, im, m, k, n, torch.float32, True, seed=3, copies=2)
         reps = 40 if m == 8 else 10
         kern = device_ms(torch, [lambda w=w: im.int8_matmul(x, w[0], w[1], **kw)
@@ -663,7 +691,7 @@ def phase_int8_times(torch, im):
         m_lib = max(m, 32)
         if m_lib != m:
             codes = torch.cat([codes, codes.new_zeros(m_lib - m, k)])
-        cols = [(w[0].t().contiguous().t(), s_x * w[1]) for w in sets]
+        cols = [(w[0], s_x * w[1]) for w in sets]
         lib = device_ms(torch, [lambda c=c: torch._int_mm(codes, c[0]).float() * c[1]
                                 for c in cols], reps)
         bound, by = int8_bound_ms(m, k, n, 4)
@@ -674,6 +702,13 @@ def phase_int8_times(torch, im):
               f"{bound:.4f} ms ({by})", flush=True)
         del x, sets, cols, codes
         torch.cuda.empty_cache()
+    for m in (8, 2048):
+        total = {key: sum(times[(m, k, n)][key] * c for (k, n), c in LAYER_LINEARS)
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        print(f"int8 time, a layer's seven linears at M {m}: kernel {total['ms']:.4f} ms, "
+              f"plain {total['plain_ms']:.4f} ms, _int_mm+epilogue "
+              f"{total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms; x 40 "
+              f"layers: kernel {40 * total['ms']:.3f} ms", flush=True)
     return times
 
 
@@ -932,12 +967,77 @@ def phase_kv_quant(torch):
 # ---------------------------------------------------------------------------
 # phase 4: serving at qwen3-14b full width
 # ---------------------------------------------------------------------------
+# kernel families of a traced tick, by a substring of the kernel's name
+TRACE_FAMILIES = (("int8 GEMM + pre-pass", "int8_"), ("paged read", "paged_attn"))
+
+
+def busy_us(spans):
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def trace_split(events, label):
+    """From a Chrome trace's events: the wall of the ``label`` annotation,
+    the device time (sum of kernel, memcpy and memset durations) of each
+    kernel family and of the rest (with the rest's three largest kernels
+    by name), and the device's idle share over the annotation (1 - the
+    union of device intervals inside it / its wall). Times in ms."""
+    win = [e for e in events if e.get("ph") == "X" and e.get("name") == label
+           and e.get("cat") == "user_annotation"]
+    if len(win) != 1:
+        raise AssertionError(f"trace: {len(win)} annotations named {label!r}")
+    t0, t1 = win[0]["ts"], win[0]["ts"] + win[0]["dur"]
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+           and t0 <= e["ts"] and e["ts"] + e["dur"] <= t1]
+    fam = {name: 0.0 for name, _ in TRACE_FAMILIES}
+    fam["rest"] = 0.0
+    count = dict.fromkeys(fam, 0)
+    rest = {}
+    for e in dev:
+        key = next((name for name, sub in TRACE_FAMILIES if sub in e["name"]), "rest")
+        fam[key] += e["dur"] / 1e3
+        count[key] += 1
+        if key == "rest":
+            rest[e["name"]] = rest.get(e["name"], 0.0) + e["dur"] / 1e3
+    busy = busy_us([(e["ts"], e["ts"] + e["dur"]) for e in dev])
+    return dict(wall_ms=(t1 - t0) / 1e3, device_ms=busy / 1e3, idle_share=1 - busy / (t1 - t0),
+                family_ms=fam, family_kernels=count,
+                rest_top=sorted(rest.items(), key=lambda kv: -kv[1])[:3])
+
+
+def trace_tick(torch, fn, label):
+    """Replay ``fn`` (one tick, warm) once under torch.profiler, inside an
+    annotation ``label`` that ends after a device synchronize, and split
+    its device time with ``trace_split``."""
+    import os
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(label):
+            fn()
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return trace_split(events, label)
+
+
 def phase_serving(torch, np, pa, im, name, method, kv_int8, w8a8=False, **method_kw):
     from repro_torch.configs.base import apply_method
     from repro_torch.configs.qwen3_14b import full
     from repro_torch.models.transformer import model_init
     from repro_torch.nn import layers
-    from repro_torch.nn.module import tree_map
+    from repro_torch.nn.module import flatten_params, tree_map
     from repro_torch.quant.qconfig import NO_QUANT, QConfig
     from repro_torch.serving import ContinuousBatcher, Request
     from repro_torch.serving import scheduler as sched
@@ -973,16 +1073,20 @@ def phase_serving(torch, np, pa, im, name, method, kv_int8, w8a8=False, **method
                               qconfig=QConfig() if w8a8 else None, device="cuda")
     finally:
         sched._calibrate_engine, sched.attach_int8_weights = calibrate_engine, attach
-    snapshot = {}
+    snapshot, decode_snap, want_decode = {}, {}, []
     step_fn = b._step_fn
 
     def capture(params_, cache, tokens, pos, counts, keys, lw, lws):
-        # the first mixed tick (decode rows beside prefill chunks): keep
-        # its inputs and a copy of the cache it reads, for the comparison
-        # below, outside the counted run
+        # the first mixed tick (decode rows beside prefill chunks) and,
+        # once asked for, the first all-decode tick: keep their inputs and
+        # a copy of the cache each reads, for the comparison and the
+        # traces below, outside the counted run
         c = counts.cpu()
-        if not snapshot and (c == 1).any() and (c > 1).any():
-            snapshot.update(cache=tree_map(lambda x: x.clone(), cache),
+        mixed = bool((c == 1).any() and (c > 1).any())
+        decode = bool(want_decode) and bool((c == 1).any() and (c <= 1).all())
+        for snap, want in ((snapshot, mixed), (decode_snap, decode)):
+            if want and not snap:
+                snap.update(cache=tree_map(lambda x: x.clone(), cache),
                             args=(tokens.clone(), pos.clone(), counts.clone(), lw,
                                   lws.clone()))
         return step_fn(params_, cache, tokens, pos, counts, keys, lw, lws)
@@ -1025,6 +1129,17 @@ def phase_serving(torch, np, pa, im, name, method, kv_int8, w8a8=False, **method
     check(int8_launches == (7 * cfg.n_layers * b.forward_calls if w8a8 else 0),
           f"{name}: {int8_launches} int8 launches for {b.forward_calls} forwards")
     check(snapshot, f"{name}: no mixed prefill/decode tick was seen")
+    if w8a8:
+        # every w_q8 the engine reads is K-major, and the tree holds one
+        # int8 copy of each weight (no leaf owns more bytes than it shows)
+        q8 = [t for path, t in flatten_params(b.params) if path.endswith("w_q8")]
+        k_major = all(t.dim() in (2, 3) and t.stride()[-2:] == (1, t.shape[-2]) for t in q8)
+        storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes() for t in q8}
+        one_copy = sum(storages.values()) == sum(t.numel() for t in q8)
+        print(f"serving {name}: {len(q8)} w_q8 leaves, all K-major: {k_major}; int8 bytes "
+              f"{sum(storages.values()) / 1e9:.3f} GB in {len(storages)} storages, one copy "
+              f"of each weight: {one_copy}", flush=True)
+        check(q8 and k_major and one_copy, f"{name}: w_q8 layout or copies off")
 
     # the mixed tick again: through the kernels, through the plain path
     # (the gather read and, under W8A8, the int8 product's plain version),
@@ -1086,7 +1201,57 @@ def phase_serving(torch, np, pa, im, name, method, kv_int8, w8a8=False, **method
         check(vs_fp <= W8A8_VS_FP_REL_RMS,
               f"{name}: W8A8 logits far from fp logits: relative RMS {vs_fp}")
         result.update(w8a8_vs_fp_rel_rms=vs_fp, w8a8_vs_fp_argmax_agreement=agree_fp)
-    del b, params, snapshot, logits, delta
+        # the first all-decode tick of a second, uncounted run of the
+        # first 8 requests (its cache copy stays out of the counted run's
+        # peak memory); the engine is left with them in flight
+        want_decode.append(True)
+        for u, p in enumerate(prompts[:8]):
+            b.submit(Request(uid=100 + u, prompt=p, max_new_tokens=32))
+        for _ in range(200):
+            if decode_snap:
+                break
+            b.step()
+        check(decode_snap, f"{name}: no all-decode tick was seen")
+        # the mixed and the all-decode tick: timed once on the host clock
+        # and replayed once under torch.profiler (each warmed first)
+        def replay(snap):
+            """The captured tick's forward, over a fresh copy of its cache
+            (made here, outside any timing)."""
+            cache = tree_map(lambda x: x.clone(), snap["cache"])
+
+            def tick():
+                with torch.no_grad():
+                    step_rows_full(b.params, b.cfg, cache, *snap["args"], ctx=b._qctx)
+            return tick
+
+        traces = {}
+        for kind, snap in (("mixed", snapshot), ("decode", decode_snap)):
+            replay(snap)()   # warm
+            tick = replay(snap)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tick()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+            tr = trace_tick(torch, replay(snap), f"{name} {kind} tick")
+            tr.update(unprofiled_wall_ms=wall_ms,
+                      unprofiled_idle_share=max(0.0, 1 - tr["device_ms"] / wall_ms))
+            t_tokens, t_counts = snap["args"][0], snap["args"][2]
+            fam = ", ".join(f"{k} {v:.3f} ms ({tr['family_kernels'][k]} kernels)"
+                            for k, v in tr["family_ms"].items())
+            top = ", ".join(f"{n[:60]} {v:.3f} ms" for n, v in tr["rest_top"])
+            print(f"serving {name}: the {kind} tick (counts {t_counts.tolist()}, T "
+                  f"{t_tokens.shape[1]}): wall {wall_ms:.3f} ms on the host clock; under "
+                  f"torch.profiler wall {tr['wall_ms']:.3f} ms, device busy "
+                  f"{tr['device_ms']:.3f} ms, idle share {tr['idle_share']:.4f} of the "
+                  f"profiled wall, {tr['unprofiled_idle_share']:.4f} of the unprofiled one; "
+                  f"device time by family: {fam}; the rest's largest: {top}", flush=True)
+            check(tr["family_kernels"]["int8 GEMM + pre-pass"] > 0 and
+                  tr["family_kernels"]["paged read"] > 0,
+                  f"{name}: the traced {kind} tick ran no int8 or paged kernel: {tr}")
+            traces[kind] = tr
+        result.update(traces=traces)
+    del b, params, snapshot, decode_snap, logits, delta
     torch.cuda.empty_cache()
     return result
 
@@ -1576,6 +1741,19 @@ def main() -> int:
     check(all(sp == 0 for _, _, _, sp in held),
           f"ptxas spills in bf16 Dh-128 attention kernels: "
           f"{[(n, f) for n, f, _, sp in held if sp]}")
+    # every int8 instantiation must not spill; ptxas's notes that it
+    # serialized wgmma (C7515, C7520, ...) are printed
+    int8_log = build.BUILD_LOG.get("int8_matmul", "")
+    int8_fns = ptxas_report(int8_log)
+    serial = sorted({line.split(":", 1)[-1].strip() for line in int8_log.splitlines()
+                     if re.search(r"C75\d\d", line)})
+    print(f"ptxas spill check: {len(int8_fns)} int8_matmul instantiations; registers "
+          f"{[(re.sub(r'^_Z[^a-z]*', '', f)[:48], r) for f, r, _ in int8_fns]}; spill stores "
+          f"{sorted({sp for _, _, sp in int8_fns})}; wgmma serialization notes: "
+          f"{serial or 'none'}", flush=True)
+    check(len(int8_fns) >= 6, f"expected the int8 instantiations in the build log: {int8_fns}")
+    check(all(sp == 0 for _, _, sp in int8_fns),
+          f"ptxas spills in int8 kernels: {[f for f, _, sp in int8_fns if sp]}")
 
     max_err = phase_kernel_checks(torch, pa)
     phase_paged_tc_precision(torch, pa)

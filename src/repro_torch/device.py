@@ -17,3 +17,9 @@ def resolve_device(device: Union[str, torch.device, None] = "cuda"
             f"device {str(dev)!r} requested but torch.cuda.is_available() is "
             f"False; pass device='cpu' to run on the CPU")
     return dev
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card ``device`` lies on (the
+    kernels' static plans take it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -43,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels.build import load
 
 NEG_INF = -1e30
@@ -73,11 +74,6 @@ def _kernel_lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of the card ``device`` lies on."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def plan(q_dtype: torch.dtype, kv_dtype: torch.dtype, b: int, hkv: int, tq_g: int,
          dh: int, width_tokens: int, sms: int) -> tuple:
     """(route, splits) of a read: route "tensor-core" or "cuda-core", and

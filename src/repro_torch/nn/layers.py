@@ -2,7 +2,10 @@
 causal depthwise temporal conv (port of ``repro.nn.layers``).
 
 Weights keep the JAX package's layout: a linear's ``w`` is (d_in, d_out)
-and ``y = x @ w``. Norms accumulate in f32 whatever the compute dtype.
+and ``y = x @ w``. Its int8 codes ``w_q8`` keep that shape and the
+reference's values, and are stored K-major ((d_out, d_in) in memory,
+strides (1, d_in)), the layout the W8A8 kernel reads. Norms accumulate
+in f32 whatever the compute dtype.
 Every layer takes a ``QuantContext`` and a site name, with the
 reference's sites (``name + ".in"``, ``".out"``, ``"#w"``); in 'int8'
 mode a linear that carries ``w_q8`` runs the W8A8 kernel

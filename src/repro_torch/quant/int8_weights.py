@@ -1,12 +1,13 @@
 """Hardware-path W8A8 serving: int8 weights beside the fp ones, and
 linears through the integer kernel (port of ``repro.quant.int8_weights``).
 
-Weights are stored as int8 with a per-tensor f32 scale; activations are
-quantized inside the kernel (``kernels.int8_matmul``); products run
-int8 x int8 -> int32. Trees keep the reference's leaves: the fp ``w``
-stays beside ``w_q8``/``w_scale``, and the pattern below also attaches a
-pair to the attention gate's 2-D ``.../gate/w``, which the gate never
-reads.
+Weights are stored as int8 with a per-tensor f32 scale, with the
+reference's (K, N) shape and values, K-major in memory (the layout the
+kernel reads; see ``kernels.int8_matmul``); activations are quantized by
+the kernel's pre-pass; products run int8 x int8 -> int32. Trees keep the
+reference's leaves: the fp ``w`` stays beside ``w_q8``/``w_scale``, and
+the pattern below also attaches a pair to the attention gate's 2-D
+``.../gate/w``, which the gate never reads.
 """
 from __future__ import annotations
 
@@ -45,12 +46,16 @@ def int8_cache_bytes(cache: Dict[str, Tuple[torch.Tensor, torch.Tensor]]) -> int
 def _quantize_stacked(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-layer scales for a stacked (G, K, N) weight, as the reference's
     ``vmap``; one layer at a time, so the f32 temporaries stay one layer's
-    size."""
-    wq = torch.empty(w.shape, dtype=torch.int8, device=w.device)
-    scale = torch.empty((w.shape[0],), dtype=torch.float32, device=w.device)
-    for g in range(w.shape[0]):
-        wq[g], scale[g] = quantize_weights_int8(w[g])
-    return wq, scale
+    size. The codes are stored K-major like ``quantize_weights_int8``'s: a
+    (G, N, K) array seen as (G, K, N), so ``tree_slice`` carves K-major
+    (K, N) layers."""
+    groups, k, n = w.shape
+    wq = torch.empty((groups, n, k), dtype=torch.int8, device=w.device)
+    scale = torch.empty((groups,), dtype=torch.float32, device=w.device)
+    for g in range(groups):
+        q, scale[g] = quantize_weights_int8(w[g])
+        wq[g] = q.t()
+    return wq.transpose(1, 2), scale
 
 
 def attach_int8_weights(params: Any, skip: Tuple[str, ...] = (r".*lm_head.*",)
