@@ -1234,8 +1234,16 @@ def phase_serving(torch, np, pa, im, name, method, kv_int8, w8a8=False, **method
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
             tr = trace_tick(torch, replay(snap), f"{name} {kind} tick")
+            # the profiled replay's device busy time over the unprofiled
+            # replay's wall: two runs, so a busy time above that wall is
+            # reported as it is (a negative share), with a warning
             tr.update(unprofiled_wall_ms=wall_ms,
-                      unprofiled_idle_share=max(0.0, 1 - tr["device_ms"] / wall_ms))
+                      unprofiled_idle_share=1 - tr["device_ms"] / wall_ms)
+            if tr["device_ms"] > wall_ms:
+                print(f"WARNING serving {name}: the {kind} tick's device busy time "
+                      f"under the profiler ({tr['device_ms']:.3f} ms) exceeds the "
+                      f"unprofiled replay's wall ({wall_ms:.3f} ms): the two replays "
+                      f"disagree, read the profiled idle share", flush=True)
             t_tokens, t_counts = snap["args"][0], snap["args"][2]
             fam = ", ".join(f"{k} {v:.3f} ms ({tr['family_kernels'][k]} kernels)"
                             for k, v in tr["family_ms"].items())

@@ -9,9 +9,10 @@ list stays a list, an unrolled ``tail`` stays a dict, and Griffin's
 leaves and ``w_q8``/``w_scale`` convert like any other. Every leaf keeps
 its dtype (Griffin's ``lambda`` stays f32 in a bf16 model). bfloat16 leaves arrive as ml_dtypes arrays numpy cannot hand to
 torch directly; they go through float32, which holds them exactly.
-A ``w_q8`` leaf keeps its shape and values and is stored K-major, as the
-port's ``quantize_weights_int8`` stores it (its last two axes
-transposed in memory), which is the layout the int8 kernel reads.
+An int8 leaf of two or more axes (the codes ``w_q8``, the only int8
+leaves a params tree holds) keeps its shape and values and is stored
+K-major, through ``kernels.int8_matmul.empty_k_major`` as every maker of
+the codes stores them: the layout the int8 kernel reads.
 """
 from __future__ import annotations
 
@@ -21,26 +22,19 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.int8_matmul import empty_k_major
 from repro_torch.models.transformer import ModelConfig, check_supported
+from repro_torch.nn.module import tree_map
 
 
-def _leaf(x, device, k_major: bool = False) -> torch.Tensor:
+def _leaf(x, device) -> torch.Tensor:
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
-    if k_major:
-        t = torch.from_numpy(np.ascontiguousarray(np.swapaxes(a, -1, -2))).to(device)
-        return t.transpose(-1, -2)
-    return torch.from_numpy(np.array(a)).to(device)
-
-
-def _convert(node: Any, device, name: str = "") -> Any:
-    """Leaf-wise conversion that sees each leaf's key (``w_q8``)."""
-    if isinstance(node, dict):
-        return {k: _convert(v, device, k) for k, v in node.items()}
-    if isinstance(node, (list, tuple)):
-        return type(node)(_convert(v, device) for v in node)
-    return _leaf(node, device, k_major=name == "w_q8")
+    t = torch.from_numpy(np.array(a))
+    if t.dtype == torch.int8 and t.dim() >= 2:
+        return empty_k_major(t.shape, device).copy_(t)
+    return t.to(device)
 
 
 def from_jax_params(tree: Any, cfg: ModelConfig, device="cuda") -> Any:
@@ -55,4 +49,4 @@ def from_jax_params(tree: Any, cfg: ModelConfig, device="cuda") -> Any:
         raise ValueError(
             f"params layout {'groups' if 'groups' in tree else 'layers'} does "
             f"not match cfg.scan_layers={cfg.scan_layers}")
-    return _convert(tree, dev)
+    return tree_map(lambda x: _leaf(x, dev), tree)

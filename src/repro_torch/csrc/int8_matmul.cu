@@ -27,7 +27,8 @@
 //      grid-stride loop) and writes the codes (Mp, K) int8 into scratch
 //      (rows M..Mp-1 zero). Every product below reads codes, never x.
 //   2. the product, on one of two routes the wrapper chooses
-//      (kernels/int8_matmul.py : plan) and this file checks:
+//      (kernels/int8_matmul.py : plan; this file refuses only a route
+//      not built for its inputs):
 //      * route 0, M <= 16 (decode): int8_gemv_kernel. Bound by bytes:
 //        it reads K * N weight bytes for 2 * M * K * N operations, far
 //        below the ~600 int8 operations per byte at which the card turns
@@ -587,24 +588,26 @@ cudaError_t launch_quant(const void* x, const Range& r, void* codes, int M, int 
 
 }  // namespace
 
-// One W8A8 product, as the wrapper (kernels/int8_matmul.py) plans it:
-//   route 0 (M <= 16): one CTA per 16-row weight strip; the codes scratch
-//     holds 8 (M <= 8) or 16 rows; tile_n and ctas unused;
-//   route 1 (M > 16): tile_n 128 or 256, ctas persistent CTAs; the codes
-//     scratch holds M rows.
+// One W8A8 product, on the route the wrapper (kernels/int8_matmul.py :
+// plan) chose; which M takes which route is the wrapper's rule alone:
+//   route 0: one CTA per 16-row weight strip; the codes scratch holds
+//     code_rows = 8 or 16 >= M rows; tile_n and ctas unused;
+//   route 1: tile_n 128 or 256, ctas persistent CTAs; the codes scratch
+//     holds M rows.
 // x_dtype: 0 = float32, 1 = bfloat16. sx_ptr/zx_ptr: device scalars of a
 // dynamic range, or null to use sx/zx. Returns the cudaError_t of the
-// launches (0 = success); a plan the inputs do not fit is refused with
+// launches (0 = success); a route the inputs do not fit is refused with
 // cudaErrorInvalidValue.
 extern "C" int int8_matmul_launch(const void* x, const void* w, const float* w_scale,
                                   const float* sx_ptr, const float* zx_ptr, float sx, float zx,
                                   void* codes, int code_rows, float* out, int M, int N, int K,
                                   int x_dtype, int route, int tile_n, int ctas, void* stream) {
   const bool small = route == 0;
+  const bool route_fits =
+      small ? (code_rows == 8 || code_rows == 16) && M <= code_rows
+            : route == 1 && (tile_n == 128 || tile_n == 256) && ctas >= 1 && code_rows == M;
   if (M < 1 || N < 1 || K < 1 || K % 16 != 0 || N % 16 != 0 || (x_dtype != 0 && x_dtype != 1) ||
-      (sx_ptr == nullptr) != (zx_ptr == nullptr) || (route != 0 && route != 1) ||
-      small != (M <= 16) || code_rows != (small ? (M <= 8 ? 8 : 16) : M) ||
-      (!small && ((tile_n != 128 && tile_n != 256) || ctas < 1)) ||
+      (sx_ptr == nullptr) != (zx_ptr == nullptr) || !route_fits ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(codes) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 8 != 0) {
     return (int)cudaErrorInvalidValue;

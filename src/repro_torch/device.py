@@ -1,6 +1,7 @@
 """Device selection for the port's entry points."""
 from __future__ import annotations
 
+import functools
 from typing import Union
 
 import torch
@@ -19,6 +20,7 @@ def resolve_device(device: Union[str, torch.device, None] = "cuda"
     return dev
 
 
+@functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of the card ``device`` lies on (the
     kernels' static plans take it)."""

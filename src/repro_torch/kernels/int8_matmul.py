@@ -104,6 +104,15 @@ def _const(v: float, device) -> torch.Tensor:
     return torch.full((), v, dtype=torch.float32, device=device)
 
 
+def empty_k_major(shape, device) -> torch.Tensor:
+    """Uninitialized int8 codes of ``shape`` (..., K, N), stored K-major:
+    an (..., N, K) row-major array seen with its last two axes swapped.
+    Every maker of ``w_q`` allocates through this; slicing leading axes
+    keeps the layout."""
+    *lead, k, n = shape
+    return torch.empty((*lead, n, k), dtype=torch.int8, device=device).transpose(-1, -2)
+
+
 def quantize_weights_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-tensor int8 weight quantization (paper C.4): returns
     (int8 codes, f32 scalar scale) on ``w``'s device. The codes have
@@ -111,9 +120,9 @@ def quantize_weights_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     wf = w.float()
     amax = torch.amax(torch.abs(wf))
     scale = torch.clamp(amax / _const(127.0, w.device), min=1e-8)
-    wq = torch.empty((w.shape[1], w.shape[0]), dtype=torch.int8, device=w.device)
-    wq.copy_(torch.clamp(torch.round(wf / scale), -127, 127).t())
-    return wq.t(), scale
+    wq = empty_k_major(w.shape, w.device)
+    wq.copy_(torch.clamp(torch.round(wf / scale), -127, 127))
+    return wq, scale
 
 
 def activation_qparams(x: torch.Tensor, x_scale: Optional[float] = None,
@@ -184,16 +193,15 @@ def _check(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> None:
 
 
 def _launch(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
-            x_scale: Optional[float], x_zero: Optional[float],
-            p: Optional[Plan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One kernel call on CUDA tensors: (out (M, N) f32, the pre-pass's
-    codes scratch (code_rows, K) int8). ``p`` defaults to ``plan``'s."""
+            x_scale: Optional[float], x_zero: Optional[float]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One kernel call on CUDA tensors, as ``plan`` routes it: (out (M, N)
+    f32, the pre-pass's codes scratch (code_rows, K) int8)."""
     _check(x, w_q, w_scale)
     m, k = x.shape
     n = w_q.shape[1]
     dev = x.device
-    if p is None:
-        p = plan(m, n, k, sm_count(dev))
+    p = plan(m, n, k, sm_count(dev))
     lib = _kernel_lib()
     with torch.cuda.device(dev):
         out = torch.empty((m, n), dtype=torch.float32, device=dev)

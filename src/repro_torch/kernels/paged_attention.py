@@ -38,7 +38,6 @@ counts L; it counts nothing else.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional
 
 import torch
@@ -73,7 +72,6 @@ def _kernel_lib() -> ctypes.CDLL:
     return _lib
 
 
-@functools.lru_cache(maxsize=None)
 def plan(q_dtype: torch.dtype, kv_dtype: torch.dtype, b: int, hkv: int, tq_g: int,
          dh: int, width_tokens: int, sms: int) -> tuple:
     """(route, splits) of a read: route "tensor-core" or "cuda-core", and

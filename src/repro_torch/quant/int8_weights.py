@@ -16,7 +16,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.int8_matmul import int8_matmul, quantize_weights_int8
+from repro_torch.kernels.int8_matmul import (empty_k_major, int8_matmul,
+                                             quantize_weights_int8)
 from repro_torch.nn.module import flatten_params
 
 # param paths worth int8-caching: the big matmul weights
@@ -46,16 +47,13 @@ def int8_cache_bytes(cache: Dict[str, Tuple[torch.Tensor, torch.Tensor]]) -> int
 def _quantize_stacked(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-layer scales for a stacked (G, K, N) weight, as the reference's
     ``vmap``; one layer at a time, so the f32 temporaries stay one layer's
-    size. The codes are stored K-major like ``quantize_weights_int8``'s: a
-    (G, N, K) array seen as (G, K, N), so ``tree_slice`` carves K-major
-    (K, N) layers."""
-    groups, k, n = w.shape
-    wq = torch.empty((groups, n, k), dtype=torch.int8, device=w.device)
-    scale = torch.empty((groups,), dtype=torch.float32, device=w.device)
-    for g in range(groups):
-        q, scale[g] = quantize_weights_int8(w[g])
-        wq[g] = q.t()
-    return wq.transpose(1, 2), scale
+    size. The codes are stored K-major like ``quantize_weights_int8``'s, so
+    ``tree_slice`` carves K-major (K, N) layers."""
+    wq = empty_k_major(w.shape, w.device)
+    scale = torch.empty((w.shape[0],), dtype=torch.float32, device=w.device)
+    for g in range(w.shape[0]):
+        wq[g], scale[g] = quantize_weights_int8(w[g])
+    return wq, scale
 
 
 def attach_int8_weights(params: Any, skip: Tuple[str, ...] = (r".*lm_head.*",)
