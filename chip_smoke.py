@@ -11,7 +11,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      together) into ``src/repro_torch/_build``; the run fails if ptxas
      reports spill stores in an attention instantiation that bf16 data at
      Dh 128 runs, or in any int8_matmul instantiation, and prints ptxas's
-     notes that it serialized wgmma (C7515, C7520, ...) in int8_matmul.
+     notes that it serialized wgmma (C7515, C7520, ...) in int8_matmul;
+     it fails on any spill store in an rg_lru entry (both routes).
   3. Kernel against plain version, at qwen3-14b's attention shapes (Hkv 8,
      G 5, Dh 128, block 16; 8 rows at ragged positions up to 1024 with
      scrambled tables and -1 tails): decode Tq = 1 and a prefill chunk
@@ -76,12 +77,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      a device tensor; a multiplication by 1/127 would differ on the
      counted tokens).
   3f. The RG-LRU scan kernel against its plain version, bitwise (max abs
-     difference 0), at the serving prefill shape (B 8, T 256, D 4096), a
-     long one-shot (1, 4096, 4096), a ragged D (3, 33, 777) and T 1
-     (8, 1, 4096), each without and with h0, and a state carried across
-     two calls (T 9 then 7 equals T 16). Then device times at (8, 256,
-     4096) and (1, 4096, 4096) of the kernel and its plain version beside
-     the bound (12 B T D bytes / 3.35 TB/s); no single PyTorch call
+     difference 0), on the route ``kernels/rg_lru.py:plan`` gives each
+     shape (printed with its plan): the serving prefill sub-step (B 8, T
+     256, D 4096) and its smallest chunk (8, 32, 4096), a long one-shot
+     (1, 4096, 4096), the evaluation's length (1, 2048, 4096), a T no ring
+     tile divides (1, 1000, 4096) and T 1 (8, 1, 4096) on route 1 (TMA
+     ring), a ragged D (3, 33, 777) on route 0 (direct loads), each
+     without and with h0, and a state carried across two calls (T 9 then
+     7 equals T 16). Then device times at (8, 256, 4096), (1, 4096, 4096),
+     (1, 2048, 4096) and (8, 32, 4096) of the kernel and its plain version
+     beside the bound (12 B T D bytes / 3.35 TB/s); no single PyTorch call
      computes a linear recurrence, so there is no library time.
   4. Serving: ``ContinuousBatcher(paged=True)`` at qwen3-14b's full width
      and 40 layers in bfloat16 with random weights from a seed: 12 greedy
@@ -145,7 +150,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      engine a static gamma = -4/2048, the ring's) within RG_LOGIT_REL_RMS;
      on the clipped engine the same sub-step with one fault put in (the
      ring emptied, the recurrent state or conv history lost, gamma from
-     max_len) must land above that bound.
+     max_len) must land above that bound. On every engine the first
+     local_attn layer's ring before that sub-step (ordered by pos_ids)
+     must agree with the cache-free forward's post-RoPE keys at the same
+     positions within RG_RING_REL_RMS, and the same ring rolled by one
+     slot must land above it. On the vanilla engine that prefill
+     sub-step, the prefill sub-step with the most live tokens and the
+     decode sub-step with the most rows are replayed once each under
+     torch.profiler (outside the counted run): device time by family
+     (the RG-LRU scan's 26 kernels in prefill, none in decode),
+     idle share, the rest's three largest kernels.
   6. The kernels line, then the device line.
 
 TF32 is switched off for matmuls and convolutions, so float32 compares
@@ -253,9 +267,15 @@ FLASH_VS_OWN_PLAIN_REL_RMS = 0.05
 # the bound sits 5x above the one and 4.5x below the other.
 PAGED_TC_REL_RMS = 5e-4
 EVAL_SEQ, EVAL_BATCHES, CALIB_BATCHES = 2048, 2, 4
-# (B, T, D) of the RG-LRU checks: the serving prefill step, a long
-# one-shot, a ragged D, and decode-sized T 1
-RG_SHAPES = [(8, 256, 4096), (1, 4096, 4096), (3, 33, 777), (8, 1, 4096)]
+# (B, T, D) of the RG-LRU checks: the serving prefill step and its
+# smallest chunk, a long one-shot, the evaluation's length, a T no tile
+# divides, decode-sized T 1 (all route 1, the TMA ring), and a ragged D
+# (route 0, direct loads)
+RG_SHAPES = [(8, 256, 4096), (8, 32, 4096), (1, 4096, 4096), (1, 2048, 4096),
+             (1, 1000, 4096), (8, 1, 4096), (3, 33, 777)]
+# (B, T, D) timed: the serving prefill step, the long one-shot, the
+# evaluation's length, and the smallest serving chunk
+RG_TIMED = [(8, 256, 4096), (1, 4096, 4096), (1, 2048, 4096), (8, 32, 4096)]
 # Phase 4b: a past-the-window row's last-chunk logits, served (ring read
 # through dense_attention, P rounded to bf16, chunked recurrence carrying
 # h) against a cache-free forward over its whole prefix (flash kernel, P
@@ -267,14 +287,27 @@ RG_SHAPES = [(8, 256, 4096), (1, 4096, 4096), (3, 33, 777), (8, 1, 4096)]
 # 0.0809. Bounded at 0.05: 1.7x the largest correct reading, below every
 # fault's, and each fault is checked to land above it.
 RG_LOGIT_REL_RMS = 0.05
-# faults the check must tell from a correct read: the ring emptied
+# faults the logits check must tell from a correct read: the ring emptied
 # (pos_ids -1), the recurrent state h or the conv history lost, gamma
-# resolved from max_len. A ring rolled by one slot is printed but not
-# held: RoPE is baked into the cached keys, so it moves only the key at
-# the window's edge (1 of 2048), below any bound the bf16 noise allows;
-# the CPU tests hold the ring write against the reference at window 8.
+# resolved from max_len. A ring rolled by one slot is printed there but
+# held by the ring check below: RoPE is baked into the cached keys, so in
+# the logits it moves only the key at the window's edge (1 of 2048),
+# below any bound the bf16 noise allows.
 RG_FAULTS = ("ring emptied", "h lost", "conv lost", "gamma from max_len",
              "ring rolled one slot")
+# Phase 4b's ring check: the first local_attn layer's ring K of the
+# past-the-window row before its last chunk (2048 keys, ordered by
+# pos_ids) against the post-RoPE keys of a cache-free forward over the
+# row's prefix at the same positions. Both are bf16 keys computed by the
+# same layers from the same tokens, through products of other shapes
+# (8 rows x a chunk against 1 row x the prefix), so they can differ where a
+# rounding edge falls differently (one bf16 ulp on every element would
+# read ~3e-3). A ring rolled by one slot pairs every key with its
+# neighbour's position. Measured on an H100 80GB HBM3 at 700 W, all three
+# engines, two runs: correct 0 (bitwise equal), rolled one slot 1.400.
+# Bounded at 0.05: 28x below the rolled reading, ~15x above keys one ulp
+# apart everywhere.
+RG_RING_REL_RMS = 0.05
 RG_GRIFFIN_LAYERS = 26             # 12 groups x 2 griffin blocks + the 2-block tail
 
 
@@ -968,7 +1001,8 @@ def phase_kv_quant(torch):
 # phase 4: serving at qwen3-14b full width
 # ---------------------------------------------------------------------------
 # kernel families of a traced tick, by a substring of the kernel's name
-TRACE_FAMILIES = (("int8 GEMM + pre-pass", "int8_"), ("paged read", "paged_attn"))
+TRACE_FAMILIES = (("int8 GEMM + pre-pass", "int8_"), ("paged read", "paged_attn"),
+                  ("RG-LRU scan", "rglru"))
 
 
 def busy_us(spans):
@@ -1030,6 +1064,56 @@ def trace_tick(torch, fn, label):
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     return trace_split(events, label)
+
+
+def trace_replays(torch, forward, snaps, who, unit):
+    """Each captured step of ``snaps`` (kind -> a snapshot holding its
+    ``cache`` and ``args``), ``forward(cache, *args)`` over a fresh copy
+    of its cache (made outside any timing): run once warm, once timed on
+    the host clock, once under torch.profiler (``trace_tick``). Prints
+    each and returns kind -> the trace's split, with the unprofiled
+    replay's wall and the idle share over it added."""
+    from repro_torch.nn.module import tree_map
+
+    def replay(snap):
+        cache = tree_map(lambda x: x.clone(), snap["cache"])
+
+        def run():
+            with torch.no_grad():
+                forward(cache, *snap["args"])
+        return run
+
+    traces = {}
+    for kind, snap in snaps.items():
+        replay(snap)()   # warm
+        run = replay(snap)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+        tr = trace_tick(torch, replay(snap), f"{who} {kind} {unit}")
+        # the profiled replay's device busy time over the unprofiled
+        # replay's wall: two runs, so a busy time above that wall is
+        # reported as it is (a negative share), with a warning
+        tr.update(unprofiled_wall_ms=wall_ms, unprofiled_idle_share=1 - tr["device_ms"] / wall_ms)
+        if tr["device_ms"] > wall_ms:
+            print(f"WARNING {who}: the {kind} {unit}'s device busy time under the profiler "
+                  f"({tr['device_ms']:.3f} ms) exceeds the unprofiled replay's wall "
+                  f"({wall_ms:.3f} ms): the two replays disagree, read the profiled idle "
+                  f"share", flush=True)
+        t_tokens, t_counts = snap["args"][0], snap["args"][2]
+        fam = ", ".join(f"{k} {v:.3f} ms ({tr['family_kernels'][k]} kernels)"
+                        for k, v in tr["family_ms"].items())
+        top = ", ".join(f"{n[:60]} {v:.3f} ms" for n, v in tr["rest_top"])
+        print(f"{who}: the {kind} {unit} (counts {t_counts.tolist()}, T "
+              f"{t_tokens.shape[1]}): wall {wall_ms:.3f} ms on the host clock; under "
+              f"torch.profiler wall {tr['wall_ms']:.3f} ms, device busy "
+              f"{tr['device_ms']:.3f} ms, idle share {tr['idle_share']:.4f} of the "
+              f"profiled wall, {tr['unprofiled_idle_share']:.4f} of the unprofiled one; "
+              f"device time by family: {fam}; the rest's largest: {top}", flush=True)
+        traces[kind] = tr
+    return traces
 
 
 def phase_serving(torch, np, pa, im, name, method, kv_int8, w8a8=False, **method_kw):
@@ -1214,50 +1298,14 @@ def phase_serving(torch, np, pa, im, name, method, kv_int8, w8a8=False, **method
         check(decode_snap, f"{name}: no all-decode tick was seen")
         # the mixed and the all-decode tick: timed once on the host clock
         # and replayed once under torch.profiler (each warmed first)
-        def replay(snap):
-            """The captured tick's forward, over a fresh copy of its cache
-            (made here, outside any timing)."""
-            cache = tree_map(lambda x: x.clone(), snap["cache"])
-
-            def tick():
-                with torch.no_grad():
-                    step_rows_full(b.params, b.cfg, cache, *snap["args"], ctx=b._qctx)
-            return tick
-
-        traces = {}
-        for kind, snap in (("mixed", snapshot), ("decode", decode_snap)):
-            replay(snap)()   # warm
-            tick = replay(snap)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            tick()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-            tr = trace_tick(torch, replay(snap), f"{name} {kind} tick")
-            # the profiled replay's device busy time over the unprofiled
-            # replay's wall: two runs, so a busy time above that wall is
-            # reported as it is (a negative share), with a warning
-            tr.update(unprofiled_wall_ms=wall_ms,
-                      unprofiled_idle_share=1 - tr["device_ms"] / wall_ms)
-            if tr["device_ms"] > wall_ms:
-                print(f"WARNING serving {name}: the {kind} tick's device busy time "
-                      f"under the profiler ({tr['device_ms']:.3f} ms) exceeds the "
-                      f"unprofiled replay's wall ({wall_ms:.3f} ms): the two replays "
-                      f"disagree, read the profiled idle share", flush=True)
-            t_tokens, t_counts = snap["args"][0], snap["args"][2]
-            fam = ", ".join(f"{k} {v:.3f} ms ({tr['family_kernels'][k]} kernels)"
-                            for k, v in tr["family_ms"].items())
-            top = ", ".join(f"{n[:60]} {v:.3f} ms" for n, v in tr["rest_top"])
-            print(f"serving {name}: the {kind} tick (counts {t_counts.tolist()}, T "
-                  f"{t_tokens.shape[1]}): wall {wall_ms:.3f} ms on the host clock; under "
-                  f"torch.profiler wall {tr['wall_ms']:.3f} ms, device busy "
-                  f"{tr['device_ms']:.3f} ms, idle share {tr['idle_share']:.4f} of the "
-                  f"profiled wall, {tr['unprofiled_idle_share']:.4f} of the unprofiled one; "
-                  f"device time by family: {fam}; the rest's largest: {top}", flush=True)
+        traces = trace_replays(
+            torch, lambda cache, *args: step_rows_full(b.params, b.cfg, cache, *args,
+                                                       ctx=b._qctx),
+            {"mixed": snapshot, "decode": decode_snap}, f"serving {name}", "tick")
+        for kind, tr in traces.items():
             check(tr["family_kernels"]["int8 GEMM + pre-pass"] > 0 and
                   tr["family_kernels"]["paged read"] > 0,
                   f"{name}: the traced {kind} tick ran no int8 or paged kernel: {tr}")
-            traces[kind] = tr
         result.update(traces=traces)
     del b, params, snapshot, decode_snap, logits, delta
     torch.cuda.empty_cache()
@@ -1286,9 +1334,14 @@ def rg_bound_ms(shape):
 
 
 def phase_rg_checks(torch, rl):
-    bad, max_err = [], 0.0
+    from repro_torch.device import sm_count
+
+    bad, max_err, routes = [], 0.0, set()
     for n, shape in enumerate(RG_SHAPES):
         a, b, h0 = rg_case(torch, shape, seed=50 + n)[0]
+        p = rl.plan(*shape, sm_count(a.device))
+        routes.add(p.route)
+        print(f"rg_lru plan {shape}: {p}", flush=True)
         for init in (None, h0):
             out, last = rl.rglru(a, b, init)
             torch.cuda.synchronize()
@@ -1315,14 +1368,18 @@ def phase_rg_checks(torch, rl):
           f"bitwise {'ok' if carry else 'FAIL'}", flush=True)
     check(carry, "rg_lru kernel: a carried state differs from one call")
     check(not bad, f"rg_lru kernel disagrees with its plain version: {bad}")
+    check(routes == {0, 1}, f"rg_lru checks reached routes {routes}, not both")
     torch.cuda.empty_cache()
     return max_err
 
 
 def phase_rg_times(torch, rl):
     times = {}
-    for shape, reps, plain_reps in (((8, 256, 4096), 20, 3), ((1, 4096, 4096), 5, 1)):
-        sets = rg_case(torch, shape, seed=70, copies=2)
+    for shape in RG_TIMED:
+        # the plain loop launches 2 T kernels, so its runs are few; the
+        # input copies together exceed the 50 MB L2
+        reps, plain_reps = 20, max(1, 1024 // shape[1])
+        sets = rg_case(torch, shape, seed=70, copies=2 if shape[0] * shape[1] >= 2048 else 8)
         kern = device_ms(torch, [lambda s=s: rl.rglru(s[0], s[1], s[2]) for s in sets], reps)
         plain = device_ms(torch, [lambda s=s: rl.rglru_ref(s[0], s[1], s[2]) for s in sets],
                           plain_reps)
@@ -1350,9 +1407,10 @@ def rg_prompts(np, vocab):
     return [rng.integers(0, vocab, size=int(n)).astype(np.int32) for n in lengths]
 
 
-def phase_rg_serving(torch, np, rl, fa, pa, name, method, **method_kw):
+def phase_rg_serving(torch, np, rl, fa, pa, name, method, trace=False, **method_kw):
     from repro_torch.configs.base import apply_method
     from repro_torch.configs.recurrentgemma_9b import full
+    from repro_torch.models import transformer
     from repro_torch.models.transformer import model_apply, model_init, row_leaves
     from repro_torch.nn.module import tree_map
     from repro_torch.serving import ContinuousBatcher, Request
@@ -1367,12 +1425,22 @@ def phase_rg_serving(torch, np, rl, fa, pa, name, method, **method_kw):
     b = ContinuousBatcher(params, cfg, batch_size=8, max_len=4096, block_size=16,
                           token_budget=256, device="cuda")
     step_fn, per_forward, snapshot = b._step_fn, [], {}
+    decode_snap, fullest_snap = {}, {}
 
     def observe(params_, cache, tokens, pos, counts, keys, lw, lws):
         # the prefill sub-step where a row's last chunk starts past the
         # window: keep its inputs and a copy of the cache it reads, for
-        # the comparisons below, outside the counted run
+        # the comparisons below, outside the counted run; with ``trace``,
+        # those of the decode sub-step with the most rows and of the
+        # prefill sub-step with the most live tokens too
         t = tokens.shape[1]
+        if trace:
+            kept = decode_snap if t == 1 else fullest_snap
+            live = int((counts > 0).sum() if t == 1 else counts.sum())
+            if live > kept.get("live", 0):
+                kept.update(cache=tree_map(lambda x: x.clone(), cache), live=live,
+                            args=(tokens.clone(), pos.clone(), counts.clone(), lw,
+                                  lws.clone()))
         if not snapshot and t > 1:
             c = counts.cpu()
             for i, s in enumerate(b.slots):
@@ -1428,6 +1496,8 @@ def phase_rg_serving(torch, np, rl, fa, pa, name, method, **method_kw):
           f"{name}: {launches} rg_lru launches for {multi} forwards of T > 1")
     check(other == (0, 0), f"{name}: flash/paged kernels launched while serving: {other}")
     check(snapshot, f"{name}: no last chunk past the window was seen")
+    check(not trace or (decode_snap and fullest_snap),
+          f"{name}: no decode or no prefill sub-step was seen")
 
     # the snapshot sub-step again: with the kernel, and with only the
     # kernel swapped for its plain version
@@ -1454,30 +1524,73 @@ def phase_rg_serving(torch, np, rl, fa, pa, name, method, **method_kw):
     # holds gamma at the ring's -alpha / 2048
     ref_cfg = cfg if method != "clipped_softmax" else \
         apply_method(full(), method, gamma=-method_kw["alpha"] / cfg.window)
-    with torch.no_grad():
-        full_logits, _ = model_apply(params, ref_cfg, {
-            "tokens": torch.as_tensor(prefix, dtype=torch.long, device="cuda")[None]})
+    # ... keeping the first local_attn layer's post-RoPE keys, the first
+    # attention() call's k (the griffin blocks before it call none)
+    ref_keys = []
+    real_attention = transformer.attention
+
+    def keep_keys(q, k, v, *args, **kw):
+        if not ref_keys:
+            ref_keys.append(k[0].clone())
+        return real_attention(q, k, v, *args, **kw)
+
+    transformer.attention = keep_keys
+    try:
+        with torch.no_grad():
+            full_logits, _ = model_apply(params, ref_cfg, {
+                "tokens": torch.as_tensor(prefix, dtype=torch.long, device="cuda")[None]})
+    finally:
+        transformer.attention = real_attention
     ref = full_logits[0, -c:, :cfg.vocab_size].float()
     del full_logits
     def rel(a):
         return ((a - ref).square().mean().sqrt() / ref.square().mean().sqrt()).item()
 
-    rel_rms = rel(served)
+    logit_rms = rel(served)
     agree = (served.argmax(-1) == ref.argmax(-1)).float().mean().item()
     print(f"serving rg {name}: prefill sub-step (counts {counts.tolist()}): logits with the "
           f"rg_lru kernel vs its plain version bitwise equal: {same}; row {r} (last chunk "
           f"of {c} at positions {int(pos[r])}..{int(pos[r]) + c - 1}, window {cfg.window}) vs "
           f"cache-free forward over its {len(prefix)}-token prefix: relative RMS "
-          f"{rel_rms:.4f} (tol {RG_LOGIT_REL_RMS}), argmax agreement {agree:.4f}",
+          f"{logit_rms:.4f} (tol {RG_LOGIT_REL_RMS}), argmax agreement {agree:.4f}",
           flush=True)
     check(same, f"{name}: the rg_lru kernel changed the prefill logits")
-    check(rel_rms <= RG_LOGIT_REL_RMS,
-          f"{name}: served logits differ from the cache-free forward: relative RMS {rel_rms}")
+    check(logit_rms <= RG_LOGIT_REL_RMS,
+          f"{name}: served logits differ from the cache-free forward: relative RMS {logit_rms}")
+
+    def leaves(cache, name_):
+        return [leaf for path, leaf, _ in row_leaves(cache) if path[-1] == name_]
+
+    def first_ring(name_):
+        """Row r's ``name_`` leaf of the first local_attn layer in the
+        snapshot: the first group's of a stacked (G, B, ...) leaf."""
+        leaf, axis = next((leaf, axis) for path, leaf, axis in row_leaves(snapshot["cache"])
+                          if path[-1] == name_)
+        return (leaf[0] if axis == 1 else leaf)[r]
+
+    # the first local_attn layer's ring of row r before the sub-step,
+    # ordered by its pos_ids, against the cache-free keys at the same
+    # positions; and the same ring rolled by one slot
+    ring_k, ring_pos = first_ring("k"), first_ring("pos_ids")
+    ids = ring_pos.long()
+    filled = ids >= 0
+    want_keys = ref_keys[0][ids[filled]].float()
+    ring = {"correct": rel_rms(ring_k[filled], want_keys),
+            "rolled one slot": rel_rms(torch.roll(ring_k, 1, dims=0)[filled], want_keys)}
+    n_filled = int(filled.sum())
+    print(f"serving rg {name}: row {r}'s first local_attn ring ({n_filled} keys, positions "
+          f"{int(ids[filled].min())}..{int(ids[filled].max())}) vs the cache-free forward's "
+          f"post-RoPE keys at the same positions, relative RMS: correct "
+          f"{ring['correct']:.3e} (tol {RG_RING_REL_RMS}), rolled one slot "
+          f"{ring['rolled one slot']:.3e}", flush=True)
+    check(n_filled == min(int(pos[r]), ring_pos.numel()),
+          f"{name}: the ring holds {n_filled} keys before position {int(pos[r])}")
+    check(ring["correct"] <= RG_RING_REL_RMS,
+          f"{name}: the ring's keys differ from the cache-free forward's: {ring['correct']}")
+    check(ring["rolled one slot"] > RG_RING_REL_RMS,
+          f"{name}: the ring check cannot tell a ring rolled by one slot: {ring}")
     faults = {}
     if method == "clipped_softmax":
-        def leaves(cache, name_):
-            return [leaf for path, leaf, _ in row_leaves(cache) if path[-1] == name_]
-
         def roll(cache):
             for k_or_v in ("k", "v"):
                 for leaf in leaves(cache, k_or_v):
@@ -1500,16 +1613,29 @@ def phase_rg_serving(torch, np, rl, fa, pa, name, method, **method_kw):
             del cache, out
         print(f"serving rg {name}: the same row with one fault put in, relative RMS: " +
               ", ".join(f"{k} {v:.4f}" for k, v in faults.items()), flush=True)
+        # the ring rolled by one slot is held by the ring check above
         held = {k: v for k, v in faults.items() if k != "ring rolled one slot"}
         check(all(v > RG_LOGIT_REL_RMS for v in held.values()),
               f"{name}: the logits check cannot tell a fault from a correct read: {held}")
-    del b, params, snapshot, served, ref
+    result = dict(engine=name, layers=cfg.n_layers, ticks=ticks, forwards=len(per_forward),
+                  multi_forwards=multi, tokens=n_tokens, wall_s=wall,
+                  tok_per_s=n_tokens / wall, peak_gb=peak_gb, launches=launches,
+                  logit_rel_rms=logit_rms, argmax_agreement=agree, init_s=init_s,
+                  faults=faults, ring=ring)
+    if trace:
+        traces = trace_replays(
+            torch, lambda cache, *args: step_rows_full(b.params, b.cfg, cache, *args),
+            {"prefill": snapshot, "fullest prefill": fullest_snap, "decode": decode_snap},
+            f"serving rg {name}", "sub-step")
+        for kind, want in (("prefill", RG_GRIFFIN_LAYERS),
+                           ("fullest prefill", RG_GRIFFIN_LAYERS), ("decode", 0)):
+            ran = traces[kind]["family_kernels"]["RG-LRU scan"]
+            check(ran == want, f"{name}: the traced {kind} sub-step ran {ran} RG-LRU "
+                               f"kernels, not {want}")
+        result.update(traces=traces)
+    del b, params, snapshot, decode_snap, fullest_snap, served, ref, ref_keys
     torch.cuda.empty_cache()
-    return dict(engine=name, layers=cfg.n_layers, ticks=ticks, forwards=len(per_forward),
-                multi_forwards=multi, tokens=n_tokens, wall_s=wall,
-                tok_per_s=n_tokens / wall, peak_gb=peak_gb, launches=launches,
-                logit_rel_rms=rel_rms, argmax_agreement=agree, init_s=init_s,
-                faults=faults)
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -1762,6 +1888,15 @@ def main() -> int:
     check(len(int8_fns) >= 6, f"expected the int8 instantiations in the build log: {int8_fns}")
     check(all(sp == 0 for _, _, sp in int8_fns),
           f"ptxas spills in int8 kernels: {[f for f, _, sp in int8_fns if sp]}")
+    # both rg_lru routes (the TMA ring at 1, 2, 4 and 8 warps, direct
+    # loads) must not spill
+    rg_fns = ptxas_report(build.BUILD_LOG.get("rg_lru", ""))
+    print(f"ptxas spill check: {len(rg_fns)} rg_lru entries; registers "
+          f"{[(re.sub(r'^_Z[^a-z]*', '', f)[:40], r) for f, r, _ in rg_fns]}; spill stores "
+          f"{sorted({sp for _, _, sp in rg_fns})}", flush=True)
+    check(len(rg_fns) >= 5, f"expected the rg_lru entries in the build log: {rg_fns}")
+    check(all(sp == 0 for _, _, sp in rg_fns),
+          f"ptxas spills in rg_lru kernels: {[f for f, _, sp in rg_fns if sp]}")
 
     max_err = phase_kernel_checks(torch, pa)
     phase_paged_tc_precision(torch, pa)
@@ -1786,7 +1921,7 @@ def main() -> int:
         phase_serving(torch, np, pa, im, "gated-w8a8-int8kv", "gated_attention", None,
                       w8a8=True)]
     rg_engines = [
-        phase_rg_serving(torch, np, rl, fa, pa, "vanilla", "vanilla"),
+        phase_rg_serving(torch, np, rl, fa, pa, "vanilla", "vanilla", trace=True),
         phase_rg_serving(torch, np, rl, fa, pa, "clipped", "clipped_softmax", alpha=4.0),
         phase_rg_serving(torch, np, rl, fa, pa, "gated", "gated_attention")]
     evals = [phase_eval(torch, np, fa, fq, pa, im, "vanilla", "vanilla"),
