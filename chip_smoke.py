@@ -56,11 +56,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      own) and bfloat16 at atol 2e-2; then a small set, in float32 and in
      bfloat16, with a window, a softcap, q_offset > 0 (scalar and per
      row), no causal mask and Dh 64/256, and a ragged T 1000 in bfloat16;
-     each line names the route (bf16 Dh 64/128: tensor cores). Then device times at (1, 2048) bf16 of the kernel, its
+     then the dense cache's reads at qwen3-14b's heads over a row of 1024
+     keys, vanilla, clipped (gamma = -4/1024) and gated, f32 and bf16:
+     decode (8 rows, Tq 1) at per-row offsets DECODE_OFFSETS, a chunk (Tq
+     256) at CHUNK_OFFSETS (two rows' last queries past Tk), and a prefill
+     (Tq 512) at offset 0; each line names the route (bf16 Dh 64/128:
+     tensor cores). Then device times at (1, 2048) bf16 of the kernel, its
      plain version and ``F.scaled_dot_product_attention(is_causal=True,
      enable_gqa=True)`` (vanilla only; a yardstick the port never calls),
      beside the bound (flops of the causally visible pairs / 989 TFLOP/s,
-     or bytes / 3.35 TB/s, the larger).
+     or bytes of q, out and each row's visible K/V / 3.35 TB/s, the
+     larger); and at the dense decode read (8, 1, 40/8, 128) over 1024 keys
+     at DECODE_OFFSETS, vanilla and clipped, with SDPA on the same K/V
+     (heads repeated, a mask of the visible keys), beside phase 3's paged
+     decode read at the same live lengths.
   3d. The fake-quant kernel against its plain version, bitwise, at the
      evaluation's shapes (MLP activation (2048, 17408) bf16, residual
      (2048, 5120) f32, gate/up weight (5120, 17408) bf16) and ragged n
@@ -111,7 +120,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      all-decode tick are replayed once each under ``torch.profiler``
      (outside the counted run), which gives device time by kernel family
      (int8 GEMM with its pre-pass, paged read, the rest) and the device's
-     idle share over the tick.
+     idle share over the tick. Then, on the same weights, the dense cache
+     (the paged engine freed first), on vanilla, clipped, gated and
+     clipped-w8a8: ``generate`` on 4 prompts of 512 tokens, 32 new, greedy
+     (fp engines: 32 forwards, 40 flash and 0 paged launches each), whose
+     last decode step must agree with a prefill over the same tokens at
+     the same max_len (gate (a)): logits within DENSE_LOGIT_REL_RMS, and
+     every block, its input forced to the prefill's, within
+     DENSE_LAYER_REL_RMS (the decode one position early and, clipped,
+     gamma from the step's T must land above in some block); and
+     ``ContinuousBatcher(paged=False)`` (batch 8, max_len 1024, budget
+     256) over the 12 requests: every request done, 40 flash, 0 paged
+     (and, W8A8, 280 int8) launches per forward, its first mixed tick on
+     the paged engine's tokens against the paged engine's tick (gate (b)):
+     logits within DENSE_LOGIT_REL_RMS (W8A8: W8A8_LOGIT_REL_RMS), every
+     block, its input forced to the paged tick's, within
+     DENSE_LAYER_REL_RMS (the writes one slot late must land above).
+     Greedy tokens of the dense engine against the paged engine's and
+     generate's are printed, not held.
   5. Evaluation, the paper's protocol, at qwen3-14b's full width and 40
      layers in bfloat16 (random weights from seed 0, unrolled layers, as
      PTQ needs), for vanilla, clipped softmax (alpha 4) and gated
@@ -159,7 +185,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      decode sub-step with the most rows are replayed once each under
      torch.profiler (outside the counted run): device time by family
      (the RG-LRU scan's 26 kernels in prefill, none in decode),
-     idle share, the rest's three largest kernels.
+     idle share, the rest's three largest kernels. On the vanilla
+     engine's weights, ``generate`` (16 new tokens) on one prompt of 1024
+     tokens (one-shot prefill through the shared-pos ring write) and one of
+     3000 (chunked past the window): 26 RG-LRU launches on every forward of
+     T > 1, none at T 1, no flash or paged launch, and gate (a) with the
+     decode one position early and the recurrent state h lost as faults.
   6. The kernels line, then the device line.
 
 TF32 is switched off for matmuls and convolutions, so float32 compares
@@ -168,6 +199,7 @@ without a GPU or without the repository's ``src/``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -309,6 +341,38 @@ RG_FAULTS = ("ring emptied", "h lost", "conv lost", "gamma from max_len",
 # apart everywhere.
 RG_RING_REL_RMS = 0.05
 RG_GRIFFIN_LAYERS = 26             # 12 groups x 2 griffin blocks + the 2-block tail
+# Phase 3c's dense-cache reads (generate's decode, the paged=False
+# batcher's tick): 8 rows over a dense row of 1024 keys. A decode row's
+# offset (its query's position): the row's first key, both sides of a
+# 16-key boundary, the middle, the last slot, and three more.
+DECODE_OFFSETS = [0, 15, 16, 511, 1023, 100, 700, 300]
+# a 256-token chunk at per-row offsets; the rows at 900 and 1000 put their
+# last queries past Tk, as a near-full row's padded chunk does
+CHUNK_OFFSETS = [0, 768, 900, 300, 512, 1000, 40, 128]
+# Phase 4's gates on the dense cache: (a) generate's last decode step
+# against a prefill over the same tokens at the same max_len; (b) the
+# paged=False engine's first mixed tick against the paged engine's on the
+# same tokens. Both sides are correct and round differently (other GEMM
+# shapes; the flash kernel at Tq 1 against Tq 543, or against the paged
+# kernel), and 40 random bf16 layers carry the ulps to the logits, as for
+# LOGIT_REL_RMS, so the logits only catch gross faults: measured on an
+# H100 80GB HBM3 at 700 W, gate (a) 0.0115 / 0.0501 / 0.0212 (vanilla,
+# clipped, gated), 0.0260 / 0.0240 (recurrentgemma, prompts 1024 / 3000),
+# gate (b) 0.0132 / 0.0274 / 0.0363 (the gated paged engine's pool is int8)
+# and 0.1023 under W8A8 (held at W8A8_LOGIT_REL_RMS); bounded at 0.1, 2x
+# the largest fp reading. A random-weight vanilla model attends almost
+# uniformly, so a decode one position early moves its logits by 0.0289
+# only. The tight check is per block, each block's input forced to the
+# other run's (tapped_blocks): the relative RMS of its increment (output -
+# input, both bf16-rounded residuals, so the late blocks, whose residual
+# is largest, read the most). Measured, same card: correct 1.965e-3 ..
+# 1.714e-2 (fp, both gates), 3.572e-2 (W8A8 dense vs paged); the faults
+# 9.823e-2 (recurrentgemma's decode one position early, only 12 of 38
+# blocks see positions) .. 1.299 (the clipped gamma from the step's T).
+# Bounded at 0.06, 1.7x above the largest correct reading and 1.6x below
+# the smallest fault; each gate checks that its faults land above it.
+DENSE_LOGIT_REL_RMS = 0.1
+DENSE_LAYER_REL_RMS = 0.06
 
 
 def ptxas_report(log: str):
@@ -765,17 +829,22 @@ def flash_case(torch, t, dtype, variant, seed, b=1, hq=40, hkv=8, dh=128, tk=Non
 
 
 def flash_bound_ms(c, q_offset=0):
-    """Least time on an H100: q, k, v and the gate read once and the output
-    written once, against 3.35 TB/s; the QK and PV flops of every causally
+    """Least time on an H100: q and the gate read once, the output written
+    once, and the K/V of each row's causally visible keys read once (a
+    dense cache pads a row to Tk; the keys past its last query are not
+    needed), against 3.35 TB/s; the QK and PV flops of every causally
     visible (query, key) pair (the clipped softmax computes QK twice)
-    against the dense bf16 (or f32) peak. The larger of the two."""
+    against the dense bf16 (or f32) peak. The larger of the two.
+    ``q_offset``: an int, or one per row."""
     q, (k, v) = c["q"], c["sets"][0]
     b, t, hq, dh = q.shape
-    tk = k.shape[1]
-    pairs = sum(max(0, min(tk, q_offset + i + 1)) for i in range(t))
+    tk, hkv = k.shape[1], k.shape[2]
+    offs = [q_offset] * b if isinstance(q_offset, int) else list(q_offset)
+    pairs = sum(max(0, min(tk, o + i + 1)) for o in offs for i in range(t))
+    keys = sum(min(tk, o + t) for o in offs)
     per_pair = 6 if c["kw"]["gamma"] != 0.0 else 4
-    flops = per_pair * dh * hq * b * pairs
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = per_pair * dh * hq * pairs
+    nbytes = (2 * q.numel() + 2 * keys * hkv * dh) * q.element_size()
     if c["gate"] is not None:
         nbytes += c["gate"].numel() * 4
     peak = BF16_FLOPS if q.element_size() == 2 else F32_FLOPS
@@ -805,6 +874,15 @@ def phase_flash_checks(torch, fa):
                   (200, "vanilla", dict(small, dh=256, window=64)))]
     cases += [(1000, torch.bfloat16, "vanilla", dict(small)),
               (1000, torch.bfloat16, "clipped+gated", dict(small, window=300))]
+    # the dense cache's reads at qwen3-14b's heads over a row of 1024 keys:
+    # decode (Tq 1) and a chunk (Tq 256) at per-row offsets, a prefill at
+    # offset 0
+    dense = dict(b=8, tk=1024)
+    cases += [(t, dtype, variant, extra) for dtype in (torch.float32, torch.bfloat16)
+              for variant in ("vanilla", "clipped", "gated")
+              for t, extra in ((1, dict(dense, q_offset=DECODE_OFFSETS)),
+                               (256, dict(dense, q_offset=CHUNK_OFFSETS)),
+                               (512, dict(dense, b=2, q_offset=0)))]
     for i, (t, dtype, variant, extra) in enumerate(cases):
         extra = dict(extra)
         shape = {k: extra.pop(k) for k in ("b", "hq", "hkv", "dh", "tk") if k in extra}
@@ -812,6 +890,8 @@ def phase_flash_checks(torch, fa):
         kw = dict(c["kw"], **extra)
         if kw.get("q_offset") == "rows":
             kw["q_offset"] = torch.tensor([0, 128], dtype=torch.int32, device="cuda")
+        elif isinstance(kw.get("q_offset"), list):
+            kw["q_offset"] = torch.tensor(kw["q_offset"], dtype=torch.int32, device="cuda")
         k, v = c["sets"][0]
         out = fa.mha_flash(c["q"], k, v, c["gate"], **kw)
         torch.cuda.synchronize()
@@ -861,6 +941,56 @@ def phase_flash_times(torch, fa):
               flush=True)
         del c
         torch.cuda.empty_cache()
+    return times
+
+
+def phase_flash_decode_times(torch, fa, pa):
+    """Device times at the dense cache's decode read, bf16: q (8, 1, 40,
+    128) over K/V (8, 1024, 8, 128) at DECODE_OFFSETS, vanilla and clipped:
+    the kernel, its plain version and, vanilla, SDPA on the same dense K/V
+    (heads repeated, a boolean mask of each row's visible keys; a yardstick
+    the port never calls), beside the bound over the visible keys; and
+    phase 3's paged decode read at the same live lengths."""
+    import torch.nn.functional as F
+    offs = torch.tensor(DECODE_OFFSETS, dtype=torch.int32, device="cuda")
+    times = {}
+    for variant in ("vanilla", "clipped"):
+        c = flash_case(torch, 1, torch.bfloat16, variant, seed=9, b=8, tk=1024, copies=4)
+        q, kw = c["q"], dict(c["kw"], q_offset=offs)
+        kern = device_ms(torch, [lambda s=s: fa.mha_flash(q, s[0], s[1], **kw)
+                                 for s in c["sets"]], 40)
+        plain = device_ms(torch, [lambda s=s: fa.mha_flash_ref(q, s[0], s[1], **kw)
+                                  for s in c["sets"]], 10)
+        lib = None
+        if variant == "vanilla":
+            g = q.shape[2] // c["sets"][0][0].shape[2]
+            mask = (torch.arange(1024, device="cuda")[None, :] <= offs.long()[:, None])
+            ins = [(q.transpose(1, 2).contiguous(),
+                    s[0].repeat_interleave(g, dim=2).transpose(1, 2).contiguous(),
+                    s[1].repeat_interleave(g, dim=2).transpose(1, 2).contiguous())
+                   for s in c["sets"]]
+            lib = device_ms(torch, [lambda a=a: F.scaled_dot_product_attention(
+                a[0], a[1], a[2], attn_mask=mask[:, None, None, :]) for a in ins], 40)
+            del ins
+        bound, by = flash_bound_ms(c, DECODE_OFFSETS)
+        times[variant] = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                              bound_by=by)
+        print(f"flash time (8, 1, 40/8, 128) over Tk 1024 at offsets {DECODE_OFFSETS} "
+              f"{variant} bf16 route={fa.route(q.dtype, 128)}: kernel {kern:.4f} ms, plain "
+              f"{plain:.4f} ms, SDPA {'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+              f"{bound:.4f} ms ({by})", flush=True)
+        del c
+    pc = attention_case(torch, 1, torch.bfloat16, "vanilla", seed=19,
+                        lengths=[o + 1 for o in DECODE_OFFSETS], copies=4)
+    paged = device_ms(torch, [lambda k=k: run_kernel(pa, pc, k) for k in range(4)], 40)
+    bound, by = attention_bound_ms(pc, 2)
+    route, splits = paged_route(pa, pc)
+    times["paged"] = dict(ms=paged, bound_ms=bound, bound_by=by)
+    print(f"paged decode time at the same live lengths {[o + 1 for o in DECODE_OFFSETS]} "
+          f"vanilla bf16 route={route} splits={splits}: kernel {paged:.4f} ms, bound "
+          f"{bound:.4f} ms ({by})", flush=True)
+    del pc
+    torch.cuda.empty_cache()
     return times
 
 
@@ -1116,7 +1246,8 @@ def trace_replays(torch, forward, snaps, who, unit):
     return traces
 
 
-def phase_serving(torch, np, pa, im, name, method, kv_int8, w8a8=False, **method_kw):
+def phase_serving(torch, np, pa, im, fa, name, method, kv_int8, w8a8=False, dense=True,
+                  **method_kw):
     from repro_torch.configs.base import apply_method
     from repro_torch.configs.qwen3_14b import full
     from repro_torch.models.transformer import model_init
@@ -1224,6 +1355,7 @@ def phase_serving(torch, np, pa, im, name, method, kv_int8, w8a8=False, **method
               f"{sum(storages.values()) / 1e9:.3f} GB in {len(storages)} storages, one copy "
               f"of each weight: {one_copy}", flush=True)
         check(q8 and k_major and one_copy, f"{name}: w_q8 layout or copies off")
+        del q8      # the int8 weights go with the engine
 
     # the mixed tick again: through the kernels, through the plain path
     # (the gather read and, under W8A8, the int8 product's plain version),
@@ -1243,10 +1375,15 @@ def phase_serving(torch, np, pa, im, name, method, kv_int8, w8a8=False, **method
             if plain_int8:
                 layers.int8_matmul = im.int8_matmul_ref
             try:
-                out, _ = step_rows_full(b.params, c2, cache, tokens, pos, counts, lw, lws,
-                                        ctx=ctx)
+                # the kernel run keeps each block's input and increment at
+                # the live tokens, for the dense engine's gate (b)
+                with tapped_blocks(live) if key == "auto" else contextlib.nullcontext() as t:
+                    out = step_rows_full(b.params, c2, cache, tokens, pos, counts, lw, lws,
+                                         ctx=ctx)[0]
             finally:
                 layers.int8_matmul = im.int8_matmul
+            if key == "auto":
+                taps = t
             logits[key] = out[live][:, :cfg.vocab_size]
             del cache, out
 
@@ -1307,7 +1444,331 @@ def phase_serving(torch, np, pa, im, name, method, kv_int8, w8a8=False, **method
                   tr["family_kernels"]["paged read"] > 0,
                   f"{name}: the traced {kind} tick ran no int8 or paged kernel: {tr}")
         result.update(traces=traces)
-    del b, params, snapshot, decode_snap, logits, delta
+    # the dense-cache paths on the same weights, the paged engine freed
+    # first; gate (b) reads its first mixed tick and that tick's logits
+    paged = dict(args=snapshot["args"][:3], logits=logits["auto"], outs=outs, taps=taps)
+    del b, snapshot, decode_snap, logits, delta, taps
+    torch.cuda.empty_cache()
+    if dense:
+        result.update(dense=phase_dense_serving(torch, np, pa, im, fa, name, method,
+                                                method_kw, params, cfg, prompts, paged, w8a8))
+    del params, paged
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 4's dense-cache paths: generate and ContinuousBatcher(paged=False)
+# ---------------------------------------------------------------------------
+def run_generate(torch, params, cfg, prompt, n, counters):
+    """``generate`` (greedy, ``n`` new tokens) over ``prompt`` (B, T) on the
+    card, the launch counts of the ``counters`` modules at 0 just before
+    it and read just after. Records each forward's T and launches, and
+    keeps the logits of the last decode step (position T + n - 2) for
+    gate (a). Returns (tokens, wall s, peak GB, [(T, launches...)], logits)."""
+    from repro_torch.serving import GenerateConfig, decode
+
+    p = prompt.shape[1] + n - 2
+    per_forward, kept = [], {}
+    real_apply, real_decode = decode.model_apply, decode.decode_one
+
+    def counted_apply(*a, **kw):
+        before = [m.launches for m in counters]
+        out = real_apply(*a, **kw)
+        per_forward.append((a[2]["tokens"].shape[1],
+                            *(m.launches - x for m, x in zip(counters, before))))
+        return out
+
+    def keep_last(params_, cfg_, cache, tokens, pos, active=None):
+        logits, cache = real_decode(params_, cfg_, cache, tokens, pos, active)
+        if pos == p:
+            kept["logits"] = logits.clone()
+        return logits, cache
+
+    decode.model_apply, decode.decode_one = counted_apply, keep_last
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for m in counters:
+            m.launches = 0
+        t0 = time.perf_counter()
+        out = decode.generate(params, cfg, prompt, GenerateConfig(max_new_tokens=n))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        decode.model_apply, decode.decode_one = real_apply, real_decode
+    return out, wall, torch.cuda.max_memory_allocated() / 1e9, per_forward, kept["logits"]
+
+
+def prefill_as_generate(params, cfg, tokens, max_len):
+    """The prefill ``generate`` runs for ``tokens`` at ``max_len``: one
+    forward below the ring's chunk cap, chunks past it. Returns (last
+    logits, cache)."""
+    from repro_torch.serving import decode
+
+    cap = decode._ring_chunk_cap(cfg, max_len)
+    if cap is None or tokens.shape[1] <= cap:
+        last, cache, _ = decode.prefill(params, cfg, tokens, max_len)
+    else:
+        last, cache, _ = decode.chunked_prefill(params, cfg, tokens, max_len)
+    return last, cache
+
+
+@contextlib.contextmanager
+def tapped_blocks(sel, force=None):
+    """Taps on every block of ``model_apply`` (``transformer._block_apply``):
+    each call records the block's input and its increment (output - input,
+    in f32) at the tokens ``sel`` selects: ``"last"``, each row's last
+    position, or a (B, T) bool mask. With ``force``, another run's recorded
+    inputs, block i's input there is first replaced by ``force[i]``
+    (teacher forcing): every block then sees the other run's input, so
+    its increment differs from the other run's only by what the block
+    itself computes differently, without 40 layers of amplification.
+    Yields the taps {"inp": [...], "inc": [...]}."""
+    from repro_torch.models import transformer
+
+    taps, real = {"inp": [], "inc": []}, transformer._block_apply
+
+    def pick(x):
+        return x[:, -1] if isinstance(sel, str) else x[sel]
+
+    def block(p, x, *args):
+        if force is not None:
+            x = x.clone()
+            f = force[len(taps["inp"])].to(x.dtype)
+            if isinstance(sel, str):
+                x[:, -1] = f
+            else:
+                x[sel] = f
+        y, out = real(p, x, *args)
+        taps["inp"].append(pick(x).clone())
+        taps["inc"].append(pick(y).float() - pick(x).float())
+        return y, out
+
+    transformer._block_apply = block
+    try:
+        yield taps
+    finally:
+        transformer._block_apply = real
+
+
+def layer_rms(taps, ref_inc):
+    """(largest relative RMS of a block's increment against ``ref_inc``'s,
+    the block's index)."""
+    rms = [rel_rms(a, b) for a, b in zip(taps["inc"], ref_inc)]
+    worst = max(range(len(rms)), key=rms.__getitem__)
+    return rms[worst], worst
+
+
+def gate_decode_vs_prefill(torch, params, cfg, out, t, n, served, faults, who):
+    """Gate (a) on one ``generate`` run (tokens ``out``, prompt length t, n
+    new): its last decode step (position p = t + n - 2) against a prefill
+    over the same p + 1 tokens at the same max_len. Tight, per block: the
+    decode step after a prefill of the first p tokens, each block's input
+    forced to the prefill's at position p, each block's increment within
+    DENSE_LAYER_REL_RMS of the prefill's; every fault of ``faults`` (name
+    -> (config, position shift, a change made to the cache or None))
+    must land above that in some block. Loose: ``served``, generate's own
+    logits of that step (from ``run_generate``), within
+    DENSE_LOGIT_REL_RMS of the prefill's last logits. Returns the
+    readings."""
+    from repro_torch.nn.module import tree_map
+    from repro_torch.serving.decode import decode_one
+
+    p, max_len, vocab, nl = t + n - 2, t + n, cfg.vocab_size, cfg.n_layers
+    with torch.no_grad():
+        with tapped_blocks("last") as ref_taps:
+            ref = prefill_as_generate(params, cfg, out[:, :p + 1], max_len)[0][:, :vocab]
+        ref_in, ref_inc = ref_taps["inp"][-nl:], ref_taps["inc"][-nl:]   # its last forward
+        del ref_taps
+        logits_rms = rel_rms(served[:, :vocab], ref)
+        _, cache = prefill_as_generate(params, cfg, out[:, :p], max_len)
+        layer = {}
+        for name, (fcfg, shift, mutate) in {"correct": (cfg, 0, None), **faults}.items():
+            c = tree_map(lambda x: x.clone(), cache)
+            if mutate is not None:
+                mutate(c)
+            with tapped_blocks("last", force=ref_in) as taps:
+                decode_one(params, fcfg, c, out[:, p:p + 1], p + shift)
+            layer[name] = layer_rms(taps, ref_inc)
+            del c, taps
+        del cache, ref, ref_in, ref_inc
+    print(f"{who}: gate (a), generate's decode step at position {p} vs a prefill over the "
+          f"same {p + 1} tokens at max_len {max_len}: logits relative RMS {logits_rms:.4f} "
+          f"(tol {DENSE_LOGIT_REL_RMS}); per block, inputs forced to the prefill's, the "
+          f"largest relative RMS of a block's increment {layer['correct'][0]:.3e} (block "
+          f"{layer['correct'][1]}; tol {DENSE_LAYER_REL_RMS:.0e}); with a fault put in: " +
+          ", ".join(f"{k} {v[0]:.3e} (block {v[1]})" for k, v in layer.items()
+                    if k != "correct"), flush=True)
+    check(logits_rms <= DENSE_LOGIT_REL_RMS,
+          f"{who}: decode and prefill logits differ: {logits_rms}")
+    check(layer["correct"][0] <= DENSE_LAYER_REL_RMS,
+          f"{who}: a block's decode step differs from the prefill: {layer['correct']}")
+    check(all(v[0] > DENSE_LAYER_REL_RMS for k, v in layer.items() if k != "correct"),
+          f"{who}: gate (a) cannot tell a fault from a correct decode: {layer}")
+    return dict(logits=logits_rms, layer=layer)
+
+
+def dense_faults(cfg, method, method_kw):
+    """Gate (a)'s faults: the decode step one position early; for the
+    clipped softmax, gamma resolved from the step's T (its one query)
+    rather than from max_len."""
+    faults = {"decode at pos - 1": (cfg, -1, None)}
+    if method == "clipped_softmax":
+        sm = dataclasses.replace(cfg.softmax_cfg, alpha=None, gamma=-method_kw["alpha"] / 1)
+        faults["gamma from the step's T"] = (dataclasses.replace(cfg, softmax_cfg=sm), 0, None)
+    return faults
+
+
+def phase_dense_serving(torch, np, pa, im, fa, name, method, method_kw, params, cfg,
+                        prompts, paged, w8a8):
+    """Phase 4's dense-cache paths on one engine's weights: ``generate`` on
+    4 prompts of 512 tokens (fp engines; the reference's generate takes no
+    quantization) with gate (a); ContinuousBatcher(paged=False) over phase
+    4's 12 requests with gate (b) against the paged engine's first mixed
+    tick (``paged``: its args, logits and outputs); greedy tokens of the
+    dense batcher against generate and the paged batcher, printed."""
+    from repro_torch.models import transformer
+    from repro_torch.nn.module import tree_map
+    from repro_torch.quant.qconfig import QConfig
+    from repro_torch.serving import ContinuousBatcher, Request
+    from repro_torch.serving.decode import step_rows_full
+
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    result, vocab = {}, cfg.vocab_size
+    gen_prompts = None
+    if not w8a8:
+        rng = np.random.default_rng(1)
+        gen_prompts = torch.as_tensor(rng.integers(0, vocab, (4, 512)), device="cuda")
+        out, wall, peak, per_forward, served = run_generate(torch, params, cfg, gen_prompts,
+                                                            32, (fa, pa))
+        n_tok = out.shape[0] * 32
+        off = [f for f in per_forward if f[1:] != (cfg.n_layers, 0)]
+        print(f"generate {name} ({cfg.n_layers} layers, 4 x 512 prompt tokens, 32 new): "
+              f"{len(per_forward)} forwards, {n_tok} tokens in {wall:.3f} s = "
+              f"{n_tok / wall:.2f} tok/s, peak memory {peak:.2f} GB; launches per forward "
+              f"(T, flash, paged): first {per_forward[0]}, last {per_forward[-1]}, "
+              f"off {off[:4]}", flush=True)
+        check(tuple(out.shape) == (4, 544) and bool(((out >= 0) & (out < vocab)).all()),
+              f"{name}: generate gave {tuple(out.shape)} or ids outside the vocabulary")
+        check(len(per_forward) == 32 and not off,
+              f"{name}: generate's forwards or launches off: {per_forward}")
+        gate = gate_decode_vs_prefill(torch, params, cfg, out, 512, 32, served,
+                                      dense_faults(cfg, method, method_kw), f"generate {name}")
+        gen_outs = out[:, 512:].cpu().numpy()
+        result.update(gen_wall_s=wall, gen_tok_per_s=n_tok / wall, gen_peak_gb=peak,
+                      gen_launches=sum(f[1] for f in per_forward), gate_a=gate)
+        del out, served
+
+    b = ContinuousBatcher(params, cfg, batch_size=8, max_len=1024, paged=False,
+                          token_budget=256, qconfig=QConfig() if w8a8 else None,
+                          device="cuda")
+    snap, step_fn = {}, b._step_fn
+
+    def capture(params_, cache, tokens, pos, counts, keys, lw, lws):
+        c = counts.cpu()
+        if not snap and bool((c == 1).any() and (c > 1).any()):
+            snap.update(cache=tree_map(lambda x: x.clone(), cache),
+                        args=(tokens.clone(), pos.clone(), counts.clone()))
+        return step_fn(params_, cache, tokens, pos, counts, keys, lw, lws)
+
+    b._step_fn = capture
+    for u, pr in enumerate(prompts):
+        b.submit(Request(uid=u, prompt=pr, max_new_tokens=32))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = pa.launches = im.launches = 0
+    ticks, t0 = 0, time.perf_counter()
+    while b.queue or any(s.req is not None for s in b.slots):
+        b.step()
+        ticks += 1
+        check(ticks <= 1000, f"{name}: the dense engine did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(flash=fa.launches, paged=pa.launches, int8=im.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    outs = {r.uid: r.output for r in b.done}
+    n_tok = sum(len(o) for o in outs.values())
+    fw = b.forward_calls
+    same = sum(np.array_equal(outs[u], paged["outs"][u]) for u in outs)
+    print(f"serving {name} dense (paged=False): {ticks} ticks, {fw} forwards, {n_tok} "
+          f"generated tokens in {wall:.3f} s = {n_tok / wall:.2f} tok/s, peak memory "
+          f"{peak:.2f} GB ({held_gb:.2f} GB held before the engine); launches {launches} = "
+          f"per forward flash {launches['flash'] / fw:g}, paged {launches['paged'] / fw:g}, "
+          f"int8 {launches['int8'] / fw:g}; greedy tokens equal to the paged engine's in "
+          f"{same} of {len(outs)} requests (printed, not held: cuBLAS picks other "
+          f"algorithms at other M, so the card gives no bitwise guarantee)", flush=True)
+    check(len(outs) == 12 and all(len(o) == 32 for o in outs.values()) and not b.failed,
+          f"{name}: the dense engine did not finish every request with 32 tokens")
+    check(launches == dict(flash=cfg.n_layers * fw, paged=0,
+                           int8=7 * cfg.n_layers * fw if w8a8 else 0),
+          f"{name}: dense engine launches {launches} for {fw} forwards")
+    check(snap, f"{name}: the dense engine saw no mixed prefill/decode tick")
+
+    # gate (b): the dense engine's first mixed tick on the paged engine's
+    # tokens (a decode row's token is its first sample, which the two
+    # engines may draw differently; the cache holds the prompt only),
+    # correct and with the dense writes one slot late (each token's K/V at
+    # position p + 1); unforced logits, and per block with every block's
+    # input forced to the paged tick's
+    tokens, pos, counts = paged["args"]
+    check(torch.equal(pos, snap["args"][1]) and torch.equal(counts, snap["args"][2]),
+          f"{name}: the dense and paged engines' first mixed ticks differ: "
+          f"{snap['args'][2].tolist()} vs {counts.tolist()}")
+    differ = int((snap["args"][0] != tokens).any(dim=1).sum())
+    live = torch.arange(tokens.shape[1], device="cuda")[None, :] < counts[:, None]
+    bound = W8A8_LOGIT_REL_RMS if w8a8 else DENSE_LOGIT_REL_RMS
+    gate, real_targets = {}, transformer._row_targets
+    with torch.no_grad():
+        for key in ("correct", "writes one slot late"):
+            if key != "correct":
+                transformer._row_targets = lambda tpos, *a, **kw: real_targets(tpos + 1, *a, **kw)
+            try:
+                cache = tree_map(lambda x: x.clone(), snap["cache"])
+                out = step_rows_full(b.params, b.cfg, cache, tokens, pos, counts, None, None,
+                                     ctx=b._qctx)[0]
+                cache = tree_map(lambda x: x.clone(), snap["cache"])
+                with tapped_blocks(live, force=paged["taps"]["inp"]) as taps:
+                    step_rows_full(b.params, b.cfg, cache, tokens, pos, counts, None, None,
+                                   ctx=b._qctx)
+            finally:
+                transformer._row_targets = real_targets
+            gate[key] = (rel_rms(out[live][:, :vocab], paged["logits"]),
+                         *layer_rms(taps, paged["taps"]["inc"]))
+            del cache, out, taps
+    print(f"serving {name} dense: gate (b), the first mixed tick (counts {counts.tolist()}; "
+          f"{differ} rows' tokens taken from the paged tick) vs the paged engine's: logits "
+          f"relative RMS {gate['correct'][0]:.4f} (tol {bound}); per block, inputs forced to "
+          f"the paged tick's, the largest relative RMS of a block's increment "
+          f"{gate['correct'][1]:.3e} (block {gate['correct'][2]}; tol "
+          f"{DENSE_LAYER_REL_RMS:.0e}); with the writes one slot late: logits "
+          f"{gate['writes one slot late'][0]:.4f}, per block "
+          f"{gate['writes one slot late'][1]:.3e} (block {gate['writes one slot late'][2]})",
+          flush=True)
+    check(gate["correct"][0] <= bound,
+          f"{name}: dense and paged tick logits differ: {gate['correct']}")
+    check(gate["correct"][1] <= DENSE_LAYER_REL_RMS,
+          f"{name}: a block of the dense tick differs from the paged tick's: {gate}")
+    check(gate["writes one slot late"][1] > DENSE_LAYER_REL_RMS,
+          f"{name}: gate (b) cannot tell writes one slot late: {gate}")
+    result.update(wall_s=wall, tok_per_s=n_tok / wall, peak_gb=peak, forwards=fw,
+                  flash_launches=launches["flash"], int8_launches=launches["int8"],
+                  same_as_paged=same, gate_b=gate)
+    b._step_fn = step_fn
+    del snap
+    if gen_prompts is not None:
+        # generate's 4 prompts through the same dense engine, uncounted
+        for u in range(4):
+            b.submit(Request(uid=100 + u, prompt=gen_prompts[u].cpu().numpy(),
+                             max_new_tokens=32))
+        b.run()
+        agree = [np.array_equal(r.output, gen_outs[r.uid - 100]) for r in b.done
+                 if r.uid >= 100]
+        print(f"serving {name} dense: generate's 4 prompts through the engine: greedy tokens "
+              f"equal to generate's in {sum(agree)} of {len(agree)} (printed, not held)",
+              flush=True)
+        result.update(same_as_generate=sum(agree))
+    del b
     torch.cuda.empty_cache()
     return result
 
@@ -1407,7 +1868,8 @@ def rg_prompts(np, vocab):
     return [rng.integers(0, vocab, size=int(n)).astype(np.int32) for n in lengths]
 
 
-def phase_rg_serving(torch, np, rl, fa, pa, name, method, trace=False, **method_kw):
+def phase_rg_serving(torch, np, rl, fa, pa, name, method, trace=False, gen=False,
+                     **method_kw):
     from repro_torch.configs.base import apply_method
     from repro_torch.configs.recurrentgemma_9b import full
     from repro_torch.models import transformer
@@ -1510,7 +1972,7 @@ def phase_rg_serving(torch, np, rl, fa, pa, name, method, trace=False, **method_
             if key == "plain":
                 rl.rglru = rl.rglru_ref
             try:
-                out, _ = step_rows_full(b.params, b.cfg, cache, tokens, pos, counts, lw, lws)
+                out = step_rows_full(b.params, b.cfg, cache, tokens, pos, counts, lw, lws)[0]
             finally:
                 rl.rglru = real_rglru
             logits[key] = out
@@ -1608,7 +2070,7 @@ def phase_rg_serving(torch, np, rl, fa, pa, name, method, trace=False, **method_
             else:
                 mutate[fault](cache)
             with torch.no_grad():
-                out, _ = step_rows_full(b.params, run_cfg, cache, tokens, pos, counts, lw, lws)
+                out = step_rows_full(b.params, run_cfg, cache, tokens, pos, counts, lw, lws)[0]
             faults[fault] = rel(out[r, :c, :cfg.vocab_size].float())
             del cache, out
         print(f"serving rg {name}: the same row with one fault put in, relative RMS: " +
@@ -1633,9 +2095,58 @@ def phase_rg_serving(torch, np, rl, fa, pa, name, method, trace=False, **method_
             check(ran == want, f"{name}: the traced {kind} sub-step ran {ran} RG-LRU "
                                f"kernels, not {want}")
         result.update(traces=traces)
-    del b, params, snapshot, decode_snap, fullest_snap, served, ref, ref_keys
+    del b, snapshot, decode_snap, fullest_snap, served, ref, ref_keys
+    torch.cuda.empty_cache()
+    if gen:
+        result.update(generate=phase_rg_generate(torch, np, rl, fa, pa, name, params, cfg))
+    del params
     torch.cuda.empty_cache()
     return result
+
+
+def phase_rg_generate(torch, np, rl, fa, pa, name, params, cfg):
+    """``generate`` at recurrentgemma-9b's full width, 16 new tokens, on
+    one prompt of 1024 tokens (one-shot prefill through the shared-pos
+    ring write, ring of 1040) and one of 3000 (past the 2048-token window:
+    chunked prefill, ring of 2048): the RG-LRU kernel once per Griffin
+    layer on every forward of T > 1 and never at T = 1, no flash or paged
+    launch (the ring reads are the reference's dense_attention), gate (a)
+    with two faults: the decode step one position early, and the
+    recurrent state h lost before it."""
+    from repro_torch.models.transformer import row_leaves
+
+    def lose_h(cache):
+        for path, leaf, _ in row_leaves(cache):
+            if path[-1] == "h":
+                leaf.zero_()
+
+    faults = {"decode at pos - 1": (cfg, -1, None), "h lost": (cfg, 0, lose_h)}
+    rng = np.random.default_rng(2)
+    out = {}
+    for t in (1024, 3000):
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, t)), device="cuda")
+        toks, wall, peak, per_forward, served = run_generate(torch, params, cfg, prompt, 16,
+                                                             (rl, fa, pa))
+        want = [(f[0], RG_GRIFFIN_LAYERS if f[0] > 1 else 0, 0, 0) for f in per_forward]
+        print(f"generate rg {name} ({cfg.n_layers} layers, 1 x {t} prompt tokens, 16 new): "
+              f"{len(per_forward)} forwards (T {[f[0] for f in per_forward if f[0] > 1]} then "
+              f"{sum(f[0] == 1 for f in per_forward)} of T 1), 16 tokens in {wall:.3f} s = "
+              f"{16 / wall:.2f} tok/s, peak memory {peak:.2f} GB; (rg_lru, flash, paged) "
+              f"launches per forward of T > 1: {sorted({f[1:] for f in per_forward if f[0] > 1})}, "
+              f"of T 1: {sorted({f[1:] for f in per_forward if f[0] == 1})}", flush=True)
+        check(tuple(toks.shape) == (1, t + 16) and
+              bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              f"rg {name}: generate gave {tuple(toks.shape)} or ids outside the vocabulary")
+        check(per_forward == want, f"rg {name}: generate's launches per forward off: "
+                                   f"{per_forward}")
+        gate = gate_decode_vs_prefill(torch, params, cfg, toks, t, 16, served, faults,
+                                      f"generate rg {name} (prompt {t})")
+        out[t] = dict(wall_s=wall, tok_per_s=16 / wall, peak_gb=peak, gate_a=gate,
+                      forwards=len(per_forward),
+                      rg_launches=sum(f[1] for f in per_forward))
+        del toks, served
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1905,6 +2416,7 @@ def main() -> int:
     int8_times = phase_int8_times(torch, im)
     flash_err = phase_flash_checks(torch, fa)
     flash_times = phase_flash_times(torch, fa)
+    phase_flash_decode_times(torch, fa, pa)
     fq_err = phase_fq_checks(torch, fq)
     fq_times = phase_fq_times(torch, fq)
     phase_kv_quant(torch)
@@ -1913,15 +2425,15 @@ def main() -> int:
 
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     engines = [
-        phase_serving(torch, np, pa, im, "vanilla", "vanilla", False),
-        phase_serving(torch, np, pa, im, "clipped", "clipped_softmax", False, alpha=4.0),
-        phase_serving(torch, np, pa, im, "gated-int8kv", "gated_attention", True),
-        phase_serving(torch, np, pa, im, "clipped-w8a8", "clipped_softmax", False,
+        phase_serving(torch, np, pa, im, fa, "vanilla", "vanilla", False),
+        phase_serving(torch, np, pa, im, fa, "clipped", "clipped_softmax", False, alpha=4.0),
+        phase_serving(torch, np, pa, im, fa, "gated-int8kv", "gated_attention", True),
+        phase_serving(torch, np, pa, im, fa, "clipped-w8a8", "clipped_softmax", False,
                       w8a8=True, alpha=4.0),
-        phase_serving(torch, np, pa, im, "gated-w8a8-int8kv", "gated_attention", None,
-                      w8a8=True)]
+        phase_serving(torch, np, pa, im, fa, "gated-w8a8-int8kv", "gated_attention", None,
+                      w8a8=True, dense=False)]
     rg_engines = [
-        phase_rg_serving(torch, np, rl, fa, pa, "vanilla", "vanilla", trace=True),
+        phase_rg_serving(torch, np, rl, fa, pa, "vanilla", "vanilla", trace=True, gen=True),
         phase_rg_serving(torch, np, rl, fa, pa, "clipped", "clipped_softmax", alpha=4.0),
         phase_rg_serving(torch, np, rl, fa, pa, "gated", "gated_attention")]
     evals = [phase_eval(torch, np, fa, fq, pa, im, "vanilla", "vanilla"),
@@ -1930,6 +2442,15 @@ def main() -> int:
 
     dec = times[("decode", "vanilla")]
     i8 = int8_times[(8, 5120, 17408)]
+    # launches on the main path: phase 4's engines with their dense paths
+    # (generate and paged=False), phase 4b with recurrentgemma's generate,
+    # phase 5
+    dense = [e["dense"] for e in engines if "dense" in e]
+    int8_launches = sum(e["int8_launches"] for e in engines + dense)
+    flash_launches = sum(e["flash_launches"] + e.get("gen_launches", 0)
+                         for e in evals + dense)
+    rg_launches = sum(e["launches"] for e in rg_engines) + sum(
+        g["rg_launches"] for e in rg_engines for g in e.get("generate", {}).values())
     kernels = [dict(name="paged_attention", route="cuda",
                     source=KERNEL_SOURCES["paged_attention"],
                     replaces=REPLACES["paged_attention"],
@@ -1940,14 +2461,14 @@ def main() -> int:
                dict(name="int8_matmul", route="cuda",
                     source=KERNEL_SOURCES["int8_matmul"],
                     replaces=REPLACES["int8_matmul"],
-                    launches=sum(e["int8_launches"] for e in engines),
+                    launches=int8_launches,
                     max_abs_err=int8_err, ms=i8["ms"], plain_ms=i8["plain_ms"],
                     bound_ms=i8["bound_ms"], bound_by=i8["bound_by"],
                     library_ms=i8["library_ms"]),
                dict(name="flash_attention", route="cuda",
                     source=KERNEL_SOURCES["flash_attention"],
                     replaces=REPLACES["flash_attention"],
-                    launches=sum(e["flash_launches"] for e in evals),
+                    launches=flash_launches,
                     max_abs_err=flash_err, **flash_times["vanilla"]),
                dict(name="fake_quant", route="cuda",
                     source=KERNEL_SOURCES["fake_quant"],
@@ -1956,7 +2477,7 @@ def main() -> int:
                     max_abs_err=fq_err, **fq_times[(2048, 17408)]),
                dict(name="rg_lru", route="cuda", source=KERNEL_SOURCES["rg_lru"],
                     replaces=REPLACES["rg_lru"],
-                    launches=sum(e["launches"] for e in rg_engines),
+                    launches=rg_launches,
                     max_abs_err=rg_err, **rg_times[(8, 256, 4096)])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -225,12 +225,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dispatcher of the cache-free read. Returns (B, Tq, Hq, Dh).
 
     CUDA tensors: always the flash kernel, with gamma resolved from the
-    KV length, as the plain paths do. CPU tensors: the reference's
-    routing, dense when forced, when decoding (tq == 1) with tk <= 8192,
-    or when tq > 1 and tq*tk <= 2048^2; chunked otherwise."""
+    KV length, as the plain paths do; q, k and v of different dtypes (the
+    W8A8 tick's f32 queries over a bf16 dense cache) are promoted to one
+    first, as the plain paths promote them before their products. CPU
+    tensors: the reference's routing, dense when forced, when decoding
+    (tq == 1) with tk <= 8192, or when tq > 1 and tq*tk <= 2048^2;
+    chunked otherwise."""
     tq, tk = q.shape[1], k.shape[1]
     if q.is_cuda:
         from repro_torch.kernels.flash_attention import mha_flash
+        dt = torch.promote_types(q.dtype, k.dtype)
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
         sm = cfg.softmax
         gamma, zeta = (0.0, 1.0) if sm.is_vanilla else (sm.resolve_gamma(tk), sm.zeta)
         return mha_flash(q, k, v, gate_pi, causal=cfg.causal, window=cfg.window,

@@ -1,4 +1,4 @@
-"""Decoder transformer over a paged KV cache (port of
+"""Decoder transformer over a dense or a paged KV cache (port of
 ``repro.models.transformer``).
 
 One ``ModelConfig`` — the same fields and defaults as the JAX package's —
@@ -9,26 +9,27 @@ under ``"groups"``, unrolled ones keep a ``"layers"`` list, and a depth
 the pattern does not divide keeps its last blocks, always unrolled, under
 ``"tail"``.
 
-Block kinds: ``attn`` (global attention over a paged pool),
-``local_attn`` (windowed attention over a per-row ring) and ``griffin``
+Block kinds: ``attn`` (global attention), ``local_attn`` (windowed
+attention, over a per-row ring when the cache has one) and ``griffin``
 (the RG-LRU recurrent block, ``repro_torch.nn.recurrent``), in any
 pattern; ``embed_scale`` multiplies the embeddings by sqrt(d_model).
 
 This port covers the serving and evaluation paths: ``model_apply``
 without a cache (the ``attention`` dispatcher: the flash kernel on the
-card), or with a paged cache (``init_paged_cache``), per-row ``pos`` and
-a per-token ``active`` mask, with a ``QuantContext`` whose site names are
-the reference's byte for byte (a block is named by its index inside the
-pattern, ``layer_attn0``, in every group; a tail block ``tail_griffin0``).
-Dense per-row caches, MoE and xLSTM blocks, embeds inputs, learned
-positions and post-norm raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+card), with a dense cache (``init_cache``: ``generate`` and the
+``paged=False`` batcher) or a paged one (``init_paged_cache``), at a
+shared scalar ``pos`` or per-row ``pos`` with a per-token ``active``
+mask, with a ``QuantContext`` whose site names are the reference's byte
+for byte (a block is named by its index inside the pattern,
+``layer_attn0``, in every group; a tail block ``tail_griffin0``). MoE and
+xLSTM blocks, embeds inputs, learned positions and post-norm raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Cache writes update the cache IN PLACE (``aux["cache"]`` is the cache
-that was passed in): the paged pool is the largest tensor of a serving
-engine, and copying it every layer of every tick would double it. Ring
-KV, ring position ids and recurrent states are per row ("batch-led"),
-updated in place for the rows the ``active`` mask keeps.
+that was passed in): the KV cache is the largest tensor of a serving
+engine, and copying it every layer of every tick would double it. Dense
+KV, ring KV, ring position ids and recurrent states are per row
+("batch-led"), updated in place for the rows the ``active`` mask keeps.
 """
 from __future__ import annotations
 
@@ -181,8 +182,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.moe is not None:
         raise NotImplementedError("MoE blocks are not ported yet "
                                   "(ROADMAP queue 1, item 5.2: nn/moe.py)")
-    unported = {"pos": (cfg.pos == "learned", "4"),
-                "norm_position": (cfg.norm_position != "pre", "4"),
+    unported = {"pos": (cfg.pos == "learned", "2"),
+                "norm_position": (cfg.norm_position != "pre", "2"),
                 "input_kind": (cfg.input_kind != "tokens", "5.4"),
                 "post_block_norm": (cfg.post_block_norm, "5.4")}
     bad = sorted((k, item) for k, (hit, item) in unported.items() if hit)
@@ -247,13 +248,29 @@ def _paged_write(cache: dict, k: torch.Tensor, v: torch.Tensor, targets
         cache["v"][blk, slot] = v[bi, ti].to(cache["v"].dtype)
 
 
-def _ring_targets(tpos: torch.Tensor, act_tok: Optional[torch.Tensor], length: int):
-    """The masked per-row ring write as explicit indices: token (b, j) at
-    position p goes to slot ``p % length`` of row b; padding tokens and
-    dead rows are dropped. Returns (row idx, token idx, slot idx)."""
-    keep = torch.ones_like(tpos, dtype=torch.bool) if act_tok is None else act_tok
+def _row_targets(tpos: torch.Tensor, act_tok: Optional[torch.Tensor], length: int,
+                 ring: bool):
+    """The masked per-row write as explicit indices: token (b, j) at
+    position p goes to slot ``p % length`` of row b's ring, or to slot p
+    of its dense row; padding tokens, dead rows and (dense) positions at
+    or past ``length`` are dropped, as the reference's scatter with
+    ``mode="drop"`` drops them. Returns (row idx, token idx, slot idx)."""
+    keep = torch.ones_like(tpos, dtype=torch.bool) if ring else tpos < length
+    if act_tok is not None:
+        keep = keep & act_tok
     bi, ti = keep.nonzero(as_tuple=True)
-    return bi, ti, (tpos % length)[bi, ti]
+    slot = tpos % length if ring else tpos
+    return bi, ti, slot[bi, ti]
+
+
+def _slice_start(pos: int, t: int, length: int) -> int:
+    """Where a shared-``pos`` write of ``t`` tokens lands in a row of
+    ``length`` slots. The reference writes with ``dynamic_update_slice``,
+    which clamps its start into [0, length - t]; this reproduces the clamp
+    (a write past the row's end moves back to end at its last slot)."""
+    if t > length:
+        raise ValueError(f"a block of {t} tokens does not fit a cache row of {length}")
+    return min(max(pos, 0), length - t)
 
 
 def _ring_attention(cache: dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -294,6 +311,30 @@ def _ring_attention(cache: dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     q_pos = tpos[:, :, None]
     mask = (kp >= 0) & (kp <= q_pos) & (kp > q_pos - cfg.window)   # (B, T, Tk)
     return dense_attention(q, k_all, v_all, acfg, mask=mask, gate_pi=gate_pi)
+
+
+def _ring_attention_shared(cache: dict, q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, acfg: AttentionConfig, cfg: ModelConfig,
+                           pos: int, gate_pi: Optional[torch.Tensor]) -> torch.Tensor:
+    """Ring write and read at a shared scalar ``pos``, the reference's
+    ``transformer.py:428-443`` (``generate``'s one-shot prefill and its
+    decode steps): every row writes its block's K/V and position ids at
+    slot ``pos % L`` (clamped as ``_slice_start`` says), then every query
+    reads the UPDATED ring through the position-id mask, for T > 1 too.
+    The per-row chunk path (``_ring_attention``) reads the pre-write ring
+    plus the chunk instead; the two are different functions in the
+    reference, and stay apart here."""
+    length = cache["k"].shape[1]
+    t = q.shape[1]
+    s0 = _slice_start(pos % length, t, length)
+    tpos = pos + torch.arange(t, device=q.device)
+    cache["k"][:, s0:s0 + t] = k.to(cache["k"].dtype)
+    cache["v"][:, s0:s0 + t] = v.to(cache["v"].dtype)
+    cache["pos_ids"][:, s0:s0 + t] = tpos.to(cache["pos_ids"].dtype)
+    kp = cache["pos_ids"].long()[:, None, :]                       # (B, 1, L)
+    q_pos = tpos[None, :, None]                                    # (1, T, 1)
+    mask = (kp >= 0) & (kp <= q_pos) & (kp > q_pos - cfg.window)   # (B, T, L)
+    return dense_attention(q, cache["k"], cache["v"], acfg, mask=mask, gate_pi=gate_pi)
 
 
 # ==========================================================================
@@ -352,6 +393,9 @@ class _Step:
         # _row_active); the scheduler feeds recurrent rows uniform steps
         self.act_row = None if self.act_tok is None else self.act_tok.any(dim=1)
         self.per_row = isinstance(self.pos, torch.Tensor) and self.pos.ndim >= 1
+        if not self.per_row:
+            # a shared start: a python int, read back once per forward
+            self.pos = int(self.pos)
         self.live_width = paged_live_width
         self.live_widths = paged_live_widths
         self.write_idx: Dict = {}
@@ -388,22 +432,7 @@ def _attn_block_apply(
 
     if cache is None:
         attn_out = attention(q, k, v, acfg, q_offset=0, gate_pi=gate_pi)
-    elif "pos_ids" in cache:
-        if not st.per_row:
-            raise NotImplementedError(
-                "a ring (local_attn) cache with a shared scalar pos is the dense "
-                "generate path, not ported yet (ROADMAP queue 1, item 2); pass a "
-                "per-row (B,) pos tensor")
-        key = ("ring", cache["k"].shape[1])
-        if key not in st.write_idx:
-            st.write_idx[key] = _ring_targets(st.tpos, st.act_tok, key[1])
-        attn_out = _ring_attention(cache, q, k, v, acfg, cfg, st.tpos, st.act_tok,
-                                   st.write_idx[key], gate_pi)
-    else:
-        if "block_table" not in cache:
-            raise NotImplementedError(
-                "dense per-row KV caches are not ported yet (ROADMAP queue 1, "
-                "item 2: generate with the dense cache and paged=False)")
+    elif "block_table" in cache:
         nb, bs = cache["k"].shape[0], cache["k"].shape[1]
         table = cache["block_table"]
         key = (table.data_ptr(), tuple(table.shape), table.stride())
@@ -415,6 +444,33 @@ def _attn_block_apply(
             q, cache["k"], cache["v"], table, acfg, q_offset=st.pos,
             gate_pi=gate_pi, live_width=st.live_width,
             live_widths=st.live_widths, backend=cfg.paged_backend, **scales)
+    elif "pos_ids" in cache and not st.per_row:
+        attn_out = _ring_attention_shared(cache, q, k, v, acfg, cfg, st.pos, gate_pi)
+    elif "pos_ids" in cache:
+        key = ("ring", cache["k"].shape[1])
+        if key not in st.write_idx:
+            st.write_idx[key] = _row_targets(st.tpos, st.act_tok, key[1], ring=True)
+        attn_out = _ring_attention(cache, q, k, v, acfg, cfg, st.tpos, st.act_tok,
+                                   st.write_idx[key], gate_pi)
+    else:
+        # a dense row of max_len slots (the reference's :370-387 and
+        # :444-449): a masked per-token scatter at per-row positions, or a
+        # slice write at a shared one; then every query reads the whole
+        # row, causally, at its own offset (on the card: the flash kernel)
+        length = cache["k"].shape[1]
+        if st.per_row:
+            key = ("row", length)
+            if key not in st.write_idx:
+                st.write_idx[key] = _row_targets(st.tpos, st.act_tok, length, ring=False)
+            bi, ti, slot = st.write_idx[key]
+            cache["k"][bi, slot] = k[bi, ti].to(cache["k"].dtype)
+            cache["v"][bi, slot] = v[bi, ti].to(cache["v"].dtype)
+        else:
+            s0 = _slice_start(st.pos, t, length)
+            cache["k"][:, s0:s0 + t] = k.to(cache["k"].dtype)
+            cache["v"][:, s0:s0 + t] = v.to(cache["v"].dtype)
+        attn_out = attention(q, cache["k"], cache["v"], acfg, q_offset=st.pos,
+                             gate_pi=gate_pi)
 
     attn_out = ctx.act(name + "/attn.out", attn_out.reshape(b, t, hq * dh))
     x = x + linear_apply(p["o"], attn_out, ctx, name + "/o")
@@ -523,6 +579,49 @@ def model_init(seed, cfg: ModelConfig, device="cuda") -> Params:
     return p
 
 
+def _cache_entry(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
+                 device, lead: Tuple[int, ...] = ()) -> Params:
+    """Dense decode state of one block (the reference's ``_cache_entry``),
+    with the stacked groups' ``lead`` axes in front: K/V rows for attention
+    blocks (a ring for ``local_attn``), recurrent states for ``griffin``."""
+    if kind == "griffin":
+        state = griffin_init_state(batch, cfg.rglru, dtype, device)
+        return {k: v.expand(lead + tuple(v.shape)).clone() for k, v in state.items()}
+    # local attention only ever needs ``window`` history: a ring
+    length = min(max_len, cfg.window) if (kind == "local_attn" and cfg.window) else max_len
+    shape = lead + (batch, length, cfg.n_kv_heads, cfg.head_dim)
+    c = {"k": torch.zeros(shape, dtype=dtype, device=device),
+         "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "local_attn" and cfg.window and length < cfg.max_seq_len:
+        # per-row ring positions (-1 = empty): rows decode at different offsets
+        c["pos_ids"] = torch.full(lead + (batch, length), -1, dtype=torch.int32,
+                                  device=device)
+    return c
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device="cuda") -> Params:
+    """Dense decode state, in the params' layout (scanned configs stack
+    the groups in front, the tail is unrolled); every row reserves
+    ``max_len`` positions up front, as in the reference:
+
+      * ``attn``: ``k``/``v`` (batch, max_len, Hkv, Dh) in ``dtype``;
+      * ``local_attn``: a ring ``k``/``v`` (batch, L, Hkv, Dh) of L =
+        min(max_len, window) slots with ``pos_ids`` (batch, L) int32, -1 =
+        empty, when L < max_seq_len; otherwise a plain dense row read with
+        the window mask;
+      * ``griffin``: the recurrent state ``h`` (batch, width) f32 and the
+        conv history ``conv`` (batch, conv_width - 1, width).
+
+    ``init_paged_cache`` is the alternative whose memory scales with live
+    tokens."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = dtype or cfg.compute_dtype
+    return _assemble(cfg, lambda kind, lead: _cache_entry(cfg, kind, batch, max_len,
+                                                          dtype, dev, lead))
+
+
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
                      num_blocks: int, block_size: int = 16, dtype=None,
                      kv_int8: bool = False, device="cuda") -> Params:
@@ -534,12 +633,10 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
         max_len // block_size) of physical ids (-1 = unallocated);
         ``kv_int8=True`` stores int8 pools plus per-slot f32 scale vectors
         ``k_scale``/``v_scale`` (num_blocks, block_size);
-      * ``local_attn``: a per-row ring ``k``/``v`` (batch, L, Hkv, Dh) of
-        L = min(max_len, window) slots with ``pos_ids`` (batch, L), -1 =
-        empty; it stays in ``dtype`` under ``kv_int8``, as in the
-        reference;
-      * ``griffin``: the recurrent state ``h`` (batch, width) f32 and the
-        conv history ``conv`` (batch, conv_width - 1, width)."""
+      * ``local_attn`` and ``griffin``: the dense per-row state of
+        ``init_cache`` (a ring, or a dense row without a ring; recurrent
+        state); it stays in ``dtype`` under ``kv_int8``, as in the
+        reference."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.compute_dtype
@@ -553,21 +650,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
     n_entries = max_len // block_size
 
     def one(kind: str, lead: Tuple[int, ...]) -> Params:
-        if kind == "griffin":
-            state = griffin_init_state(batch, cfg.rglru, dtype, dev)
-            return {k: v.expand(lead + tuple(v.shape)).clone() for k, v in state.items()}
-        if kind == "local_attn":
-            length = min(max_len, cfg.window) if cfg.window else max_len
-            if not cfg.window or length >= cfg.max_seq_len:
-                raise NotImplementedError(
-                    "a local_attn layer without a ring (no window, or a window "
-                    "past max_seq_len) keeps a dense per-row cache, not ported yet "
-                    "(ROADMAP queue 1, item 2)")
-            shape = lead + (batch, length, hkv, dh)
-            return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                    "v": torch.zeros(shape, dtype=dtype, device=dev),
-                    "pos_ids": torch.full(lead + (batch, length), -1,
-                                          dtype=torch.int32, device=dev)}
+        if kind != "attn":
+            return _cache_entry(cfg, kind, batch, max_len, dtype, dev, lead)
         pool_dtype = torch.int8 if kv_int8 else dtype
         shape = lead + (num_blocks, block_size, hkv, dh)
         c = {"k": torch.zeros(shape, dtype=pool_dtype, device=dev),
@@ -661,11 +745,13 @@ def model_apply(
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Forward pass. Returns (logits (B, T, vocab) f32, aux).
 
-    ``batch``: {"tokens": (B, T) int}. ``cache``/``pos``: a paged cache
-    and the block's start position, a shared int or a per-row (B,)
-    tensor (ring caches need the per-row form). ``active``: optional
-    per-row (B,) or per-token (B, T) bool mask; masked tokens still
-    compute, but their cache writes are dropped; recurrent blocks keep the
+    ``batch``: {"tokens": (B, T) int}. ``cache``/``pos``: a dense
+    (``init_cache``) or paged (``init_paged_cache``) cache and the block's
+    start position, a shared int or a per-row (B,) tensor. ``active``:
+    optional per-row (B,) or per-token (B, T) bool mask for per-row
+    ``pos`` (a shared ``pos`` writes every row, as in the reference);
+    masked tokens still compute, but their cache writes are dropped;
+    recurrent blocks keep the
     new state of a row if any of its tokens is live, so ragged rows are
     for attention caches only (the scheduler feeds recurrent models
     uniform steps). ``paged_live_width`` bounds the paged read to the

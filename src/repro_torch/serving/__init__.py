@@ -1,10 +1,16 @@
 from repro_torch.serving.decode import (
     GenerateConfig,
+    chunked_prefill,
+    decode_one,
+    generate,
     make_mixed_step,
     make_spec_step,
+    prefill,
     sample_logits,
+    sample_logits_one_key,
     sample_rows,
     sample_rows_all,
+    sample_token_at,
     step_rows,
     step_rows_full,
 )
@@ -21,6 +27,7 @@ from repro_torch.serving.speculate import NGramDrafter, SpecConfig
 
 __all__ = ["AllocatorAuditError", "BlockAllocator", "ContinuousBatcher",
            "GenerateConfig", "NGramDrafter", "PrefillState", "PrefixCache",
-           "Request", "SpecConfig", "SwappedState", "make_mixed_step",
-           "make_spec_step", "sample_logits", "sample_rows",
-           "sample_rows_all", "step_rows", "step_rows_full"]
+           "Request", "SpecConfig", "SwappedState", "chunked_prefill",
+           "decode_one", "generate", "make_mixed_step", "make_spec_step",
+           "prefill", "sample_logits", "sample_logits_one_key", "sample_rows",
+           "sample_rows_all", "sample_token_at", "step_rows", "step_rows_full"]

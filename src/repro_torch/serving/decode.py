@@ -1,5 +1,14 @@
-"""The serving tick and its samplers (port of ``repro.serving.decode``,
-the parts the continuous batcher runs).
+"""Serving decode (port of ``repro.serving.decode``): ``generate`` over
+the dense cache, and the batcher's tick and samplers.
+
+``generate`` prefills the prompt into a dense cache (``init_cache``) of
+``max_len = T + max_new_tokens`` in one forward at a shared ``pos`` 0 —
+or, for a prompt that overflows a ``local_attn`` ring, in chunks through
+``step_rows`` — then decodes one token at a time in a plain Python loop
+(PyTorch runs eagerly; the reference's ``lax.while_loop``): greedy,
+temperature and top-k sampling, ``eos_id`` with a per-row finished mask
+(later positions are ``pad_id``), and an early exit once every row is
+done. ``prefill``, ``chunked_prefill`` and ``decode_one`` are its steps.
 
 ``step_rows_full`` runs one ``model_apply`` over a (B, T) token block in
 which every row sits at its own position ``pos[b]`` and contributes
@@ -7,13 +16,19 @@ which every row sits at its own position ``pos[b]`` and contributes
 dropped). ``make_mixed_step`` and ``make_spec_step`` build the batcher's
 tick from it: plain callables, since PyTorch runs eagerly.
 
-Sampling rule: the token that will sit at logical position p is a pure
-function of (request key, p) and that position's logits, so a
-recomputed or speculated continuation resamples identical tokens. As in
-the JAX package it is drawn with ``categorical(fold_in(key, p),
-logits / temperature)`` over threefry (``repro_torch.random``, whose keys
-and bits are JAX's); a request's key is ``PRNGKey(seed)``. Greedy
-decoding (``temperature == 0``) is argmax.
+Two sampling rules, as in the reference, both over threefry
+(``repro_torch.random``, whose keys and bits are JAX's):
+
+  * ``generate`` splits ONE key per token (``key, sub = split(key)``
+    before token 0 and before every later token) and draws the whole
+    (B, vocab) block with ``sub``: ``sample_logits_one_key``.
+  * the batcher draws the token that will sit at logical position p from
+    ``categorical(fold_in(key, p), logits / temperature)`` with the
+    request's key ``PRNGKey(seed)`` (``sample_token_at``;
+    ``sample_logits`` per row), so a recomputed or speculated
+    continuation resamples identical tokens.
+
+Greedy decoding (``temperature == 0``) is argmax under both.
 """
 from __future__ import annotations
 
@@ -22,9 +37,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.transformer import ModelConfig, model_apply
+from repro_torch.models.transformer import ModelConfig, init_cache, model_apply
 from repro_torch.quant.qconfig import NO_QUANT, QuantContext
-from repro_torch.random import PRNGKey, categorical, fold_in
+from repro_torch.random import PRNGKey, categorical, fold_in, gumbel, split
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +49,14 @@ class GenerateConfig:
     top_k: Optional[int] = None    # sample only among the k best logits
     eos_id: Optional[int] = None   # a row stops after emitting this token
     pad_id: int = 0                # fills positions after EOS
+
+
+def _top_k_cut(logits: torch.Tensor, gen: GenerateConfig) -> torch.Tensor:
+    """Logits below each row's k-th largest set to -inf (``top_k``)."""
+    if gen.top_k is not None and 0 < gen.top_k < logits.shape[-1]:
+        kth = torch.topk(logits, gen.top_k, dim=-1).values[:, -1:]
+        logits = torch.where(logits < kth, -float("inf"), logits)
+    return logits
 
 
 def sample_logits(logits: torch.Tensor, gen: GenerateConfig,
@@ -50,14 +73,43 @@ def sample_logits(logits: torch.Tensor, gen: GenerateConfig,
         raise ValueError("sampling needs per-row keys and target positions "
                          "when temperature > 0")
     dev = logits.device
-    if gen.top_k is not None and 0 < gen.top_k < logits.shape[-1]:
-        kth = torch.topk(logits, gen.top_k, dim=-1).values[:, -1:]
-        logits = torch.where(logits < kth, -float("inf"), logits)
+    logits = _top_k_cut(logits, gen)
     keys = fold_in(PRNGKey(torch.as_tensor(keys, device=dev).long()),
                    torch.as_tensor(target_pos, device=dev).long())
     # a divisor tensor on the logits' device: a true f32 division on CUDA
     temp = torch.full((), gen.temperature, dtype=logits.dtype, device=dev)
     return categorical(keys, logits / temp)
+
+
+def sample_logits_one_key(logits: torch.Tensor, gen: GenerateConfig,
+                          key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, vocab) logits -> (B,) int64 tokens under ONE raw key (2,) for
+    the whole block, the reference's ``sample_logits``: after the top-k
+    cut, ``categorical(key, logits / temperature)`` draws Gumbel noise of
+    shape (B, vocab) from the one key (element (b, v) from bits of flat
+    index b * vocab + v), not a key per row."""
+    if gen.temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    if key is None:
+        raise ValueError("sample_logits_one_key needs a PRNG key when temperature > 0")
+    logits = _top_k_cut(logits, gen)
+    temp = torch.full((), gen.temperature, dtype=logits.dtype, device=logits.device)
+    noise = gumbel(torch.as_tensor(key).to(logits.device), logits.shape)
+    return torch.argmax(noise.to(logits.dtype) + logits / temp, dim=-1)
+
+
+def sample_token_at(logits: torch.Tensor, gen: GenerateConfig, key: torch.Tensor,
+                    target_pos) -> torch.Tensor:
+    """(vocab,) logits -> () token for ONE row, keyed by the token's
+    absolute position: ``fold_in(key, target_pos)`` of the request's raw
+    key (2,), so sampling is a pure function of (request seed, position)
+    and a preempted request recomputed from its prompt resamples the
+    identical continuation."""
+    if gen.temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    k = fold_in(torch.as_tensor(key).to(logits.device),
+                torch.as_tensor(target_pos, device=logits.device).long())
+    return sample_logits_one_key(logits[None], gen, k)[0]
 
 
 def sample_rows(logits: torch.Tensor, gen: GenerateConfig, keys: torch.Tensor,
@@ -148,3 +200,116 @@ def make_spec_step(cfg: ModelConfig, gen: GenerateConfig,
         return sample_rows_all(logits, gen, keys, pos), cache
 
     return spec_step
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int):
+    """Run the prompt through the model in one forward at ``pos`` 0,
+    building a dense cache of ``max_len`` positions on the tokens' device.
+    Returns (last_logits (B, vocab), cache, prompt_len)."""
+    b, t = tokens.shape
+    cache = init_cache(cfg, b, max_len, device=tokens.device)
+    logits, aux = model_apply(params, cfg, {"tokens": tokens}, cache=cache, pos=0)
+    return logits[:, -1, :], aux["cache"], t
+
+
+def _ring_chunk_cap(cfg: ModelConfig, max_len: int) -> Optional[int]:
+    """Largest prefill chunk a ``local_attn`` ring admits (the batcher's
+    ``ring_cap``): a chunk must fit the ring and its own writes must not
+    collide inside it. None when no layer uses a ring."""
+    kinds = tuple(cfg.pattern) + tuple(cfg.tail_pattern)
+    if any(k == "local_attn" for k in kinds) and cfg.window:
+        return min(max_len, cfg.window)
+    return None
+
+
+def chunked_prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
+                    chunk: Optional[int] = None):
+    """Stream the prompt through ``step_rows`` in uniform chunks at per-row
+    positions (the batcher's chunked-prefill contract), each capped at the
+    ring, so ``local_attn`` prompts longer than the window prefill
+    exactly. Returns (last_logits (B, vocab), cache, prompt_len)."""
+    b, t = tokens.shape
+    cap = _ring_chunk_cap(cfg, max_len)
+    step = min(x for x in (chunk, cap, t) if x is not None and x > 0)
+    cache = init_cache(cfg, b, max_len, device=tokens.device)
+    last = None
+    for off in range(0, t, step):
+        c = min(step, t - off)
+        pos = torch.full((b,), off, dtype=torch.int64, device=tokens.device)
+        counts = torch.full((b,), c, dtype=torch.int64, device=tokens.device)
+        last, cache = step_rows(params, cfg, cache, tokens[:, off:off + c], pos, counts)
+    return last, cache, t
+
+
+def decode_one(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos,
+               active: Optional[torch.Tensor] = None):
+    """One decode step of (B, 1) ``tokens`` at ``pos``, a shared int or a
+    per-row (B,) tensor; ``active`` masks the cache writes of dead rows.
+    Returns (logits (B, vocab), cache)."""
+    logits, aux = model_apply(params, cfg, {"tokens": tokens}, cache=cache, pos=pos,
+                              active=active)
+    return logits[:, -1, :], aux["cache"]
+
+
+def _decode_loop(params, cfg: ModelConfig, cache, last_logits: torch.Tensor,
+                 gen: GenerateConfig, pos: int, key: torch.Tensor):
+    """The decode loop: returns ((B, max_new_tokens) int32 tokens, cache).
+    Token 0 comes from the prefill logits and each later token from one
+    decode step at ``pos + i - 1``, so no forward is spent on the last
+    token. After EOS a row emits ``pad_id`` (its pad is still fed back, as
+    in the reference); the loop stops once every row is done, which reads
+    the finished mask back to the host only when ``eos_id`` is set."""
+    b = last_logits.shape[0]
+    n = gen.max_new_tokens
+    dev = last_logits.device
+    buf = torch.full((b, n), gen.pad_id, dtype=torch.int32, device=dev)
+    if n == 0:
+        return buf, cache
+    key, sub = split(key)
+    tok = sample_logits_one_key(last_logits, gen, sub)
+    finished = tok == gen.eos_id if gen.eos_id is not None else None
+    buf[:, 0] = tok.to(torch.int32)
+    for i in range(1, n):
+        if finished is not None and bool(finished.all()):
+            break
+        logits, cache = decode_one(params, cfg, cache, tok[:, None], pos + i - 1)
+        key, sub = split(key)
+        tok = sample_logits_one_key(logits, gen, sub)
+        if finished is not None:
+            tok = torch.where(finished, gen.pad_id, tok)
+            finished = finished | (tok == gen.eos_id)
+        buf[:, i] = tok.to(torch.int32)
+    return buf, cache
+
+
+def generate(params, cfg: ModelConfig, prompt: torch.Tensor, gen: GenerateConfig,
+             key: Optional[torch.Tensor] = None,
+             prefill_chunk: Optional[int] = None) -> torch.Tensor:
+    """Greedy / temperature / top-k generation. ``prompt``: (B, T) token
+    ids on the params' device; the cache is made there. Returns (B, T + max_new_tokens) int32; rows that emit ``gen.eos_id``
+    keep it and are padded with ``gen.pad_id`` afterwards. ``key`` is a
+    raw threefry key (2,), ``PRNGKey(0)`` when None.
+
+    Prompts that overflow a ``local_attn`` ring (T > window) prefill
+    through the batcher's chunked path automatically; ``prefill_chunk``
+    forces chunked prefill with that chunk size (still capped at the
+    ring).
+
+    The cache holds ``max_len = T + max_new_tokens`` positions, as in the
+    reference, and the clipped softmax resolves ``gamma = -alpha / len``
+    from that length. So a clipped ``generate`` and a batcher whose
+    ``max_len`` differs compute different functions (the reference's own
+    batcher-vs-generate test fails on it); compare clipped runs only at
+    equal ``max_len``."""
+    t = prompt.shape[1]
+    max_len = t + gen.max_new_tokens
+    cap = _ring_chunk_cap(cfg, max_len)
+    key = PRNGKey(0, device=prompt.device) if key is None else key
+    with torch.no_grad():
+        if prefill_chunk is None and (cap is None or t <= cap):
+            last_logits, cache, pos = prefill(params, cfg, prompt, max_len)
+        else:
+            last_logits, cache, pos = chunked_prefill(params, cfg, prompt, max_len,
+                                                      chunk=prefill_chunk)
+        new_tokens, _ = _decode_loop(params, cfg, cache, last_logits, gen, pos, key)
+    return torch.cat([prompt.to(torch.int32), new_tokens], dim=1)

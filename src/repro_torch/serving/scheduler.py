@@ -1,15 +1,23 @@
 """Token-budget continuous-batching scheduler over one fused mixed step
-(port of ``repro.serving.scheduler``, paged engines).
+(port of ``repro.serving.scheduler``).
 
 Every engine tick assembles ONE forward of up to ``token_budget`` tokens:
 decoding rows contribute 1 token each (1 + drafts under speculation),
 admitted-but-unfinished prompts contribute prefill chunks, and every row
-sits at its own position. The KV cache is a global block pool per layer
-plus per-row block tables (``init_paged_cache``); ``BlockAllocator`` is
-the host-side refcounted free list. When the pool is exhausted and no
-row can advance, the most recently admitted stalled row is preempted —
-swapped out to host memory when its context is long enough
-(``swap_break_even_tokens``), else re-queued for recompute-resume.
+sits at its own position. Two KV-cache backends, selected by ``paged``:
+
+  * paged (the default here) — a global block pool per layer plus
+    per-row block tables (``init_paged_cache``); ``BlockAllocator`` is the
+    host-side refcounted free list. When the pool is exhausted and no row
+    can advance, the most recently admitted stalled row is preempted —
+    swapped out to host memory when its context is long enough
+    (``swap_break_even_tokens``), else re-queued for recompute-resume.
+  * dense (``paged=False``, the reference's default) — every slot row
+    reserves ``max_len`` positions (``init_cache``), written by the masked
+    per-token scatter; no allocator, no tables, no swap, no prefix cache
+    (``audit()`` has nothing to check). Speculation is allowed on
+    all-``attn`` configs: a rejected draft's write is causally hidden and
+    overwritten, as in a paged pool.
 
 Carried over from the JAX engine: (priority, deadline, arrival)
 admission with a free-block watermark, SLO deadlines/timeouts with
@@ -41,10 +49,9 @@ does (a ring or recurrent write cannot be hidden or shared), and run
 ``Request(n=k)`` branches as independent requests.
 
 This port refuses, outright and with the ROADMAP item that ports each:
-``paged=False`` (the dense per-row cache), W8A8 (``qconfig=``) on a
-config that is not all-``attn``, and the block kinds and settings
-``check_supported`` refuses. Host bookkeeping is numpy; the tick's
-tensors live on ``device`` (default ``"cuda"``).
+W8A8 (``qconfig=``) on a config that is not all-``attn``, and the block
+kinds and settings ``check_supported`` refuses. Host bookkeeping is
+numpy; the tick's tensors live on ``device`` (default ``"cuda"``).
 """
 from __future__ import annotations
 
@@ -59,6 +66,7 @@ from repro_torch.models.transformer import (
     ModelConfig,
     check_supported,
     copy_pool_blocks,
+    init_cache,
     init_paged_cache,
     model_apply,
     paged_entries,
@@ -282,9 +290,9 @@ def _calibrate_engine(params, cfg: ModelConfig, qconfig: QConfig,
 
 
 class ContinuousBatcher:
-    """Token-budget slot-pool scheduler over a paged KV cache: one fused
-    forward per tick advances every runnable row — decode rows by one
-    token (or a verified draft run), prefilling rows by a chunk."""
+    """Token-budget slot-pool scheduler over a paged or a dense KV cache:
+    one fused forward per tick advances every runnable row — decode rows
+    by one token (or a verified draft run), prefilling rows by a chunk."""
 
     def __init__(self, params, cfg: ModelConfig, batch_size: int,
                  max_len: int, eos_id: Optional[int] = None,
@@ -308,19 +316,19 @@ class ContinuousBatcher:
                  spec: Optional[SpecConfig] = None,
                  debug_audit: bool = False,
                  device="cuda") -> None:
-        if not paged:
-            raise NotImplementedError(
-                "paged=False (the dense per-row cache) is not ported yet "
-                "(ROADMAP queue 1, item 2: generate with the dense cache)")
         check_supported(cfg)
         kinds = cfg.pattern + cfg.tail_pattern
         if qconfig is not None and any(k != "attn" for k in kinds):
             raise NotImplementedError(
                 "W8A8 serving (qconfig=) of ring/Griffin configs is not ported "
-                "yet (ROADMAP queue 1, item 1)")
+                "yet (ROADMAP queue 1, item 4)")
         self.device = resolve_device(device)
         if kv_int8 is None:
-            kv_int8 = qconfig is not None
+            kv_int8 = qconfig is not None and paged
+        if kv_int8 and not paged:
+            raise ValueError(
+                "kv_int8 requires paged=True: the int8 KV layout is the "
+                "block pool + per-slot scale vectors (init_paged_cache)")
         self.kv_int8 = bool(kv_int8)
         self.qconfig = qconfig
         self._qctx = NO_QUANT
@@ -338,6 +346,7 @@ class ContinuousBatcher:
         self.L = max_len
         self._gen = gen if gen is not None else GenerateConfig()
         self.eos_id = eos_id if eos_id is not None else self._gen.eos_id
+        self.paged = paged
         if token_budget < 1:
             raise ValueError("token_budget must be >= 1")
         self.token_budget = token_budget
@@ -373,31 +382,36 @@ class ContinuousBatcher:
         self.last_counts: Optional[np.ndarray] = None
         # forward calls made (one model_apply per sub-step)
         self.forward_calls = 0
-        self.block_size = block_size
-        n_entries = -(-max_len // block_size)
-        self.num_blocks = num_blocks if num_blocks is not None \
-            else batch_size * n_entries
-        self.allocator = BlockAllocator(self.num_blocks)
-        self.tables = np.full((batch_size, n_entries), -1, np.int32)
-        self._tables_dirty = True
-        self.cache = init_paged_cache(cfg, batch_size, max_len, self.num_blocks,
-                                      block_size, kv_int8=self.kv_int8,
-                                      device=self.device)
+        if paged:
+            self.block_size = block_size
+            n_entries = -(-max_len // block_size)
+            self.num_blocks = num_blocks if num_blocks is not None \
+                else batch_size * n_entries
+            self.allocator = BlockAllocator(self.num_blocks)
+            self.tables = np.full((batch_size, n_entries), -1, np.int32)
+            self._tables_dirty = True
+            self.cache = init_paged_cache(cfg, batch_size, max_len, self.num_blocks,
+                                          block_size, kv_int8=self.kv_int8,
+                                          device=self.device)
+            # a 1-block pool: the template's pool leaves are never read
+            template = init_paged_cache(cfg, 1, max_len, 1, block_size,
+                                        kv_int8=self.kv_int8, device=self.device)
+        else:
+            self.cache = init_cache(cfg, batch_size, max_len, device=self.device)
+            template = init_cache(cfg, 1, max_len, device=self.device)
         # a fresh batch-1 state: admission resets the slot's batch-led rows
-        # (ring K/V and pos_ids, recurrent h/conv) from it, so the previous
-        # occupant cannot leak into the new request; a 1-block pool, since
-        # its pool leaves are never read
-        self._row_template = dict(
-            (path, leaf) for path, leaf, _ in row_leaves(init_paged_cache(
-                cfg, 1, max_len, 1, block_size, kv_int8=self.kv_int8,
-                device=self.device)))
+        # (dense and ring K/V, ring pos_ids, recurrent h/conv) from it, so
+        # the previous occupant cannot leak into the new request
+        self._row_template = {path: leaf for path, leaf, _ in row_leaves(template)}
         # recurrent states have no per-token write index to mask, so ragged
         # steps are not expressible: split decode / uniform prefill ticks
         self._uniform = "griffin" in kinds
         # sharing rides on the paged attn pools only: ring and recurrent
         # layers keep per-row state a shared block cannot carry
-        self._can_share = all(k == "attn" for k in kinds)
-        if spec is not None and not self._can_share:
+        self._can_share = paged and all(k == "attn" for k in kinds)
+        # speculation is sound for global-attn KV, dense or paged: a
+        # rejected draft's write is causally hidden, then overwritten
+        if spec is not None and not all(k == "attn" for k in kinds):
             raise ValueError(
                 "spec=SpecConfig(...) requires an all-'attn' layer "
                 "pattern: rejected draft writes are only causally "
@@ -440,8 +454,9 @@ class ContinuousBatcher:
         if t > self.L - 1:
             raise ValueError(
                 f"request uid={req.uid}: {t} prompt tokens do not fit a "
-                f"max_len={self.L} row (>= 1 position must remain for decode)")
-        if self._blocks_for(t + 1) > self.num_blocks:
+                f"max_len={self.L} {'row' if self.paged else 'slot'} (>= 1 "
+                f"position must remain for decode)")
+        if self.paged and self._blocks_for(t + 1) > self.num_blocks:
             raise ValueError(
                 f"request uid={req.uid} needs {self._blocks_for(t + 1)} "
                 f"blocks; the pool only has {self.num_blocks}")
@@ -565,8 +580,11 @@ class ContinuousBatcher:
         self.slots[i] = _Slot()
 
     def _release_blocks(self, i: int) -> None:
-        """The ONE path blocks travel back to the allocator."""
+        """The ONE path blocks travel back to the allocator (nothing to do
+        in dense mode)."""
         s = self.slots[i]
+        if not self.paged:
+            return
         if s.blocks:
             self.allocator.release(s.blocks)
             s.blocks = []
@@ -586,8 +604,8 @@ class ContinuousBatcher:
 
     def _admit(self) -> None:
         """Bind queued requests to free slots in ``_admit_key`` order while
-        the free-block watermark allows; a swapped request is restored
-        (all or nothing) or deferred for the tick."""
+        (paged) the free-block watermark allows; a swapped request is
+        restored (all or nothing) or deferred for the tick."""
         deferred: set = set()
         for i in self._free_slots():
             while True:
@@ -595,7 +613,7 @@ class ContinuousBatcher:
                          if id(r) not in deferred and self._admissible(r)]
                 if not cands:
                     return
-                if self._avail() < self.admit_watermark:
+                if self.paged and self._avail() < self.admit_watermark:
                     return
                 j = min(cands, key=self._admit_key)
                 req = self.queue[j]
@@ -620,9 +638,9 @@ class ContinuousBatcher:
         return g.ready or r.branch == g.leader
 
     def _reset_row(self, i: int) -> None:
-        """Reset slot ``i``'s batch-led rows (ring K/V and pos_ids,
-        recurrent h/conv) to the fresh template; pool leaves are shared
-        and left alone (new blocks are written before any causally
+        """Reset slot ``i``'s batch-led rows (dense and ring K/V, ring
+        pos_ids, recurrent h/conv) to the fresh template; pool leaves are
+        shared and left alone (new blocks are written before any causally
         reachable read)."""
         for path, leaf, ax in row_leaves(self.cache):
             src = self._row_template[path]
@@ -646,7 +664,8 @@ class ContinuousBatcher:
                                  resume=list(resume) if resume else None))
         self._order += 1
         req.status = "running"
-        self._attach_prefix(i, resumed=bool(resume))
+        if self.paged:
+            self._attach_prefix(i, resumed=bool(resume))
 
     def _attach_prefix(self, i: int, resumed: bool) -> None:
         """Map the longest shareable prefix of slot ``i``'s feed onto
@@ -686,7 +705,7 @@ class ContinuousBatcher:
         """Swap when the cached context is at least the break-even token
         count (copy cost is linear in KV bytes, recompute a full forward
         per token) and the host swap pool has room."""
-        if self.swap_break_even_tokens is None:
+        if self.swap_break_even_tokens is None or not self.paged:
             return False
         if s.pos < self.swap_break_even_tokens:
             return False
@@ -871,11 +890,14 @@ class ContinuousBatcher:
                     if k_cap > 0:
                         drafts = self._drafter.propose(s.req.prompt,
                                                        s.generated, k_cap)
-                c = self._grow_blocks(i, 1 + len(drafts))
-                if c < 1:
-                    stalled.append(i)
-                    continue
-                drafts = drafts[:c - 1]
+                c = 1 + len(drafts)
+                if self.paged:
+                    # a short grant truncates the drafts instead of stalling
+                    c = self._grow_blocks(i, c)
+                    if c < 1:
+                        stalled.append(i)
+                        continue
+                    drafts = drafts[:c - 1]
                 counts[i] = c
                 budget -= c
                 if drafts:
@@ -902,7 +924,7 @@ class ContinuousBatcher:
                     c = uniform_c
                 else:
                     c = min(s.prefill.remaining, self._chunk_cap, budget, pleft)
-                if c > 0:
+                if c > 0 and self.paged:
                     c = self._grow_blocks(i, c)
                     if uniform_c is not None and 0 < c < uniform_c:
                         # a short chunk would make the step ragged; the
@@ -940,10 +962,13 @@ class ContinuousBatcher:
                 hit = True
         return hit
 
-    def _live_width(self) -> int:
+    def _live_width(self) -> Optional[int]:
         """The tick's block-table read width: the most blocks any occupied
         slot holds, rounded up to a power of two. Allocation is
-        prefix-dense, so slicing the read there is exact."""
+        prefix-dense, so slicing the read there is exact. None in dense
+        mode."""
+        if not self.paged:
+            return None
         held = max((len(s.blocks) for s in self.slots if s.req is not None),
                    default=1)
         return min(_bucket(held), self.tables.shape[1])
@@ -1006,11 +1031,13 @@ class ContinuousBatcher:
                 final[i] = st.done + c == len(st.feed)
         keys = np.asarray([s.key if s.key is not None else 0
                            for s in self.slots], np.int64)
-        if self._tables_dirty:
-            self._set_tables()
         dev = self.device
-        live_widths = torch.as_tensor([len(s.blocks) for s in self.slots],
-                                      dtype=torch.int32, device=dev)
+        live_widths = None
+        if self.paged:
+            if self._tables_dirty:
+                self._set_tables()
+            live_widths = torch.as_tensor([len(s.blocks) for s in self.slots],
+                                          dtype=torch.int32, device=dev)
         with torch.no_grad():
             nxt, self.cache = self._step_fn(
                 self.params, self.cache, torch.as_tensor(tokens, device=dev),
@@ -1153,7 +1180,10 @@ class ContinuousBatcher:
         """Every block's refcount equals its owner count across slot
         tables, the prefix trie and sampling snapshots; free blocks are
         exactly the zero-ref ones; host tables mirror slot state; swap
-        bytes balance. Raises ``AllocatorAuditError`` otherwise."""
+        bytes balance. Raises ``AllocatorAuditError`` otherwise. A dense
+        engine holds no blocks: nothing to check."""
+        if not self.paged:
+            return
         owners: Dict[int, int] = {}
         for i, s in enumerate(self.slots):
             if s.req is None:

@@ -232,7 +232,6 @@ def test_sampling_is_a_pure_function_of_seed_and_position():
 def test_refuses_what_this_slice_does_not_port(models):
     _, _, tc, tp = models["vanilla"]
     cases = [
-        (dict(paged=False), tc),
         ({}, dataclasses.replace(tc, pattern=("attn", "mlstm"))),
         ({}, dataclasses.replace(tc, moe=object())),
         ({}, dataclasses.replace(tc, pos="learned")),
@@ -242,6 +241,12 @@ def test_refuses_what_this_slice_does_not_port(models):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tserve.ContinuousBatcher(tp, cfg, batch_size=2, max_len=64,
                                      device="cpu", **kw)
+    # the reference's own refusals of the dense cache
+    for kw, match in ((dict(kv_int8=True), "kv_int8 requires paged=True"),
+                      (dict(prefix_cache=True), "prefix_cache=True requires paged=True")):
+        with pytest.raises(ValueError, match=match):
+            tserve.ContinuousBatcher(tp, tc, batch_size=2, max_len=64, paged=False,
+                                     device="cpu", **kw)
 
 
 def test_entry_points_default_to_cuda(models):
@@ -250,6 +255,7 @@ def test_entry_points_default_to_cuda(models):
              lambda: tserve.ContinuousBatcher(tp, tc, batch_size=2, max_len=64,
                                                qconfig=tqc.QConfig()),
              lambda: ttr.init_paged_cache(tc, 2, 64, 8),
+             lambda: ttr.init_cache(tc, 2, 64),
              lambda: ttr.model_init(0, tc)]
     for call in calls:
         if torch.cuda.is_available():
