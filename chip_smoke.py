@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      from ``src/repro_torch/csrc`` (one ``nvcc`` per source, started
      together) into ``src/repro_torch/_build``; the run fails if ptxas
      reports spill stores in an attention instantiation that bf16 data at
-     Dh 128 runs, or in any int8_matmul instantiation, and prints ptxas's
+     Dh 128 runs, in a Dh-32 flash instantiation (both routes), or in any
+     int8_matmul instantiation, and prints ptxas's
      notes that it serialized wgmma (C7515, C7520, ...) in int8_matmul;
      it fails on any spill store in an rg_lru entry (both routes).
   3. Kernel against plain version, at qwen3-14b's attention shapes (Hkv 8,
@@ -40,7 +41,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      sides of the route boundary (16: mma.sync weight streaming; 17: TMA
      + wgmma), an N no tile divides (130, 5120, 1040) and two ragged
      shapes; static and dynamic activation ranges, x in float32 and in
-     bfloat16. The check is bitwise (max abs difference 0), and the
+     bfloat16; and OPT-125m's linears (768x768, 768x3072, 3072x768) at M 8
+     and 2048. The check is bitwise (max abs difference 0), and the
      pre-pass's codes are held bitwise against ``quantize_activations``
      on their own. Then device times at every tick shape of the kernel,
      its plain version and ``torch._int_mm`` (cuBLASLt, a yardstick the
@@ -60,8 +62,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      keys, vanilla, clipped (gamma = -4/1024) and gated, f32 and bf16:
      decode (8 rows, Tq 1) at per-row offsets DECODE_OFFSETS, a chunk (Tq
      256) at CHUNK_OFFSETS (two rows' last queries past Tk), and a prefill
-     (Tq 512) at offset 0; each line names the route (bf16 Dh 64/128:
-     tensor cores). Then device times at (1, 2048) bf16 of the kernel, its
+     (Tq 512) at offset 0; then the paper models' shapes, f32 and bf16,
+     vanilla, clipped and gated: Dh 32 (B 4, Hq = Hkv = 4, T 256) causal
+     and not, Dh 32 ragged (T 1000, window 300), BERT-base's (8, 512,
+     12/12, 64) without the causal mask and OPT-125m's (1, 2048, 12/12, 64)
+     with it; each line names the route (bf16 Dh 32/64/128: tensor
+     cores). Then device times at (1, 2048) bf16 of the kernel, its
      plain version and ``F.scaled_dot_product_attention(is_causal=True,
      enable_gqa=True)`` (vanilla only; a yardstick the port never calls),
      beside the bound (flops of the causally visible pairs / 989 TFLOP/s,
@@ -69,7 +75,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      larger); and at the dense decode read (8, 1, 40/8, 128) over 1024 keys
      at DECODE_OFFSETS, vanilla and clipped, with SDPA on the same K/V
      (heads repeated, a mask of the visible keys), beside phase 3's paged
-     decode read at the same live lengths.
+     decode read at the same live lengths. And at the paper models'
+     shapes (PAPER_FLASH_TIMED: BERT-base's, OPT-125m's, and 4 heads of 32
+     at (8, 512) with and without the causal mask), f32 (the CUDA-core
+     route the f32 paper models run) and bf16, vanilla and clipped: the
+     kernel, its plain version, SDPA (vanilla) and the bound.
   3d. The fake-quant kernel against its plain version, bitwise, at the
      evaluation's shapes (MLP activation (2048, 17408) bf16, residual
      (2048, 5120) f32, gate/up weight (5120, 17408) bf16) and ragged n
@@ -191,6 +201,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      3000 (chunked past the window): 26 RG-LRU launches on every forward of
      T > 1, none at T 1, no flash or paged launch, and gate (a) with the
      decode one position early and the recurrent state h lost as faults.
+  5b. The paper's own models at their published widths, f32, random
+     weights from seed 0. Evaluation by phase 5's protocol (2 FP batches,
+     4 calibration batches, W8A8 on the 2) of BERT-base (masked LM, batch
+     8 x T 512, non-causal) and OPT-125m (causal LM, batch 1 x T 2048) for
+     vanilla, clipped softmax (alpha 4) and gated attention, with phase
+     5's gates at f32 bounds (PAPER_LAYER_REL_RMS per layer,
+     PAPER_LOGIT_REL_RMS for the logits). OPT-125m served by
+     ``ContinuousBatcher`` (batch 8, max_len 2048, block 16, budget 256,
+     ``opt_requests``: one row decodes up to position 2046, and ticks'
+     padded tails run past the position table): paged fp vanilla, clipped,
+     gated; paged W8A8 clipped (int8 pool); dense (``paged=False``)
+     vanilla. Each must finish every request, leak no block, launch the
+     paged kernel (dense: flash) once per layer per forward and, W8A8, the
+     int8 kernel 6 times per layer per forward; at the first mixed tick
+     and the first tick past the table, the live logits through the
+     kernels must agree with the plain path's (OPT_TICK_REL_RMS; W8A8:
+     W8A8_LOGIT_REL_RMS) and be finite. Then the paper's mechanism: the
+     W8A8 engine's calibration and int8 weights on OPT-125m and on the
+     same weights with two fc1 channels amplified 300x (fc2 rows / 300,
+     the fp function unchanged): W8A8 against fp logits of one cache-free
+     8 x 512 forward; the injected model must read above the clean one by
+     OUTLIER_MARGIN.
   6. The kernels line, then the device line.
 
 TF32 is switched off for matmuls and convolutions, so float32 compares
@@ -253,6 +285,9 @@ INT8_TICK_SHAPES = [(m, k, n) for m in (8, 2048) for (k, n), _ in LAYER_LINEARS]
 # tile
 INT8_SHAPES = INT8_TICK_SHAPES + [(16, 5120, 5120), (17, 5120, 5120), (130, 5120, 1040),
                                   (5, 64, 16), (37, 96, 80)]
+# and OPT-125m's W8A8 linears (q/k/v/o 768x768, up 768x3072, down
+# 3072x768) at its decode and padded mixed ticks (phase 5b)
+INT8_SHAPES += [(m, k, n) for m in (8, 2048) for k, n in ((768, 768), (768, 3072), (3072, 768))]
 KERNEL_SOURCES = {"paged_attention": "src/repro_torch/csrc/paged_attention.cu",
                   "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu",
                   "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
@@ -299,6 +334,9 @@ FLASH_VS_OWN_PLAIN_REL_RMS = 0.05
 # the bound sits 5x above the one and 4.5x below the other.
 PAGED_TC_REL_RMS = 5e-4
 EVAL_SEQ, EVAL_BATCHES, CALIB_BATCHES = 2048, 2, 4
+# the attention heads of BERT-base and OPT-125m (12 of 64, no GQA)
+BERT_HEADS = dict(b=8, hq=12, hkv=12, dh=64)
+OPT_HEADS = dict(b=1, hq=12, hkv=12, dh=64)
 # (B, T, D) of the RG-LRU checks: the serving prefill step and its
 # smallest chunk, a long one-shot, the evaluation's length, a T no tile
 # divides, decode-sized T 1 (all route 1, the TMA ring), and a ragged D
@@ -405,6 +443,12 @@ def bf16_dh128(name: str) -> bool:
     if "paged_attn_cc" in name:
         return "__nv_bfloat16" in name and re.search(r"Lb[01]ELi1ELi", name) is not None
     return False
+
+
+def flash_dh32(name: str) -> bool:
+    """Is this (mangled) kernel a Dh-32 flash instantiation (the
+    tensor-core kernel for bf16, the CUDA-core one for f32)?"""
+    return "flash_kernel_" in name and "ELi32EE" in name
 
 
 def check(ok, msg: str) -> None:
@@ -828,20 +872,24 @@ def flash_case(torch, t, dtype, variant, seed, b=1, hq=40, hkv=8, dh=128, tk=Non
     return dict(q=q, sets=sets, gate=gate, kw=dict(gamma=gamma, zeta=zeta))
 
 
-def flash_bound_ms(c, q_offset=0):
+def flash_bound_ms(c, q_offset=0, causal=True):
     """Least time on an H100: q and the gate read once, the output written
     once, and the K/V of each row's causally visible keys read once (a
     dense cache pads a row to Tk; the keys past its last query are not
     needed), against 3.35 TB/s; the QK and PV flops of every causally
     visible (query, key) pair (the clipped softmax computes QK twice)
     against the dense bf16 (or f32) peak. The larger of the two.
-    ``q_offset``: an int, or one per row."""
+    ``q_offset``: an int, or one per row. Without the causal mask every
+    query sees all Tk keys."""
     q, (k, v) = c["q"], c["sets"][0]
     b, t, hq, dh = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     offs = [q_offset] * b if isinstance(q_offset, int) else list(q_offset)
-    pairs = sum(max(0, min(tk, o + i + 1)) for o in offs for i in range(t))
-    keys = sum(min(tk, o + t) for o in offs)
+    if causal:
+        pairs = sum(max(0, min(tk, o + i + 1)) for o in offs for i in range(t))
+        keys = sum(min(tk, o + t) for o in offs)
+    else:
+        pairs, keys = b * t * tk, b * tk
     per_pair = 6 if c["kw"]["gamma"] != 0.0 else 4
     flops = per_pair * dh * hq * pairs
     nbytes = (2 * q.numel() + 2 * keys * hkv * dh) * q.element_size()
@@ -874,6 +922,20 @@ def phase_flash_checks(torch, fa):
                   (200, "vanilla", dict(small, dh=256, window=64)))]
     cases += [(1000, torch.bfloat16, "vanilla", dict(small)),
               (1000, torch.bfloat16, "clipped+gated", dict(small, window=300))]
+    # Dh 32 (the paper models' reduced widths: 4 heads of 32) on both
+    # routes, causal (OPT) and not (BERT), and ragged under a window;
+    # BERT-base's shape (8, 512, 12/12, 64) without the causal mask and
+    # OPT-125m's (1, 2048, 12/12, 64) with it
+    cases += [(256, dtype, variant, dict(b=4, hq=4, hkv=4, dh=32, causal=causal))
+              for dtype in (torch.float32, torch.bfloat16) for causal in (True, False)
+              for variant in ("vanilla", "clipped", "gated")]
+    cases += [(1000, dtype, "clipped+gated", dict(small, dh=32, window=300))
+              for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(t, dtype, variant, dict(shape, **extra))
+              for t, shape, extra in ((512, BERT_HEADS, dict(causal=False)),
+                                      (EVAL_SEQ, OPT_HEADS, {}))
+              for dtype in (torch.float32, torch.bfloat16)
+              for variant in ("vanilla", "clipped", "gated")]
     # the dense cache's reads at qwen3-14b's heads over a row of 1024 keys:
     # decode (Tq 1) and a chunk (Tq 256) at per-row offsets, a prefill at
     # offset 0
@@ -941,6 +1003,53 @@ def phase_flash_times(torch, fa):
               flush=True)
         del c
         torch.cuda.empty_cache()
+    return times
+
+
+# Phase 3c's timed shapes of the paper models: BERT-base's evaluation read
+# (8, 512, 12/12, 64) without the causal mask, OPT-125m's (1, 2048, 12/12,
+# 64) with it, and the reduced configs' 4 heads of 32 at BERT's batch and
+# length, both masks. f32 is what the paper models run (f32 params and
+# compute: the CUDA-core route); bf16 takes the tensor-core route.
+PAPER_FLASH_TIMED = [("bert", 512, BERT_HEADS, False), ("opt", EVAL_SEQ, OPT_HEADS, True),
+                     ("dh32", 512, dict(b=8, hq=4, hkv=4, dh=32), False),
+                     ("dh32", 512, dict(b=8, hq=4, hkv=4, dh=32), True)]
+
+
+def phase_flash_paper_times(torch, fa):
+    """Device times at PAPER_FLASH_TIMED, f32 and bf16, vanilla and
+    clipped: the kernel, its plain version and, vanilla, SDPA on the same
+    inputs (a yardstick the port never calls), beside the bound."""
+    import torch.nn.functional as F
+    times = {}
+    for name, t, shape, causal in PAPER_FLASH_TIMED:
+        for dtype in (torch.float32, torch.bfloat16):
+            for variant in ("vanilla", "clipped"):
+                c = flash_case(torch, t, dtype, variant, seed=11, copies=3, **shape)
+                q, kw = c["q"], dict(c["kw"], causal=causal)
+                kern = device_ms(torch, [lambda s=s: fa.mha_flash(q, s[0], s[1], **kw)
+                                         for s in c["sets"]], 10)
+                plain = device_ms(torch, [lambda s=s: fa.mha_flash_ref(q, s[0], s[1], **kw)
+                                          for s in c["sets"]], 3)
+                lib = None
+                if variant == "vanilla":
+                    ins = [(q.transpose(1, 2).contiguous(), s[0].transpose(1, 2).contiguous(),
+                            s[1].transpose(1, 2).contiguous()) for s in c["sets"]]
+                    lib = device_ms(torch, [lambda a=a: F.scaled_dot_product_attention(
+                        a[0], a[1], a[2], is_causal=causal) for a in ins], 10)
+                    del ins
+                bound, by = flash_bound_ms(c, causal=causal)
+                dt = str(dtype).replace("torch.", "")
+                key = (name, tuple(q.shape), causal, dt, variant)
+                times[key] = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                                  bound_by=by)
+                print(f"flash time {name} {tuple(q.shape)} {'causal' if causal else 'non-causal'}"
+                      f" {variant} {dt} route={fa.route(dtype, q.shape[-1])}: kernel "
+                      f"{kern:.4f} ms, plain {plain:.4f} ms, SDPA "
+                      f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {bound:.4f} ms ({by})",
+                      flush=True)
+                del c
+    torch.cuda.empty_cache()
     return times
 
 
@@ -2183,9 +2292,21 @@ def count_fake_quant_sites(torch, cfg):
     return len(calls)
 
 
-def phase_eval(torch, np, fa, fq, pa, im, name, method, **method_kw):
+def qwen_eval_cfg(method, **method_kw):
+    """qwen3-14b at full width with ``method``, unrolled (as PTQ needs)."""
     from repro_torch.configs.base import apply_method
     from repro_torch.configs.qwen3_14b import full
+    return dataclasses.replace(apply_method(full(), method, **method_kw), scan_layers=False)
+
+
+def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, batch_size=1,
+               layer_tol=FLASH_LAYER_REL_RMS, own_tol=FLASH_VS_OWN_PLAIN_REL_RMS,
+               logit_tol=LOGIT_REL_RMS):
+    """The paper's evaluation protocol on ``cfg`` (random weights from seed
+    0) over ``SyntheticLM`` batches of ``kind`` ("clm" or "mlm"), (batch_size,
+    seq) each; the flash kernel held per layer (``layer_tol``) and in the
+    logits (``own_tol`` against its plain version, ``logit_tol`` against
+    dense_attention)."""
     from repro_torch.data import SyntheticLM, SyntheticLMConfig
     from repro_torch.models import transformer
     from repro_torch.quant import quantizer
@@ -2195,18 +2316,17 @@ def phase_eval(torch, np, fa, fq, pa, im, name, method, **method_kw):
     from repro_torch.train.losses import loss_for
     from repro_torch.core.attention import dense_attention
 
-    cfg = dataclasses.replace(apply_method(full(), method, **method_kw), scan_layers=False)
     sites = count_fake_quant_sites(torch, cfg)
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     params = transformer.model_init(0, cfg, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t_phase
-    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=EVAL_SEQ,
-                                         batch_size=1, seed=0))
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                         batch_size=batch_size, seed=0))
 
     def batches(start, n):
-        return [{k: torch.as_tensor(v).cuda() for k, v in data.batch(start + i, "clm").items()}
+        return [{k: torch.as_tensor(v).cuda() for k, v in data.batch(start + i, kind).items()}
                 for i in range(n)]
 
     def apply_fn(p, batch, ctx):
@@ -2214,13 +2334,13 @@ def phase_eval(torch, np, fa, fq, pa, im, name, method, **method_kw):
 
     def loss_fn(p, batch, ctx):
         logits = apply_fn(p, batch, ctx if ctx is not None else NO_QUANT)
-        return loss_for("clm")(logits, batch["labels"])
+        return loss_for(kind)(logits, batch["labels"])
 
     cal, held_out = batches(5_000_000, CALIB_BATCHES), batches(10_000_000, EVAL_BATCHES)
     # the path, with every count at 0 just before it and read just after
     fa.launches = fq.launches = pa.launches = im.launches = 0
     t0 = time.perf_counter()
-    ppl, ostats = evaluate(TrainTask(cfg=cfg), params, data, EVAL_BATCHES, "clm")
+    ppl, ostats = evaluate(TrainTask(cfg=cfg), params, data, EVAL_BATCHES, kind)
     torch.cuda.synchronize()
     fp_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2235,8 +2355,9 @@ def phase_eval(torch, np, fa, fq, pa, im, name, method, **method_kw):
                     int8=im.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     forwards = 2 * EVAL_BATCHES + CALIB_BATCHES + EVAL_BATCHES
-    tokens = EVAL_BATCHES * EVAL_SEQ
-    print(f"eval {name} ({cfg.n_layers} layers, T {EVAL_SEQ}): FP ppl {ppl:.4f}, max "
+    tokens = EVAL_BATCHES * batch_size * seq
+    print(f"eval {name} ({cfg.n_layers} layers, {kind}, batch {batch_size} x T {seq}): FP ppl "
+          f"{ppl:.4f}, max "
           f"inf-norm {ostats['max_inf_norm']:.4f}, avg kurtosis {ostats['avg_kurtosis']:.4f}, "
           f"W8A8 ppl {q_ppl:.4f}; FP eval {fp_s:.3f} s ({tokens / fp_s:.1f} tok/s over "
           f"{2 * EVAL_BATCHES} forwards), calibration {calib_s:.3f} s, W8A8 eval {q_s:.3f} s "
@@ -2254,13 +2375,21 @@ def phase_eval(torch, np, fa, fq, pa, im, name, method, **method_kw):
     check(launches["paged"] == 0 and launches["int8"] == 0,
           f"{name}: serving kernels launched during evaluation: {launches}")
 
-    real_mha_flash, layer_rms, layer_control = fa.mha_flash, [], []
+    real_mha_flash, layer_rms, layer_control, zero_layers = fa.mha_flash, [], [], []
 
     def held(q, k, v, gate_pi=None, **kw):
         """The kernel, held against its plain version on the same inputs,
-        beside the plain version with P rounded to bf16."""
+        beside the plain version with P rounded to bf16. A layer whose
+        plain output is exactly zero (the clipped softmax zeroes every
+        probability of a near-uniform random-weight layer) must be
+        exactly zero in the kernel too; it has no P to round."""
         out = real_mha_flash(q, k, v, gate_pi, **kw)
         ref = fa.mha_flash_ref(q, k, v, gate_pi, **kw)
+        if not ref.any():
+            zero_layers.append(len(layer_rms))
+            layer_rms.append(0.0 if not out.any() else float("inf"))
+            layer_control.append(0.0)
+            return out
         layer_rms.append(rel_rms(out, ref))
         with bf16_p(torch):
             layer_control.append(rel_rms(fa.mha_flash_ref(q, k, v, gate_pi, **kw), ref))
@@ -2306,23 +2435,24 @@ def phase_eval(torch, np, fa, fq, pa, im, name, method, **method_kw):
     print(f"eval {name}: attention per layer, flash kernel vs its plain version on the "
           f"same inputs: relative RMS max {max(layer_rms):.3e}, mean "
           f"{sum(layer_rms) / len(layer_rms):.3e} over {len(layer_rms)} layers (tol "
-          f"{FLASH_LAYER_REL_RMS:.3e}); the plain version with bf16 P: relative RMS max "
+          f"{layer_tol:.3e}); the plain version with bf16 P: relative RMS max "
           f"{max(layer_control):.3e}, min {min(layer_control):.3e}, "
-          f"{sum(v > FLASH_LAYER_REL_RMS for v in layer_control)} layers above the tol; "
+          f"{sum(v > layer_tol for v in layer_control)} layers above the tol; layers whose "
+          f"attention output is exactly zero: {zero_layers or 'none'}; "
           f"FP logits, flash kernel vs its plain version: "
-          f"relative RMS {own_rms:.4f} (tol {FLASH_VS_OWN_PLAIN_REL_RMS}), argmax agreement "
+          f"relative RMS {own_rms:.3e} (tol {own_tol}), argmax agreement "
           f"{own_agree:.4f}; flash kernel vs plain attention (dense_attention): relative "
-          f"RMS {logit_rms:.4f} (tol {LOGIT_REL_RMS}), argmax agreement {agree:.4f}; W8A8 "
+          f"RMS {logit_rms:.3e} (tol {logit_tol}), argmax agreement {agree:.4f}; W8A8 "
           f"logits with the fake-quant kernel vs its plain version bitwise equal: {same}; "
           f"phase {wall:.1f} s, peak memory {peak_gb:.2f} GB", flush=True)
-    check(len(layer_rms) == cfg.n_layers and max(layer_rms) <= FLASH_LAYER_REL_RMS,
+    check(len(layer_rms) == cfg.n_layers and max(layer_rms) <= layer_tol,
           f"{name}: a layer's flash output differs from its plain version: {layer_rms}")
-    check(max(layer_control) > FLASH_LAYER_REL_RMS,
+    check(max(layer_control) > layer_tol or len(zero_layers) == cfg.n_layers,
           f"{name}: no layer tells bf16 P from f32 P at the bound: {layer_control}")
-    check(own_rms <= FLASH_VS_OWN_PLAIN_REL_RMS,
+    check(own_rms <= own_tol,
           f"{name}: flash kernel and its plain version give different logits: relative "
           f"RMS {own_rms}")
-    check(logit_rms <= LOGIT_REL_RMS, f"{name}: flash and plain attention logits differ: "
+    check(logit_rms <= logit_tol, f"{name}: flash and plain attention logits differ: "
                                     f"relative RMS {logit_rms}")
     check(same, f"{name}: the fake-quant kernel changed the W8A8 logits")
     del params, ctx, cal, held_out, batch
@@ -2337,6 +2467,241 @@ def phase_eval(torch, np, fa, fq, pa, im, name, method, **method_kw):
                 layer_rel_rms_max=max(layer_rms),
                 layer_bf16_p_rel_rms_max=max(layer_control), **{
                     f"{k}_launches": v for k, v in launches.items()})
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the paper's own models at full width (BERT-base, OPT-125m)
+# ---------------------------------------------------------------------------
+# The paper models run in f32 (the reference's params and compute), so the
+# flash kernel takes its CUDA-core route and its plain version computes the
+# same f32 products summed in another order: a layer's output may differ by
+# a few f32 ulps (relative RMS ~1e-7), where P rounded to bf16 (the
+# control, which must land above) reads ~1e-3. Over 12 f32 layers the
+# logits against the kernel's plain version or dense_attention: ~1e-6. A
+# wrong mask, gamma or scale moves either by percents.
+PAPER_LAYER_REL_RMS = 1e-5
+PAPER_LOGIT_REL_RMS = 1e-4
+# (family, data kind, T, batch) of the evaluation: BERT-base masked-LM at
+# its max_seq_len 512, batch 8; OPT-125m causal LM at its 2048, batch 1
+PAPER_EVALS = (("bert", "mlm", 512, 8), ("opt", "clm", EVAL_SEQ, 1))
+METHODS = (("vanilla", "vanilla", {}), ("clipped", "clipped_softmax", {"alpha": 4.0}),
+           ("gated", "gated_attention", {}))
+# OPT-125m serving, kernel path against plain path at a tick: both f32
+# (the paged kernel's CUDA-core route, or flash's on the dense cache,
+# against dense_attention), so the logits differ by f32 ulps carried
+# through 12 layers; a wrong block, mask, position or gamma moves them by
+# their own scale. Under W8A8 those ulps move rare activations across an
+# int8 code edge, as in phase 4 (W8A8_LOGIT_REL_RMS).
+OPT_TICK_REL_RMS = 1e-4
+OPT_MAX_LEN = 2048
+# The paper's mechanism (Bondarenko et al., Sec. 3; tests/test_int8_
+# serving_quality.py's injection): two fc1 channels amplified by M, the
+# matching fc2 rows scaled by 1/M, in every layer. The fp function is
+# unchanged, the fc2 input's per-tensor range grows about M-fold. The
+# first run (H100 80GB HBM3, 700 W) read W8A8 vs fp logits 0.1412 clean,
+# 1.4023 injected (9.9x; the fc2 input's int8 step 1.73e-2 -> 2.69): the
+# margin is 4x, 2.5x under that reading, far above the 1x of a path that
+# ignored the ranges.
+OUTLIER_CHANNELS, OUTLIER_M = (3, 11), 300.0
+OUTLIER_MARGIN = 4.0
+
+
+def paper_cfg(family, method, **method_kw):
+    from repro_torch.configs import paper_models
+    from repro_torch.configs.base import apply_method
+    make = {"bert": paper_models.bert_base, "opt": paper_models.opt_125m}[family]
+    return apply_method(make(), method, **method_kw)
+
+
+def opt_requests(np, vocab):
+    """One 1900-token prompt that decodes 148 tokens (positions up to
+    2046, the position table's last rows); seven short prompts (32..128,
+    32 new) that finish while it decodes; four long ones (1000..1800, 32
+    new) that then prefill in chunks of up to 256 beside its decode, so
+    those ticks' padded tails run past position 2047. (prompt, new)."""
+    rng = np.random.default_rng(1)
+    lengths = [1900] + rng.integers(32, 129, 7).tolist() + rng.integers(1000, 1801, 4).tolist()
+    new = [OPT_MAX_LEN - 1900] + [32] * 11
+    return [(rng.integers(0, vocab, size=int(n)).astype(np.int32), m)
+            for n, m in zip(lengths, new)]
+
+
+def phase_opt_serving(torch, np, pa, im, fa, name, method, paged=True, w8a8=False,
+                      **method_kw):
+    """OPT-125m served by ContinuousBatcher: batch 8, max_len 2048, block
+    16, budget 256, opt_requests. Gates: every request done, launches per
+    forward, and at the first mixed tick and the first tick whose padding
+    passes the position table, the kernel path's live logits against the
+    plain path's (the gather read or dense_attention, and under W8A8 the
+    int8 product's plain version)."""
+    from repro_torch.models import transformer
+    from repro_torch.models.transformer import model_init
+    from repro_torch.nn import layers
+    from repro_torch.nn.module import tree_map
+    from repro_torch.quant.qconfig import QConfig
+    from repro_torch.serving import ContinuousBatcher, Request
+    from repro_torch.serving.decode import step_rows_full
+    from repro_torch.core.attention import dense_attention
+
+    cfg = paper_cfg("opt", method, **method_kw)
+    params = model_init(0, cfg, device="cuda")
+    reqs = opt_requests(np, cfg.vocab_size)
+    t0 = time.perf_counter()
+    b = ContinuousBatcher(params, cfg, batch_size=8, max_len=OPT_MAX_LEN, block_size=16,
+                          token_budget=256, paged=paged,
+                          qconfig=QConfig() if w8a8 else None, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    snaps, step_fn = {}, b._step_fn
+
+    def capture(params_, cache, tokens, pos, counts, keys, lw, lws):
+        c = counts.cpu()
+        kinds = {"mixed": bool((c == 1).any() and (c > 1).any()),
+                 "past the table": int(pos.max()) + tokens.shape[1] > cfg.max_seq_len}
+        for kind, want in kinds.items():
+            if want and kind not in snaps:
+                snaps[kind] = dict(cache=tree_map(lambda x: x.clone(), cache),
+                                   args=(tokens.clone(), pos.clone(), counts.clone(), lw,
+                                         None if lws is None else lws.clone()))
+        return step_fn(params_, cache, tokens, pos, counts, keys, lw, lws)
+
+    b._step_fn = capture
+    for u, (p, n) in enumerate(reqs):
+        b.submit(Request(uid=u, prompt=p, max_new_tokens=n))
+    torch.cuda.reset_peak_memory_stats()
+    pa.launches = im.launches = fa.launches = 0
+    ticks = 0
+    t0 = time.perf_counter()
+    while b.queue or any(s.req is not None for s in b.slots):
+        b.step()
+        ticks += 1
+        check(ticks <= 2000, f"opt {name}: engine did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(paged=pa.launches, int8=im.launches, flash=fa.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    outs = {r.uid: r.output for r in b.done}
+    n_tokens = sum(len(o) for o in outs.values())
+    fwd = b.forward_calls
+    print(f"serving opt-125m {name} ({'paged' if paged else 'dense'}, {cfg.n_layers} layers, "
+          f"f32): {ticks} ticks, {fwd} forwards, {n_tokens} generated tokens in {wall:.3f} s "
+          f"= {n_tokens / wall:.2f} tok/s, peak memory {peak_gb:.2f} GB, engine set-up "
+          f"{setup_s:.2f} s, launches {launches}", flush=True)
+    check(len(outs) == len(reqs) and all(len(outs[u]) == n for u, (_, n) in enumerate(reqs)),
+          f"opt {name}: not every request finished with its tokens")
+    check(not b.failed, f"opt {name}: failed requests {[r.status for r in b.failed]}")
+    if paged:
+        b.audit()
+        check(b.allocator.available == b.num_blocks and (b.tables == -1).all(),
+              f"opt {name}: block leak")
+    want = dict(paged=cfg.n_layers * fwd if paged else 0, flash=0 if paged else cfg.n_layers * fwd,
+                int8=6 * cfg.n_layers * fwd if w8a8 else 0)
+    check(launches == want, f"opt {name}: launches {launches}, expected {want}")
+    check(set(snaps) == {"mixed", "past the table"},
+          f"opt {name}: ticks seen {sorted(snaps)}; a mixed tick and one past the table needed")
+
+    result = dict(engine=name, paged=paged, w8a8=w8a8, ticks=ticks, forwards=fwd,
+                  tokens=n_tokens, wall_s=wall, tok_per_s=n_tokens / wall, peak_gb=peak_gb,
+                  setup_s=setup_s, **{f"{k}_launches": v for k, v in launches.items()})
+    real_attention = transformer.attention
+    for kind, snap in snaps.items():
+        tokens, pos, counts, lw, lws = snap["args"]
+        live = torch.arange(tokens.shape[1], device=tokens.device)[None, :] < counts[:, None]
+        logits = {}
+        with torch.no_grad():
+            for run in ("kernel", "plain"):
+                cache = tree_map(lambda x: x.clone(), snap["cache"])
+                c2 = dataclasses.replace(b.cfg, paged_backend="gather") \
+                    if run == "plain" and paged else b.cfg
+                if run == "plain":
+                    layers.int8_matmul = im.int8_matmul_ref
+                    transformer.attention = lambda q, k, v, c, q_offset=0, gate_pi=None: \
+                        dense_attention(q, k, v, c, q_offset=q_offset, gate_pi=gate_pi)
+                try:
+                    out = step_rows_full(b.params, c2, cache, tokens, pos, counts, lw, lws,
+                                         ctx=b._qctx)[0]
+                finally:
+                    layers.int8_matmul = im.int8_matmul
+                    transformer.attention = real_attention
+                logits[run] = out[live][:, :cfg.vocab_size]
+                pad_nan = int(torch.isnan(out[~live]).any(-1).sum())
+                del cache, out
+        finite = bool(torch.isfinite(logits["kernel"]).all())
+        rms = rel_rms(logits["kernel"], logits["plain"])
+        agree = (logits["kernel"].argmax(-1) == logits["plain"].argmax(-1)).float().mean().item()
+        tol = W8A8_LOGIT_REL_RMS if w8a8 else OPT_TICK_REL_RMS
+        print(f"serving opt-125m {name}: {kind} tick (counts {counts.tolist()}, positions up "
+              f"to {int(pos.max()) + tokens.shape[1] - 1} with padding, T {tokens.shape[1]}): "
+              f"kernel vs plain live logits relative RMS {rms:.3e} (tol {tol}), argmax "
+              f"agreement {agree:.4f}, live logits finite {finite}, padded tokens with NaN "
+              f"logits {pad_nan}", flush=True)
+        check(finite and rms <= tol, f"opt {name}: {kind} tick, kernel and plain logits "
+                                     f"differ: relative RMS {rms}, finite {finite}")
+        result[f"{kind}_rel_rms"] = rms
+    del b, params, snaps
+    torch.cuda.empty_cache()
+    return result
+
+
+def inject_outliers(params):
+    """The function-preserving channel amplification: a copy of the
+    params tree whose every layer's mlp up (w columns, b entries) carry
+    OUTLIER_CHANNELS times OUTLIER_M and mlp down (w rows) 1/OUTLIER_M."""
+    from repro_torch.nn.module import tree_map
+    out = tree_map(lambda x: x.clone(), params)
+    for layer in out["layers"]:
+        mlp = layer["b0"]["mlp"]
+        for c in OUTLIER_CHANNELS:
+            mlp["up"]["w"][:, c] *= OUTLIER_M
+            mlp["up"]["b"][c] *= OUTLIER_M
+            mlp["down"]["w"][c, :] *= 1.0 / OUTLIER_M
+    return out
+
+
+def phase_outlier_contrast(torch, np):
+    """On OPT-125m (vanilla, random weights from seed 0) and on the same
+    weights with outliers injected: the W8A8 engine's set-up (its
+    calibration on synthetic batches, int8 weights attached) and one
+    cache-free forward of 8 x 512 tokens through the int8 kernel, against
+    the fp forward. Returns the two relative RMS values."""
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    from repro_torch.models.transformer import model_apply, model_init
+    from repro_torch.quant.int8_weights import attach_int8_weights
+    from repro_torch.quant.qconfig import QConfig
+    from repro_torch.serving import scheduler as sched
+
+    cfg = paper_cfg("opt", "vanilla")
+    clean = model_init(0, cfg, device="cuda")
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=min(512, cfg.max_seq_len), batch_size=8, seed=0))
+    batch = {"tokens": torch.as_tensor(data.batch(20_000_000, "clm")["tokens"]).cuda()}
+    res, fp = {}, {}
+    with torch.no_grad():
+        for name, params in (("clean", clean), ("injected", inject_outliers(clean))):
+            ctx = sched._calibrate_engine(params, cfg, QConfig(), OPT_MAX_LEN, 4,
+                                          params["embed"]["table"].device)
+            fp[name] = model_apply(params, cfg, batch)[0][..., :cfg.vocab_size]
+            q8 = model_apply(attach_int8_weights(params), cfg, batch, ctx=ctx)[0]
+            q8 = q8[..., :cfg.vocab_size]
+            agree = (q8.argmax(-1) == fp[name].argmax(-1)).float().mean().item()
+            down = ctx.act_qparams("layer_attn0/mlp/down.in")
+            res[name] = dict(rel_rms=rel_rms(q8, fp[name]), argmax_agreement=agree,
+                             down_in_scale=down[0])
+            print(f"outlier contrast, opt-125m {name}: W8A8 vs fp logits relative RMS "
+                  f"{res[name]['rel_rms']:.4f}, argmax agreement {agree:.4f}; the fc2 input's "
+                  f"int8 step {down[0]:.4e}", flush=True)
+            del q8, ctx
+    same_fp = rel_rms(fp["injected"], fp["clean"])
+    ratio = res["injected"]["rel_rms"] / res["clean"]["rel_rms"]
+    print(f"outlier contrast: fp logits injected vs clean relative RMS {same_fp:.3e} (the "
+          f"injection preserves the fp function); W8A8 error injected / clean {ratio:.2f} "
+          f"(margin {OUTLIER_MARGIN})", flush=True)
+    check(same_fp <= PAPER_LOGIT_REL_RMS, f"the injection changed the fp function: {same_fp}")
+    check(ratio > OUTLIER_MARGIN, f"the injected model's W8A8 error is not above the clean "
+                                  f"one's by {OUTLIER_MARGIN}x: {res}")
+    del clean, fp
+    torch.cuda.empty_cache()
+    return dict(res, fp_injected_vs_clean=same_fp, ratio=ratio)
 
 
 def main() -> int:
@@ -2375,16 +2740,20 @@ def main() -> int:
         print(f"built {name}: {path.name} in {secs:.1f} s; ptxas per kernel: "
               f"{'; '.join(ptxas) or 'n/a'}", flush=True)
     print(f"build phase {time.perf_counter() - t0:.1f} s", flush=True)
-    # the instantiations bf16 data at Dh 128 runs must not spill
+    # the instantiations bf16 data at Dh 128 runs, and flash's Dh-32 ones
+    # (both routes), must not spill
     held = [(name, fn, regs, spills) for name in ("flash_attention", "paged_attention")
             for fn, regs, spills in ptxas_report(build.BUILD_LOG.get(name, ""))
-            if bf16_dh128(fn)]
-    print(f"ptxas spill check: {len(held)} bf16 Dh-128 instantiations of flash_attention "
-          f"and paged_attention; registers {sorted({r for _, _, r, _ in held})}; spill "
-          f"stores {sorted({sp for _, _, _, sp in held})}", flush=True)
-    check(len(held) >= 8, f"expected the bf16 Dh-128 instantiations in the build log: {held}")
+            if bf16_dh128(fn) or flash_dh32(fn)]
+    n32 = sum(flash_dh32(fn) for _, fn, _, _ in held)
+    print(f"ptxas spill check: {len(held) - n32} bf16 Dh-128 instantiations of flash_attention "
+          f"and paged_attention, {n32} Dh-32 flash instantiations; registers "
+          f"{sorted({r for _, _, r, _ in held})}; spill stores "
+          f"{sorted({sp for _, _, _, sp in held})}", flush=True)
+    check(len(held) - n32 >= 8 and n32 == 4,
+          f"expected the bf16 Dh-128 and the Dh-32 instantiations in the build log: {held}")
     check(all(sp == 0 for _, _, _, sp in held),
-          f"ptxas spills in bf16 Dh-128 attention kernels: "
+          f"ptxas spills in bf16 Dh-128 or Dh-32 attention kernels: "
           f"{[(n, f) for n, f, _, sp in held if sp]}")
     # every int8 instantiation must not spill; ptxas's notes that it
     # serialized wgmma (C7515, C7520, ...) are printed
@@ -2416,6 +2785,7 @@ def main() -> int:
     int8_times = phase_int8_times(torch, im)
     flash_err = phase_flash_checks(torch, fa)
     flash_times = phase_flash_times(torch, fa)
+    phase_flash_paper_times(torch, fa)
     phase_flash_decode_times(torch, fa, pa)
     fq_err = phase_fq_checks(torch, fq)
     fq_times = phase_fq_times(torch, fq)
@@ -2436,9 +2806,22 @@ def main() -> int:
         phase_rg_serving(torch, np, rl, fa, pa, "vanilla", "vanilla", trace=True, gen=True),
         phase_rg_serving(torch, np, rl, fa, pa, "clipped", "clipped_softmax", alpha=4.0),
         phase_rg_serving(torch, np, rl, fa, pa, "gated", "gated_attention")]
-    evals = [phase_eval(torch, np, fa, fq, pa, im, "vanilla", "vanilla"),
-             phase_eval(torch, np, fa, fq, pa, im, "clipped", "clipped_softmax", alpha=4.0),
-             phase_eval(torch, np, fa, fq, pa, im, "gated", "gated_attention")]
+    evals = [phase_eval(torch, np, fa, fq, pa, im, name, qwen_eval_cfg(method, **kw))
+             for name, method, kw in METHODS]
+    # phase 5b: the paper's own models
+    evals += [phase_eval(torch, np, fa, fq, pa, im, f"{family} {name}",
+                         paper_cfg(family, method, **kw), kind=kind, seq=seq, batch_size=bsz,
+                         layer_tol=PAPER_LAYER_REL_RMS, own_tol=PAPER_LOGIT_REL_RMS,
+                         logit_tol=PAPER_LOGIT_REL_RMS)
+              for family, kind, seq, bsz in PAPER_EVALS for name, method, kw in METHODS]
+    opt_engines = [
+        phase_opt_serving(torch, np, pa, im, fa, name, method, **kw)
+        for name, method, kw in METHODS]
+    opt_engines += [
+        phase_opt_serving(torch, np, pa, im, fa, "clipped-w8a8", "clipped_softmax", w8a8=True,
+                          alpha=4.0),
+        phase_opt_serving(torch, np, pa, im, fa, "vanilla-dense", "vanilla", paged=False)]
+    contrast = phase_outlier_contrast(torch, np)
 
     dec = times[("decode", "vanilla")]
     i8 = int8_times[(8, 5120, 17408)]
@@ -2446,15 +2829,16 @@ def main() -> int:
     # (generate and paged=False), phase 4b with recurrentgemma's generate,
     # phase 5
     dense = [e["dense"] for e in engines if "dense" in e]
-    int8_launches = sum(e["int8_launches"] for e in engines + dense)
+    int8_launches = sum(e["int8_launches"] for e in engines + dense + opt_engines)
     flash_launches = sum(e["flash_launches"] + e.get("gen_launches", 0)
-                         for e in evals + dense)
+                         for e in evals + dense + opt_engines)
     rg_launches = sum(e["launches"] for e in rg_engines) + sum(
         g["rg_launches"] for e in rg_engines for g in e.get("generate", {}).values())
     kernels = [dict(name="paged_attention", route="cuda",
                     source=KERNEL_SOURCES["paged_attention"],
                     replaces=REPLACES["paged_attention"],
-                    launches=sum(e["launches"] for e in engines),
+                    launches=sum(e["launches"] for e in engines) +
+                    sum(e["paged_launches"] for e in opt_engines),
                     max_abs_err=max_err, ms=dec["ms"], plain_ms=dec["plain_ms"],
                     bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
                     library_ms=dec["library_ms"]),

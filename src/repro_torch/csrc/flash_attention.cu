@@ -27,11 +27,16 @@
 // in its first pass: 64.4 GFLOP) against ~50 MB of q/k/v/out, far above
 // the ~295 flop/byte at which the card turns compute bound.
 //
+// At BERT-base's and OPT-125m's shapes (Dh 64, 12 heads; BERT T 512
+// non-causal, OPT T 2048 causal) and at the paper models' reduced Dh 32
+// the same holds: the products still dominate the bytes.
+//
 // Routes, chosen statically by dtype and head dim in the wrapper
 // (kernels/flash_attention.py : route), which passes its choice; this
 // file dispatches on it and refuses a route not built for the inputs:
-//   * bf16, Dh 64 or 128 -> flash_kernel_tc, the tensor-core route;
-//   * f32 (any Dh), bf16 Dh 256 -> flash_kernel_cc, the CUDA-core route.
+//   * bf16, Dh 32, 64 or 128 -> flash_kernel_tc, the tensor-core route;
+//   * f32 (Dh 32, 64, 128, 256), bf16 Dh 256 -> flash_kernel_cc, the
+//     CUDA-core route.
 // f32 inputs stay on CUDA cores because their tolerance (3e-5) rules out
 // bf16 products; bf16 Dh 256 (recurrentgemma's cache-free forward, off
 // the main path) would need a 64x256 f32 accumulator per warpgroup.
@@ -46,11 +51,14 @@
 // reads a tensor map over (B, T, H, Dh) with the caller's strides; each
 // box is 64 rows x 64 columns (128 bytes, the 128-byte swizzle's limit),
 // so a Dh-128 row is two boxes, and rows past T arrive as zeros (masked
-// anyway). A consumer scales its Q rows in place (q * Dh^-0.5 rounded to
-// bf16, elementwise, so the swizzle does not matter), then per tile
-// computes S = Q K^T with wgmma m64n64k16 (both operands in shared
-// memory, K-major, 128-byte swizzle), masks, softcaps and updates the
-// online softmax in registers, and accumulates O += P V with wgmma
+// anyway). At Dh 32 a row is 64 bytes: the box is 64 rows x 32 columns
+// under the 64-byte swizzle, and the wgmma descriptors name that swizzle
+// (8-row atoms of 512 bytes); QK^T is then two k16 steps, and P.V an
+// m64n32k16 product per k16 step. A consumer scales its Q rows in place
+// (q * Dh^-0.5 rounded to bf16, elementwise, so the swizzle does not
+// matter), then per tile computes S = Q K^T with wgmma m64n64k16 (both
+// operands in shared memory, K-major, swizzled), masks, softcaps and
+// updates the online softmax in registers, and accumulates O += P V with wgmma
 // m64nDk16, P from registers and V from shared memory through the
 // MN-major (transposed) descriptor. The walk is pipelined: a step's
 // softmax runs while the previous step's P.V is still on the tensor
@@ -72,6 +80,8 @@
 // block of 64 queries) and walks the KV axis in tiles of 64 keys, with
 // (m, Z, acc) in registers for the whole walk; products in f32, each
 // thread a 4x4 tile of scores; Q and K staged transposed in shared memory.
+// Each thread accumulates 4 query rows x NCG groups of CW consecutive
+// output columns (CW 4, NCG Dh/64; at Dh 32, CW 2 and NCG 1).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -143,6 +153,40 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* x) {
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
+__device__ __forceinline__ void store2(float* p, const float* x) {
+  *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, const float* x) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x[0], x[1]);
+}
+
+// The CUDA-core route's output columns: each thread owns NCG groups of CW
+// consecutive columns, group c starting at column c * 16 * CW + tx * CW.
+template <int D>
+struct Cols {
+  static constexpr int CW = D >= 64 ? 4 : D / 16;
+  static constexpr int NCG = D / (16 * CW);
+};
+
+template <int CW>
+__device__ __forceinline__ void load_cols(const float* p, float* x) {
+  if constexpr (CW == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x, x[1] = v.y;
+  }
+}
+template <int CW, typename T>
+__device__ __forceinline__ void store_cols(T* p, const float* x) {
+  if constexpr (CW == 4) {
+    store4(p, x);
+  } else {
+    store2(p, x);
+  }
+}
+
 __device__ __forceinline__ float max16(float x) {
   for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
@@ -209,7 +253,7 @@ constexpr size_t smem_floats() {
 
 template <typename T, bool CLIPPED, int D>
 __global__ void __launch_bounds__(NT, 2) flash_kernel_cc(Args a) {
-  constexpr int NCG = D / 64;  // float4 column groups of the output per thread
+  constexpr int CW = Cols<D>::CW, NCG = Cols<D>::NCG;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* qT = smem;            // [D][BQ]
@@ -243,7 +287,7 @@ __global__ void __launch_bounds__(NT, 2) flash_kernel_cc(Args a) {
   // q * scale rounded to q's dtype before the products
   stage_t<T, D, BQ>(qg, a.sqt, q0, a.Tq, qT, a.scale);
 
-  float m[4], z[4], acc[4][NCG][4];
+  float m[4], z[4], acc[4][NCG][CW];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = attn::NEG_INF;
@@ -251,7 +295,7 @@ __global__ void __launch_bounds__(NT, 2) flash_kernel_cc(Args a) {
 #pragma unroll
     for (int c = 0; c < NCG; ++c)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
+      for (int e = 0; e < CW; ++e) acc[i][c][e] = 0.f;
   }
 
   constexpr int NPASS = CLIPPED ? 2 : 1;
@@ -340,19 +384,19 @@ __global__ void __launch_bounds__(NT, 2) flash_kernel_cc(Args a) {
 #pragma unroll
         for (int c = 0; c < NCG; ++c)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][c][e] *= corr[i];
+          for (int e = 0; e < CW; ++e) acc[i][c][e] *= corr[i];
 #pragma unroll 4
       for (int j = 0; j < BK; ++j) {
         const float4 pv = *reinterpret_cast<const float4*>(pT + j * BQ + ty * 4);
         const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
         for (int c = 0; c < NCG; ++c) {
-          const float4 vv = *reinterpret_cast<const float4*>(vs + j * D + c * 64 + tx * 4);
-          const float va[4] = {vv.x, vv.y, vv.z, vv.w};
+          float va[CW];
+          load_cols<CW>(vs + j * D + c * 16 * CW + tx * CW, va);
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][c][e] = fmaf(pa[i], va[e], acc[i][c][e]);
+            for (int e = 0; e < CW; ++e) acc[i][c][e] = fmaf(pa[i], va[e], acc[i][c][e]);
         }
       }
     }
@@ -367,19 +411,19 @@ __global__ void __launch_bounds__(NT, 2) flash_kernel_cc(Args a) {
     const float g = a.gate != nullptr ? a.gate[b * a.sgb + t * a.sgt + h * a.sgh] : 1.f;
 #pragma unroll
     for (int c = 0; c < NCG; ++c) {
-      float o[4];
+      float o[CW];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < CW; ++e) {
         o[e] = CLIPPED ? acc[i][c][e] : acc[i][c][e] / zc;
         if (a.gate != nullptr) o[e] *= g;
       }
-      store4(out + (long long)t * a.sot + c * 64 + tx * 4, o);
+      store_cols<CW>(out + (long long)t * a.sot + c * 16 * CW + tx * CW, o);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core route (bf16, Dh 64 / 128)
+// Tensor-core route (bf16, Dh 32 / 64 / 128)
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -387,11 +431,20 @@ constexpr int BQ = 128;       // queries per CTA: two consumer warpgroups of 64
 constexpr int BK = 64;        // keys per tile
 constexpr int STAGES = 3;     // K/V ring slots
 constexpr int THREADS = 384;  // two consumer warpgroups, one producer warpgroup
-constexpr int CHUNK = 64 * 128;  // one TMA box: 64 rows x 128 bytes (64 bf16)
 
+// Shared-memory tiles of head dim D. A TMA box is 64 rows x BOX columns of
+// bf16: 64 columns (128-byte rows, the 128-byte swizzle) at Dh >= 64, 32
+// columns (64-byte rows, the 64-byte swizzle) at Dh 32. The swizzle
+// repeats every 8 rows (SBO bytes); LAYOUT is its code in a wgmma
+// descriptor (1: 128 bytes, 2: 64 bytes).
 template <int D>
 struct Smem {
-  static constexpr int NCH = D / 64;                 // boxes per row of Dh
+  static constexpr int BOX = D < 64 ? D : 64;        // columns of a box
+  static constexpr int ROW = 2 * BOX;                // bytes of a box row
+  static constexpr int CHUNK = 64 * ROW;             // bytes of a box
+  static constexpr int SBO = 8 * ROW;                // one swizzle atom
+  static constexpr int LAYOUT = ROW == 128 ? 1 : 2;
+  static constexpr int NCH = D / BOX;                // boxes per row of Dh
   static constexpr int Q_BYTES = 2 * NCH * CHUNK;    // both warpgroups' Q
   static constexpr int KV_BYTES = NCH * CHUNK;       // one K or V tile
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;   // K then V
@@ -441,11 +494,13 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// wgmma descriptor of a tile in shared memory with the 128-byte swizzle:
-// start address, leading and stride byte offsets (16-byte units), layout 1
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// wgmma descriptor of a swizzled tile in shared memory: start address,
+// leading and stride byte offsets (16-byte units) and the swizzle's code
+// (1: 128 bytes, 2: 64 bytes)
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                         uint32_t layout) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
 }
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
 __device__ __forceinline__ void wg_commit() {
@@ -475,6 +530,18 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32 f32 fragment) += A (registers, bf16x2 fragment) * B (smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // d (64 x 64 f32 fragment) += A (registers, bf16x2 fragment) * B (smem, MN-major)
@@ -516,6 +583,10 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint6
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a, uint64_t db);
 template <>
+__device__ __forceinline__ void wgmma_pv<32>(float* o, const uint32_t* a, uint64_t db) {
+  wgmma_rs_n32(o, a, db);
+}
+template <>
 __device__ __forceinline__ void wgmma_pv<64>(float* o, const uint32_t* a, uint64_t db) {
   wgmma_rs_n64(o, a, db);
 }
@@ -525,14 +596,18 @@ __device__ __forceinline__ void wgmma_pv<128>(float* o, const uint32_t* a, uint6
 }
 
 // O += P V over one 64-key tile: P as hi and lo A fragments of four k16
-// steps, V (64 keys x D) at vs, read through the MN-major descriptor
+// steps, V (64 keys x D) at vs, read through the MN-major descriptor (16
+// keys a step; LBO: the next box along D)
 template <int D>
 __device__ __forceinline__ void pv(float* o, const uint32_t (*hi)[4], const uint32_t (*lo)[4],
                                    uint32_t vs) {
+  using S = Smem<D>;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(o, hi[kk], desc(vs + kk * 2048, CHUNK, 1024));
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_pv<D>(o, hi[kk], desc(vs + kk * 16 * S::ROW, S::CHUNK, S::SBO, S::LAYOUT));
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(o, lo[kk], desc(vs + kk * 2048, CHUNK, 1024));
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_pv<D>(o, lo[kk], desc(vs + kk * 16 * S::ROW, S::CHUNK, S::SBO, S::LAYOUT));
 }
 
 // The scores of one tile (s[4j + 2i + c]: the thread's row i, key
@@ -603,7 +678,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, Args a) {
   using S = Smem<D>;
-  constexpr int NCH = S::NCH;
+  constexpr int NCH = S::NCH, CHUNK = S::CHUNK;
   constexpr int NPASS = CLIPPED ? 2 : 1;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
@@ -650,7 +725,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_expect_tx(q_full, S::Q_BYTES);
       for (int w = 0; w < 2; ++w)
         for (int c = 0; c < NCH; ++c)
-          tma_load(q_s + (w * NCH + c) * CHUNK, &tm_q, q_full, c * 64, h, q0 + w * 64, b);
+          tma_load(q_s + (w * NCH + c) * CHUNK, &tm_q, q_full, c * S::BOX, h, q0 + w * 64, b);
       int stage = 0;
       uint32_t phase = 0;
       for (int pass = 0; pass < NPASS; ++pass) {
@@ -660,10 +735,11 @@ __global__ void __launch_bounds__(THREADS, 1)
           const uint32_t ks = kv_s + stage * S::STAGE_BYTES;
           const uint32_t fb = full0 + 8 * stage;
           mbar_expect_tx(fb, need_v ? 2 * S::KV_BYTES : S::KV_BYTES);
-          for (int c = 0; c < NCH; ++c) tma_load(ks + c * CHUNK, &tm_k, fb, c * 64, hk, t0, b);
+          for (int c = 0; c < NCH; ++c)
+            tma_load(ks + c * CHUNK, &tm_k, fb, c * S::BOX, hk, t0, b);
           if (need_v) {
             for (int c = 0; c < NCH; ++c)
-              tma_load(ks + S::KV_BYTES + c * CHUNK, &tm_v, fb, c * 64, hk, t0, b);
+              tma_load(ks + S::KV_BYTES + c * CHUNK, &tm_v, fb, c * S::BOX, hk, t0, b);
           }
           if (++stage == STAGES) {
             stage = 0;
@@ -710,14 +786,17 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int qp0 = qoff + row_first + warp * 16 + g;  // the thread's rows: qp0, qp0 + 8
 
     auto wait_tile = [&](int n) { mbar_wait(full0 + 8 * (n % STAGES), (n / STAGES) & 1); };
-    // S = Q K^T of step n; past the walk's end, a repeat of the last tile
-    // that nobody reads (it keeps the wgmma unconditional)
+    // S = Q K^T of step n (k16 steps of 32 bytes along a box row, then
+    // the next box); past the walk's end, a repeat of the last tile that
+    // nobody reads (it keeps the wgmma unconditional)
     auto issue_s = [&](int n) {
       const uint32_t ks = kv_s + (min(n, n_steps - 1) % STAGES) * S::STAGE_BYTES;
+      constexpr int KPB = S::ROW / 32;  // k16 steps per box row
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * CHUNK + (kk % 4) * 32;
-        wgmma_ss_n64(s, desc(my_q + off, 16, 1024), desc(ks + off, 16, 1024), kk > 0);
+        const uint32_t off = (kk / KPB) * CHUNK + (kk % KPB) * 32;
+        wgmma_ss_n64(s, desc(my_q + off, 16, S::SBO, S::LAYOUT),
+                     desc(ks + off, 16, S::SBO, S::LAYOUT), kk > 0);
       }
     };
     // step n's scores to probabilities: masks only where some key of the
@@ -863,29 +942,32 @@ EncodeFn encode_fn() {
 }
 
 // Tensor map of a bf16 (B, T, H, Dh) view with element strides (sb, st,
-// sh) and a unit last stride: boxes of 64 Dh columns x 64 rows of T, the
-// 128-byte swizzle, zeros outside the view.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int T, int H, int D,
-                     long long sb, long long st, long long sh) {
+// sh) and a unit last stride: boxes of Smem<D>::BOX Dh columns x 64 rows of
+// T under the swizzle of that width (128 bytes, or 64 at Dh 32), zeros
+// outside the view.
+template <int D>
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int T, int H, long long sb,
+                     long long st, long long sh) {
   const EncodeFn enc = encode_fn();
   if (enc == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)tc::BK, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)tc::Smem<D>::BOX, 1, (cuuint32_t)tc::BK, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      tc::Smem<D>::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <bool CLIPPED, int D>
 cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  cudaError_t err = make_map(&mq, a.q, a.B, a.Tq, a.Hq, D, a.sqb, a.sqt, a.sqh);
-  if (err == cudaSuccess) err = make_map(&mk, a.k, a.B, a.Tk, a.Hkv, D, a.skb, a.skt, a.skh);
-  if (err == cudaSuccess) err = make_map(&mv, a.v, a.B, a.Tk, a.Hkv, D, a.svb, a.svt, a.svh);
+  cudaError_t err = make_map<D>(&mq, a.q, a.B, a.Tq, a.Hq, a.sqb, a.sqt, a.sqh);
+  if (err == cudaSuccess) err = make_map<D>(&mk, a.k, a.B, a.Tk, a.Hkv, a.skb, a.skt, a.skh);
+  if (err == cudaSuccess) err = make_map<D>(&mv, a.v, a.B, a.Tk, a.Hkv, a.svb, a.svt, a.svh);
   if (err != cudaSuccess) return err;
   auto kern = tc::flash_kernel_tc<CLIPPED, D>;
   const int smem = tc::Smem<D>::BYTES;
@@ -906,11 +988,12 @@ cudaError_t dispatch_tc(const Args& a, bool clipped, cudaStream_t s) {
   return clipped ? launch_tc<true, D>(a, s) : launch_tc<false, D>(a, s);
 }
 
-// route 1: the tensor-core kernels (bf16, Dh 64/128); route 0: the
-// CUDA-core kernels (f32 at any Dh, bf16 at Dh 256)
+// route 1: the tensor-core kernels (bf16, Dh 32/64/128); route 0: the
+// CUDA-core kernels (f32 at Dh 32/64/128/256, bf16 at Dh 256)
 cudaError_t dispatch(const Args& a, int dtype, int dh, int route, bool clipped,
                      cudaStream_t s) {
   if (route == 1) {
+    if (dtype == 1 && dh == 32) return dispatch_tc<32>(a, clipped, s);
     if (dtype == 1 && dh == 64) return dispatch_tc<64>(a, clipped, s);
     if (dtype == 1 && dh == 128) return dispatch_tc<128>(a, clipped, s);
   } else if (route != 0) {
@@ -918,6 +1001,7 @@ cudaError_t dispatch(const Args& a, int dtype, int dh, int route, bool clipped,
   } else if (dtype == 1) {
     if (dh == 256) return dispatch_cc<__nv_bfloat16, 256>(a, clipped, s);
   } else if (dtype == 0) {
+    if (dh == 32) return dispatch_cc<float, 32>(a, clipped, s);
     if (dh == 64) return dispatch_cc<float, 64>(a, clipped, s);
     if (dh == 128) return dispatch_cc<float, 128>(a, clipped, s);
     if (dh == 256) return dispatch_cc<float, 256>(a, clipped, s);

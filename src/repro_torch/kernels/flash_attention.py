@@ -43,7 +43,7 @@ NEG_INF = -1e30
 launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128, 256)
+_HEAD_DIMS = (32, 64, 128, 256)
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -63,11 +63,11 @@ def _kernel_lib() -> ctypes.CDLL:
 
 def route(dtype: torch.dtype, dh: int) -> str:
     """The kernel's route for q/k/v of ``dtype`` and head dim ``dh``, fixed
-    by the two alone: "tensor-core" (bf16 at Dh 64 or 128: wgmma products
-    over a TMA-fed K/V ring, P carried as a hi/lo pair of bf16 operands)
-    or "cuda-core" (f32, whose tolerance rules out bf16 products, and
-    bf16 at Dh 256)."""
-    return "tensor-core" if dtype == torch.bfloat16 and dh in (64, 128) else "cuda-core"
+    by the two alone: "tensor-core" (bf16 at Dh 32, 64 or 128: wgmma
+    products over a TMA-fed K/V ring, P carried as a hi/lo pair of bf16
+    operands) or "cuda-core" (f32, whose tolerance rules out bf16
+    products, and bf16 at Dh 256)."""
+    return "tensor-core" if dtype == torch.bfloat16 and dh in (32, 64, 128) else "cuda-core"
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -12,7 +12,9 @@ the pattern does not divide keeps its last blocks, always unrolled, under
 Block kinds: ``attn`` (global attention), ``local_attn`` (windowed
 attention, over a per-row ring when the cache has one) and ``griffin``
 (the RG-LRU recurrent block, ``repro_torch.nn.recurrent``), in any
-pattern; ``embed_scale`` multiplies the embeddings by sqrt(d_model).
+pattern; ``embed_scale`` multiplies the embeddings by sqrt(d_model);
+``pos="learned"`` adds a learned position table (BERT, OPT) and
+``norm_position="post"`` normalizes after each residual add (BERT).
 
 This port covers the serving and evaluation paths: ``model_apply``
 without a cache (the ``attention`` dispatcher: the flash kernel on the
@@ -22,7 +24,7 @@ shared scalar ``pos`` or per-row ``pos`` with a per-token ``active``
 mask, with a ``QuantContext`` whose site names are the reference's byte
 for byte (a block is named by its index inside the pattern,
 ``layer_attn0``, in every group; a tail block ``tail_griffin0``). MoE and
-xLSTM blocks, embeds inputs, learned positions and post-norm raise
+xLSTM blocks, embeds inputs and post-block norms raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Cache writes update the cache IN PLACE (``aux["cache"]`` is the cache
@@ -57,6 +59,8 @@ from repro_torch.nn.layers import (
     linear_init,
     norm_apply,
     norm_init,
+    positional_embedding_apply,
+    positional_embedding_init,
     rmsnorm_apply,
     rmsnorm_init,
     rope_angles,
@@ -182,9 +186,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.moe is not None:
         raise NotImplementedError("MoE blocks are not ported yet "
                                   "(ROADMAP queue 1, item 5.2: nn/moe.py)")
-    unported = {"pos": (cfg.pos == "learned", "2"),
-                "norm_position": (cfg.norm_position != "pre", "2"),
-                "input_kind": (cfg.input_kind != "tokens", "5.4"),
+    unported = {"input_kind": (cfg.input_kind != "tokens", "5.4"),
                 "post_block_norm": (cfg.post_block_norm, "5.4")}
     bad = sorted((k, item) for k, (hit, item) in unported.items() if hit)
     if bad:
@@ -406,13 +408,14 @@ def _attn_block_apply(
     cache: Optional[dict], st: _Step, ctx: QuantContext, name: str,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x_out, attention-layer output): the residual-stream value
-    after the attention sub-block, the tensor whose outliers the paper
-    measures."""
+    after the attention sub-block (after ``ln1`` in a post-norm block),
+    the tensor whose outliers the paper measures."""
     b, t, d = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     acfg = cfg.attn_cfg(kind)
+    post = cfg.norm_position == "post"
 
-    h = norm_apply(cfg.norm, p["ln1"], x, ctx, name + "/ln1")
+    h = x if post else norm_apply(cfg.norm, p["ln1"], x, ctx, name + "/ln1")
     q = linear_apply(p["q"], h, ctx, name + "/q").reshape(b, t, hq, dh)
     k = linear_apply(p["k"], h, ctx, name + "/k").reshape(b, t, hkv, dh)
     v = linear_apply(p["v"], h, ctx, name + "/v").reshape(b, t, hkv, dh)
@@ -474,10 +477,14 @@ def _attn_block_apply(
 
     attn_out = ctx.act(name + "/attn.out", attn_out.reshape(b, t, hq * dh))
     x = x + linear_apply(p["o"], attn_out, ctx, name + "/o")
+    if post:
+        x = norm_apply(cfg.norm, p["ln1"], x, ctx, name + "/ln1")
     attn_layer_out = x
     if cfg.mlp_kind != "none":
-        h2 = norm_apply(cfg.norm, p["ln2"], x, ctx, name + "/ln2")
+        h2 = x if post else norm_apply(cfg.norm, p["ln2"], x, ctx, name + "/ln2")
         x = x + mlp_apply(p["mlp"], h2, cfg.mlp_kind, ctx, name + "/mlp")
+        if post:
+            x = norm_apply(cfg.norm, p["ln2"], x, ctx, name + "/ln2")
     return x, attn_layer_out
 
 
@@ -559,6 +566,9 @@ def model_init(seed, cfg: ModelConfig, device="cuda") -> Params:
     dt = cfg.param_dtype
     p: Params = {"embed": embedding_init(keys[-1], cfg.padded_vocab,
                                          cfg.d_model, cfg.init_std, dt)}
+    if cfg.pos == "learned":
+        p["pos_embed"] = positional_embedding_init(keys[-3], cfg.max_seq_len,
+                                                   cfg.d_model, dt)
     glen = len(cfg.pattern)
 
     def group(g: int) -> Params:
@@ -756,9 +766,10 @@ def model_apply(
     for attention caches only (the scheduler feeds recurrent models
     uniform steps). ``paged_live_width`` bounds the paged read to the
     first N table entries, ``paged_live_widths`` masks each row's read at
-    its own count. Without a cache the attention is dense and causal
-    (windowed for ``local_attn``). ``ctx`` quantizes at the reference's
-    sites ('collect', 'apply') or runs the W8A8 linears ('int8');
+    its own count. Without a cache the attention is dense, causal unless
+    ``cfg.causal`` is False (BERT), windowed for ``local_attn``. ``ctx``
+    quantizes at the reference's sites ('collect', 'apply') or runs the
+    W8A8 linears ('int8');
     ``lm_head`` stays fp through ``QConfig.skip_patterns``. ``aux`` holds
     "cache" (the same, in-place updated cache) when one is given. As in
     the reference, the outlier telemetry depends on the layout: a scanned
@@ -775,6 +786,11 @@ def model_apply(
     x = embedding_apply(params["embed"], tokens, ctx, "embed", scale
                         ).to(cfg.compute_dtype)
     st = _Step(cfg, b, t, pos, active, dev, paged_live_width, paged_live_widths)
+    if cfg.pos == "learned":
+        # (T,) positions at a shared pos, (B, T) at per-row ones; a padded
+        # tail past the table reads NaN rows, as in the reference
+        x = x + positional_embedding_apply(params["pos_embed"],
+                                           _positions(st.pos, t, dev)).to(x.dtype)
 
     scanned = cfg.scan_layers and cfg.n_groups > 0
     stats, acts = [], []

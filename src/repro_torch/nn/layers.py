@@ -1,5 +1,6 @@
-"""Basic layers: linear, norms, embeddings, rotary embeddings and the
-causal depthwise temporal conv (port of ``repro.nn.layers``).
+"""Basic layers: linear, norms, embeddings (token and learned position),
+rotary embeddings and the causal depthwise temporal conv (port of
+``repro.nn.layers``).
 
 Weights keep the JAX package's layout: a linear's ``w`` is (d_in, d_out)
 and ``y = x @ w``. Its int8 codes ``w_q8`` keep that shape and the
@@ -143,6 +144,28 @@ def embedding_attend(p: Params, x: torch.Tensor, ctx: QuantContext = NO_QUANT,
     table = ctx.weight(name, p["table"])
     x = ctx.act(name + ".in", x)
     return x.float() @ table.float().T
+
+
+def positional_embedding_init(gen: torch.Generator, max_len: int, d: int,
+                              dtype=torch.float32) -> Params:
+    return {"table": normal_init(gen, (max_len, d), 0.02, dtype)}
+
+
+def positional_embedding_apply(p: Params, positions: torch.Tensor) -> torch.Tensor:
+    """Rows of the learned position table at ``positions`` ((T,) or (B,
+    T)), with the reference's ``jnp.take`` fill semantics: a negative index
+    counts from the end, and an index outside [-max_len, max_len) gives a
+    row of NaN. The padded tail of a serving tick can carry positions past
+    the table; no out-of-range index is ever issued (on the card it would
+    be a device-side assert): the gather reads row 0 there and the row is
+    replaced."""
+    table = p["table"]
+    n = table.shape[0]
+    idx = torch.where(positions < 0, positions + n, positions)
+    ok = (idx >= 0) & (idx < n)
+    rows = table[torch.where(ok, idx, torch.zeros_like(idx))]
+    nan = torch.full((), float("nan"), dtype=rows.dtype, device=rows.device)
+    return torch.where(ok[..., None], rows, nan)
 
 
 # --------------------------------------------------------------------------

@@ -234,7 +234,7 @@ def test_refuses_what_this_slice_does_not_port(models):
     cases = [
         ({}, dataclasses.replace(tc, pattern=("attn", "mlstm"))),
         ({}, dataclasses.replace(tc, moe=object())),
-        ({}, dataclasses.replace(tc, pos="learned")),
+        ({}, dataclasses.replace(tc, input_kind="embeds")),
         ({}, dataclasses.replace(tc, post_block_norm=True)),
     ]
     for kw, cfg in cases:
