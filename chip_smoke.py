@@ -29,8 +29,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (bf16 tensor cores for Tq*G > 16, CUDA cores, split-KV for Tq*G <=
      16): decode rows of live lengths 1, 17, 255 and 1024 (across the
      split chunks), a row whose table is all -1 (exact zeros), window and
-     softcap at Tq 1 and 128, int8 pools at both; each line names the
-     route and the number of KV splits. The tensor-core prefill read (Tq
+     softcap at Tq 1 and 128, int8 pools at both; OPT-125m's reads (8
+     rows, Hq = Hkv = 12, Dh 64, max_len 2048; f32 queries over f32 and
+     int8 pools; vanilla, clipped, gated; decode at live lengths up to
+     2048, and Tq 128 and 256) at the float32 tolerance; each line names
+     the route and the number of KV splits. The tensor-core prefill read (Tq
      128, bf16 q; vanilla, clipped and gated over bf16 and int8 pools) is
      also held against the plain version (P in f32) within
      PAGED_TC_REL_RMS, and the plain version with P rounded to bf16 (the
@@ -217,7 +220,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      int8 kernel 6 times per layer per forward; at the first mixed tick
      and the first tick past the table, the live logits through the
      kernels must agree with the plain path's (OPT_TICK_REL_RMS; W8A8:
-     W8A8_LOGIT_REL_RMS) and be finite. Then the paper's mechanism: the
+     OPT_W8A8_TICK_REL_RMS) and be finite, and two controls must land
+     above that bound: the plain path with P rounded to bf16, and the
+     tick one position early. These engines run through phase 4's
+     ``phase_serving``, so the W8A8 one also passes phase 4's W8A8 checks
+     at its mixed tick. Then the paper's mechanism: the
      W8A8 engine's calibration and int8 weights on OPT-125m and on the
      same weights with two fc1 channels amplified 300x (fc2 rows / 300,
      the fp function unchanged): W8A8 against fp logits of one cache-free
@@ -463,21 +470,24 @@ def rel_rms(a, b) -> float:
     return ((a - b).square().mean().sqrt() / b.square().mean().sqrt()).item()
 
 
-def bf16_p(torch):
+def bf16_p(torch, matmuls=True):
     """A mode under which the plain versions round P to bf16 before P.V:
     what a kernel would compute that handed P to the tensor cores as one
     bf16 operand, the control a check of P's precision must tell from a
     sound kernel. It rounds the first operand of the plain versions' P.V
-    products (``attention_ref``'s "bqk,bkd->bqd" einsum and
-    ``paged_flash_attention_ref``'s matmul); their QK products are
-    einsums of other equations and pass through."""
+    products (``attention_ref``'s "bqk,bkd->bqd" and ``dense_attention``'s
+    "bhgqk,bkhd->bqhgd" einsums, and ``paged_flash_attention_ref``'s
+    matmul); their QK products are einsums of other equations and pass
+    through. ``matmuls=False`` leaves every matmul alone, so that a whole
+    forward (whose linears are matmuls) run under it rounds only P."""
     from torch.overrides import TorchFunctionMode
 
     class Bf16P(TorchFunctionMode):
         def __torch_function__(self, func, types, args=(), kwargs=None):
-            if func is torch.einsum and args[0] == "bqk,bkd->bqd":
+            if func is torch.einsum and args[0] in ("bqk,bkd->bqd", "bhgqk,bkhd->bqhgd"):
                 args = (args[0], args[1].bfloat16().float(), *args[2:])
-            elif func in (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__):
+            elif matmuls and func in (torch.matmul, torch.Tensor.matmul,
+                                      torch.Tensor.__matmul__):
                 args = (args[0].bfloat16().float(), *args[1:])
             return func(*args, **(kwargs or {}))
 
@@ -653,6 +663,16 @@ PAGED_EXTRA = [
     ("softcap", 128, "clipped", "bfloat16", "bfloat16", dict(softcap=30.0)),
     ("softcap", 128, "gated", "bfloat16", "int8", dict(softcap=30.0)),
 ]
+# OPT-125m's reads (phase 5b's engines): 8 rows of 12 heads, no GQA, Dh
+# 64, max_len 2048, f32 queries over the fp engines' f32 pool and the
+# W8A8 engine's int8 pool; decode rows whose live lengths reach the
+# table's last row, and prefill chunks of 128 and 256 (the token budget)
+OPT_PAGED = dict(b=8, hkv=12, g=1, dh=64, max_len=2048)
+OPT_LIVE = [1, 17, 255, 2048, 1900, 1024, 17, 1]
+PAGED_EXTRA += [("opt-125m", tq, variant, "float32", pool,
+                 dict(OPT_PAGED, lengths=OPT_LIVE) if tq == 1 else OPT_PAGED)
+                for tq in (1, 128, 256) for pool in ("float32", "int8")
+                for variant in ("vanilla", "clipped", "gated")]
 
 
 def phase_kernel_checks(torch, pa):
@@ -1355,10 +1375,44 @@ def trace_replays(torch, forward, snaps, who, unit):
     return traces
 
 
-def phase_serving(torch, np, pa, im, fa, name, method, kv_int8, w8a8=False, dense=True,
-                  **method_kw):
-    from repro_torch.configs.base import apply_method
-    from repro_torch.configs.qwen3_14b import full
+# the ticks a serving phase captures, by kind: (config, tokens, positions,
+# counts on the host) -> whether this tick is one
+TICKS = {
+    # decode rows beside prefill chunks
+    "mixed": lambda cfg, tokens, pos, c: bool((c == 1).any() and (c > 1).any()),
+    # a padded tail past the learned position table's last row
+    "past the table": lambda cfg, tokens, pos, c:
+        int(pos.max()) + tokens.shape[1] > cfg.max_seq_len,
+    # every live row decoding
+    "decode": lambda cfg, tokens, pos, c: bool((c == 1).any() and (c <= 1).all()),
+}
+
+
+def qwen_requests(np, vocab):
+    """Phase 4's 12 requests: prompts of 32..512 tokens, 32 new each."""
+    rng = np.random.default_rng(0)
+    return [(rng.integers(0, vocab, size=int(n)).astype(np.int32), 32)
+            for n in rng.integers(32, 513, size=12)]
+
+
+def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
+                  max_abs=None, ticks=("mixed",), paged=True, kv_int8=None, w8a8=False,
+                  controls=False, trace=False, dense=None):
+    """One engine, ``ContinuousBatcher`` (batch 8, block 16, budget 256) on
+    random weights from seed 0, over ``requests`` ((prompt, new tokens)).
+    Gates: every request done with its tokens, no block leak, launches
+    per forward; at the first tick of each kind in ``ticks`` (TICKS), the
+    live logits through the kernels against the plain path's (the gather
+    read or ``dense_attention``, the int8 product's plain version): finite,
+    within ``tick_tol`` relative RMS (and ``max_abs``); with ``controls``,
+    the plain path with P rounded to bf16 and the tick one position early
+    must land above ``tick_tol``. Under W8A8, at the mixed tick: the int8
+    kernel alone leaves the plain path's logits bitwise, and W8A8 stays
+    within W8A8_VS_FP_REL_RMS of fp. ``trace``: the mixed and a decode
+    tick replayed under torch.profiler. ``dense``: (method, method_kw) of
+    ``phase_dense_serving``, run after on the same weights."""
+    from repro_torch.core.attention import dense_attention
+    from repro_torch.models import transformer
     from repro_torch.models.transformer import model_init
     from repro_torch.nn import layers
     from repro_torch.nn.module import flatten_params, tree_map
@@ -1367,15 +1421,10 @@ def phase_serving(torch, np, pa, im, fa, name, method, kv_int8, w8a8=False, dens
     from repro_torch.serving import scheduler as sched
     from repro_torch.serving.decode import step_rows_full
 
-    cfg = apply_method(full(), method, **method_kw)
     t0 = time.perf_counter()
     params = model_init(0, cfg, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    rng = np.random.default_rng(0)
-    lengths = rng.integers(32, 513, size=12)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
-               for n in lengths]
     setup = {}
 
     def timed(key, fn):
@@ -1392,67 +1441,67 @@ def phase_serving(torch, np, pa, im, fa, name, method, kv_int8, w8a8=False, dens
     sched._calibrate_engine = timed("calib_s", calibrate_engine)
     sched.attach_int8_weights = timed("quant_s", attach)
     try:
-        b = ContinuousBatcher(params, cfg, batch_size=8, max_len=1024, block_size=16,
-                              token_budget=256, kv_int8=kv_int8,
-                              qconfig=QConfig() if w8a8 else None, device="cuda")
+        b = timed("setup_s", ContinuousBatcher)(
+            params, cfg, batch_size=8, max_len=max_len, block_size=16, token_budget=256,
+            paged=paged, kv_int8=kv_int8, qconfig=QConfig() if w8a8 else None, device="cuda")
     finally:
         sched._calibrate_engine, sched.attach_int8_weights = calibrate_engine, attach
-    snapshot, decode_snap, want_decode = {}, {}, []
-    step_fn = b._step_fn
+    snaps, want, step_fn = {}, list(ticks), b._step_fn
 
     def capture(params_, cache, tokens, pos, counts, keys, lw, lws):
-        # the first mixed tick (decode rows beside prefill chunks) and,
-        # once asked for, the first all-decode tick: keep their inputs and
-        # a copy of the cache each reads, for the comparison and the
-        # traces below, outside the counted run
+        # the first tick of each wanted kind: keep its inputs and a copy of
+        # the cache it reads, for the comparisons and traces below,
+        # outside the counted run
         c = counts.cpu()
-        mixed = bool((c == 1).any() and (c > 1).any())
-        decode = bool(want_decode) and bool((c == 1).any() and (c <= 1).all())
-        for snap, want in ((snapshot, mixed), (decode_snap, decode)):
-            if want and not snap:
-                snap.update(cache=tree_map(lambda x: x.clone(), cache),
-                            args=(tokens.clone(), pos.clone(), counts.clone(), lw,
-                                  lws.clone()))
+        for kind in want:
+            if kind not in snaps and TICKS[kind](cfg, tokens, pos, c):
+                snaps[kind] = dict(cache=tree_map(lambda x: x.clone(), cache),
+                                   args=(tokens.clone(), pos.clone(), counts.clone(), lw,
+                                         None if lws is None else lws.clone()))
         return step_fn(params_, cache, tokens, pos, counts, keys, lw, lws)
 
     b._step_fn = capture
-    for u, p in enumerate(prompts):
-        b.submit(Request(uid=u, prompt=p, max_new_tokens=32))
+    for u, (p, n) in enumerate(requests):
+        b.submit(Request(uid=u, prompt=p, max_new_tokens=n))
     torch.cuda.reset_peak_memory_stats()
-    pa.launches = 0
-    im.launches = 0
-    ticks = 0
+    pa.launches = im.launches = fa.launches = 0
+    n_ticks = 0
     t0 = time.perf_counter()
     while b.queue or any(s.req is not None for s in b.slots):
         b.step()
-        ticks += 1
-        if ticks > 1000:
-            raise RuntimeError(f"{name}: engine did not drain")
+        n_ticks += 1
+        check(n_ticks <= 2000, f"{name}: engine did not drain")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, int8_launches = pa.launches, im.launches
+    launches = dict(paged=pa.launches, int8=im.launches, flash=fa.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     outs = {r.uid: r.output for r in b.done}
     n_tokens = sum(len(o) for o in outs.values())
+    fwd, nl = b.forward_calls, cfg.n_layers
     extra = (f", calibration {setup['calib_s']:.2f} s, weight quantization "
-             f"{setup['quant_s']:.2f} s, int8 kernel launches {int8_launches}") if w8a8 else ""
-    print(f"serving {name} ({cfg.n_layers} layers): {ticks} ticks, {b.forward_calls} "
-          f"forwards, {n_tokens} generated tokens in {wall:.3f} s = "
-          f"{n_tokens / wall:.2f} tok/s, peak memory {peak_gb:.2f} GB, weights init "
-          f"{init_s:.2f} s, attention kernel launches {launches}{extra}", flush=True)
-    check(len(outs) == 12 and all(len(o) == 32 for o in outs.values()),
-          f"{name}: not every request finished with 32 tokens")
+             f"{setup['quant_s']:.2f} s") if w8a8 else ""
+    print(f"serving {name} ({'paged' if paged else 'dense'}, {nl} layers, "
+          f"{str(cfg.compute_dtype).replace('torch.', '')}): {n_ticks} ticks, {fwd} forwards, "
+          f"{n_tokens} generated tokens in {wall:.3f} s = {n_tokens / wall:.2f} tok/s, peak "
+          f"memory {peak_gb:.2f} GB, weights init {init_s:.2f} s, engine set-up "
+          f"{setup['setup_s']:.2f} s{extra}, launches {launches}", flush=True)
+    check(len(outs) == len(requests) and
+          all(len(outs[u]) == n for u, (_, n) in enumerate(requests)),
+          f"{name}: not every request finished with its tokens")
     check(all(((o >= 0) & (o < cfg.vocab_size)).all() for o in outs.values()),
           f"{name}: token ids outside the vocabulary")
     check(not b.failed, f"{name}: failed requests {[r.status for r in b.failed]}")
-    b.audit()
-    check(b.allocator.available == b.num_blocks and (b.tables == -1).all(),
-          f"{name}: block leak")
-    check(launches > 0 and launches == cfg.n_layers * b.forward_calls,
-          f"{name}: {launches} kernel launches for {b.forward_calls} forwards")
-    check(int8_launches == (7 * cfg.n_layers * b.forward_calls if w8a8 else 0),
-          f"{name}: {int8_launches} int8 launches for {b.forward_calls} forwards")
-    check(snapshot, f"{name}: no mixed prefill/decode tick was seen")
+    if paged:
+        b.audit()
+        check(b.allocator.available == b.num_blocks and (b.tables == -1).all(),
+              f"{name}: block leak")
+    # attention: one read per layer per forward; W8A8: every linear of a
+    # layer (q, k, v, o and the MLP's two or three)
+    linears = 4 + (3 if "glu" in cfg.mlp_kind else 2)
+    expect = dict(paged=nl * fwd if paged else 0, flash=0 if paged else nl * fwd,
+                  int8=linears * nl * fwd if w8a8 else 0)
+    check(launches == expect, f"{name}: launches {launches}, expected {expect}")
+    check(set(snaps) == set(ticks), f"{name}: ticks seen {sorted(snaps)}, wanted {ticks}")
     if w8a8:
         # every w_q8 the engine reads is K-major, and the tree holds one
         # int8 copy of each weight (no leaf owns more bytes than it shows)
@@ -1465,89 +1514,110 @@ def phase_serving(torch, np, pa, im, fa, name, method, kv_int8, w8a8=False, dens
               f"of each weight: {one_copy}", flush=True)
         check(q8 and k_major and one_copy, f"{name}: w_q8 layout or copies off")
         del q8      # the int8 weights go with the engine
+    result = dict(engine=name, layers=nl, paged=paged, w8a8=w8a8, ticks=n_ticks,
+                  forwards=fwd, tokens=n_tokens, wall_s=wall, tok_per_s=n_tokens / wall,
+                  peak_gb=peak_gb, init_s=init_s, **setup,
+                  **{f"{k}_launches": v for k, v in launches.items()})
 
-    # the mixed tick again: through the kernels, through the plain path
-    # (the gather read and, under W8A8, the int8 product's plain version),
-    # and under W8A8 through the fp tick on the same weights
-    tokens, pos, counts, lw, lws = snapshot["args"]
-    live = torch.arange(tokens.shape[1], device=tokens.device)[None, :] < counts[:, None]
-    # (name, paged backend, int8 product's plain version, quantization)
-    runs = [("auto", "auto", False, b._qctx), ("gather", "gather", True, b._qctx)]
-    if w8a8:
-        runs += [("gather+int8-kernel", "gather", False, b._qctx),
-                 ("fp", "auto", False, NO_QUANT)]
-    logits = {}
-    with torch.no_grad():
-        for key, backend, plain_int8, ctx in runs:
-            cache = tree_map(lambda x: x.clone(), snapshot["cache"])
-            c2 = dataclasses.replace(b.cfg, paged_backend=backend)
-            if plain_int8:
-                layers.int8_matmul = im.int8_matmul_ref
-            try:
-                # the kernel run keeps each block's input and increment at
-                # the live tokens, for the dense engine's gate (b)
-                with tapped_blocks(live) if key == "auto" else contextlib.nullcontext() as t:
-                    out = step_rows_full(b.params, c2, cache, tokens, pos, counts, lw, lws,
-                                         ctx=ctx)[0]
-            finally:
-                layers.int8_matmul = im.int8_matmul
-            if key == "auto":
-                taps = t
-            logits[key] = out[live][:, :cfg.vocab_size]
-            del cache, out
+    def replay(snap, run):
+        """The tick's live logits through the kernels ("kernel"), through
+        the plain path ("plain"), the plain attention with the int8
+        kernel ("int8 kernel"), the fp tick ("fp"), or a control."""
+        tokens, pos, counts, lw, lws = snap["args"]
+        live = torch.arange(tokens.shape[1], device=tokens.device)[None, :] < counts[:, None]
+        plain_attn = run not in ("kernel", "fp")
+        c2 = dataclasses.replace(b.cfg, paged_backend="gather") if plain_attn else b.cfg
+        if run == "positions one early":
+            pos = (pos - 1).clamp(min=0)
+        real_attention = transformer.attention
+        if plain_attn:
+            transformer.attention = lambda q, k, v, c, q_offset=0, gate_pi=None: \
+                dense_attention(q, k, v, c, q_offset=q_offset, gate_pi=gate_pi)
+        if plain_attn and run != "int8 kernel":
+            layers.int8_matmul = im.int8_matmul_ref
+        cache = tree_map(lambda x: x.clone(), snap["cache"])
+        try:
+            with torch.no_grad(), (bf16_p(torch, matmuls=False) if run == "P in bf16"
+                                   else contextlib.nullcontext()):
+                out = step_rows_full(b.params, c2, cache, tokens, pos, counts, lw, lws,
+                                     ctx=NO_QUANT if run == "fp" else b._qctx)[0]
+        finally:
+            layers.int8_matmul = im.int8_matmul
+            transformer.attention = real_attention
+        pad_nan = int(torch.isnan(out[~live]).any(-1).sum())
+        return out[live][:, :cfg.vocab_size], pad_nan
 
-    def rel(a, ref):
-        return ((a - ref).square().mean().sqrt() / ref.square().mean().sqrt()).item()
-
-    delta = logits["auto"] - logits["gather"]
-    diff = delta.abs().max().item()
-    rel_rms = rel(logits["auto"], logits["gather"])
-    spread = logits["gather"].std().item()
-    agree = (logits["auto"].argmax(-1) == logits["gather"].argmax(-1)).float().mean().item()
-    tol = W8A8_LOGIT_REL_RMS if w8a8 else LOGIT_REL_RMS
-    print(f"serving {name}: mixed tick (counts {counts.tolist()}): kernel vs plain "
-          f"logits relative RMS {rel_rms:.4f} (tol {tol}), max_abs_diff "
-          f"{diff:.4f}{'' if w8a8 else f' (tol {LOGIT_MAX_ABS})'} (logit std "
-          f"{spread:.3f}), argmax agreement {agree:.4f}", flush=True)
-    check(rel_rms <= tol and (w8a8 or diff <= LOGIT_MAX_ABS),
-          f"{name}: kernel and plain logits differ: relative RMS {rel_rms}, max {diff}")
-    result = dict(engine=name, layers=cfg.n_layers, ticks=ticks, forwards=b.forward_calls,
-                  tokens=n_tokens, wall_s=wall, tok_per_s=n_tokens / wall,
-                  peak_gb=peak_gb, launches=launches, int8_launches=int8_launches,
-                  logit_max_abs_diff=diff, logit_rel_rms=rel_rms,
-                  logit_std=spread, argmax_agreement=agree, init_s=init_s, **setup)
-    if w8a8:
-        # the same tick with only the int8 product swapped for its plain
-        # version: every product is bitwise equal, so the logits are too
-        same = torch.equal(logits["gather+int8-kernel"], logits["gather"])
-        print(f"serving {name}: mixed tick through the gather read: int8 kernel vs "
-              f"its plain version, logits bitwise equal: {same}", flush=True)
-        check(same, f"{name}: the int8 kernel changed the tick's logits")
-        vs_fp = rel(logits["auto"], logits["fp"])
-        agree_fp = (logits["auto"].argmax(-1) == logits["fp"].argmax(-1)).float().mean().item()
-        print(f"serving {name}: W8A8 tick vs fp tick on the same weights: logits "
-              f"relative RMS {vs_fp:.4f} (tol {W8A8_VS_FP_REL_RMS}), argmax agreement "
-              f"{agree_fp:.4f}", flush=True)
-        check(vs_fp <= W8A8_VS_FP_REL_RMS,
-              f"{name}: W8A8 logits far from fp logits: relative RMS {vs_fp}")
-        result.update(w8a8_vs_fp_rel_rms=vs_fp, w8a8_vs_fp_argmax_agreement=agree_fp)
+    taps = None
+    for kind in ticks:
+        snap = snaps[kind]
+        tokens, pos, counts = snap["args"][:3]
+        # the kernel run at the mixed tick keeps each block's input and
+        # increment at the live tokens, for the dense engine's gate (b)
+        live = torch.arange(tokens.shape[1], device=tokens.device)[None, :] < counts[:, None]
+        with tapped_blocks(live) if kind == "mixed" else contextlib.nullcontext() as t:
+            kern, pad_nan = replay(snap, "kernel")
+        taps = t if kind == "mixed" else taps
+        plain, _ = replay(snap, "plain")
+        finite = bool(torch.isfinite(kern).all())
+        rms = rel_rms(kern, plain)
+        diff = (kern - plain).abs().max().item()
+        agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+        ctl = {run: rel_rms(replay(snap, run)[0], plain)
+               for run in (("P in bf16", "positions one early") if controls else ())}
+        print(f"serving {name}: {kind} tick (counts {counts.tolist()}, positions up to "
+              f"{int(pos.max()) + tokens.shape[1] - 1} with padding, T {tokens.shape[1]}): "
+              f"kernel vs plain live logits relative RMS {rms:.3e} (tol {tick_tol}), "
+              f"max_abs_diff {diff:.4f}{'' if max_abs is None else f' (tol {max_abs})'} "
+              f"(logit std {plain.std().item():.3f}), argmax agreement {agree:.4f}, live "
+              f"logits finite {finite}, padded tokens with NaN logits {pad_nan}" +
+              "".join(f"; control {k} {v:.3e} (must exceed the tol)" for k, v in ctl.items()),
+              flush=True)
+        check(finite and rms <= tick_tol and (max_abs is None or diff <= max_abs),
+              f"{name}: {kind} tick, kernel and plain logits differ: relative RMS {rms}, "
+              f"max {diff}, finite {finite}")
+        check(all(v > tick_tol for v in ctl.values()),
+              f"{name}: {kind} tick, a control lands within the bound: {ctl}")
+        result.update({f"{kind} rel_rms": rms, f"{kind} max_abs_diff": diff,
+                       f"{kind} argmax_agreement": agree,
+                       **{f"{kind} control {k}": v for k, v in ctl.items()}})
+        if kind == "mixed":
+            mixed_logits = kern
+        if w8a8 and kind == "mixed":
+            # the tick with only the int8 product swapped for its plain
+            # version: every product is bitwise equal, so the logits are too
+            same = torch.equal(replay(snap, "int8 kernel")[0], plain)
+            print(f"serving {name}: mixed tick through the plain attention: int8 kernel vs "
+                  f"its plain version, logits bitwise equal: {same}", flush=True)
+            check(same, f"{name}: the int8 kernel changed the tick's logits")
+            fp = replay(snap, "fp")[0]
+            vs_fp = rel_rms(kern, fp)
+            agree_fp = (kern.argmax(-1) == fp.argmax(-1)).float().mean().item()
+            print(f"serving {name}: W8A8 tick vs fp tick on the same weights: logits "
+                  f"relative RMS {vs_fp:.4f} (tol {W8A8_VS_FP_REL_RMS}), argmax agreement "
+                  f"{agree_fp:.4f}", flush=True)
+            check(vs_fp <= W8A8_VS_FP_REL_RMS,
+                  f"{name}: W8A8 logits far from fp logits: relative RMS {vs_fp}")
+            result.update(w8a8_vs_fp_rel_rms=vs_fp, w8a8_vs_fp_argmax_agreement=agree_fp)
+            del fp
+        del kern, plain
+    if trace:
         # the first all-decode tick of a second, uncounted run of the
         # first 8 requests (its cache copy stays out of the counted run's
         # peak memory); the engine is left with them in flight
-        want_decode.append(True)
-        for u, p in enumerate(prompts[:8]):
-            b.submit(Request(uid=100 + u, prompt=p, max_new_tokens=32))
+        want.append("decode")
+        for u, (p, n) in enumerate(requests[:8]):
+            b.submit(Request(uid=100 + u, prompt=p, max_new_tokens=n))
         for _ in range(200):
-            if decode_snap:
+            if "decode" in snaps:
                 break
             b.step()
-        check(decode_snap, f"{name}: no all-decode tick was seen")
+        check("decode" in snaps, f"{name}: no all-decode tick was seen")
         # the mixed and the all-decode tick: timed once on the host clock
         # and replayed once under torch.profiler (each warmed first)
         traces = trace_replays(
             torch, lambda cache, *args: step_rows_full(b.params, b.cfg, cache, *args,
                                                        ctx=b._qctx),
-            {"mixed": snapshot, "decode": decode_snap}, f"serving {name}", "tick")
+            {k: snaps[k] for k in ("mixed", "decode")}, f"serving {name}", "tick")
         for kind, tr in traces.items():
             check(tr["family_kernels"]["int8 GEMM + pre-pass"] > 0 and
                   tr["family_kernels"]["paged read"] > 0,
@@ -1555,13 +1625,15 @@ def phase_serving(torch, np, pa, im, fa, name, method, kv_int8, w8a8=False, dens
         result.update(traces=traces)
     # the dense-cache paths on the same weights, the paged engine freed
     # first; gate (b) reads its first mixed tick and that tick's logits
-    paged = dict(args=snapshot["args"][:3], logits=logits["auto"], outs=outs, taps=taps)
-    del b, snapshot, decode_snap, logits, delta, taps
+    first = dict(args=snaps["mixed"]["args"][:3], logits=mixed_logits, outs=outs, taps=taps)
+    del b, snaps, mixed_logits, taps
     torch.cuda.empty_cache()
-    if dense:
-        result.update(dense=phase_dense_serving(torch, np, pa, im, fa, name, method,
-                                                method_kw, params, cfg, prompts, paged, w8a8))
-    del params, paged
+    if dense is not None:
+        method, method_kw = dense
+        result.update(dense=phase_dense_serving(
+            torch, np, pa, im, fa, name, method, method_kw, params, cfg,
+            [p for p, _ in requests], first, w8a8))
+    del params, first
     torch.cuda.empty_cache()
     return result
 
@@ -2292,11 +2364,16 @@ def count_fake_quant_sites(torch, cfg):
     return len(calls)
 
 
-def qwen_eval_cfg(method, **method_kw):
-    """qwen3-14b at full width with ``method``, unrolled (as PTQ needs)."""
+def qwen_cfg(method, **method_kw):
+    """qwen3-14b at full width with ``method``."""
     from repro_torch.configs.base import apply_method
     from repro_torch.configs.qwen3_14b import full
-    return dataclasses.replace(apply_method(full(), method, **method_kw), scan_layers=False)
+    return apply_method(full(), method, **method_kw)
+
+
+def qwen_eval_cfg(method, **method_kw):
+    """qwen3-14b at full width with ``method``, unrolled (as PTQ needs)."""
+    return dataclasses.replace(qwen_cfg(method, **method_kw), scan_layers=False)
 
 
 def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, batch_size=1,
@@ -2491,8 +2568,17 @@ METHODS = (("vanilla", "vanilla", {}), ("clipped", "clipped_softmax", {"alpha": 
 # against dense_attention), so the logits differ by f32 ulps carried
 # through 12 layers; a wrong block, mask, position or gamma moves them by
 # their own scale. Under W8A8 those ulps move rare activations across an
-# int8 code edge, as in phase 4 (W8A8_LOGIT_REL_RMS).
-OPT_TICK_REL_RMS = 1e-4
+# int8 code edge. Each gate reads two controls that must land above it:
+# the plain path with P rounded to bf16, and the tick run one position
+# early (every row's writes and reads one slot early). Measured on an
+# H100 80GB HBM3 at 700 W, at the mixed tick and the tick past the table:
+# fp engines 9.7e-7..1.21e-6, their bf16-P controls 1.82e-4..4.21e-4;
+# W8A8 6.04e-3 / 7.88e-5, its bf16-P control 2.49e-2 / 2.42e-2; one
+# position early 0.15..0.19 on every engine. Bounded at 1e-5 (8x above
+# the largest fp reading, 18x below its smallest control) and 0.012 (2x
+# above the W8A8 reading, 2x below its control).
+OPT_TICK_REL_RMS = 1e-5
+OPT_W8A8_TICK_REL_RMS = 0.012
 OPT_MAX_LEN = 2048
 # The paper's mechanism (Bondarenko et al., Sec. 3; tests/test_int8_
 # serving_quality.py's injection): two fc1 channels amplified by M, the
@@ -2524,123 +2610,6 @@ def opt_requests(np, vocab):
     new = [OPT_MAX_LEN - 1900] + [32] * 11
     return [(rng.integers(0, vocab, size=int(n)).astype(np.int32), m)
             for n, m in zip(lengths, new)]
-
-
-def phase_opt_serving(torch, np, pa, im, fa, name, method, paged=True, w8a8=False,
-                      **method_kw):
-    """OPT-125m served by ContinuousBatcher: batch 8, max_len 2048, block
-    16, budget 256, opt_requests. Gates: every request done, launches per
-    forward, and at the first mixed tick and the first tick whose padding
-    passes the position table, the kernel path's live logits against the
-    plain path's (the gather read or dense_attention, and under W8A8 the
-    int8 product's plain version)."""
-    from repro_torch.models import transformer
-    from repro_torch.models.transformer import model_init
-    from repro_torch.nn import layers
-    from repro_torch.nn.module import tree_map
-    from repro_torch.quant.qconfig import QConfig
-    from repro_torch.serving import ContinuousBatcher, Request
-    from repro_torch.serving.decode import step_rows_full
-    from repro_torch.core.attention import dense_attention
-
-    cfg = paper_cfg("opt", method, **method_kw)
-    params = model_init(0, cfg, device="cuda")
-    reqs = opt_requests(np, cfg.vocab_size)
-    t0 = time.perf_counter()
-    b = ContinuousBatcher(params, cfg, batch_size=8, max_len=OPT_MAX_LEN, block_size=16,
-                          token_budget=256, paged=paged,
-                          qconfig=QConfig() if w8a8 else None, device="cuda")
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    snaps, step_fn = {}, b._step_fn
-
-    def capture(params_, cache, tokens, pos, counts, keys, lw, lws):
-        c = counts.cpu()
-        kinds = {"mixed": bool((c == 1).any() and (c > 1).any()),
-                 "past the table": int(pos.max()) + tokens.shape[1] > cfg.max_seq_len}
-        for kind, want in kinds.items():
-            if want and kind not in snaps:
-                snaps[kind] = dict(cache=tree_map(lambda x: x.clone(), cache),
-                                   args=(tokens.clone(), pos.clone(), counts.clone(), lw,
-                                         None if lws is None else lws.clone()))
-        return step_fn(params_, cache, tokens, pos, counts, keys, lw, lws)
-
-    b._step_fn = capture
-    for u, (p, n) in enumerate(reqs):
-        b.submit(Request(uid=u, prompt=p, max_new_tokens=n))
-    torch.cuda.reset_peak_memory_stats()
-    pa.launches = im.launches = fa.launches = 0
-    ticks = 0
-    t0 = time.perf_counter()
-    while b.queue or any(s.req is not None for s in b.slots):
-        b.step()
-        ticks += 1
-        check(ticks <= 2000, f"opt {name}: engine did not drain")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(paged=pa.launches, int8=im.launches, flash=fa.launches)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    outs = {r.uid: r.output for r in b.done}
-    n_tokens = sum(len(o) for o in outs.values())
-    fwd = b.forward_calls
-    print(f"serving opt-125m {name} ({'paged' if paged else 'dense'}, {cfg.n_layers} layers, "
-          f"f32): {ticks} ticks, {fwd} forwards, {n_tokens} generated tokens in {wall:.3f} s "
-          f"= {n_tokens / wall:.2f} tok/s, peak memory {peak_gb:.2f} GB, engine set-up "
-          f"{setup_s:.2f} s, launches {launches}", flush=True)
-    check(len(outs) == len(reqs) and all(len(outs[u]) == n for u, (_, n) in enumerate(reqs)),
-          f"opt {name}: not every request finished with its tokens")
-    check(not b.failed, f"opt {name}: failed requests {[r.status for r in b.failed]}")
-    if paged:
-        b.audit()
-        check(b.allocator.available == b.num_blocks and (b.tables == -1).all(),
-              f"opt {name}: block leak")
-    want = dict(paged=cfg.n_layers * fwd if paged else 0, flash=0 if paged else cfg.n_layers * fwd,
-                int8=6 * cfg.n_layers * fwd if w8a8 else 0)
-    check(launches == want, f"opt {name}: launches {launches}, expected {want}")
-    check(set(snaps) == {"mixed", "past the table"},
-          f"opt {name}: ticks seen {sorted(snaps)}; a mixed tick and one past the table needed")
-
-    result = dict(engine=name, paged=paged, w8a8=w8a8, ticks=ticks, forwards=fwd,
-                  tokens=n_tokens, wall_s=wall, tok_per_s=n_tokens / wall, peak_gb=peak_gb,
-                  setup_s=setup_s, **{f"{k}_launches": v for k, v in launches.items()})
-    real_attention = transformer.attention
-    for kind, snap in snaps.items():
-        tokens, pos, counts, lw, lws = snap["args"]
-        live = torch.arange(tokens.shape[1], device=tokens.device)[None, :] < counts[:, None]
-        logits = {}
-        with torch.no_grad():
-            for run in ("kernel", "plain"):
-                cache = tree_map(lambda x: x.clone(), snap["cache"])
-                c2 = dataclasses.replace(b.cfg, paged_backend="gather") \
-                    if run == "plain" and paged else b.cfg
-                if run == "plain":
-                    layers.int8_matmul = im.int8_matmul_ref
-                    transformer.attention = lambda q, k, v, c, q_offset=0, gate_pi=None: \
-                        dense_attention(q, k, v, c, q_offset=q_offset, gate_pi=gate_pi)
-                try:
-                    out = step_rows_full(b.params, c2, cache, tokens, pos, counts, lw, lws,
-                                         ctx=b._qctx)[0]
-                finally:
-                    layers.int8_matmul = im.int8_matmul
-                    transformer.attention = real_attention
-                logits[run] = out[live][:, :cfg.vocab_size]
-                pad_nan = int(torch.isnan(out[~live]).any(-1).sum())
-                del cache, out
-        finite = bool(torch.isfinite(logits["kernel"]).all())
-        rms = rel_rms(logits["kernel"], logits["plain"])
-        agree = (logits["kernel"].argmax(-1) == logits["plain"].argmax(-1)).float().mean().item()
-        tol = W8A8_LOGIT_REL_RMS if w8a8 else OPT_TICK_REL_RMS
-        print(f"serving opt-125m {name}: {kind} tick (counts {counts.tolist()}, positions up "
-              f"to {int(pos.max()) + tokens.shape[1] - 1} with padding, T {tokens.shape[1]}): "
-              f"kernel vs plain live logits relative RMS {rms:.3e} (tol {tol}), argmax "
-              f"agreement {agree:.4f}, live logits finite {finite}, padded tokens with NaN "
-              f"logits {pad_nan}", flush=True)
-        check(finite and rms <= tol, f"opt {name}: {kind} tick, kernel and plain logits "
-                                     f"differ: relative RMS {rms}, finite {finite}")
-        result[f"{kind}_rel_rms"] = rms
-    del b, params, snaps
-    torch.cuda.empty_cache()
-    return result
 
 
 def inject_outliers(params):
@@ -2794,14 +2763,18 @@ def main() -> int:
     rg_times = phase_rg_times(torch, rl)
 
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    qwen_reqs = qwen_requests(np, qwen_cfg("vanilla").vocab_size)
     engines = [
-        phase_serving(torch, np, pa, im, fa, "vanilla", "vanilla", False),
-        phase_serving(torch, np, pa, im, fa, "clipped", "clipped_softmax", False, alpha=4.0),
-        phase_serving(torch, np, pa, im, fa, "gated-int8kv", "gated_attention", True),
-        phase_serving(torch, np, pa, im, fa, "clipped-w8a8", "clipped_softmax", False,
-                      w8a8=True, alpha=4.0),
-        phase_serving(torch, np, pa, im, fa, "gated-w8a8-int8kv", "gated_attention", None,
-                      w8a8=True, dense=False)]
+        phase_serving(torch, np, pa, im, fa, name, qwen_cfg(method, **kw), qwen_reqs, 1024,
+                      W8A8_LOGIT_REL_RMS if w8a8 else LOGIT_REL_RMS,
+                      max_abs=None if w8a8 else LOGIT_MAX_ABS, kv_int8=kv, w8a8=w8a8,
+                      trace=w8a8, dense=(method, kw) if dense else None)
+        for name, method, kw, kv, w8a8, dense in (
+            ("vanilla", "vanilla", {}, False, False, True),
+            ("clipped", "clipped_softmax", {"alpha": 4.0}, False, False, True),
+            ("gated-int8kv", "gated_attention", {}, True, False, True),
+            ("clipped-w8a8", "clipped_softmax", {"alpha": 4.0}, False, True, True),
+            ("gated-w8a8-int8kv", "gated_attention", {}, None, True, False))]
     rg_engines = [
         phase_rg_serving(torch, np, rl, fa, pa, "vanilla", "vanilla", trace=True, gen=True),
         phase_rg_serving(torch, np, rl, fa, pa, "clipped", "clipped_softmax", alpha=4.0),
@@ -2814,13 +2787,16 @@ def main() -> int:
                          layer_tol=PAPER_LAYER_REL_RMS, own_tol=PAPER_LOGIT_REL_RMS,
                          logit_tol=PAPER_LOGIT_REL_RMS)
               for family, kind, seq, bsz in PAPER_EVALS for name, method, kw in METHODS]
+    opt_reqs = opt_requests(np, paper_cfg("opt", "vanilla").vocab_size)
     opt_engines = [
-        phase_opt_serving(torch, np, pa, im, fa, name, method, **kw)
-        for name, method, kw in METHODS]
-    opt_engines += [
-        phase_opt_serving(torch, np, pa, im, fa, "clipped-w8a8", "clipped_softmax", w8a8=True,
-                          alpha=4.0),
-        phase_opt_serving(torch, np, pa, im, fa, "vanilla-dense", "vanilla", paged=False)]
+        phase_serving(torch, np, pa, im, fa, f"opt-125m {name}",
+                      paper_cfg("opt", method, **kw), opt_reqs, OPT_MAX_LEN,
+                      OPT_W8A8_TICK_REL_RMS if w8a8 else OPT_TICK_REL_RMS,
+                      ticks=("mixed", "past the table"), paged=paged, w8a8=w8a8, controls=True)
+        for name, method, kw, paged, w8a8 in (
+            *((name, method, kw, True, False) for name, method, kw in METHODS),
+            ("clipped-w8a8", "clipped_softmax", {"alpha": 4.0}, True, True),
+            ("vanilla-dense", "vanilla", {}, False, False))]
     contrast = phase_outlier_contrast(torch, np)
 
     dec = times[("decode", "vanilla")]
@@ -2831,14 +2807,13 @@ def main() -> int:
     dense = [e["dense"] for e in engines if "dense" in e]
     int8_launches = sum(e["int8_launches"] for e in engines + dense + opt_engines)
     flash_launches = sum(e["flash_launches"] + e.get("gen_launches", 0)
-                         for e in evals + dense + opt_engines)
+                         for e in engines + evals + dense + opt_engines)
     rg_launches = sum(e["launches"] for e in rg_engines) + sum(
         g["rg_launches"] for e in rg_engines for g in e.get("generate", {}).values())
     kernels = [dict(name="paged_attention", route="cuda",
                     source=KERNEL_SOURCES["paged_attention"],
                     replaces=REPLACES["paged_attention"],
-                    launches=sum(e["launches"] for e in engines) +
-                    sum(e["paged_launches"] for e in opt_engines),
+                    launches=sum(e["paged_launches"] for e in engines + opt_engines),
                     max_abs_err=max_err, ms=dec["ms"], plain_ms=dec["plain_ms"],
                     bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
                     library_ms=dec["library_ms"]),

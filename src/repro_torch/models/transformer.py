@@ -787,10 +787,8 @@ def model_apply(
                         ).to(cfg.compute_dtype)
     st = _Step(cfg, b, t, pos, active, dev, paged_live_width, paged_live_widths)
     if cfg.pos == "learned":
-        # (T,) positions at a shared pos, (B, T) at per-row ones; a padded
-        # tail past the table reads NaN rows, as in the reference
-        x = x + positional_embedding_apply(params["pos_embed"],
-                                           _positions(st.pos, t, dev)).to(x.dtype)
+        # a padded tail past the table reads NaN rows, as in the reference
+        x = x + positional_embedding_apply(params["pos_embed"], st.tpos).to(x.dtype)
 
     scanned = cfg.scan_layers and cfg.n_groups > 0
     stats, acts = [], []
