@@ -230,7 +230,42 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the fp function unchanged): W8A8 against fp logits of one cache-free
      8 x 512 forward; the injected model must read above the clean one by
      OUTLIER_MARGIN.
-  6. The kernels line, then the device line.
+  6. Training, through the hand-written flash-attention backward kernel
+     (``csrc/flash_attention_bwd.cu``; the reference differentiates its
+     plain attention with XLA, so no TPU kernel corresponds). (a) The
+     kernel against ``attention_bwd_ref`` (the gradient as formulas, f32)
+     at BWD_SHAPES (Dh 32 (8, 512, 4/4) causal and not, BERT-base's (8,
+     512, 12/12, 64) non-causal, OPT-125m's (2, 2048, 12/12, 64) causal,
+     GQA (1, 512, 8/2, 64)), vanilla, clipped (alpha 4) and gated: dq, dk,
+     dv and dgate each within BWD_REL_RMS, the plain version with P and dS
+     rounded to bf16 above it, two calls bitwise equal, and every clipped
+     case with a share of unclipped entries. (b) BERT-base (masked LM, 8 x
+     512) and OPT-125m (causal LM, 2 x 2048) trained at full width in f32
+     from seed 0 through ``train.run_training`` for vanilla, clipped
+     (alpha 4) and gated attention: step 1's loss and the whole gradient
+     through the kernels against the plain attention path
+     (``mha_flash_ref`` under autograd in the kernel's place) within
+     STEP_GRAD_REL_RMS on weights whose q and k projections are sharpened
+     (STEP_QK_SCALE: at random init every clipped probability clips; the
+     gradient must reach every layer's k weights but STEP_DEAD_LAYERS'),
+     the plain path with P in bf16 above the bound, and each attention
+     leaf's gradient within STEP_ATTN_LEAF_REL and within
+     STEP_ATTN_CONTROL_SHARE of that leaf's control; on a SyntheticLM
+     chain over TRAIN_DATA_VOCAB token ids, 2 x TRAIN_HALF steps with
+     one flash and one backward launch per layer and step, every loss
+     finite and the last four steps' mean below the first four's; a
+     checkpoint at TRAIN_HALF restored into a fresh run that must end
+     bitwise equal to the uninterrupted one. Each run prints its median
+     step time, trained tokens/s, peak memory, losses and its last
+     evaluation's perplexity, max inf-norm and kurtosis; one vanilla step
+     of each model is replayed under torch.profiler (device time of the
+     flash backward, the flash forward and the rest; idle share). (c) Device times
+     of the backward kernel, its plain version and torch autograd
+     through ``F.scaled_dot_product_attention`` in f32 (vanilla; a
+     yardstick the port never calls) beside the bound (10 flops per
+     visible pair and column in every variant, at 67 TFLOP/s f32).
+  7. The kernels line (six kernels, the backward among them), then the
+     device line.
 
 TF32 is switched off for matmuls and convolutions, so float32 compares
 are full float32. Requires ``torch.cuda.is_available()``; exits non-zero
@@ -299,12 +334,16 @@ KERNEL_SOURCES = {"paged_attention": "src/repro_torch/csrc/paged_attention.cu",
                   "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu",
                   "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
                   "fake_quant": "src/repro_torch/csrc/fake_quant.cu",
-                  "rg_lru": "src/repro_torch/csrc/rg_lru.cu"}
+                  "rg_lru": "src/repro_torch/csrc/rg_lru.cu",
+                  "flash_attention_bwd": "src/repro_torch/csrc/flash_attention_bwd.cu"}
 REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:177",
             "int8_matmul": "src/repro/kernels/int8_matmul.py:61",
             "flash_attention": "src/repro/kernels/flash_attention.py:157",
             "fake_quant": "src/repro/kernels/fake_quant.py:22",
-            "rg_lru": "src/repro/kernels/rg_lru.py:38"}
+            "rg_lru": "src/repro/kernels/rg_lru.py:38",
+            # no TPU kernel: the reference trains through this dispatcher's
+            # plain attention and lets XLA differentiate it
+            "flash_attention_bwd": "src/repro/core/attention.py:455"}
 FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 # The evaluation forward's attention, held in two ways against the kernel's
 # own plain version (mha_flash_ref: q scaled in bf16, P in f32, as the
@@ -1261,7 +1300,8 @@ def phase_kv_quant(torch):
 # ---------------------------------------------------------------------------
 # kernel families of a traced tick, by a substring of the kernel's name
 TRACE_FAMILIES = (("int8 GEMM + pre-pass", "int8_"), ("paged read", "paged_attn"),
-                  ("RG-LRU scan", "rglru"))
+                  ("RG-LRU scan", "rglru"), ("flash backward", "::bwd_"),
+                  ("flash forward", "flash_kernel_"))
 
 
 def busy_us(spans):
@@ -2673,6 +2713,415 @@ def phase_outlier_contrast(torch, np):
     return dict(res, fp_injected_vs_clean=same_fp, ratio=ratio)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training, through the flash-attention backward kernel
+# ---------------------------------------------------------------------------
+# (name, B, T, Hq, Hkv, Dh, causal) of phase 6a: Dh 32 both ways, BERT-base's
+# and OPT-125m's training shapes, one GQA case
+BWD_SHAPES = [("dh32 causal", 8, 512, 4, 4, 32, True), ("dh32", 8, 512, 4, 4, 32, False),
+              ("bert-base", 8, 512, 12, 12, 64, False), ("opt-125m", 2, 2048, 12, 12, 64, True),
+              ("gqa", 1, 512, 8, 2, 64, True)]
+BWD_VARIANTS = ("vanilla", "clipped", "gated")
+BWD_ALPHA = 4.0
+# Phase 6a's bound on each gradient (dq, dk, dv, dgate): the relative RMS of
+# the kernel's against attention_bwd_ref's on the same inputs, both f32. The
+# control, the plain version with P and dS rounded to bf16 before their
+# products (what a kernel feeding them to bf16 tensor cores as one operand
+# would compute), must land above it in every case.
+# Measured on an H100 80GB HBM3 at 700 W (the first call of the kernel):
+# the kernel 9.9e-8..5.9e-7 over every case and gradient, the control
+# 1.52e-3..1.78e-3. Bounded at 1e-5: 17x above the one, 150x below the
+# other; a wrong mask, clip indicator or D_i moves a gradient by O(1).
+BWD_REL_RMS = 1e-5
+# Phase 6b: the paper models trained at full width, f32, from seed 0
+TRAIN_RUNS = (("bert", "mlm", 512, 8), ("opt", "clm", 2048, 2))
+TRAIN_LR = 3e-4
+TRAIN_HALF = 8                     # k: 2k uninterrupted steps, a restart at k
+# The synthetic chain's token ids, the first 4096 of the model's
+# vocabulary. Over the full vocabularies each id appears ~0.1 times a
+# batch and 16 steps do not move the loss (measured on an H100 80GB HBM3
+# at 700 W, lr 1e-4..1e-3 with and without warmup: BERT-base's mean of
+# the last 4 losses 10.39..10.49 against 10.37..10.44 for the first 4,
+# OPT-125m's 10.83..10.99 against 10.83..10.85); over 4096 ids at lr 3e-4
+# it falls from 10.33 to 9.23 (BERT) and 10.56 to 8.53 (OPT).
+TRAIN_DATA_VOCAB = 4096
+# Phase 6b's step-vs-plain gate: step 1's loss and the whole gradient (all
+# parameters at once; relative RMS) through the kernels against the same
+# step with mha_flash_ref (the plain attention, differentiated by autograd)
+# in the flash kernel's place, both f32; the control, that plain path with
+# P rounded to bf16, must land above. The two forwards differ by f32 ulps,
+# and where the model has a kink an ulp can decide a branch: a ReLU
+# pre-activation near zero (OPT's MLP) or a probability near the clip's
+# edge (the clipped softmax's indicator) takes the other side and moves
+# the gradients below it far more than the backward kernel's own rounding
+# does (per parameter up to 1.7e-3 on BERT clipped, 1.7e-3 on OPT; BERT's
+# GELU has no kink: 5e-6); the whole gradient averages such rare jumps out.
+# Measured on an H100 80GB HBM3 at 700 W, kernel / control: BERT vanilla
+# 1.8e-6 / 4.9e-4, gated 1.8e-6 / 3.2e-4, clipped 1.2e-4 / 1.6e-3; OPT
+# vanilla 4.0e-4 / 1.0e-2, clipped 4.4e-4 / 9.4e-3, gated 5.6e-4 / 7.4e-3.
+# Each bound sits 3x or more above its readings and below its controls.
+STEP_GRAD_REL_RMS = {("bert", "vanilla"): 2e-5, ("bert", "gated_attention"): 2e-5,
+                     ("bert", "clipped_softmax"): 4e-4, ("opt", "vanilla"): 2e-3,
+                     ("opt", "clipped_softmax"): 2e-3, ("opt", "gated_attention"): 2e-3}
+# BERT's layer 0 reads the raw embeddings (RMS ~0.03: the config has no
+# embedding LayerNorm), so even sharpened its scores stay ~1e-3 and every
+# clipped probability clips: no gradient reaches its q and k there.
+STEP_DEAD_LAYERS = {("bert", "clipped_softmax")}
+# The same comparison per attention leaf (each layer's q, k, v, o and gate
+# weights and the biases but the key's, whose gradient is zero in exact
+# arithmetic): the leaves the backward kernel's dq, dk, dv and dgate feed
+# first, where an error confined to the attention would show and the
+# whole gradient, led by the embedding, head and MLP gradients, would hide
+# it. Every such leaf's relative RMS must stay within the run's bound and
+# within STEP_ATTN_CONTROL_SHARE of its own control's reading. A single
+# bound cannot sit below every leaf's control: the clip-edge and ReLU
+# flips above move BERT clipped's layer-10 k weights by 1.7e-3 while
+# layer 11's o bias reads 9.9e-5 under the control.
+# Measured on an H100 80GB HBM3 at 700 W, the largest leaf reading and
+# the least ratio control / reading over the leaves: BERT vanilla 4.7e-6,
+# 153; gated 4.2e-6, 107 (the least control 6.5e-5); clipped 1.7e-3, 5.2;
+# OPT vanilla 7.9e-4, 12.9; clipped 8.5e-4, 6.7; gated 1.3e-3, 5.2. Each
+# bound sits 2x or more above its largest reading (BERT vanilla and gated
+# 3x below their least control too); the share leaves 2.6x.
+STEP_ATTN_LEAF = re.compile(r"^layers/\d+/b0/((q|k|v|o|gate)/w|(q|v|o|gate)/b)$")
+STEP_ATTN_LEAF_REL = {("bert", "vanilla"): 2e-5, ("bert", "gated_attention"): 2e-5,
+                      ("bert", "clipped_softmax"): 5e-3, ("opt", "vanilla"): 3e-3,
+                      ("opt", "clipped_softmax"): 3e-3, ("opt", "gated_attention"): 3e-3}
+STEP_ATTN_CONTROL_SHARE = 0.5
+STEP_LOSS_REL = 1e-6
+# Random init attends almost uniformly (scores of RMS ~0.3 for BERT-base,
+# ~0.03 for OPT-125m's std 0.006), so at alpha 4 every clipped probability
+# clips and the attention passes no gradient: the gate would compare
+# nothing of the backward kernel. Its weights get every layer's q and k
+# projections scaled by this factor (scores by its square), so that rows
+# are peaked and some probabilities stay unclipped; the gate requires a
+# nonzero gradient on every layer's k weights (which only the attention's
+# dS reaches).
+STEP_QK_SCALE = {"bert": 2.5, "opt": 7.0}
+
+
+def bwd_case(torch, b, t, hq, hkv, dh, causal, variant, seed):
+    """Inputs of one backward call at (B, T, Hq/Hkv, Dh): q, k, v ~ N(0, 1)
+    (s ~ N(0, 1), so a few percent of a clipped row's entries stay
+    unclipped at alpha 4), gate sigmoid(N(0, 1)), dO ~ N(0, 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    gamma = -BWD_ALPHA / t if variant == "clipped" else 0.0
+    return dict(q=rnd(b, t, hq, dh), k=rnd(b, t, hkv, dh), v=rnd(b, t, hkv, dh),
+                gate=torch.sigmoid(rnd(b, t, hq)) if variant == "gated" else None,
+                dout=rnd(b, t, hq, dh), causal=causal, gamma=gamma, zeta=1.0)
+
+
+def bf16_ds(torch):
+    """A mode under which attention_bwd_ref rounds the first operand of
+    every product over keys or queries (P~ in u and dv, dS in dq and dk)
+    to bf16: the control of phase 6a."""
+    from torch.overrides import TorchFunctionMode
+
+    class Bf16Ds(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.einsum and args[0].startswith("bhgqk,"):
+                args = (args[0], args[1].bfloat16().float(), *args[2:])
+            return func(*args, **(kwargs or {}))
+
+    return Bf16Ds()
+
+
+def unclipped_share(torch, c):
+    """Share of the visible (query, key) pairs whose clipped probability
+    lies strictly inside (0, 1), where the clip passes a gradient."""
+    b, t, hq, dh = c["q"].shape
+    g = hq // c["k"].shape[2]
+    qs = (c["q"] * dh ** -0.5).reshape(b, t, -1, g, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qs, c["k"])
+    mask = torch.ones((t, t), dtype=torch.bool, device="cuda")
+    if c["causal"]:
+        mask = torch.tril(mask)
+    p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+    x = (1.0 - c["gamma"]) * p + c["gamma"]
+    return (((x > 0) & (x < 1) & mask).sum() / (mask.sum() * b * hq)).item()
+
+
+def bwd_bound_ms(c):
+    """Least time of one backward call on an H100: 10 flops per visible
+    (query, key) pair and head column (S, dP~ = gV^T, dv, dq, dk; every
+    variant: D_i = sum_j p_ij dp_ij is a scalar per pair, and u and the
+    clipped (m, Z) could come saved from the forward) at 67 TFLOP/s f32,
+    or the bytes of q, k, v, dO, gate in and dq, dk, dv, dgate out at
+    3.35 TB/s, the larger."""
+    b, t, hq, dh = c["q"].shape
+    hkv = c["k"].shape[2]
+    pairs = b * hq * (t * (t + 1) // 2 if c["causal"] else t * t)
+    flops = 10 * pairs * dh
+    nbytes = 4 * (3 * b * t * hq * dh + 4 * b * t * hkv * dh
+                  + (2 * b * t * hq if c["gate"] is not None else 0))
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_bwd_checks(torch, fa):
+    """Phase 6a: the backward kernel against attention_bwd_ref at
+    BWD_SHAPES x BWD_VARIANTS; bitwise repeatable; clipped cases with
+    unclipped entries. Returns the largest max abs error."""
+    worst = 0.0
+    for (name, b, t, hq, hkv, dh, causal), variant in (
+            (s, v) for s in BWD_SHAPES for v in BWD_VARIANTS):
+        c = bwd_case(torch, b, t, hq, hkv, dh, causal, variant, seed=len(name) + t)
+        args = (c["q"], c["k"], c["v"], c["gate"], c["dout"])
+        kw = dict(causal=causal, gamma=c["gamma"], zeta=1.0)
+        kern = fa._launch_bwd(*args, **kw)
+        again = fa._launch_bwd(*args, **kw)
+        torch.cuda.synchronize()
+        ref = fa.attention_bwd_ref(*args, **kw)
+        with bf16_ds(torch):
+            ctrl = fa.attention_bwd_ref(*args, **kw)
+        names = ("dq", "dk", "dv", "dgate")
+        rows = []
+        for gname, kg, ag, rg, cg in zip(names, kern, again, ref, ctrl):
+            if rg is None:
+                continue
+            err, control = rel_rms(kg, rg), rel_rms(cg, rg)
+            worst = max(worst, (kg - rg).abs().max().item())
+            check(torch.isfinite(kg).all().item(), f"bwd {name} {variant}: {gname} not finite")
+            check(torch.equal(kg, ag), f"bwd {name} {variant}: {gname} differs between calls")
+            check(err <= BWD_REL_RMS < control,
+                  f"bwd {name} {variant}: {gname} relative RMS {err:.3e} (control "
+                  f"{control:.3e}) against the bound {BWD_REL_RMS}")
+            rows.append(f"{gname} {err:.3e} (control {control:.3e})")
+        share = ""
+        if variant == "clipped":
+            frac = unclipped_share(torch, c)
+            check(frac > 0, f"bwd {name} clipped: every probability clips (vacuous)")
+            share = f"; unclipped share {frac:.4f}"
+        print(f"flash bwd {name} ({b}, {t}, {hq}/{hkv}, {dh}) "
+              f"{'causal' if causal else 'non-causal'} {variant}: {'; '.join(rows)}; "
+              f"bitwise repeatable{share}", flush=True)
+        del kern, again, ref, ctrl, c
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_bwd_times(torch, fa):
+    """Phase 6c: device times of the backward kernel, its plain version and
+    torch autograd through F.scaled_dot_product_attention in f32 (a
+    yardstick the port never calls), beside the bound, at BWD_SHAPES.
+    Returns {(name, variant): times}."""
+    import torch.nn.functional as F
+    out = {}
+    for (name, b, t, hq, hkv, dh, causal), variant in (
+            (s, v) for s in BWD_SHAPES for v in ("vanilla", "clipped")):
+        cs = [bwd_case(torch, b, t, hq, hkv, dh, causal, variant, seed=90 + i) for i in range(2)]
+        kw = dict(causal=causal, gamma=cs[0]["gamma"], zeta=1.0)
+        run = lambda c, f: f(c["q"], c["k"], c["v"], c["gate"], c["dout"], **kw)  # noqa: E731
+        ms = device_ms(torch, [lambda c=c: run(c, fa._launch_bwd) for c in cs], 10)
+        plain = device_ms(torch, [lambda c=c: run(c, fa.attention_bwd_ref) for c in cs], 3)
+        lib = None
+        if variant == "vanilla":
+            def sdpa(c):
+                q, k, v = (c[x].transpose(1, 2).detach().requires_grad_(True)
+                           for x in ("q", "k", "v"))
+                o = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                   enable_gqa=hq != hkv)
+                return o, (q, k, v), c["dout"].transpose(1, 2)
+            graphs = [sdpa(c) for c in cs]
+            lib = device_ms(torch, [lambda g=g: torch.autograd.grad(g[0], g[1], g[2],
+                                                                   retain_graph=True)
+                                    for g in graphs], 10)
+            del graphs
+        bound, by = bwd_bound_ms(cs[0])
+        out[(name, variant)] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                                    library_ms=lib)
+        print(f"flash bwd time {name} ({b}, {t}, {hq}/{hkv}, {dh}) f32 {variant}: kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA backward "
+              f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {bound:.4f} ms ({by})",
+              flush=True)
+        del cs
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharpen(params, c):
+    """The params tree with every layer's q and k projections (weights and
+    biases) multiplied by c, in place."""
+    for layer in params["layers"]:
+        for name in ("q", "k"):
+            for leaf in layer["b0"][name].values():
+                leaf.mul_(c)
+    return params
+
+
+def phase_train_step_vs_plain(torch, fa, task, params, batch, who, bound, leaf_bound,
+                              min_live):
+    """Phase 6b's first gate: step 1's loss and gradients through the
+    kernels against the plain attention path (``mha_flash_ref`` under
+    autograd in the flash kernel's place) on the same weights and batch,
+    the whole gradient at ``bound`` and each attention leaf at
+    ``leaf_bound``; the same plain path with P rounded to bf16 is the
+    control."""
+    from repro_torch.nn.module import flatten_params
+    from repro_torch.train.step import _grads
+    real = fa.mha_flash
+    fa.launches = fa.bwd_launches = 0
+    loss_k, _, g_k = _grads(params, task, batch)
+    launched = (fa.launches, fa.bwd_launches)
+    try:
+        fa.mha_flash = fa.mha_flash_ref
+        loss_p, _, g_p = _grads(params, task, batch)
+        with bf16_p(torch, matmuls=False):
+            _, _, g_c = _grads(params, task, batch)
+    finally:
+        fa.mha_flash = real
+    n_layers = task.cfg.n_layers
+    check(launched == (n_layers, n_layers),
+          f"{who}: step through the kernels launched (flash, bwd) {launched}")
+    # each gradient's difference RMS relative to its own RMS, except the
+    # key bias's: its gradient is zero in exact arithmetic (a shift common
+    # to a row's scores leaves the softmax unchanged), rounding noise on
+    # both paths, so its difference is taken relative to the RMS of the
+    # whole gradient
+    flat_p, flat_c = dict(flatten_params(g_p)), dict(flatten_params(g_c))
+    total = torch.sqrt(sum(g.square().sum() for g in flat_p.values())
+                       / sum(g.numel() for g in flat_p.values())).item()
+
+    def rel(a, path):
+        b = flat_p[path]
+        if re.search(r"/k/b$", path):
+            return (a - b).square().mean().sqrt().item() / total
+        return rel_rms(a, b)
+
+    def whole(tree):
+        # the relative RMS of the whole gradient (every parameter at once)
+        flat = dict(flatten_params(tree))
+        num = sum((flat[p] - g).square().sum() for p, g in flat_p.items())
+        return (num / sum(g.square().sum() for g in flat_p.values())).sqrt().item()
+
+    errs = {p: rel(g, p) for p, g in flatten_params(g_k) if flat_p[p].abs().max().item() > 0}
+    ctrl = {p: rel(flat_c[p], p) for p in errs}
+    worst = max(errs, key=errs.get)
+    err_all, ctrl_all = whole(g_k), whole(g_c)
+    attn = [p for p in errs if STEP_ATTN_LEAF.match(p)]
+    attn_worst = max(attn, key=errs.get)
+    ratio = {p: ctrl[p] / max(errs[p], 1e-30) for p in attn}
+    attn_near = min(attn, key=ratio.get)
+    attn_out = [p for p in attn if not errs[p] <= min(leaf_bound,
+                                                     STEP_ATTN_CONTROL_SHARE * ctrl[p])]
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    live_k = sum(flat_p[p].abs().max().item() > 0 for p in flat_p if re.search(r"/k/w$", p))
+    print(f"train {who}: step 1 through the kernels vs the plain attention path: loss "
+          f"{loss_k.item():.6f} vs {loss_p.item():.6f} (rel {loss_err:.2e}); the whole "
+          f"gradient's relative RMS {err_all:.3e} (bound {bound}; control, P in bf16, "
+          f"{ctrl_all:.3e}); per parameter max {errs[worst]:.3e} ({worst}), median "
+          f"{sorted(errs.values())[len(errs) // 2]:.3e}, control max "
+          f"{max(ctrl.values()):.3e}; attention leaves ({len(attn)}): max "
+          f"{errs[attn_worst]:.3e} ({attn_worst}; its control {ctrl[attn_worst]:.3e}), "
+          f"median {sorted(errs[p] for p in attn)[len(attn) // 2]:.3e}, bound {leaf_bound}; "
+          f"control min {min(ctrl[p] for p in attn):.3e}, least control / reading "
+          f"{ratio[attn_near]:.1f} ({attn_near}; at least "
+          f"{1 / STEP_ATTN_CONTROL_SHARE:.0f}); layers whose k weights "
+          f"receive a gradient: {live_k} of {n_layers} (at least {min_live})", flush=True)
+    check(live_k >= min_live, f"{who}: the attention passes no gradient in some layer")
+    check(loss_err <= STEP_LOSS_REL, f"{who}: step-1 loss differs from the plain path's")
+    check(err_all <= bound < ctrl_all,
+          f"{who}: gradient {err_all:.3e} vs bound {bound} (control {ctrl_all:.3e})")
+    check(not attn_out,
+          f"{who}: attention leaves above the bound {leaf_bound} or "
+          f"{STEP_ATTN_CONTROL_SHARE} of their control (reading, control): "
+          f"{[(p, f'{errs[p]:.3e}', f'{ctrl[p]:.3e}') for p in attn_out]}")
+    del g_k, g_p, g_c
+    return dict(loss_rel=loss_err, grad_rel_rms=err_all, control=ctrl_all,
+                param_max=errs[worst], attn_leaf_max=errs[attn_worst],
+                attn_leaf_control_ratio=ratio[attn_near])
+
+
+def phase_train(torch, np, fa, family, kind, seq, bsz, method, method_kw, trace=False):
+    """Phase 6b: one model and method trained through ``run_training`` at
+    full width, f32: 2k steps uninterrupted (checkpoint at k), then a run
+    resumed from that checkpoint to 2k, which must end bitwise equal;
+    every loss finite and falling. With ``trace``, one more step from the
+    final state is replayed under torch.profiler (outside the counted
+    run): device time by family (flash backward, flash forward, the rest)
+    and the idle share. Returns the run's numbers."""
+    import shutil
+    import tempfile
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    from repro_torch.nn.module import flatten_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (LoopConfig, TrainTask, init_train_state, make_train_step,
+                                   run_training)
+
+    who = f"{family} {method}"
+    cfg = paper_cfg(family, method, **method_kw)
+    task = TrainTask(cfg=cfg, loss_kind=kind, optimizer=AdamWConfig(lr=TRAIN_LR))
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=TRAIN_DATA_VOCAB, seq_len=seq,
+                                         batch_size=bsz, seed=0))
+    params0 = sharpen(init_train_state(0, task, device="cuda").params, STEP_QK_SCALE[family])
+    batch0 = {k: torch.as_tensor(v).cuda() for k, v in data.batch(0, kind).items()}
+    gate = phase_train_step_vs_plain(torch, fa, task, params0, batch0, who,
+                                     STEP_GRAD_REL_RMS[(family, method)],
+                                     STEP_ATTN_LEAF_REL[(family, method)],
+                                     cfg.n_layers - int((family, method) in STEP_DEAD_LAYERS))
+    del params0, batch0
+    torch.cuda.empty_cache()
+
+    k = TRAIN_HALF
+    quiet = lambda _msg: None  # noqa: E731
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        full, half = f"{d}/full", f"{d}/half"
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = fa.bwd_launches = 0
+        run = run_training(task, data, LoopConfig(total_steps=2 * k, eval_every=2 * k,
+                                                  eval_batches=1, ckpt_every=k, ckpt_dir=full,
+                                                  keep_ckpts=3, log_every=0, seed=0),
+                           batch_kind=kind, log=quiet, device="cuda")
+        launches = (fa.launches, fa.bwd_launches)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        shutil.copytree(f"{full}/step_{k:08d}", f"{half}/step_{k:08d}")
+        resumed = run_training(task, data, LoopConfig(total_steps=2 * k, eval_every=0,
+                                                      ckpt_dir=half, log_every=0, seed=0),
+                               batch_kind=kind, log=quiet, device="cuda")
+    losses = run["losses"]
+    a = dict(flatten_params(run["state"]))
+    same = all(torch.equal(x, a[p]) for p, x in flatten_params(resumed["state"]))
+    n = cfg.n_layers
+    steps = 2 * k
+    tok_s = bsz * seq / run["median_step_s"]
+    first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    print(f"train {who} ({bsz} x {seq}, lr {TRAIN_LR}, {steps} steps): step "
+          f"{run['median_step_s'] * 1e3:.1f} ms (median), {tok_s:.0f} trained tok/s, peak "
+          f"{peak:.2f} GB; launches per step: flash bwd {launches[1] / steps:.2f}, flash fwd "
+          f"{launches[0]}/{steps} steps + 2 eval forwards; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (mean of the first 4 {first:.4f}, last 4 {last:.4f}); eval ppl "
+          f"{run['history']['eval_ppl'][-1]:.1f}, max inf-norm "
+          f"{run['history']['max_inf_norm'][-1]:.3f}, kurtosis "
+          f"{run['history']['kurtosis'][-1]:.3f}; restart at {k}: "
+          f"{'bitwise equal' if same else 'DIFFERS'}, losses {resumed['losses'] == losses[k:]}",
+          flush=True)
+    check(all(np.isfinite(losses)), f"{who}: a loss is not finite: {losses}")
+    check(last < first, f"{who}: the loss did not fall: {losses}")
+    check(launches == (steps * n + 2 * n, steps * n),
+          f"{who}: launches (flash, bwd) {launches}, expected {(steps * n + 2 * n, steps * n)}")
+    check(same and resumed["losses"] == losses[k:],
+          f"{who}: the resumed run is not bitwise the uninterrupted one")
+    result = dict(step_ms=run["median_step_s"] * 1e3, tok_s=tok_s, peak_gb=peak,
+                  losses=losses, flash_launches=launches[0], bwd_launches=launches[1],
+                  eval=run["history"], restart_bitwise=same, **gate)
+    if trace:
+        step = make_train_step(task)
+        batch = {k: torch.as_tensor(v).cuda() for k, v in data.batch(2 * k, kind).items()}
+        tr = trace_tick(torch, lambda: step(run["state"], batch), f"train step {who}")
+        fam = tr["family_ms"]
+        print(f"train {who}: one step traced: host wall {tr['wall_ms']:.2f} ms, device busy "
+              f"{tr['device_ms']:.2f} ms, idle share {tr['idle_share']:.3f}; flash backward "
+              f"{fam['flash backward']:.2f} ms ({tr['family_kernels']['flash backward']} "
+              f"kernels), flash forward {fam['flash forward']:.2f} ms, the rest "
+              f"{fam['rest']:.2f} ms ({tr['family_kernels']['rest']} kernels; largest: "
+              f"{'; '.join(f'{n[:40]} {ms:.2f}' for n, ms in tr['rest_top'])})", flush=True)
+        result["trace"] = tr
+    del run, resumed, a
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2747,6 +3196,15 @@ def main() -> int:
     check(all(sp == 0 for _, _, sp in rg_fns),
           f"ptxas spills in rg_lru kernels: {[f for f, _, sp in rg_fns if sp]}")
 
+    # the backward kernels (3 entries at each of Dh 32 and 64) must not spill
+    bwd_fns = ptxas_report(build.BUILD_LOG.get("flash_attention_bwd", ""))
+    print(f"ptxas spill check: {len(bwd_fns)} flash_attention_bwd entries; registers "
+          f"{[(re.sub(r'^_Z[^a-z]*', '', f)[:32], r) for f, r, _ in bwd_fns]}; spill stores "
+          f"{sorted({sp for _, _, sp in bwd_fns})}", flush=True)
+    check(len(bwd_fns) == 6, f"expected the 6 backward entries in the build log: {bwd_fns}")
+    check(all(sp == 0 for _, _, sp in bwd_fns),
+          f"ptxas spills in flash_attention_bwd: {[f for f, _, sp in bwd_fns if sp]}")
+
     max_err = phase_kernel_checks(torch, pa)
     phase_paged_tc_precision(torch, pa)
     times = phase_kernel_times(torch, pa)
@@ -2798,6 +3256,12 @@ def main() -> int:
             ("clipped-w8a8", "clipped_softmax", {"alpha": 4.0}, True, True),
             ("vanilla-dense", "vanilla", {}, False, False))]
     contrast = phase_outlier_contrast(torch, np)
+    # phase 6: training through the flash backward kernel
+    bwd_err = phase_bwd_checks(torch, fa)
+    bwd_times = phase_bwd_times(torch, fa)
+    trains = [phase_train(torch, np, fa, family, kind, seq, bsz, method, kw,
+                          trace=method == "vanilla")
+              for family, kind, seq, bsz in TRAIN_RUNS for _, method, kw in METHODS]
 
     dec = times[("decode", "vanilla")]
     i8 = int8_times[(8, 5120, 17408)]
@@ -2807,7 +3271,7 @@ def main() -> int:
     dense = [e["dense"] for e in engines if "dense" in e]
     int8_launches = sum(e["int8_launches"] for e in engines + dense + opt_engines)
     flash_launches = sum(e["flash_launches"] + e.get("gen_launches", 0)
-                         for e in engines + evals + dense + opt_engines)
+                         for e in engines + evals + dense + opt_engines + trains)
     rg_launches = sum(e["launches"] for e in rg_engines) + sum(
         g["rg_launches"] for e in rg_engines for g in e.get("generate", {}).values())
     kernels = [dict(name="paged_attention", route="cuda",
@@ -2837,7 +3301,12 @@ def main() -> int:
                dict(name="rg_lru", route="cuda", source=KERNEL_SOURCES["rg_lru"],
                     replaces=REPLACES["rg_lru"],
                     launches=rg_launches,
-                    max_abs_err=rg_err, **rg_times[(8, 256, 4096)])]
+                    max_abs_err=rg_err, **rg_times[(8, 256, 4096)]),
+               dict(name="flash_attention_bwd", route="cuda",
+                    source=KERNEL_SOURCES["flash_attention_bwd"],
+                    replaces=REPLACES["flash_attention_bwd"],
+                    launches=sum(t["bwd_launches"] for t in trains),
+                    max_abs_err=bwd_err, **bwd_times[("bert-base", "vanilla")])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,9 +11,12 @@ Read paths:
     globally normalized probabilities chunk by chunk.
   * ``attention`` — the dispatcher of every cache-free forward. CUDA
     tensors go to the hand-written flash kernel
-    (``repro_torch.kernels.flash_attention``); CPU tensors route exactly
-    as the reference does, to ``dense_attention`` for small problems and
-    ``chunked_attention`` above tq*tk = 2048^2.
+    (``repro_torch.kernels.flash_attention``), and under a gradient
+    through its autograd Function, whose backward is the hand-written
+    backward kernel; CPU tensors route exactly as the reference does, to
+    ``dense_attention`` for small problems and ``chunked_attention``
+    above tq*tk = 2048^2 (autograd differentiates them, as XLA
+    differentiates the reference's).
   * ``paged_attention`` — serving reads over a paged KV cache: K/V live in
     a global block pool ``(num_blocks, block_size, Hkv, Dh)`` and each
     batch row owns a block table of physical ids (-1 = unallocated). It
@@ -227,7 +230,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA tensors: always the flash kernel, with gamma resolved from the
     KV length, as the plain paths do; q, k and v of different dtypes (the
     W8A8 tick's f32 queries over a bf16 dense cache) are promoted to one
-    first, as the plain paths promote them before their products. CPU
+    first, as the plain paths promote them before their products. Inputs
+    that need a gradient (training) take the kernel's autograd Function:
+    its backward is the flash backward kernel, which takes f32 at Dh 32
+    and 64 without window, softcap or query offset, and anything else
+    raises (``mha_flash``); there is no plain path for CUDA tensors. CPU
     tensors: the reference's routing, dense when forced, when decoding
     (tq == 1) with tk <= 8192, or when tq > 1 and tq*tk <= 2048^2;
     chunked otherwise."""

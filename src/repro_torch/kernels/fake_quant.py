@@ -87,8 +87,10 @@ def fake_quant(x: torch.Tensor, s: Scalar, z: Scalar, bits: int = 8, *,
     if not x.is_cuda:
         raise ValueError(f"fake_quant: unsupported device {x.device}")
     if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError("the fake-quant kernel has no backward yet: call it under "
-                           "torch.no_grad() (training is not ported)")
+        raise RuntimeError("the fake-quant kernel has no backward: call it under "
+                           "torch.no_grad(). No JAX path differentiates fake-quant (the "
+                           "reference trains with NO_QUANT and has no quantization-aware "
+                           "training loop), so the straight-through estimator has no kernel")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"fake_quant takes float32 or bfloat16, got {x.dtype}")
     s, z = _f32(s, x.device).reshape(-1), _f32(z, x.device).reshape(-1)

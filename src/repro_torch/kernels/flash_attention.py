@@ -24,9 +24,22 @@ only because the tensors lie on the CPU. On the card ``mha_flash`` never
 repeats K/V: the kernel reads KV head h // G for query head h.
 ``attention_ref`` (and ``mha_flash_ref`` over the model layout) is the
 plain version, used by the CPU tests and by ``chip_smoke.py`` to hold the
-kernel on the card. The kernel has no
-backward: on CUDA both wrappers refuse inputs that need a gradient.
-``launches`` counts kernel launches, and nothing else.
+kernel on the card. ``launches`` counts kernel launches, and nothing else.
+
+The gradient: ``FlashAttention`` (a ``torch.autograd.Function``) runs the
+forward kernel and, in its backward, the hand-written backward kernel
+``csrc/flash_attention_bwd.cu`` (wrapper ``_launch_bwd``; its launches in
+``bwd_launches``, one per call). On CUDA, ``mha_flash`` and
+``flash_attention`` send inputs that need a gradient through it. The
+backward kernel takes f32 at Dh 32 and 64, causal or not, GQA, vanilla,
+clipped and gated, without window, softcap or query offset; for anything
+else the wrappers raise under a gradient (ROADMAP 1.3: the backward's
+missing routes); nothing switches to the plain version. On CPU tensors
+``FlashAttention`` computes the plain forward and, backward,
+``attention_bwd_ref``: the gradient written out as formulas, in f32,
+materializing (Tq, Tk), which ``chip_smoke.py`` holds the kernel against.
+(The reference has no such kernel: it trains through its plain
+attention and lets XLA differentiate it.)
 """
 from __future__ import annotations
 
@@ -41,10 +54,14 @@ NEG_INF = -1e30
 
 # kernel launches made by ``mha_flash`` / ``flash_attention`` (plain integer)
 launches = 0
+# backward-kernel calls made by ``FlashAttention.backward`` on the card
+bwd_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 256)
+_BWD_HEAD_DIMS = (32, 64)
 _lib: Optional[ctypes.CDLL] = None
+_bwd_lib: Optional[ctypes.CDLL] = None
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -59,6 +76,19 @@ def _kernel_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _bwd_kernel_lib() -> ctypes.CDLL:
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = load("flash_attention_bwd")
+        fn = lib.flash_attention_bwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
+                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd_lib = lib
+    return _bwd_lib
 
 
 def route(dtype: torch.dtype, dh: int) -> str:
@@ -104,13 +134,168 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      gate_pi: Optional[torch.Tensor], dout: torch.Tensor, *,
+                      causal: bool = True, gamma: float = 0.0, zeta: float = 1.0):
+    """The plain backward of ``mha_flash`` (no window, softcap or query
+    offset), as formulas in f32, materializing (Tq, Tk): q (B, Tq, Hq, Dh),
+    k/v (B, Tk, Hkv, Dh), gate (B, Tq, Hq) or None, dout like q. Returns
+    (dq, dk, dv, dgate) in the inputs' dtypes (dgate None without a gate).
+
+    With s = (q Dh^-0.5) k^T (q scaled in its dtype, as the forward), p the
+    masked softmax, P~ = p or, clipped, clip((zeta - gamma) p + gamma, 0,
+    1) masked, u = P~ v and g = gate dO: dgate = dO . u; dv = P~^T g;
+    dP~ = g v^T; dp = dP~, or (zeta - gamma) 1[unclipped] dP~; ds = p (dp -
+    D) with D = rowsum(p dp); dq = Dh^-0.5 ds k; dk = ds^T (q Dh^-0.5).
+    GQA sums dk and dv over each KV head's query heads."""
+    b, tq, hq, dh = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = dh ** -0.5
+    qs = (q * scale).float().reshape(b, tq, hkv, g, dh)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qs, kf)
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = torch.arange(tk, device=q.device)[None, :] <= \
+            torch.arange(tq, device=q.device)[:, None]
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = torch.where(mask, p, 0.0)
+    p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    do = dout.float().reshape(b, tq, hkv, g, dh)
+    gd = do if gate_pi is None else \
+        gate_pi.float().reshape(b, tq, hkv, g)[..., None] * do
+    dpt = torch.einsum("bqhgd,bkhd->bhgqk", gd, vf)
+    if gamma == 0.0 and zeta == 1.0:
+        pt, dp = p, dpt
+    else:
+        x = (zeta - gamma) * p + gamma
+        pt = torch.where(mask, torch.clamp(x, 0.0, 1.0), 0.0)
+        dp = torch.where(mask & (x > 0) & (x < 1), (zeta - gamma) * dpt, 0.0)
+    dsum = (p * dp).sum(-1, keepdim=True)
+    ds = p * (dp - dsum)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", pt, gd)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qs)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dgate = None
+    if gate_pi is not None:
+        u = torch.einsum("bhgqk,bkhd->bqhgd", pt, vf)
+        dgate = (do * u).sum(-1).reshape(b, tq, hq).to(gate_pi.dtype)
+    return (dq.reshape(b, tq, hq, dh).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dgate)
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
+
+
+def _check_bwd(q, k, window, softcap, q_offset) -> None:
+    """Raise for what the backward kernel does not take (ROADMAP 1.3)."""
+    why = []
+    if q.dtype != torch.float32 or k.dtype != torch.float32:
+        why.append(f"dtype {q.dtype}")
+    if q.shape[-1] not in _BWD_HEAD_DIMS:
+        why.append(f"head dim {q.shape[-1]}")
+    if window is not None:
+        why.append("a window")
+    if softcap is not None:
+        why.append("a softcap")
+    if isinstance(q_offset, torch.Tensor) or q_offset != 0:
+        why.append("a query offset")
+    if why:
+        raise NotImplementedError(
+            f"the flash-attention backward kernel takes f32 at Dh {_BWD_HEAD_DIMS} "
+            f"without window, softcap or query offset, not {', '.join(why)} "
+            f"(ROADMAP 1.3: the backward's missing routes)")
+
+
+def _launch_bwd(q, k, v, gate_pi, dout, causal, gamma, zeta):
+    """Launch the backward kernel over model-layout f32 tensors (q, k, v
+    views with the forward's stride rules); returns (dq, dk, dv, dgate)
+    as new contiguous tensors (dgate None without a gate)."""
+    b, tq, hq, dh = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    if any(t.dtype != torch.float32 for t in (q, k, v, dout)):
+        raise TypeError("the backward kernel takes float32 q, k, v and dout")
+    if dh not in _BWD_HEAD_DIMS or k.shape != (b, tk, hkv, dh) or v.shape != k.shape \
+            or hq % hkv or dout.shape != q.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"dout {tuple(dout.shape)}: (B, T, H, Dh) with Dh in "
+                         f"{_BWD_HEAD_DIMS} and H_q a multiple of H_kv")
+    dout = dout.contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.stride(-1) != 1 or any(st % 4 for st in t.stride()[:-1]) or t.data_ptr() % 16:
+            raise ValueError(f"{name} needs a unit last stride and 16-byte aligned rows")
+    g = None
+    if gate_pi is not None:
+        if gate_pi.shape != (b, tq, hq):
+            raise ValueError(f"gate_pi must be {(b, tq, hq)}, got {tuple(gate_pi.shape)}")
+        g = gate_pi.to(device=q.device, dtype=torch.float32)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, tq, hq, dh), **f32)
+    dk = torch.empty((b, tk, hkv, dh), **f32)
+    dv = torch.empty((b, tk, hkv, dh), **f32)
+    dg = None if g is None else torch.empty((b, tq, hq), **f32)
+    stats = torch.empty((3, b, hq, tq), **f32)
+    gs = g.stride() if g is not None else (0, 0, 0)
+    clipped = not (gamma == 0.0 and zeta == 1.0)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _bwd_kernel_lib().flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if g is None else g.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if dg is None else dg.data_ptr(), stats.data_ptr(),
+            b, tq, tk, hq, hkv, dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *gs,
+            int(causal), int(clipped), float(zeta - gamma), float(gamma), float(dh ** -0.5),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: cudaError {err}")
+    global bwd_launches
+    bwd_launches += 1
+    return dq, dk, dv, dg
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient, over the model layout. Forward:
+    the forward kernel (``_launch``, exactly the call ``mha_flash`` makes
+    without a gradient) on CUDA tensors, ``mha_flash_ref`` on CPU ones.
+    Backward: ``_launch_bwd`` on CUDA tensors, ``attention_bwd_ref`` on
+    CPU ones; dout is made contiguous first. Raises for what the backward
+    kernel does not take (``_check_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, gate_pi, causal, window, softcap, gamma, zeta, q_offset):
+        _check_bwd(q, k, window, softcap, q_offset)
+        kw = dict(causal=causal, window=None, softcap=None, gamma=gamma, zeta=zeta)
+        if q.is_cuda:
+            out = _launch(q, k, v, gate_pi, 0, **kw)
+        else:
+            out = mha_flash_ref(q, k, v, gate_pi, **kw)
+        ctx.save_for_backward(q, k, v, gate_pi)
+        ctx.kw = dict(causal=causal, gamma=gamma, zeta=zeta)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, gate_pi = ctx.saved_tensors
+        dout = dout.contiguous()
+        if q.is_cuda:
+            dq, dk, dv, dg = _launch_bwd(q, k, v, gate_pi, dout, **ctx.kw)
+        else:
+            dq, dk, dv, dg = attention_bwd_ref(q, k, v, gate_pi, dout, **ctx.kw)
+        if dg is not None:
+            dg = dg.to(gate_pi.dtype)
+        return dq, dk, dv, dg, None, None, None, None, None, None
+
+
 def _launch(q, k, v, gate_pi, q_offset, causal, window, softcap, gamma, zeta):
     """Launch the kernel over model-layout (B, T, H, Dh) tensors (views of
     any strides with a unit last stride); returns a new (B, Tq, Hq, Dh)."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k, v, gate_pi)):
-        raise RuntimeError("the flash-attention kernel has no backward yet: call it "
-                           "under torch.no_grad() (training is not ported)")
+    if _needs_grad(q, k, v, gate_pi):
+        raise RuntimeError("_launch records no gradient: inputs that need one go "
+                           "through mha_flash / FlashAttention")
     b, tq, hq, dh = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -173,8 +358,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_ref(q, k, v, gate_pi, **kw)
     if not q.is_cuda:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    out = _launch(q[:, :, None], k[:, :, None], v[:, :, None],
-                  None if gate_pi is None else gate_pi[:, :, None], **kw)
+    out = mha_flash(q[:, :, None], k[:, :, None], v[:, :, None],
+                    None if gate_pi is None else gate_pi[:, :, None], **kw)
     return out[:, :, 0]
 
 
@@ -184,11 +369,15 @@ def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               gamma: float = 0.0, zeta: float = 1.0, q_offset=0) -> torch.Tensor:
     """Model-layout adapter: q (B, T, Hq, Dh), k/v (B, S, Hkv, Dh), gate
     (B, T, Hq); ``q_offset`` an int or a per-row (B,) tensor. Returns
-    (B, T, Hq, Dh). On the card the kernel indexes KV heads itself; on the
-    CPU the plain version ``mha_flash_ref`` runs."""
+    (B, T, Hq, Dh). On the card the kernel indexes KV heads itself, and
+    inputs that need a gradient go through ``FlashAttention`` (the
+    backward kernel); on the CPU the plain version ``mha_flash_ref`` runs."""
     kw = dict(causal=causal, window=window, softcap=softcap, gamma=gamma, zeta=zeta,
               q_offset=q_offset)
     if q.is_cuda:
+        if _needs_grad(q, k, v, gate_pi):
+            return FlashAttention.apply(q, k, v, gate_pi, causal, window, softcap, gamma,
+                                        zeta, q_offset)
         return _launch(q, k, v, gate_pi, **kw)
     if q.device.type != "cpu":
         raise ValueError(f"mha_flash: unsupported device {q.device}")

@@ -115,7 +115,8 @@ def rglru(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = None
     if torch.is_grad_enabled() and any(
             x is not None and x.requires_grad for x in (a, b, h0)):
         raise RuntimeError("the RG-LRU kernel has no backward yet: call it under "
-                           "torch.no_grad() (training is not ported)")
+                           "torch.no_grad(). Its reverse scan comes with training "
+                           "Griffin configs (ROADMAP 1.4)")
     if not a.is_cuda:
         if a.device.type != "cpu":
             raise ValueError(f"rglru: unsupported device {a.device}")

@@ -12,11 +12,33 @@ generator into ``n`` independent children seeded from it.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Iterator, List, Tuple
 
 import torch
 
 Params = Any  # nested dict/list of tensors
+
+
+@dataclasses.dataclass(frozen=True)
+class DTypePolicy:
+    """Mixed-precision policy: params stored in ``param_dtype``, math in
+    ``compute_dtype``, softmax/norm accumulation in f32."""
+
+    param_dtype: Any = torch.float32
+    compute_dtype: Any = torch.float32
+
+    @staticmethod
+    def bf16() -> "DTypePolicy":
+        return DTypePolicy(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+
+    @staticmethod
+    def bf16_params_f32() -> "DTypePolicy":
+        # f32 master weights, bf16 math
+        return DTypePolicy(param_dtype=torch.float32, compute_dtype=torch.bfloat16)
+
+
+F32 = DTypePolicy()
 
 
 def normal_init(gen: torch.Generator, shape: Tuple[int, ...], std: float,
@@ -54,13 +76,42 @@ def flatten_params(params: Params, prefix: str = ""
         yield prefix, params
 
 
+def param_count(params: Params) -> int:
+    return sum(int(p.numel()) for _, p in flatten_params(params))
+
+
+def param_bytes(params: Params) -> int:
+    return sum(int(p.numel()) * p.element_size() for _, p in flatten_params(params))
+
+
 def tree_map(fn: Callable, tree: Params, *rest: Params) -> Params:
-    """Map ``fn`` over the leaves of one or more same-structure trees."""
+    """Map ``fn`` over the leaves of one or more same-structure trees
+    (NamedTuples keep their type; ``None`` stays ``None``, an empty
+    subtree as in a JAX pytree)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, t, *rs) for t, *rs in zip(tree, *rest))
+        kids = [tree_map(fn, t, *rs) for t, *rs in zip(tree, *rest)]
+        return type(tree)(*kids) if hasattr(tree, "_fields") else type(tree)(kids)
+    if tree is None:
+        return None
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn: Callable, tree: Any, prefix: str = "") -> Any:
+    """``fn(path, leaf)`` over the leaves of a tree of dicts, lists and
+    tuples (NamedTuples keep their type), paths as ``flatten_params``
+    names them; ``None`` stays ``None``."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        kids = [tree_map_with_path(fn, v, f"{prefix}/{i}" if prefix else str(i))
+                for i, v in enumerate(tree)]
+        return type(tree)(*kids) if hasattr(tree, "_fields") else type(tree)(kids)
+    if tree is None:
+        return None
+    return fn(prefix, tree)
 
 
 def tree_stack(trees: List[Params]) -> Params:
@@ -74,3 +125,7 @@ def tree_slice(tree: Params, i) -> Params:
     writes through a slice land in the stack."""
     return tree_map(lambda x: x[i], tree)
 
+
+def cast_tree(tree: Params, dtype) -> Params:
+    """Floating leaves cast to ``dtype``; other leaves as they are."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, tree)
