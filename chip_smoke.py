@@ -233,7 +233,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   6. Training, through the hand-written flash-attention backward kernel
      (``csrc/flash_attention_bwd.cu``; the reference differentiates its
      plain attention with XLA, so no TPU kernel corresponds). (a) The
-     kernel against ``attention_bwd_ref`` (the gradient as formulas, f32)
+     forward kernel with the row statistics it saves for the backward
+     (its output bitwise the plain forward call's; (m, Z) within
+     STATS_REL_RMS of ``attention_stats_ref``, q in bf16 above), then the
+     kernel on what the forward saved against ``attention_bwd_ref`` (the
+     gradient as formulas, f32)
      at BWD_SHAPES (Dh 32 (8, 512, 4/4) causal and not, BERT-base's (8,
      512, 12/12, 64) non-causal, OPT-125m's (2, 2048, 12/12, 64) causal,
      GQA (1, 512, 8/2, 64)), vanilla, clipped (alpha 4) and gated: dq, dk,
@@ -262,8 +266,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      flash backward, the flash forward and the rest; idle share). (c) Device times
      of the backward kernel, its plain version and torch autograd
      through ``F.scaled_dot_product_attention`` in f32 (vanilla; a
-     yardstick the port never calls) beside the bound (10 flops per
-     visible pair and column in every variant, at 67 TFLOP/s f32).
+     yardstick the port never calls) beside the first design's time and the bound (10
+     flops per visible pair and column in every variant; the route's:
+     each f32 product three TF32 ones at 495 TFLOP/s; the f32 CUDA-core
+     one at 67 TFLOP/s printed beside it); no time below its bound.
   7. The kernels line (six kernels, the backward among them), then the
      device line.
 
@@ -287,6 +293,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate (NVIDIA data sheet)
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12                  # H100 SXM float32 outside the tensor cores
+TF32_FLOPS = 495e12                # H100 SXM dense TF32 tensor-core peak
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # Kernel path vs plain path at one mixed tick, 40 bf16 layers deep. Both are
 # correct; they round in different places (the plain path scales q and casts
@@ -2728,11 +2735,27 @@ BWD_ALPHA = 4.0
 # control, the plain version with P and dS rounded to bf16 before their
 # products (what a kernel feeding them to bf16 tensor cores as one operand
 # would compute), must land above it in every case.
-# Measured on an H100 80GB HBM3 at 700 W (the first call of the kernel):
-# the kernel 9.9e-8..5.9e-7 over every case and gradient, the control
-# 1.52e-3..1.78e-3. Bounded at 1e-5: 17x above the one, 150x below the
-# other; a wrong mask, clip indicator or D_i moves a gradient by O(1).
+# Measured on an H100 80GB HBM3 at 700 W: the first, CUDA-core design
+# 9.9e-8..5.9e-7 over every case and gradient, the 3xTF32 redesign
+# 2.8e-7..1.3e-6, the control 1.52e-3..1.78e-3. Bounded at 1e-5: 7.7x
+# above the redesign's largest, 150x below the control; a wrong mask,
+# clip indicator or D_i moves a gradient by O(1).
 BWD_REL_RMS = 1e-5
+# Phase 6a's bound on the row statistics the forward saves for the
+# backward ((m, max(Z, 1e-30)) of every row, each plane's relative RMS)
+# against attention_stats_ref on the same inputs; the control, the same
+# statistics of q rounded to bf16 (what a forward reading q in bf16 would
+# save), must land above it. Measured on an H100 80GB HBM3 at 700 W: m
+# 0 (bitwise), Z 6.4e-8..9.0e-8; the control 6.2e-4..1.8e-3.
+STATS_REL_RMS = 1e-6
+# The backward's times in its first design (f32 CUDA cores, three
+# launches that recompute the forward), as PERF.md's kernel table records
+# them (NVIDIA H100 80GB HBM3, 700 W), printed beside phase 6c's readings
+# of the redesign
+CUDA_CORE_BWD_MS = {("bert-base", "vanilla"): 1.5407, ("bert-base", "clipped"): 1.9160,
+               ("opt-125m", "vanilla"): 3.4911, ("opt-125m", "clipped"): 4.3544,
+               ("dh32 causal", "vanilla"): 0.2506, ("dh32", "vanilla"): 0.2536,
+               ("gqa", "vanilla"): 0.5792}
 # Phase 6b: the paper models trained at full width, f32, from seed 0
 TRAIN_RUNS = (("bert", "mlm", 512, 8), ("opt", "clm", 2048, 2))
 TRAIN_LR = 3e-4
@@ -2843,34 +2866,51 @@ def unclipped_share(torch, c):
 
 
 def bwd_bound_ms(c):
-    """Least time of one backward call on an H100: 10 flops per visible
-    (query, key) pair and head column (S, dP~ = gV^T, dv, dq, dk; every
-    variant: D_i = sum_j p_ij dp_ij is a scalar per pair, and u and the
-    clipped (m, Z) could come saved from the forward) at 67 TFLOP/s f32,
-    or the bytes of q, k, v, dO, gate in and dq, dk, dv, dgate out at
-    3.35 TB/s, the larger."""
+    """Least time of one backward call on an H100, for the kernel's route
+    and for f32 CUDA cores: 10 flops per visible (query, key) pair and head
+    column (S, dP~ = gV^T, dv, dq, dk; every variant: D_i = sum_j p_ij
+    dp_ij is a scalar per pair, and u and (m, Z) come saved from the
+    forward), each f32 product three TF32 ones at 495 TFLOP/s (the route's
+    3xTF32 wgmma: an effective 165 TFLOP/s), or the same at 67 TFLOP/s f32;
+    against the bytes of q, k, v, dO, u, the statistics and gate in and dq,
+    dk, dv, dgate out at 3.35 TB/s. Returns (route bound ms, bound_by, f32
+    CUDA-core bound ms)."""
     b, t, hq, dh = c["q"].shape
     hkv = c["k"].shape[2]
     pairs = b * hq * (t * (t + 1) // 2 if c["causal"] else t * t)
     flops = 10 * pairs * dh
-    nbytes = 4 * (3 * b * t * hq * dh + 4 * b * t * hkv * dh
+    nbytes = 4 * (4 * b * t * hq * dh + 4 * b * t * hkv * dh + 2 * b * t * hq
                   + (2 * b * t * hq if c["gate"] is not None else 0))
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    t_ops, t_bytes = 3 * flops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"),
+            max(flops / F32_FLOPS, t_bytes) * 1e3)
 
 
 def phase_bwd_checks(torch, fa):
-    """Phase 6a: the backward kernel against attention_bwd_ref at
-    BWD_SHAPES x BWD_VARIANTS; bitwise repeatable; clipped cases with
-    unclipped entries. Returns the largest max abs error."""
+    """Phase 6a: at BWD_SHAPES x BWD_VARIANTS the forward kernel with the
+    row statistics (out bitwise the plain forward call's; the statistics
+    against attention_stats_ref), then the backward kernel on what it
+    saved, against attention_bwd_ref; bitwise repeatable; clipped cases
+    with unclipped entries. Returns the largest max abs error."""
     worst = 0.0
     for (name, b, t, hq, hkv, dh, causal), variant in (
             (s, v) for s in BWD_SHAPES for v in BWD_VARIANTS):
         c = bwd_case(torch, b, t, hq, hkv, dh, causal, variant, seed=len(name) + t)
         args = (c["q"], c["k"], c["v"], c["gate"], c["dout"])
         kw = dict(causal=causal, gamma=c["gamma"], zeta=1.0)
-        kern = fa._launch_bwd(*args, **kw)
-        again = fa._launch_bwd(*args, **kw)
+        out, u, stats = fa._launch_saved(*args[:4], **kw)
+        plain_call = fa._launch(*args[:4], 0, window=None, softcap=None, **kw)
+        st_ref = fa.attention_stats_ref(c["q"], c["k"], causal=causal)
+        st_ctrl = fa.attention_stats_ref(c["q"].bfloat16().float(), c["k"], causal=causal)
+        st_err = [rel_rms(stats[i], st_ref[i]) for i in range(2)]
+        st_ctl = [rel_rms(st_ctrl[i], st_ref[i]) for i in range(2)]
+        check(torch.equal(out, plain_call), f"bwd {name} {variant}: the forward with statistics "
+                                            f"differs from the plain forward call")
+        check(max(st_err) <= STATS_REL_RMS < min(st_ctl),
+              f"bwd {name} {variant}: statistics (m, Z) relative RMS {st_err} (control "
+              f"{st_ctl}) against the bound {STATS_REL_RMS}")
+        kern = fa._launch_bwd(*args[:4], u, c["dout"], stats, **kw)
+        again = fa._launch_bwd(*args[:4], u, c["dout"], stats, **kw)
         torch.cuda.synchronize()
         ref = fa.attention_bwd_ref(*args, **kw)
         with bf16_ds(torch):
@@ -2894,27 +2934,34 @@ def phase_bwd_checks(torch, fa):
             check(frac > 0, f"bwd {name} clipped: every probability clips (vacuous)")
             share = f"; unclipped share {frac:.4f}"
         print(f"flash bwd {name} ({b}, {t}, {hq}/{hkv}, {dh}) "
-              f"{'causal' if causal else 'non-causal'} {variant}: {'; '.join(rows)}; "
+              f"{'causal' if causal else 'non-causal'} {variant}: saved m {st_err[0]:.2e}, Z "
+              f"{st_err[1]:.2e} (control {st_ctl[0]:.2e}, {st_ctl[1]:.2e}; bound "
+              f"{STATS_REL_RMS}), the forward bitwise unchanged; {'; '.join(rows)}; "
               f"bitwise repeatable{share}", flush=True)
-        del kern, again, ref, ctrl, c
+        del kern, again, ref, ctrl, c, out, u, stats, plain_call, st_ref, st_ctrl
     torch.cuda.empty_cache()
     return worst
 
 
 def phase_bwd_times(torch, fa):
-    """Phase 6c: device times of the backward kernel, its plain version and
-    torch autograd through F.scaled_dot_product_attention in f32 (a
-    yardstick the port never calls), beside the bound, at BWD_SHAPES.
-    Returns {(name, variant): times}."""
+    """Phase 6c: device times of the backward kernel (on what the forward
+    saved), its plain version and torch autograd through
+    F.scaled_dot_product_attention in f32 (a yardstick the port never
+    calls), beside the first design's time, the route's bound and the f32 CUDA-core
+    bound, at BWD_SHAPES. Returns {(name, variant): times}."""
     import torch.nn.functional as F
     out = {}
     for (name, b, t, hq, hkv, dh, causal), variant in (
             (s, v) for s in BWD_SHAPES for v in ("vanilla", "clipped")):
         cs = [bwd_case(torch, b, t, hq, hkv, dh, causal, variant, seed=90 + i) for i in range(2)]
         kw = dict(causal=causal, gamma=cs[0]["gamma"], zeta=1.0)
-        run = lambda c, f: f(c["q"], c["k"], c["v"], c["gate"], c["dout"], **kw)  # noqa: E731
-        ms = device_ms(torch, [lambda c=c: run(c, fa._launch_bwd) for c in cs], 10)
-        plain = device_ms(torch, [lambda c=c: run(c, fa.attention_bwd_ref) for c in cs], 3)
+        for c in cs:
+            _, c["u"], c["stats"] = fa._launch_saved(c["q"], c["k"], c["v"], c["gate"], **kw)
+        kern = lambda c: fa._launch_bwd(c["q"], c["k"], c["v"], c["gate"], c["u"],  # noqa: E731
+                                        c["dout"], c["stats"], **kw)
+        ms = device_ms(torch, [lambda c=c: kern(c) for c in cs], 10)
+        plain = device_ms(torch, [lambda c=c: fa.attention_bwd_ref(
+            c["q"], c["k"], c["v"], c["gate"], c["dout"], **kw) for c in cs], 3)
         lib = None
         if variant == "vanilla":
             def sdpa(c):
@@ -2928,13 +2975,17 @@ def phase_bwd_times(torch, fa):
                                                                    retain_graph=True)
                                     for g in graphs], 10)
             del graphs
-        bound, by = bwd_bound_ms(cs[0])
+        bound, by, f32_bound = bwd_bound_ms(cs[0])
         out[(name, variant)] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                                     library_ms=lib)
+        was = CUDA_CORE_BWD_MS.get((name, variant))
         print(f"flash bwd time {name} ({b}, {t}, {hq}/{hkv}, {dh}) f32 {variant}: kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA backward "
-              f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {bound:.4f} ms ({by})",
-              flush=True)
+              f"{ms:.4f} ms (the first design's: "
+              f"{'not recorded' if was is None else f'{was:.4f} ms, {was / ms:.2f}x'}), plain "
+              f"{plain:.4f} ms ({plain / ms:.2f}x), SDPA backward "
+              f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {bound:.4f} ms ({by}; "
+              f"3xTF32 at 495 TFLOP/s), f32 CUDA-core bound {f32_bound:.4f} ms", flush=True)
+        check(ms >= bound, f"bwd {name} {variant}: {ms} ms below the route's bound {bound}")
         del cs
         torch.cuda.empty_cache()
     return out
@@ -3196,12 +3247,18 @@ def main() -> int:
     check(all(sp == 0 for _, _, sp in rg_fns),
           f"ptxas spills in rg_lru kernels: {[f for f, _, sp in rg_fns if sp]}")
 
-    # the backward kernels (3 entries at each of Dh 32 and 64) must not spill
-    bwd_fns = ptxas_report(build.BUILD_LOG.get("flash_attention_bwd", ""))
+    # the backward kernels (dq vanilla and clipped and dk/dv at each of Dh 32
+    # and 64, and the GQA head sum) must not spill; ptxas's wgmma
+    # serialization notes are printed
+    bwd_log = build.BUILD_LOG.get("flash_attention_bwd", "")
+    bwd_fns = ptxas_report(bwd_log)
+    bwd_serial = sorted({line.split(":", 1)[-1].strip()[:120] for line in bwd_log.splitlines()
+                         if re.search(r"C75\d\d", line)})
     print(f"ptxas spill check: {len(bwd_fns)} flash_attention_bwd entries; registers "
           f"{[(re.sub(r'^_Z[^a-z]*', '', f)[:32], r) for f, r, _ in bwd_fns]}; spill stores "
-          f"{sorted({sp for _, _, sp in bwd_fns})}", flush=True)
-    check(len(bwd_fns) == 6, f"expected the 6 backward entries in the build log: {bwd_fns}")
+          f"{sorted({sp for _, _, sp in bwd_fns})}; wgmma serialization notes: "
+          f"{bwd_serial or 'none'}", flush=True)
+    check(len(bwd_fns) == 7, f"expected the 7 backward entries in the build log: {bwd_fns}")
     check(all(sp == 0 for _, _, sp in bwd_fns),
           f"ptxas spills in flash_attention_bwd: {[f for f, _, sp in bwd_fns if sp]}")
 
@@ -3303,6 +3360,8 @@ def main() -> int:
                     launches=rg_launches,
                     max_abs_err=rg_err, **rg_times[(8, 256, 4096)]),
                dict(name="flash_attention_bwd", route="cuda",
+                    design="3xTF32 wgmma over a TMA ring on the forward's saved row "
+                           "statistics: dq, then dk/dv (GQA: per query head, then a head sum)",
                     source=KERNEL_SOURCES["flash_attention_bwd"],
                     replaces=REPLACES["flash_attention_bwd"],
                     launches=sum(t["bwd_launches"] for t in trains),

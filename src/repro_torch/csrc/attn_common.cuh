@@ -1,11 +1,15 @@
 // Device arithmetic shared by the attention kernels (flash_attention.cu,
-// paged_attention.cu), so that every route and variant computes the same
-// function: the mask predicate, the logit softcap, the online-softmax
-// rescale, the paper's clipped transform, the merge of partial (m, Z)
-// states, and the hi/lo split that carries an f32 probability through two
-// bf16 tensor-core operands.
+// flash_attention_bwd.cu, paged_attention.cu), so that every route and
+// variant computes the same function: the mask predicate, the logit
+// softcap, the online-softmax rescale, the paper's clipped transform, the
+// merge of partial (m, Z) states, and the hi/lo split that carries an f32
+// probability through two bf16 tensor-core operands. Then the Hopper
+// plumbing of the tensor-core routes: mbarriers, TMA tile loads, wgmma
+// descriptors and fences, and the host's lookup of cuTensorMapEncodeTiled.
 #pragma once
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -74,6 +78,95 @@ __device__ __forceinline__ void split_hi_lo2(float x, float y, uint32_t& hi, uin
   const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
   memcpy(&hi, &h, sizeof(hi));
   memcpy(&lo, &l, sizeof(lo));
+}
+
+// ---------------------------------------------------------------------------
+// Hopper plumbing: mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+// Wait for the completion of the barrier's phase of this parity. A wait
+// that lasts 2^35 cycles (~17 s) traps, so a fault ends the launch with an
+// error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) {
+      t0 = clock64();
+    } else if (clock64() - t0 > (1ll << 35)) {
+      __trap();
+    }
+  }
+}
+// one box of a 4-d tensor map into shared memory, completing on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma descriptor of a swizzled tile in shared memory: start address,
+// leading and stride byte offsets (16-byte units) and the swizzle's code
+// (1: 128 bytes, 2: 64 bytes)
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                         uint32_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keep the compiler from moving reads of accumulators across a wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+
+// cuTensorMapEncodeTiled, found through the runtime (no link to libcuda)
+using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeFn encode_fn() {
+  static EncodeFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeFn>(p);
+    }
+  }
+  return fn;
 }
 
 }  // namespace attn

@@ -109,6 +109,11 @@ struct Args {
   float softcap;                 // <= 0: none
   float zg, gamma;               // zeta - gamma, gamma
   float scale;                   // Dh^-0.5
+  // what the backward reads (CUDA-core route; null: not written): each
+  // row's (m, max(Z, 1e-30)) as 2 planes of (B, Hq, Tq), and the ungated
+  // output u (B, Tq, Hq, Dh) contiguous, written beside out under a gate
+  float* stats;
+  float* u;
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -409,13 +414,21 @@ __global__ void __launch_bounds__(NT, 2) flash_kernel_cc(Args a) {
     if (t >= a.Tq) continue;
     const float zc = fmaxf(z[i], attn::Z_FLOOR);
     const float g = a.gate != nullptr ? a.gate[b * a.sgb + t * a.sgt + h * a.sgh] : 1.f;
+    if (a.stats != nullptr && tx == 0) {
+      const long long si = ((long long)b * a.Hq + h) * a.Tq + t;
+      a.stats[si] = m[i];
+      a.stats[(long long)a.B * a.Hq * a.Tq + si] = zc;
+    }
 #pragma unroll
     for (int c = 0; c < NCG; ++c) {
       float o[CW];
 #pragma unroll
-      for (int e = 0; e < CW; ++e) {
-        o[e] = CLIPPED ? acc[i][c][e] : acc[i][c][e] / zc;
-        if (a.gate != nullptr) o[e] *= g;
+      for (int e = 0; e < CW; ++e) o[e] = CLIPPED ? acc[i][c][e] : acc[i][c][e] / zc;
+      if (a.u != nullptr)
+        store_cols<CW>(a.u + (((long long)b * a.Tq + t) * a.Hq + h) * D + c * 16 * CW + tx * CW, o);
+      if (a.gate != nullptr) {
+#pragma unroll
+        for (int e = 0; e < CW; ++e) o[e] *= g;
       }
       store_cols<CW>(out + (long long)t * a.sot + c * 16 * CW + tx * CW, o);
     }
@@ -453,69 +466,16 @@ struct Smem {
   static constexpr int BYTES = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-// Wait for the completion of the barrier's phase of this parity. A wait
-// that lasts 2^35 cycles (~17 s) traps, so a fault ends the launch with an
-// error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0) {
-      t0 = clock64();
-    } else if (clock64() - t0 > (1ll << 35)) {
-      __trap();
-    }
-  }
-}
-// one box of a 4-d tensor map into shared memory, completing on bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma descriptor of a swizzled tile in shared memory: start address,
-// leading and stride byte offsets (16-byte units) and the swizzle's code
-// (1: 128 bytes, 2: 64 bytes)
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                         uint32_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
-}
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// keep the compiler from moving reads of accumulators across a wait
-template <int N>
-__device__ __forceinline__ void reg_fence(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+using attn::desc;
+using attn::mbar_arrive;
+using attn::mbar_expect_tx;
+using attn::mbar_init;
+using attn::mbar_wait;
+using attn::reg_fence;
+using attn::tma_load;
+using attn::wg_commit;
+using attn::wg_fence;
+using attn::wg_wait;
 
 // d (64 x 64 f32 fragment) += A (smem, K-major) * B (smem, K-major)
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int scale_d) {
@@ -921,26 +881,6 @@ cudaError_t launch_cc(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, found through the runtime (no link to libcuda)
-using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeFn encode_fn() {
-  static EncodeFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeFn>(p);
-    }
-  }
-  return fn;
-}
-
 // Tensor map of a bf16 (B, T, H, Dh) view with element strides (sb, st,
 // sh) and a unit last stride: boxes of Smem<D>::BOX Dh columns x 64 rows of
 // T under the swizzle of that width (128 bytes, or 64 at Dh 32), zeros
@@ -948,7 +888,7 @@ EncodeFn encode_fn() {
 template <int D>
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int T, int H, long long sb,
                      long long st, long long sh) {
-  const EncodeFn enc = encode_fn();
+  const attn::EncodeFn enc = attn::encode_fn();
   if (enc == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2};
@@ -1013,22 +953,25 @@ cudaError_t dispatch(const Args& a, int dtype, int dh, int route, bool clipped,
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike). Strides in
 // elements. route: 1 = tensor cores, 0 = CUDA cores, as the note above
-// names them; a route not built for (dtype, Dh) is refused. Returns the
-// cudaError_t of the launch (0 = success).
+// names them; a route not built for (dtype, Dh) is refused. stats and u
+// (null: not written; the f32 CUDA-core route only, else refused): what
+// the backward kernel reads, see Args. Returns the cudaError_t of the
+// launch (0 = success).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, const float* gate, const int* q_offs,
     void* out, int B, int Tq, int Tk, int Hq, int Hkv, int Dh, long long sqb, long long sqt,
     long long sqh, long long skb, long long skt, long long skh, long long svb, long long svt,
     long long svh, long long sob, long long sot, long long soh, long long sgb, long long sgt,
     long long sgh, int q_offset, int causal, int window, float softcap, int clipped,
-    float zg, float gamma, float scale, int dtype, int route, void* stream) {
+    float zg, float gamma, float scale, float* stats, float* u, int dtype, int route,
+    void* stream) {
   if (B < 1 || Tq < 1 || Tk < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || B > 65535 ||
-      Hq > 65535) {
+      Hq > 65535 || ((stats != nullptr || u != nullptr) && (dtype != 0 || route != 0))) {
     return (int)cudaErrorInvalidValue;
   }
   Args a{q, k, v, gate, q_offs, out, B, Tq, Tk, Hq, Hkv, sqb, sqt, sqh, skb, skt, skh,
          svb, svt, svh, sob, sot, soh, sgb, sgt, sgh, q_offset, causal, window, softcap,
-         zg, gamma, scale};
+         zg, gamma, scale, stats, u};
   return (int)dispatch(a, dtype, Dh, route, clipped != 0,
                        static_cast<cudaStream_t>(stream));
 }

@@ -27,19 +27,24 @@ plain version, used by the CPU tests and by ``chip_smoke.py`` to hold the
 kernel on the card. ``launches`` counts kernel launches, and nothing else.
 
 The gradient: ``FlashAttention`` (a ``torch.autograd.Function``) runs the
-forward kernel and, in its backward, the hand-written backward kernel
+forward kernel asking it for what the backward reads (``_launch_saved``:
+each row's (m, max(Z, 1e-30)) and, under a gate, the ungated output u
+beside out; without a gate u is out itself) and keeps those beside q, k,
+v and the gate; its backward is the hand-written kernel
 ``csrc/flash_attention_bwd.cu`` (wrapper ``_launch_bwd``; its launches in
-``bwd_launches``, one per call). On CUDA, ``mha_flash`` and
-``flash_attention`` send inputs that need a gradient through it. The
-backward kernel takes f32 at Dh 32 and 64, causal or not, GQA, vanilla,
-clipped and gated, without window, softcap or query offset; for anything
-else the wrappers raise under a gradient (ROADMAP 1.3: the backward's
-missing routes); nothing switches to the plain version. On CPU tensors
-``FlashAttention`` computes the plain forward and, backward,
-``attention_bwd_ref``: the gradient written out as formulas, in f32,
-materializing (Tq, Tk), which ``chip_smoke.py`` holds the kernel against.
-(The reference has no such kernel: it trains through its plain
-attention and lets XLA differentiate it.)
+``bwd_launches``, one per call), which recomputes S but nothing else of
+the forward. On CUDA, ``mha_flash`` and ``flash_attention`` send inputs
+that need a gradient through it. The backward kernel takes f32 at Dh 32
+and 64, causal or not, GQA, vanilla, clipped and gated, without window,
+softcap or query offset; for anything else the wrappers raise under a
+gradient (ROADMAP 1.3: the backward's missing routes); nothing switches
+to the plain version. On CPU tensors ``FlashAttention`` runs the same
+algorithm plainly: the forward ``mha_flash_ref`` with the row statistics
+of ``attention_stats_ref``, and backward ``attention_bwd_saved_ref``.
+``attention_bwd_ref`` is the gradient written out as formulas from q, k,
+v alone, in f32, materializing (Tq, Tk): the yardstick ``chip_smoke.py``
+holds the kernel against. (The reference has no such kernel: it trains
+through its plain attention and lets XLA differentiate it.)
 """
 from __future__ import annotations
 
@@ -72,7 +77,7 @@ def _kernel_lib() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 15 + [ctypes.c_int] * 3
                        + [ctypes.c_float, ctypes.c_int] + [ctypes.c_float] * 3
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -83,7 +88,7 @@ def _bwd_kernel_lib() -> ctypes.CDLL:
     if _bwd_lib is None:
         lib = load("flash_attention_bwd")
         fn = lib.flash_attention_bwd_launch
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
                        + [ctypes.c_float] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -185,6 +190,81 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (dq.reshape(b, tq, hq, dh).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dgate)
 
 
+def _scores(q, k, causal):
+    """(B, Hkv, G, Tq, Tk) f32 scores (q Dh^-0.5 rounded in q's dtype, as
+    the forward) with hidden entries at NEG_INF, and the (Tq, Tk) mask."""
+    b, tq, hq, dh = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    qs = (q * dh ** -0.5).float().reshape(b, tq, hkv, hq // hkv, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qs, k.float())
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = torch.arange(tk, device=q.device)[None, :] <= \
+            torch.arange(tq, device=q.device)[:, None]
+    return torch.where(mask, s, NEG_INF), mask
+
+
+def attention_stats_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True
+                        ) -> torch.Tensor:
+    """The plain version of the row statistics the forward kernel saves for
+    the backward: (2, B, Hq, Tq) f32, m = the row's largest visible score
+    and max(Z, 1e-30), Z = sum over visible keys of exp(s - m); q (B, Tq,
+    Hq, Dh), k (B, Tk, Hkv, Dh), no window, softcap or query offset."""
+    b, tq, hq, _ = q.shape
+    s, mask = _scores(q, k, causal)
+    m = s.amax(-1, keepdim=True)
+    z = torch.where(mask, torch.exp(s - m), 0.0).sum(-1)
+    return torch.stack([m[..., 0], torch.clamp(z, min=1e-30)]).reshape(2, b, hq, tq)
+
+
+def attention_bwd_saved_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            gate_pi: Optional[torch.Tensor], u: torch.Tensor,
+                            dout: torch.Tensor, stats: torch.Tensor, *, causal: bool = True,
+                            gamma: float = 0.0, zeta: float = 1.0):
+    """The backward kernel's algorithm, plainly, in f32, materializing (Tq,
+    Tk): from the forward's row statistics ``stats`` ((2, B, Hq, Tq): m,
+    max(Z, 1e-30)) and its ungated output ``u`` (B, Tq, Hq, Dh) (out itself
+    without a gate) beside q, k, v, gate and dout as ``attention_bwd_ref``.
+    p = exp(s - m) / Z from the saved (m, Z); D = rowsum(p dp) is gate (dO
+    . u) (vanilla, gated), or, clipped, the sum over S and dP~ = g v^T, and
+    then dq = Dh^-0.5 (A - D B) with A = (p dp) k and B = p k, as the
+    kernel sums them in one walk; dgate = dO . u. Returns (dq, dk, dv,
+    dgate) as ``attention_bwd_ref``."""
+    b, tq, hq, dh = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = dh ** -0.5
+    s, mask = _scores(q, k, causal)
+    st = stats.float().reshape(2, b, hkv, g, tq)[..., None]
+    p = torch.where(mask, torch.exp(s - st[0]) / st[1], 0.0)
+    do = dout.float().reshape(b, tq, hkv, g, dh)
+    gd = do if gate_pi is None else \
+        gate_pi.float().reshape(b, tq, hkv, g)[..., None] * do
+    dpt = torch.einsum("bqhgd,bkhd->bhgqk", gd, v.float())
+    du = (do * u.float().reshape(b, tq, hkv, g, dh)).sum(-1)       # dO . u
+    if gamma == 0.0 and zeta == 1.0:
+        pt, dp = p, dpt
+        gt = 1.0 if gate_pi is None else gate_pi.float().reshape(b, tq, hkv, g)
+        dsum = (gt * du).permute(0, 2, 3, 1)[..., None]
+    else:
+        x = (zeta - gamma) * p + gamma
+        pt = torch.where(mask, torch.clamp(x, 0.0, 1.0), 0.0)
+        dp = torch.where(mask & (x > 0) & (x < 1), (zeta - gamma) * dpt, 0.0)
+        dsum = (p * dp).sum(-1, keepdim=True)
+    ds = p * (dp - dsum)
+    qs = (q * scale).float().reshape(b, tq, hkv, g, dh)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", pt, gd)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qs)
+    if gamma == 0.0 and zeta == 1.0:
+        dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
+    else:
+        a_ = torch.einsum("bhgqk,bkhd->bqhgd", p * dp, k.float())
+        b_ = torch.einsum("bhgqk,bkhd->bqhgd", p, k.float())
+        dq = (a_ - dsum[..., 0].permute(0, 3, 1, 2)[..., None] * b_) * scale
+    dgate = None if gate_pi is None else du.reshape(b, tq, hq).to(gate_pi.dtype)
+    return (dq.reshape(b, tq, hq, dh).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dgate)
+
+
 def _needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
 
@@ -209,24 +289,43 @@ def _check_bwd(q, k, window, softcap, q_offset) -> None:
             f"(ROADMAP 1.3: the backward's missing routes)")
 
 
-def _launch_bwd(q, k, v, gate_pi, dout, causal, gamma, zeta):
+def _launch_saved(q, k, v, gate_pi, causal, gamma, zeta):
+    """The forward kernel (f32, CUDA-core route) writing what the backward
+    reads: returns (out, u, stats), stats the (2, B, Hq, Tq) rows' (m,
+    max(Z, 1e-30)), u the ungated output (out itself without a gate)."""
+    if q.dtype != torch.float32:
+        raise TypeError("the forward writes row statistics for float32 inputs only")
+    b, tq, hq, dh = q.shape
+    stats = torch.empty((2, b, hq, tq), dtype=torch.float32, device=q.device)
+    u = None if gate_pi is None else torch.empty((b, tq, hq, dh), dtype=torch.float32,
+                                                 device=q.device)
+    out = _launch(q, k, v, gate_pi, 0, causal=causal, window=None, softcap=None, gamma=gamma,
+                  zeta=zeta, stats=stats, u=u)
+    return out, (out if u is None else u), stats
+
+
+def _launch_bwd(q, k, v, gate_pi, u, dout, stats, causal, gamma, zeta):
     """Launch the backward kernel over model-layout f32 tensors (q, k, v
-    views with the forward's stride rules); returns (dq, dk, dv, dgate)
-    as new contiguous tensors (dgate None without a gate)."""
+    views with the forward's stride rules; u and stats from
+    ``_launch_saved``); returns (dq, dk, dv, dgate) as new contiguous
+    tensors (dgate None without a gate)."""
     b, tq, hq, dh = q.shape
     tk, hkv = k.shape[1], k.shape[2]
-    if any(t.dtype != torch.float32 for t in (q, k, v, dout)):
-        raise TypeError("the backward kernel takes float32 q, k, v and dout")
+    if any(t.dtype != torch.float32 for t in (q, k, v, u, dout, stats)):
+        raise TypeError("the backward kernel takes float32 q, k, v, u, dout and stats")
     if dh not in _BWD_HEAD_DIMS or k.shape != (b, tk, hkv, dh) or v.shape != k.shape \
-            or hq % hkv or dout.shape != q.shape:
+            or hq % hkv or dout.shape != q.shape or u.shape != q.shape \
+            or stats.shape != (2, b, hq, tq):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
-                         f"dout {tuple(dout.shape)}: (B, T, H, Dh) with Dh in "
-                         f"{_BWD_HEAD_DIMS} and H_q a multiple of H_kv")
-    dout = dout.contiguous()
-    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+                         f"u {tuple(u.shape)}, dout {tuple(dout.shape)}, stats "
+                         f"{tuple(stats.shape)}: (B, T, H, Dh) with Dh in {_BWD_HEAD_DIMS}, "
+                         f"H_q a multiple of H_kv, stats (2, B, H_q, T_q)")
+    dout, u, stats = dout.contiguous(), u.contiguous(), stats.contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v), ("u", u), ("dout", dout), ("stats", stats)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.stride(-1) != 1 or any(st % 4 for st in t.stride()[:-1]) or t.data_ptr() % 16:
+        if name != "stats" and (t.stride(-1) != 1 or any(st % 4 for st in t.stride()[:-1])
+                                or t.data_ptr() % 16):
             raise ValueError(f"{name} needs a unit last stride and 16-byte aligned rows")
     g = None
     if gate_pi is not None:
@@ -238,15 +337,21 @@ def _launch_bwd(q, k, v, gate_pi, dout, causal, gamma, zeta):
     dk = torch.empty((b, tk, hkv, dh), **f32)
     dv = torch.empty((b, tk, hkv, dh), **f32)
     dg = None if g is None else torch.empty((b, tq, hq), **f32)
-    stats = torch.empty((3, b, hq, tq), **f32)
+    # scratch: D of every row; gate dO under a gate; per-query-head dk, dv
+    # partials under GQA
+    dsum = torch.empty((b, hq, tq), **f32)
+    gbuf = None if g is None else torch.empty((b, tq, hq, dh), **f32)
+    parts = [None, None] if hq == hkv else [torch.empty((b, tk, hq, dh), **f32)
+                                            for _ in range(2)]
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     gs = g.stride() if g is not None else (0, 0, 0)
     clipped = not (gamma == 0.0 and zeta == 1.0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _bwd_kernel_lib().flash_attention_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if g is None else g.data_ptr(),
-            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            None if dg is None else dg.data_ptr(), stats.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(g), u.data_ptr(), dout.data_ptr(),
+            stats.data_ptr(), dsum.data_ptr(), ptr(gbuf), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), ptr(dg), ptr(parts[0]), ptr(parts[1]),
             b, tq, tk, hq, hkv, dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *gs,
             int(causal), int(clipped), float(zeta - gamma), float(gamma), float(dh ** -0.5),
             stream)
@@ -259,40 +364,51 @@ def _launch_bwd(q, k, v, gate_pi, dout, causal, gamma, zeta):
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its gradient, over the model layout. Forward:
-    the forward kernel (``_launch``, exactly the call ``mha_flash`` makes
-    without a gradient) on CUDA tensors, ``mha_flash_ref`` on CPU ones.
-    Backward: ``_launch_bwd`` on CUDA tensors, ``attention_bwd_ref`` on
-    CPU ones; dout is made contiguous first. Raises for what the backward
-    kernel does not take (``_check_bwd``)."""
+    on CUDA tensors the forward kernel with the row statistics and u
+    (``_launch_saved``; out is bitwise the call ``mha_flash`` makes without
+    a gradient), on CPU ones ``mha_flash_ref`` with ``attention_stats_ref``
+    (and, under a gate, ``mha_flash_ref`` without it for u). It keeps q, k,
+    v, the gate, u (out itself without a gate: the tensor the o-projection
+    keeps alive anyway; under a gate one more (B, Tq, Hq, Dh) buffer) and
+    the statistics. Backward: ``_launch_bwd`` on CUDA tensors,
+    ``attention_bwd_saved_ref`` on CPU ones; dout is made contiguous
+    first. Raises for what the backward kernel does not take
+    (``_check_bwd``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, gate_pi, causal, window, softcap, gamma, zeta, q_offset):
         _check_bwd(q, k, window, softcap, q_offset)
-        kw = dict(causal=causal, window=None, softcap=None, gamma=gamma, zeta=zeta)
+        kw = dict(causal=causal, gamma=gamma, zeta=zeta)
         if q.is_cuda:
-            out = _launch(q, k, v, gate_pi, 0, **kw)
+            out, u, stats = _launch_saved(q, k, v, gate_pi, **kw)
         else:
             out = mha_flash_ref(q, k, v, gate_pi, **kw)
-        ctx.save_for_backward(q, k, v, gate_pi)
-        ctx.kw = dict(causal=causal, gamma=gamma, zeta=zeta)
+            u = out if gate_pi is None else mha_flash_ref(q, k, v, None, **kw)
+            stats = attention_stats_ref(q, k, causal=causal)
+        ctx.save_for_backward(q, k, v, gate_pi, u, stats)
+        ctx.kw = kw
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, gate_pi = ctx.saved_tensors
+        q, k, v, gate_pi, u, stats = ctx.saved_tensors
         dout = dout.contiguous()
         if q.is_cuda:
-            dq, dk, dv, dg = _launch_bwd(q, k, v, gate_pi, dout, **ctx.kw)
+            dq, dk, dv, dg = _launch_bwd(q, k, v, gate_pi, u, dout, stats, **ctx.kw)
         else:
-            dq, dk, dv, dg = attention_bwd_ref(q, k, v, gate_pi, dout, **ctx.kw)
+            dq, dk, dv, dg = attention_bwd_saved_ref(q, k, v, gate_pi, u, dout, stats,
+                                                     **ctx.kw)
         if dg is not None:
             dg = dg.to(gate_pi.dtype)
         return dq, dk, dv, dg, None, None, None, None, None, None
 
 
-def _launch(q, k, v, gate_pi, q_offset, causal, window, softcap, gamma, zeta):
+def _launch(q, k, v, gate_pi, q_offset, causal, window, softcap, gamma, zeta, stats=None,
+            u=None):
     """Launch the kernel over model-layout (B, T, H, Dh) tensors (views of
-    any strides with a unit last stride); returns a new (B, Tq, Hq, Dh)."""
+    any strides with a unit last stride); returns a new (B, Tq, Hq, Dh).
+    ``stats`` ((2, B, Hq, Tq) f32) and ``u`` ((B, Tq, Hq, Dh) f32, under a
+    gate), contiguous, receive what the backward reads (f32 only)."""
     if _needs_grad(q, k, v, gate_pi):
         raise RuntimeError("_launch records no gradient: inputs that need one go "
                            "through mha_flash / FlashAttention")
@@ -336,6 +452,7 @@ def _launch(q, k, v, gate_pi, q_offset, causal, window, softcap, gamma, zeta):
             *out.stride()[:3], *gs, int(q_offset), int(causal),
             -1 if window is None else int(window), 0.0 if softcap is None else float(softcap),
             int(clipped), float(zeta - gamma), float(gamma), float(dh ** -0.5),
+            None if stats is None else stats.data_ptr(), None if u is None else u.data_ptr(),
             _DTYPE_CODE[q.dtype], int(route(q.dtype, dh) == "tensor-core"), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")

@@ -8,9 +8,16 @@ on the CPU, in float32.
     KV head's query heads): vanilla, clipped (alpha 4, gamma = -4/T, with
     scores wide enough that a share of the probabilities stays unclipped,
     asserted), gated, clipped + gated; causal and not; Hq = Hkv and GQA;
-  * ``FlashAttention.apply`` on CPU tensors (plain forward, then
-    ``attention_bwd_ref``) against torch autograd through ``mha_flash_ref``,
-    with a non-contiguous dout;
+  * ``attention_stats_ref`` (the row statistics the forward kernel saves
+    for the backward) against the log-sum-exp of the same scores through
+    ``jax.numpy``;
+  * ``attention_bwd_saved_ref`` (the backward kernel's algorithm: p from
+    the saved (m, Z), D from the ungated output u, or clipped from S and
+    dP~) against ``jax.vjp`` as above, also with gates that underflow, and
+    against ``attention_bwd_ref``;
+  * ``FlashAttention.apply`` on CPU tensors (plain forward with the saved
+    statistics, then ``attention_bwd_saved_ref``) against torch autograd
+    through ``mha_flash_ref``, with a non-contiguous dout;
   * the refusals under a gradient (bf16, Dh 128, window, softcap, a query
     offset), naming ROADMAP 1.3, and that an all-clipped case has exactly
     zero gradients (the vacuous case the clipped checks guard against).
@@ -45,13 +52,20 @@ HEADS = ((4, 4), (4, 2))
 def _inputs(variant, causal, hq, hkv, b=2, t=48, dh=32, seed=0, spread=2.0):
     """q, k ~ N(0, spread^2) (scores of RMS ~spread^2, rows peaked enough
     that some clipped probabilities stay inside (0, 1)), v, dout ~ N(0,
-    1), gate sigmoid(N(0, 1)); and the forward's settings."""
+    1), gate sigmoid(N(0, 1)) ("gated_small": half the rows' gates from
+    pre-activations around -80, subnormal or exactly 0 in f32); and the
+    forward's settings."""
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
-    gate = "gated" in variant
+    gate = None
+    if "gated" in variant:
+        pre = f(b, t, hq)
+        if variant == "gated_small":
+            pre = np.where(rng.random((b, t, hq)) < 0.5, pre, pre * 20 - 80)
+        with np.errstate(over="ignore"):
+            gate = (1 / (1 + np.exp(-pre))).astype(np.float32)
     x = dict(q=f(b, t, hq, dh) * spread, k=f(b, t, hkv, dh) * spread, v=f(b, t, hkv, dh),
-             gate=(1 / (1 + np.exp(-f(b, t, hq)))).astype(np.float32) if gate else None,
-             dout=f(b, t, hq, dh))
+             gate=gate, dout=f(b, t, hq, dh))
     kw = dict(causal=causal, gamma=-ALPHA / t if "clipped" in variant else 0.0, zeta=1.0)
     return x, kw
 
@@ -108,6 +122,83 @@ def test_bwd_ref_matches_jax_vjp(variant, causal, heads):
             continue
         assert np.abs(b).max() > 0.1, name
         np.testing.assert_allclose(a.numpy(), b, rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+def _saved(x, kw):
+    """What the forward keeps for the backward, plainly: the ungated output
+    u and the row statistics."""
+    q, k, v = (_t(x[n]) for n in ("q", "k", "v"))
+    u = tfa.mha_flash_ref(q, k, v, None, **kw)
+    return u, tfa.attention_stats_ref(q, k, causal=kw["causal"])
+
+
+@pytest.mark.parametrize("spread", (0.05, 2.0))
+@pytest.mark.parametrize("heads", HEADS, ids=lambda h: f"{h[0]}-{h[1]}")
+@pytest.mark.parametrize("causal", (True, False), ids=("causal", "noncausal"))
+def test_stats_ref_matches_jax_logsumexp(causal, heads, spread):
+    """m + log Z of each row is the log-sum-exp of its visible scores; m is
+    the largest of them (to an ulp of the scores: the two products sum in
+    other orders)."""
+    x, kw = _inputs("vanilla", causal, *heads, spread=spread)
+    b, t, hq, dh = x["q"].shape
+    g = hq // x["k"].shape[2]
+    s = jnp.einsum("bqhd,bkhd->bhqk", jnp.asarray(x["q"]) * dh ** -0.5,
+                   jnp.repeat(jnp.asarray(x["k"]), g, axis=2))
+    mask = jnp.tril(jnp.ones((t, t), bool)) if causal else jnp.ones((t, t), bool)
+    s = jnp.where(mask, s, -jnp.inf)
+    want_lse = np.asarray(jax.nn.logsumexp(s, axis=-1))
+    stats = tfa.attention_stats_ref(_t(x["q"]), _t(x["k"]), causal=causal)
+    assert stats.shape == (2, b, hq, t)
+    m, z = stats[0].numpy(), stats[1].numpy()
+    np.testing.assert_allclose(m, np.asarray(s.max(-1)), rtol=1e-6, atol=1e-6)
+    assert (z >= 1.0).all()                      # the largest entry adds exp(0)
+    np.testing.assert_allclose(m + np.log(z), want_lse, rtol=1e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("heads", HEADS, ids=lambda h: f"{h[0]}-{h[1]}")
+@pytest.mark.parametrize("causal", (True, False), ids=("causal", "noncausal"))
+@pytest.mark.parametrize("variant", VARIANTS + ("gated_small",))
+def test_bwd_saved_ref_matches_jax_vjp(variant, causal, heads):
+    x, kw = _inputs(variant, causal, *heads, seed=2)
+    if "clipped" in variant:
+        share = _unclipped_share(x, kw)
+        assert 0.01 < share < 0.99, share
+    if variant == "gated_small":
+        gate = x["gate"]
+        assert (gate == 0).any() and ((gate > 0) & (gate < 1e-30)).any()
+        # out / gate would not give u back there: 0 / 0 where the gate is 0
+        out = tfa.mha_flash_ref(*(_t(x[n]) for n in ("q", "k", "v", "gate")), **kw)
+        assert torch.isnan(out / _t(gate)[..., None]).any()
+    u, stats = _saved(x, kw)
+    got = tfa.attention_bwd_saved_ref(*(_t(x[n]) for n in ("q", "k", "v", "gate")), u,
+                                      _t(x["dout"]), stats, **kw)
+    want = _jax_vjp(x, kw)
+    for name, a, b in zip(("dq", "dk", "dv", "dgate"), got, want):
+        if b is None:
+            assert a is None
+            continue
+        assert np.abs(b).max() > 0.1, name
+        assert torch.isfinite(a).all(), name
+        np.testing.assert_allclose(a.numpy(), b, rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("heads", HEADS, ids=lambda h: f"{h[0]}-{h[1]}")
+@pytest.mark.parametrize("causal", (True, False), ids=("causal", "noncausal"))
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_bwd_saved_ref_matches_bwd_ref(variant, causal, heads):
+    """The saved-statistics algorithm against the formulas from q, k, v
+    alone, both in torch f32: they differ only where D and (m, Z) are
+    taken from (u and the saved statistics, or the materialized p)."""
+    x, kw = _inputs(variant, causal, *heads, seed=3)
+    ins = [_t(x[n]) for n in ("q", "k", "v", "gate")]
+    u, stats = _saved(x, kw)
+    got = tfa.attention_bwd_saved_ref(*ins, u, _t(x["dout"]), stats, **kw)
+    want = tfa.attention_bwd_ref(*ins, _t(x["dout"]), **kw)
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+            continue
+        torch.testing.assert_close(a, b, rtol=0, atol=FN_ATOL)
 
 
 @pytest.mark.parametrize("heads", HEADS, ids=lambda h: f"{h[0]}-{h[1]}")
