@@ -10,8 +10,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      from ``src/repro_torch/csrc`` (one ``nvcc`` per source, started
      together) into ``src/repro_torch/_build``; the run fails if ptxas
      reports spill stores in an attention instantiation that bf16 data at
-     Dh 128 runs, in a Dh-32 flash instantiation (both routes), or in any
-     int8_matmul instantiation, and prints ptxas's
+     Dh 128 runs (the flash one also runs bf16 Dh 80 and 96), in a Dh-32
+     flash instantiation (both routes), in an f32 Dh-80/96 flash
+     instantiation, or in any int8_matmul instantiation, and prints ptxas's
      notes that it serialized wgmma (C7515, C7520, ...) in int8_matmul;
      it fails on any spill store in an rg_lru entry (both routes).
   3. Kernel against plain version, at qwen3-14b's attention shapes (Hkv 8,
@@ -32,8 +33,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      softcap at Tq 1 and 128, int8 pools at both; OPT-125m's reads (8
      rows, Hq = Hkv = 12, Dh 64, max_len 2048; f32 queries over f32 and
      int8 pools; vanilla, clipped, gated; decode at live lengths up to
-     2048, and Tq 128 and 256) at the float32 tolerance; each line names
-     the route and the number of KV splits. The tensor-core prefill read (Tq
+     2048, and Tq 128 and 256) at the float32 tolerance; gemma2-27b's
+     reads (4 rows, 16 KV heads of 128 with 2 query heads each, bf16,
+     softcap 50, max_len 4608; decode and Tq 128 at live lengths past 4096,
+     with and without the 4096 window) and phi-3-vision's (8 rows of 32
+     heads of 96, bf16, max_len 2048; decode and Tq 128) at the bfloat16
+     tolerance; each line names the route and the number of KV splits. The tensor-core prefill read (Tq
      128, bf16 q; vanilla, clipped and gated over bf16 and int8 pools) is
      also held against the plain version (P in f32) within
      PAGED_TC_REL_RMS, and the plain version with P rounded to bf16 (the
@@ -69,8 +74,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      vanilla, clipped and gated: Dh 32 (B 4, Hq = Hkv = 4, T 256) causal
      and not, Dh 32 ragged (T 1000, window 300), BERT-base's (8, 512,
      12/12, 64) without the causal mask and OPT-125m's (1, 2048, 12/12, 64)
-     with it; each line names the route (bf16 Dh 32/64/128: tensor
-     cores). Then device times at (1, 2048) bf16 of the kernel, its
+     with it; Dh 80 and 96 (B 2, Hq 8, Hkv 2, T 256) on both routes, causal
+     and not, vanilla, clipped and gated, and a window and a softcap at a
+     ragged T 1000; the cache-free reads of phase 7's models at their
+     shapes (``model_flash_shapes``: ViT-S/16 f32 (64, 197, 6/6, 64) and
+     hubert-xlarge bf16 (2, 4096, 16/16, 80) without the causal mask,
+     phi-3-vision bf16 (1, 2048, 32/32, 96), gemma2-27b bf16 (1, 4608,
+     32/16, 128) with softcap 50, with and without the 4096 window); each
+     line names the route (bf16 Dh 32/64/80/96/128: tensor cores). Then device times at (1, 2048) bf16 of the kernel, its
      plain version and ``F.scaled_dot_product_attention(is_causal=True,
      enable_gqa=True)`` (vanilla only; a yardstick the port never calls),
      beside the bound (flops of the causally visible pairs / 989 TFLOP/s,
@@ -82,7 +93,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      shapes (PAPER_FLASH_TIMED: BERT-base's, OPT-125m's, and 4 heads of 32
      at (8, 512) with and without the causal mask), f32 (the CUDA-core
      route the f32 paper models run) and bf16, vanilla and clipped: the
-     kernel, its plain version, SDPA (vanilla) and the bound.
+     kernel, its plain version, SDPA (vanilla) and the bound; and, bf16,
+     at hubert-xlarge's and phi-3-vision's reads (MODEL_FLASH_TIMED).
   3d. The fake-quant kernel against its plain version, bitwise, at the
      evaluation's shapes (MLP activation (2048, 17408) bf16, residual
      (2048, 5120) f32, gate/up weight (5120, 17408) bf16) and ragged n
@@ -240,7 +252,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      gradient as formulas, f32)
      at BWD_SHAPES (Dh 32 (8, 512, 4/4) causal and not, BERT-base's (8,
      512, 12/12, 64) non-causal, OPT-125m's (2, 2048, 12/12, 64) causal,
-     GQA (1, 512, 8/2, 64)), vanilla, clipped (alpha 4) and gated: dq, dk,
+     GQA (1, 512, 8/2, 64), ViT-S/16's (64, 197, 6/6, 64) non-causal: a
+     length no tile divides), vanilla, clipped (alpha 4) and gated: dq, dk,
      dv and dgate each within BWD_REL_RMS, the plain version with P and dS
      rounded to bf16 above it, two calls bitwise equal, and every clipped
      case with a share of unclipped entries. (b) BERT-base (masked LM, 8 x
@@ -270,7 +283,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      flops per visible pair and column in every variant; the route's:
      each f32 product three TF32 ones at 495 TFLOP/s; the f32 CUDA-core
      one at 67 TFLOP/s printed beside it); no time below its bound.
-  7. The kernels line (six kernels, the backward among them), then the
+  7. Embeds inputs and sandwich norms at published widths and depths,
+     random weights from seed 0; each sub-phase prints its wall.
+     (a) ViT-S/16 (f32, 12 layers) over ``SeededEmbeds`` batches (64 x
+     197 patches of 384, a class per position: the JAX package's
+     ``frames`` batches are 24 wide): phase 5's protocol for vanilla,
+     clipped (alpha 4) and gated at the paper models' gates, then phase
+     6b's training (16 AdamW steps per method, the step-vs-plain gate,
+     falling losses, a bitwise restart at step 8). (b) hubert-xlarge
+     (bf16, 48 layers, 2 x 4096 frames of 512): phase 5's protocol,
+     vanilla, at phase 5's bf16 gates. (c) phi-3-vision-4.2b (bf16, 32
+     layers): one mixed forward (576 patch embeddings, then 1472 tokens)
+     with each layer's flash output within FLASH_LAYER_REL_RMS of its
+     plain version (the bf16-P control above); then
+     ``ContinuousBatcher(paged=True)`` on 8 text prompts (batch 8, max_len
+     2048) through phase 4's ``phase_serving``: its first mixed tick
+     within LOGIT_REL_RMS of the plain path. (d) gemma2-27b (bf16, 46
+     layers, local window 4096 and global layers alternating, softcaps
+     50 / 30, sandwich norms): one cache-free forward at (1, 4608) held
+     per layer as (c); then ``ContinuousBatcher(paged=True)`` (batch 4,
+     max_len 4608, 400 blocks, budget 256) over six greedy requests (five
+     prompts of 32..512 tokens, one of 4300 that wraps the local layers'
+     ring), vanilla and clipped on one weight set, then gated: every
+     request done, no block leak, one paged read per global layer per
+     forward; the first mixed tick and the first tick past the window
+     within LOGIT_REL_RMS of the plain path; at the latter, the long
+     request's first local_attn ring (ordered by pos_ids) within
+     RG_RING_REL_RMS of the cache-free forward's post-RoPE keys, the ring
+     rolled one slot above; the vanilla engine's mixed and decode ticks
+     traced (device time by family, the f32 head among the rest, idle
+     share); peak memory printed.
+  8. The kernels line (six kernels, the backward among them), then the
      device line.
 
 TF32 is switched off for matmuls and convolutions, so float32 compares
@@ -498,10 +541,12 @@ def bf16_dh128(name: str) -> bool:
     return False
 
 
-def flash_dh32(name: str) -> bool:
-    """Is this (mangled) kernel a Dh-32 flash instantiation (the
-    tensor-core kernel for bf16, the CUDA-core one for f32)?"""
-    return "flash_kernel_" in name and "ELi32EE" in name
+def flash_dh(name: str, dhs) -> bool:
+    """Is this (mangled) kernel a flash instantiation at one of the head
+    dims ``dhs`` (Dh 32: the tensor-core kernel for bf16, the CUDA-core one
+    for f32; Dh 80 and 96: the CUDA-core one, f32; bf16 at those runs the
+    Dh-128 tensor-core kernel)?"""
+    return "flash_kernel_" in name and any(f"ELi{dh}EE" in name for dh in dhs)
 
 
 def check(ok, msg: str) -> None:
@@ -719,6 +764,21 @@ PAGED_EXTRA += [("opt-125m", tq, variant, "float32", pool,
                  dict(OPT_PAGED, lengths=OPT_LIVE) if tq == 1 else OPT_PAGED)
                 for tq in (1, 128, 256) for pool in ("float32", "int8")
                 for variant in ("vanilla", "clipped", "gated")]
+# gemma2-27b's reads (phase 7d's engines): 4 rows, 16 KV heads of 128
+# with 2 query heads each, bf16, logit softcap 50, max_len 4608; decode
+# and chunks of 128 at live lengths past 4096, with and without the
+# local layers' 4096 window. phi-3-vision's (phase 7c): 8 rows of 32
+# heads of 96 (no GQA: the CUDA-core route), bf16, max_len 2048.
+GEMMA_PAGED = dict(b=4, hkv=16, g=2, dh=128, max_len=4608, softcap=50.0)
+GEMMA_LIVE = {1: [4600, 4097, 1, 300], 128: [4608, 4224, 300, 4097]}
+PHI_PAGED = dict(b=8, hkv=32, g=1, dh=96, max_len=2048)
+PAGED_EXTRA += [("gemma2-27b", tq, variant, "bfloat16", "bfloat16",
+                 dict(GEMMA_PAGED, lengths=GEMMA_LIVE[tq], **extra))
+                for tq in (1, 128) for extra in ({}, dict(window=4096))
+                for variant in ("vanilla", "clipped", "gated")]
+PAGED_EXTRA += [("phi-3-vision", tq, variant, "bfloat16", "bfloat16",
+                 dict(PHI_PAGED, lengths=OPT_LIVE) if tq == 1 else PHI_PAGED)
+                for tq in (1, 128) for variant in ("vanilla", "clipped", "gated")]
 
 
 def phase_kernel_checks(torch, pa):
@@ -1002,6 +1062,20 @@ def phase_flash_checks(torch, fa):
                                       (EVAL_SEQ, OPT_HEADS, {}))
               for dtype in (torch.float32, torch.bfloat16)
               for variant in ("vanilla", "clipped", "gated")]
+    # Dh 80 and 96 (hubert-xlarge, phi-3-vision) on both routes (bf16 runs
+    # the Dh-128 tensor-core body over zero-filled boxes), causal and not;
+    # a window and a softcap at a ragged T 1000
+    cases += [(256, dtype, variant, dict(small, dh=dh, causal=causal))
+              for dh in (80, 96) for dtype in (torch.float32, torch.bfloat16)
+              for causal in (True, False) for variant in ("vanilla", "clipped", "gated")]
+    cases += [(1000, dtype, variant, dict(small, dh=dh, **extra))
+              for dh in (80, 96) for dtype in (torch.float32, torch.bfloat16)
+              for variant, extra in (("clipped+gated", dict(window=300)),
+                                     ("vanilla", dict(softcap=30.0)))]
+    # the reads of this slice's models at their shapes (MODEL_FLASH_SHAPES)
+    cases += [(t, dtype, variant, dict(shape, **extra))
+              for _, t, dtype, shape, extra in model_flash_shapes(torch)
+              for variant in ("vanilla", "clipped", "gated")]
     # the dense cache's reads at qwen3-14b's heads over a row of 1024 keys:
     # decode (Tq 1) and a chunk (Tq 256) at per-row offsets, a prefill at
     # offset 0
@@ -1072,6 +1146,24 @@ def phase_flash_times(torch, fa):
     return times
 
 
+# The cache-free attention reads of the four models of phase 7 at their
+# shapes: (name, T, dtype, heads, mask) — ViT-S/16 f32 (64 images of 197
+# patches, 6 heads of 64, no causal mask; the CUDA-core route),
+# hubert-xlarge bf16 (2 x 4096 frames, 16 heads of 80, no causal mask),
+# phi-3-vision bf16 (1 x 2048, 32 heads of 96, causal) and gemma2-27b bf16
+# (1 x 4608, 32/16 heads of 128, logit softcap 50; the local layers with
+# the 4096 window, the global ones without)
+def model_flash_shapes(torch):
+    return [("vit-s16", 197, torch.float32, dict(b=64, hq=6, hkv=6, dh=64), dict(causal=False)),
+            ("hubert-xlarge", 4096, torch.bfloat16, dict(b=2, hq=16, hkv=16, dh=80),
+             dict(causal=False)),
+            ("phi-3-vision", 2048, torch.bfloat16, dict(b=1, hq=32, hkv=32, dh=96), {}),
+            ("gemma2-27b local", 4608, torch.bfloat16, dict(b=1, hq=32, hkv=16, dh=128),
+             dict(softcap=50.0, window=4096)),
+            ("gemma2-27b global", 4608, torch.bfloat16, dict(b=1, hq=32, hkv=16, dh=128),
+             dict(softcap=50.0))]
+
+
 # Phase 3c's timed shapes of the paper models: BERT-base's evaluation read
 # (8, 512, 12/12, 64) without the causal mask, OPT-125m's (1, 2048, 12/12,
 # 64) with it, and the reduced configs' 4 heads of 32 at BERT's batch and
@@ -1082,14 +1174,20 @@ PAPER_FLASH_TIMED = [("bert", 512, BERT_HEADS, False), ("opt", EVAL_SEQ, OPT_HEA
                      ("dh32", 512, dict(b=8, hq=4, hkv=4, dh=32), True)]
 
 
-def phase_flash_paper_times(torch, fa):
-    """Device times at PAPER_FLASH_TIMED, f32 and bf16, vanilla and
-    clipped: the kernel, its plain version and, vanilla, SDPA on the same
-    inputs (a yardstick the port never calls), beside the bound."""
+# ... and hubert-xlarge's and phi-3-vision's reads (Dh 80 and 96), bf16
+MODEL_FLASH_TIMED = [("hubert-xlarge", 4096, dict(b=2, hq=16, hkv=16, dh=80), False),
+                     ("phi-3-vision", 2048, dict(b=1, hq=32, hkv=32, dh=96), True)]
+
+
+def phase_flash_paper_times(torch, fa, timed=PAPER_FLASH_TIMED, dtypes=("float32", "bfloat16")):
+    """Device times at ``timed`` (PAPER_FLASH_TIMED, MODEL_FLASH_TIMED) in
+    ``dtypes``, vanilla and clipped: the kernel, its plain version and,
+    vanilla, SDPA on the same inputs (a yardstick the port never calls),
+    beside the bound."""
     import torch.nn.functional as F
     times = {}
-    for name, t, shape, causal in PAPER_FLASH_TIMED:
-        for dtype in (torch.float32, torch.bfloat16):
+    for name, t, shape, causal in timed:
+        for dtype in (getattr(torch, d) for d in dtypes):
             for variant in ("vanilla", "clipped"):
                 c = flash_case(torch, t, dtype, variant, seed=11, copies=3, **shape)
                 q, kw = c["q"], dict(c["kw"], causal=causal)
@@ -1398,6 +1496,7 @@ def trace_replays(torch, forward, snaps, who, unit):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+        del run     # its cache copy: one copy at a time (gemma2-27b leaves ~20 GB)
         tr = trace_tick(torch, replay(snap), f"{who} {kind} {unit}")
         # the profiled replay's device busy time over the unprofiled
         # replay's wall: two runs, so a busy time above that wall is
@@ -1432,21 +1531,28 @@ TICKS = {
         int(pos.max()) + tokens.shape[1] > cfg.max_seq_len,
     # every live row decoding
     "decode": lambda cfg, tokens, pos, c: bool((c == 1).any() and (c <= 1).all()),
+    # a live row starting past the local layers' window: its ring is full
+    # and has wrapped
+    "past the window": lambda cfg, tokens, pos, c: cfg.window is not None and bool(
+        ((pos.cpu() > cfg.window) & (c > 0)).any()),
 }
 
 
-def qwen_requests(np, vocab):
-    """Phase 4's 12 requests: prompts of 32..512 tokens, 32 new each."""
+def short_requests(np, vocab, n):
+    """``n`` greedy requests from numpy seed 0: prompts of 32..512 tokens,
+    32 new tokens each (phase 4's 12, phase 7's)."""
     rng = np.random.default_rng(0)
-    return [(rng.integers(0, vocab, size=int(n)).astype(np.int32), 32)
-            for n in rng.integers(32, 513, size=12)]
+    return [(rng.integers(0, vocab, size=int(k)).astype(np.int32), 32)
+            for k in rng.integers(32, 513, size=n)]
 
 
 def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
                   max_abs=None, ticks=("mixed",), paged=True, kv_int8=None, w8a8=False,
-                  controls=False, trace=False, dense=None):
-    """One engine, ``ContinuousBatcher`` (batch 8, block 16, budget 256) on
-    random weights from seed 0, over ``requests`` ((prompt, new tokens)).
+                  controls=False, trace=False, dense=None, params=None, batch_size=8,
+                  num_blocks=None, ring_ref=None):
+    """One engine, ``ContinuousBatcher`` (batch ``batch_size``, block 16,
+    budget 256, ``num_blocks`` pool blocks) on ``params`` or random weights
+    from seed 0, over ``requests`` ((prompt, new tokens)).
     Gates: every request done with its tokens, no block leak, launches
     per forward; at the first tick of each kind in ``ticks`` (TICKS), the
     live logits through the kernels against the plain path's (the gather
@@ -1457,7 +1563,11 @@ def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
     kernel alone leaves the plain path's logits bitwise, and W8A8 stays
     within W8A8_VS_FP_REL_RMS of fp. ``trace``: the mixed and a decode
     tick replayed under torch.profiler. ``dense``: (method, method_kw) of
-    ``phase_dense_serving``, run after on the same weights."""
+    ``phase_dense_serving``, run after on the same weights. ``ring_ref``:
+    (uid, keys): at the "past the window" tick, the first local_attn
+    layer's ring of the row serving request ``uid`` against ``keys``, the
+    post-RoPE keys a cache-free forward over its prompt computed there
+    (``ring_vs_keys``)."""
     from repro_torch.core.attention import dense_attention
     from repro_torch.models import transformer
     from repro_torch.models.transformer import model_init
@@ -1469,7 +1579,8 @@ def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
     from repro_torch.serving.decode import step_rows_full
 
     t0 = time.perf_counter()
-    params = model_init(0, cfg, device="cuda")
+    if params is None:
+        params = model_init(0, cfg, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     setup = {}
@@ -1489,8 +1600,9 @@ def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
     sched.attach_int8_weights = timed("quant_s", attach)
     try:
         b = timed("setup_s", ContinuousBatcher)(
-            params, cfg, batch_size=8, max_len=max_len, block_size=16, token_budget=256,
-            paged=paged, kv_int8=kv_int8, qconfig=QConfig() if w8a8 else None, device="cuda")
+            params, cfg, batch_size=batch_size, max_len=max_len, block_size=16,
+            token_budget=256, num_blocks=num_blocks, paged=paged, kv_int8=kv_int8,
+            qconfig=QConfig() if w8a8 else None, device="cuda")
     finally:
         sched._calibrate_engine, sched.attach_int8_weights = calibrate_engine, attach
     snaps, want, step_fn = {}, list(ticks), b._step_fn
@@ -1504,7 +1616,8 @@ def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
             if kind not in snaps and TICKS[kind](cfg, tokens, pos, c):
                 snaps[kind] = dict(cache=tree_map(lambda x: x.clone(), cache),
                                    args=(tokens.clone(), pos.clone(), counts.clone(), lw,
-                                         None if lws is None else lws.clone()))
+                                         None if lws is None else lws.clone()),
+                                   uids=[-1 if s.req is None else s.req.uid for s in b.slots])
         return step_fn(params_, cache, tokens, pos, counts, keys, lw, lws)
 
     b._step_fn = capture
@@ -1542,10 +1655,12 @@ def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
         b.audit()
         check(b.allocator.available == b.num_blocks and (b.tables == -1).all(),
               f"{name}: block leak")
-    # attention: one read per layer per forward; W8A8: every linear of a
-    # layer (q, k, v, o and the MLP's two or three)
+    # attention: one read per global-attention layer per forward (a
+    # local_attn layer reads its ring with dense_attention); W8A8: every
+    # linear of a layer (q, k, v, o and the MLP's two or three)
     linears = 4 + (3 if "glu" in cfg.mlp_kind else 2)
-    expect = dict(paged=nl * fwd if paged else 0, flash=0 if paged else nl * fwd,
+    n_glob = cfg.n_groups * cfg.pattern.count("attn") + cfg.tail_pattern.count("attn")
+    expect = dict(paged=n_glob * fwd if paged else 0, flash=0 if paged else n_glob * fwd,
                   int8=linears * nl * fwd if w8a8 else 0)
     check(launches == expect, f"{name}: launches {launches}, expected {expect}")
     check(set(snaps) == set(ticks), f"{name}: ticks seen {sorted(snaps)}, wanted {ticks}")
@@ -1629,6 +1744,24 @@ def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
                        **{f"{kind} control {k}": v for k, v in ctl.items()}})
         if kind == "mixed":
             mixed_logits = kern
+        if ring_ref is not None and kind == "past the window":
+            uid, keys = ring_ref
+            check(uid in snap["uids"], f"{name}: request {uid} is not in the tick past the "
+                                       f"window (slots {snap['uids']})")
+            r = snap["uids"].index(uid)
+            ring = ring_vs_keys(torch, snap["cache"], r, keys)
+            print(f"serving {name}: row {r}'s first local_attn ring at the tick past the window "
+                  f"({ring['filled']} keys, positions {ring['first']}..{ring['last']}; the row "
+                  f"starts at {int(pos[r])}) vs the cache-free forward's post-RoPE keys at the "
+                  f"same positions, relative RMS: correct {ring['correct']:.3e} (tol "
+                  f"{RG_RING_REL_RMS}), rolled one slot {ring['rolled one slot']:.3e}",
+                  flush=True)
+            check(ring["filled"] == cfg.window and ring["last"] == int(pos[r]) - 1,
+                  f"{name}: the ring holds {ring['filled']} keys up to {ring['last']} before "
+                  f"position {int(pos[r])}")
+            check(ring["correct"] <= RG_RING_REL_RMS < ring["rolled one slot"],
+                  f"{name}: ring keys vs the cache-free forward's: {ring}")
+            result.update(ring=ring)
         if w8a8 and kind == "mixed":
             # the tick with only the int8 product swapped for its plain
             # version: every product is bitwise equal, so the logits are too
@@ -1647,29 +1780,42 @@ def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
             result.update(w8a8_vs_fp_rel_rms=vs_fp, w8a8_vs_fp_argmax_agreement=agree_fp)
             del fp
         del kern, plain
+        if kind != "mixed":
+            # the mixed tick's snapshot serves the trace and gate (b) below
+            del snaps[kind], snap
+            want.remove(kind)
     if trace:
-        # the first all-decode tick of a second, uncounted run of the
-        # first 8 requests (its cache copy stays out of the counted run's
-        # peak memory); the engine is left with them in flight
+        # the mixed tick, then the first all-decode tick of a second,
+        # uncounted run of the first requests (its cache copy stays out of
+        # the counted run's peak memory; the engine is left with them in
+        # flight): each timed once on the host clock and replayed once
+        # under torch.profiler (each warmed first). The mixed tick's cache
+        # copy goes before the second run: one copy at a time
+        def forward(cache, *args):
+            return step_rows_full(b.params, b.cfg, cache, *args, ctx=b._qctx)
+
+        torch.cuda.empty_cache()
+        traces = trace_replays(torch, forward, {"mixed": snaps["mixed"]}, f"serving {name}",
+                               "tick")
+        del snaps["mixed"]["cache"]
         want.append("decode")
-        for u, (p, n) in enumerate(requests[:8]):
+        for u, (p, n) in enumerate(requests[:batch_size]):
             b.submit(Request(uid=100 + u, prompt=p, max_new_tokens=n))
         for _ in range(200):
             if "decode" in snaps:
                 break
             b.step()
         check("decode" in snaps, f"{name}: no all-decode tick was seen")
-        # the mixed and the all-decode tick: timed once on the host clock
-        # and replayed once under torch.profiler (each warmed first)
-        traces = trace_replays(
-            torch, lambda cache, *args: step_rows_full(b.params, b.cfg, cache, *args,
-                                                       ctx=b._qctx),
-            {k: snaps[k] for k in ("mixed", "decode")}, f"serving {name}", "tick")
+        traces.update(trace_replays(torch, forward, {"decode": snaps.pop("decode")},
+                                    f"serving {name}", "tick"))
         for kind, tr in traces.items():
-            check(tr["family_kernels"]["int8 GEMM + pre-pass"] > 0 and
+            check((tr["family_kernels"]["int8 GEMM + pre-pass"] > 0 or not w8a8) and
                   tr["family_kernels"]["paged read"] > 0,
                   f"{name}: the traced {kind} tick ran no int8 or paged kernel: {tr}")
         result.update(traces=traces)
+    result.update(peak_gb_with_checks=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"serving {name}: peak memory over the run, its checks and traces "
+          f"{result['peak_gb_with_checks']:.2f} GB", flush=True)
     # the dense-cache paths on the same weights, the paged engine freed
     # first; gate (b) reads its first mixed tick and that tick's logits
     first = dict(args=snaps["mixed"]["args"][:3], logits=mixed_logits, outs=outs, taps=taps)
@@ -2096,6 +2242,28 @@ def rg_prompts(np, vocab):
     return [rng.integers(0, vocab, size=int(n)).astype(np.int32) for n in lengths]
 
 
+def ring_vs_keys(torch, cache, r, keys):
+    """Row r's ring of the first local_attn layer in ``cache`` (the first
+    group's of a stacked (G, B, ...) leaf), each filled slot against
+    ``keys`` (T, Hkv, Dh) at the position its pos_ids names, and the same
+    ring rolled by one slot: the relative RMS of each, with the count and
+    range of the filled positions."""
+    from repro_torch.models.transformer import row_leaves
+
+    def first_ring(name_):
+        leaf, axis = next((leaf, axis) for path, leaf, axis in row_leaves(cache)
+                          if path[-1] == name_)
+        return (leaf[0] if axis == 1 else leaf)[r]
+
+    ring_k, ids = first_ring("k"), first_ring("pos_ids").long()
+    filled = ids >= 0
+    want = keys[ids[filled]].float()
+    return {"correct": rel_rms(ring_k[filled], want),
+            "rolled one slot": rel_rms(torch.roll(ring_k, 1, dims=0)[filled], want),
+            "filled": int(filled.sum()), "first": int(ids[filled].min()),
+            "last": int(ids[filled].max())}
+
+
 def phase_rg_serving(torch, np, rl, fa, pa, name, method, trace=False, gen=False,
                      **method_kw):
     from repro_torch.configs.base import apply_method
@@ -2251,29 +2419,17 @@ def phase_rg_serving(torch, np, rl, fa, pa, name, method, trace=False, gen=False
     def leaves(cache, name_):
         return [leaf for path, leaf, _ in row_leaves(cache) if path[-1] == name_]
 
-    def first_ring(name_):
-        """Row r's ``name_`` leaf of the first local_attn layer in the
-        snapshot: the first group's of a stacked (G, B, ...) leaf."""
-        leaf, axis = next((leaf, axis) for path, leaf, axis in row_leaves(snapshot["cache"])
-                          if path[-1] == name_)
-        return (leaf[0] if axis == 1 else leaf)[r]
-
     # the first local_attn layer's ring of row r before the sub-step,
     # ordered by its pos_ids, against the cache-free keys at the same
     # positions; and the same ring rolled by one slot
-    ring_k, ring_pos = first_ring("k"), first_ring("pos_ids")
-    ids = ring_pos.long()
-    filled = ids >= 0
-    want_keys = ref_keys[0][ids[filled]].float()
-    ring = {"correct": rel_rms(ring_k[filled], want_keys),
-            "rolled one slot": rel_rms(torch.roll(ring_k, 1, dims=0)[filled], want_keys)}
-    n_filled = int(filled.sum())
+    ring = ring_vs_keys(torch, snapshot["cache"], r, ref_keys[0])
+    n_filled = ring["filled"]
     print(f"serving rg {name}: row {r}'s first local_attn ring ({n_filled} keys, positions "
-          f"{int(ids[filled].min())}..{int(ids[filled].max())}) vs the cache-free forward's "
+          f"{ring['first']}..{ring['last']}) vs the cache-free forward's "
           f"post-RoPE keys at the same positions, relative RMS: correct "
           f"{ring['correct']:.3e} (tol {RG_RING_REL_RMS}), rolled one slot "
           f"{ring['rolled one slot']:.3e}", flush=True)
-    check(n_filled == min(int(pos[r]), ring_pos.numel()),
+    check(n_filled == min(int(pos[r]), cfg.window),
           f"{name}: the ring holds {n_filled} keys before position {int(pos[r])}")
     check(ring["correct"] <= RG_RING_REL_RMS,
           f"{name}: the ring's keys differ from the cache-free forward's: {ring['correct']}")
@@ -2394,7 +2550,11 @@ def count_fake_quant_sites(torch, cfg):
                                d_ff=128, vocab_size=256, vocab_pad_to=1,
                                param_dtype=torch.float32, compute_dtype=torch.float32)
     params = model_init(0, tiny, device="cpu")
-    batch = {"tokens": torch.randint(0, 256, (1, 16), generator=torch.Generator().manual_seed(0))}
+    gen = torch.Generator().manual_seed(0)
+    if tiny.input_kind == "embeds":
+        batch = {"embeds": torch.randn(1, 16, tiny.frontend_dim, generator=gen)}
+    else:
+        batch = {"tokens": torch.randint(0, 256, (1, 16), generator=gen)}
 
     def apply_fn(p, b, ctx):
         return model_apply(p, tiny, b, ctx=ctx)[0]
@@ -2423,14 +2583,46 @@ def qwen_eval_cfg(method, **method_kw):
     return dataclasses.replace(qwen_cfg(method, **method_kw), scan_layers=False)
 
 
+def held_layers(torch, fa, run):
+    """``run()`` (a cache-free forward) with every flash call held against
+    the kernel's plain version on the same inputs (P in f32), beside the
+    plain version with P rounded to bf16 (the control). A layer whose
+    plain output is exactly zero (the clipped softmax zeroes every
+    probability of a near-uniform random-weight layer) must be exactly
+    zero in the kernel too; it has no P to round. Returns (run's output,
+    per-layer relative RMS, per-layer control, the zero layers)."""
+    real_mha_flash, layer_rms, layer_control, zero_layers = fa.mha_flash, [], [], []
+
+    def held(q, k, v, gate_pi=None, **kw):
+        out = real_mha_flash(q, k, v, gate_pi, **kw)
+        ref = fa.mha_flash_ref(q, k, v, gate_pi, **kw)
+        if not ref.any():
+            zero_layers.append(len(layer_rms))
+            layer_rms.append(0.0 if not out.any() else float("inf"))
+            layer_control.append(0.0)
+            return out
+        layer_rms.append(rel_rms(out, ref))
+        with bf16_p(torch):
+            layer_control.append(rel_rms(fa.mha_flash_ref(q, k, v, gate_pi, **kw), ref))
+        return out
+
+    fa.mha_flash = held
+    try:
+        out = run()
+    finally:
+        fa.mha_flash = real_mha_flash
+    return out, layer_rms, layer_control, zero_layers
+
+
 def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, batch_size=1,
                layer_tol=FLASH_LAYER_REL_RMS, own_tol=FLASH_VS_OWN_PLAIN_REL_RMS,
-               logit_tol=LOGIT_REL_RMS):
+               logit_tol=LOGIT_REL_RMS, data=None):
     """The paper's evaluation protocol on ``cfg`` (random weights from seed
     0) over ``SyntheticLM`` batches of ``kind`` ("clm" or "mlm"), (batch_size,
-    seq) each; the flash kernel held per layer (``layer_tol``) and in the
-    logits (``own_tol`` against its plain version, ``logit_tol`` against
-    dense_attention)."""
+    seq) each, or over ``data``'s ("frames": ``SeededEmbeds``, a per-position
+    classification loss); the flash kernel held per layer (``layer_tol``)
+    and in the logits (``own_tol`` against its plain version, ``logit_tol``
+    against dense_attention)."""
     from repro_torch.data import SyntheticLM, SyntheticLMConfig
     from repro_torch.models import transformer
     from repro_torch.quant import quantizer
@@ -2446,8 +2638,9 @@ def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, b
     params = transformer.model_init(0, cfg, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t_phase
-    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=seq,
-                                         batch_size=batch_size, seed=0))
+    if data is None:
+        data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                             batch_size=batch_size, seed=0))
 
     def batches(start, n):
         return [{k: torch.as_tensor(v).cuda() for k, v in data.batch(start + i, kind).items()}
@@ -2464,7 +2657,8 @@ def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, b
     # the path, with every count at 0 just before it and read just after
     fa.launches = fq.launches = pa.launches = im.launches = 0
     t0 = time.perf_counter()
-    ppl, ostats = evaluate(TrainTask(cfg=cfg), params, data, EVAL_BATCHES, kind)
+    task = TrainTask(cfg=cfg, loss_kind="frames" if kind == "frames" else "clm")
+    ppl, ostats = evaluate(task, params, data, EVAL_BATCHES, kind)
     torch.cuda.synchronize()
     fp_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2499,39 +2693,24 @@ def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, b
     check(launches["paged"] == 0 and launches["int8"] == 0,
           f"{name}: serving kernels launched during evaluation: {launches}")
 
-    real_mha_flash, layer_rms, layer_control, zero_layers = fa.mha_flash, [], [], []
-
-    def held(q, k, v, gate_pi=None, **kw):
-        """The kernel, held against its plain version on the same inputs,
-        beside the plain version with P rounded to bf16. A layer whose
-        plain output is exactly zero (the clipped softmax zeroes every
-        probability of a near-uniform random-weight layer) must be
-        exactly zero in the kernel too; it has no P to round."""
-        out = real_mha_flash(q, k, v, gate_pi, **kw)
-        ref = fa.mha_flash_ref(q, k, v, gate_pi, **kw)
-        if not ref.any():
-            zero_layers.append(len(layer_rms))
-            layer_rms.append(0.0 if not out.any() else float("inf"))
-            layer_control.append(0.0)
-            return out
-        layer_rms.append(rel_rms(out, ref))
-        with bf16_p(torch):
-            layer_control.append(rel_rms(fa.mha_flash_ref(q, k, v, gate_pi, **kw), ref))
-        return out
-
     batch = held_out[0]
     with torch.no_grad():
         # one FP forward with the flash kernel (each layer held against the
         # plain version), one with the kernel's plain version in its place
         # (attention() reads fa.mha_flash at each call), and one with the
         # model's plain attention
+        kern, layer_rms, layer_control, zero_layers = held_layers(
+            torch, fa, lambda: apply_fn(params, batch, NO_QUANT))
+        real_mha_flash = fa.mha_flash
         try:
-            fa.mha_flash = held
-            kern = apply_fn(params, batch, NO_QUANT)
             fa.mha_flash = fa.mha_flash_ref
             own = apply_fn(params, batch, NO_QUANT)
         finally:
             fa.mha_flash = real_mha_flash
+        # over the real vocabulary: the padded columns hold -1e30 (hubert:
+        # 504 classes padded to 512), which would swamp the RMS
+        kern = kern[..., :cfg.vocab_size]
+        own = own[..., :cfg.vocab_size]
         own_rms = rel_rms(kern, own)
         own_agree = (kern.argmax(-1) == own.argmax(-1)).float().mean().item()
         del own
@@ -2542,6 +2721,7 @@ def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, b
             plain = apply_fn(params, batch, NO_QUANT)
         finally:
             transformer.attention = real_attention
+        plain = plain[..., :cfg.vocab_size]
         logit_rms = rel_rms(kern, plain)
         agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
         del kern, plain
@@ -2642,7 +2822,8 @@ OUTLIER_MARGIN = 4.0
 def paper_cfg(family, method, **method_kw):
     from repro_torch.configs import paper_models
     from repro_torch.configs.base import apply_method
-    make = {"bert": paper_models.bert_base, "opt": paper_models.opt_125m}[family]
+    make = {"bert": paper_models.bert_base, "opt": paper_models.opt_125m,
+            "vit": paper_models.vit_s16}[family]
     return apply_method(make(), method, **method_kw)
 
 
@@ -2724,10 +2905,11 @@ def phase_outlier_contrast(torch, np):
 # phase 6: training, through the flash-attention backward kernel
 # ---------------------------------------------------------------------------
 # (name, B, T, Hq, Hkv, Dh, causal) of phase 6a: Dh 32 both ways, BERT-base's
-# and OPT-125m's training shapes, one GQA case
+# and OPT-125m's training shapes, one GQA case, and ViT-S/16's (64 images
+# of 197 patches: a length no tile of 64 divides)
 BWD_SHAPES = [("dh32 causal", 8, 512, 4, 4, 32, True), ("dh32", 8, 512, 4, 4, 32, False),
               ("bert-base", 8, 512, 12, 12, 64, False), ("opt-125m", 2, 2048, 12, 12, 64, True),
-              ("gqa", 1, 512, 8, 2, 64, True)]
+              ("gqa", 1, 512, 8, 2, 64, True), ("vit-s16", 64, 197, 6, 6, 64, False)]
 BWD_VARIANTS = ("vanilla", "clipped", "gated")
 BWD_ALPHA = 4.0
 # Phase 6a's bound on each gradient (dq, dk, dv, dgate): the relative RMS of
@@ -2783,9 +2965,15 @@ TRAIN_DATA_VOCAB = 4096
 # 1.8e-6 / 4.9e-4, gated 1.8e-6 / 3.2e-4, clipped 1.2e-4 / 1.6e-3; OPT
 # vanilla 4.0e-4 / 1.0e-2, clipped 4.4e-4 / 9.4e-3, gated 5.6e-4 / 7.4e-3.
 # Each bound sits 3x or more above its readings and below its controls.
+# ViT-S/16 (f32, pre-LN, GELU), measured on the same card: vanilla 3.9e-7 /
+# 3.3e-5, gated 3.9e-7 / 1.9e-5, clipped 6.8e-6 / 2.7e-5; its bounds sit
+# 13x above the first two readings and 2.2x above the clipped one, and
+# 1.8x..6.6x below the controls.
 STEP_GRAD_REL_RMS = {("bert", "vanilla"): 2e-5, ("bert", "gated_attention"): 2e-5,
                      ("bert", "clipped_softmax"): 4e-4, ("opt", "vanilla"): 2e-3,
-                     ("opt", "clipped_softmax"): 2e-3, ("opt", "gated_attention"): 2e-3}
+                     ("opt", "clipped_softmax"): 2e-3, ("opt", "gated_attention"): 2e-3,
+                     ("vit", "vanilla"): 5e-6, ("vit", "gated_attention"): 5e-6,
+                     ("vit", "clipped_softmax"): 1.5e-5}
 # BERT's layer 0 reads the raw embeddings (RMS ~0.03: the config has no
 # embedding LayerNorm), so even sharpened its scores stay ~1e-3 and every
 # clipped probability clips: no gradient reaches its q and k there.
@@ -2803,14 +2991,22 @@ STEP_DEAD_LAYERS = {("bert", "clipped_softmax")}
 # Measured on an H100 80GB HBM3 at 700 W, the largest leaf reading and
 # the least ratio control / reading over the leaves: BERT vanilla 4.7e-6,
 # 153; gated 4.2e-6, 107 (the least control 6.5e-5); clipped 1.7e-3, 5.2;
-# OPT vanilla 7.9e-4, 12.9; clipped 8.5e-4, 6.7; gated 1.3e-3, 5.2. Each
+# OPT vanilla 7.9e-4, 12.9; clipped 8.5e-4, 6.7; gated 1.3e-3, 5.2; ViT
+# vanilla 1.7e-6, 41.6; gated 1.5e-6, 22.7; clipped 2.9e-3, 1.8. Each
 # bound sits 2x or more above its largest reading (BERT vanilla and gated
 # 3x below their least control too); the share leaves 2.6x.
 STEP_ATTN_LEAF = re.compile(r"^layers/\d+/b0/((q|k|v|o|gate)/w|(q|v|o|gate)/b)$")
 STEP_ATTN_LEAF_REL = {("bert", "vanilla"): 2e-5, ("bert", "gated_attention"): 2e-5,
                       ("bert", "clipped_softmax"): 5e-3, ("opt", "vanilla"): 3e-3,
-                      ("opt", "clipped_softmax"): 3e-3, ("opt", "gated_attention"): 3e-3}
+                      ("opt", "clipped_softmax"): 3e-3, ("opt", "gated_attention"): 3e-3,
+                      ("vit", "vanilla"): 1e-5, ("vit", "gated_attention"): 1e-5,
+                      ("vit", "clipped_softmax"): 5e-3}
 STEP_ATTN_CONTROL_SHARE = 0.5
+# ViT-S/16 clipped: the clip-edge flips move five q/k leaves of layers 3 and
+# 9 by 1.3e-3..2.9e-3, 0.53..0.56 of their controls (2.4e-3..5.1e-3; the
+# BERT and OPT runs' flips stay below 0.2 of theirs); its share is 0.75.
+# The other leaves read 1.4e-5 (median) against controls 50x above.
+STEP_ATTN_CONTROL_SHARE_OF = {("vit", "clipped_softmax"): 0.75}
 STEP_LOSS_REL = 1e-6
 # Random init attends almost uniformly (scores of RMS ~0.3 for BERT-base,
 # ~0.03 for OPT-125m's std 0.006), so at alpha 4 every clipped probability
@@ -2820,7 +3016,7 @@ STEP_LOSS_REL = 1e-6
 # are peaked and some probabilities stay unclipped; the gate requires a
 # nonzero gradient on every layer's k weights (which only the attention's
 # dS reaches).
-STEP_QK_SCALE = {"bert": 2.5, "opt": 7.0}
+STEP_QK_SCALE = {"bert": 2.5, "opt": 7.0, "vit": 2.5}
 
 
 def bwd_case(torch, b, t, hq, hkv, dh, causal, variant, seed):
@@ -3002,7 +3198,7 @@ def sharpen(params, c):
 
 
 def phase_train_step_vs_plain(torch, fa, task, params, batch, who, bound, leaf_bound,
-                              min_live):
+                              min_live, share=STEP_ATTN_CONTROL_SHARE):
     """Phase 6b's first gate: step 1's loss and gradients through the
     kernels against the plain attention path (``mha_flash_ref`` under
     autograd in the flash kernel's place) on the same weights and batch,
@@ -3054,8 +3250,7 @@ def phase_train_step_vs_plain(torch, fa, task, params, batch, who, bound, leaf_b
     attn_worst = max(attn, key=errs.get)
     ratio = {p: ctrl[p] / max(errs[p], 1e-30) for p in attn}
     attn_near = min(attn, key=ratio.get)
-    attn_out = [p for p in attn if not errs[p] <= min(leaf_bound,
-                                                     STEP_ATTN_CONTROL_SHARE * ctrl[p])]
+    attn_out = [p for p in attn if not errs[p] <= min(leaf_bound, share * ctrl[p])]
     loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     live_k = sum(flat_p[p].abs().max().item() > 0 for p in flat_p if re.search(r"/k/w$", p))
     print(f"train {who}: step 1 through the kernels vs the plain attention path: loss "
@@ -3068,7 +3263,7 @@ def phase_train_step_vs_plain(torch, fa, task, params, batch, who, bound, leaf_b
           f"median {sorted(errs[p] for p in attn)[len(attn) // 2]:.3e}, bound {leaf_bound}; "
           f"control min {min(ctrl[p] for p in attn):.3e}, least control / reading "
           f"{ratio[attn_near]:.1f} ({attn_near}; at least "
-          f"{1 / STEP_ATTN_CONTROL_SHARE:.0f}); layers whose k weights "
+          f"{1 / share:.2f}); layers whose k weights "
           f"receive a gradient: {live_k} of {n_layers} (at least {min_live})", flush=True)
     check(live_k >= min_live, f"{who}: the attention passes no gradient in some layer")
     check(loss_err <= STEP_LOSS_REL, f"{who}: step-1 loss differs from the plain path's")
@@ -3076,7 +3271,7 @@ def phase_train_step_vs_plain(torch, fa, task, params, batch, who, bound, leaf_b
           f"{who}: gradient {err_all:.3e} vs bound {bound} (control {ctrl_all:.3e})")
     check(not attn_out,
           f"{who}: attention leaves above the bound {leaf_bound} or "
-          f"{STEP_ATTN_CONTROL_SHARE} of their control (reading, control): "
+          f"{share} of their control (reading, control): "
           f"{[(p, f'{errs[p]:.3e}', f'{ctrl[p]:.3e}') for p in attn_out]}")
     del g_k, g_p, g_c
     return dict(loss_rel=loss_err, grad_rel_rms=err_all, control=ctrl_all,
@@ -3103,14 +3298,19 @@ def phase_train(torch, np, fa, family, kind, seq, bsz, method, method_kw, trace=
     who = f"{family} {method}"
     cfg = paper_cfg(family, method, **method_kw)
     task = TrainTask(cfg=cfg, loss_kind=kind, optimizer=AdamWConfig(lr=TRAIN_LR))
-    data = SyntheticLM(SyntheticLMConfig(vocab_size=TRAIN_DATA_VOCAB, seq_len=seq,
-                                         batch_size=bsz, seed=0))
+    if cfg.input_kind == "embeds":
+        data = SeededEmbeds(torch, cfg.vocab_size, cfg.frontend_dim, bsz, seq)
+    else:
+        data = SyntheticLM(SyntheticLMConfig(vocab_size=TRAIN_DATA_VOCAB, seq_len=seq,
+                                             batch_size=bsz, seed=0))
     params0 = sharpen(init_train_state(0, task, device="cuda").params, STEP_QK_SCALE[family])
     batch0 = {k: torch.as_tensor(v).cuda() for k, v in data.batch(0, kind).items()}
     gate = phase_train_step_vs_plain(torch, fa, task, params0, batch0, who,
                                      STEP_GRAD_REL_RMS[(family, method)],
                                      STEP_ATTN_LEAF_REL[(family, method)],
-                                     cfg.n_layers - int((family, method) in STEP_DEAD_LAYERS))
+                                     cfg.n_layers - int((family, method) in STEP_DEAD_LAYERS),
+                                     STEP_ATTN_CONTROL_SHARE_OF.get((family, method),
+                                                                    STEP_ATTN_CONTROL_SHARE))
     del params0, batch0
     torch.cuda.empty_cache()
 
@@ -3172,6 +3372,229 @@ def phase_train(torch, np, fa, family, kind, seq, bsz, method, method_kw, trace=
     torch.cuda.empty_cache()
     return result
 
+# ---------------------------------------------------------------------------
+# phase 7: embeds inputs and sandwich norms at published widths
+# ---------------------------------------------------------------------------
+class SeededEmbeds:
+    """Batches of embeddings at a model's frontend width with a class per
+    position, for the models that take embeddings (ViT-S/16's 384-wide
+    patches, hubert-xlarge's 512-wide frames): the JAX package's ``frames``
+    batches are 24 wide, which neither takes. Batch ``i`` is a pure
+    function of (seed, i), drawn by a seeded torch.Generator: labels
+    uniform over the classes, each position's embedding a fixed random row
+    of its label (the table from ``seed``) plus N(0, 0.5^2) noise, so a
+    model can learn the labels. Returned as numpy arrays, as
+    ``SyntheticLM.batch`` returns them."""
+
+    def __init__(self, torch, vocab, dim, batch_size, seq_len, seed=0):
+        self.torch, self.vocab, self.seed = torch, vocab, seed
+        self.shape = (batch_size, seq_len)
+        self.table = torch.randn(vocab, dim, generator=torch.Generator().manual_seed(seed))
+
+    def batch(self, index, kind="frames"):
+        torch = self.torch
+        gen = torch.Generator().manual_seed(self.seed * 1_000_003 + index + 1)
+        labels = torch.randint(0, self.vocab, self.shape, generator=gen)
+        noise = torch.randn(*self.shape, self.table.shape[1], generator=gen)
+        return {"embeds": (self.table[labels] + 0.5 * noise).numpy(),
+                "labels": labels.to(torch.int32).numpy()}
+
+
+# (B, T) of phase 7's runs: ViT-S/16 over 64 images of 197 patches (196 and
+# the class token); hubert-xlarge over 2 clips of 4096 frames;
+# phi-3-vision's mixed forward, 576 patch embeddings then 1472 tokens
+VIT_BATCH, VIT_SEQ = 64, 197
+HUBERT_BATCH, HUBERT_SEQ = 2, 4096
+PHI_PATCHES, PHI_TOKENS = 576, 1472
+# gemma2-27b's engines: batch 4 at max_len 4608 (the cache-free forward's
+# length), a pool of 400 blocks of 16 (the 6 requests need at most 373
+# at once: 271 for the long prompt, 34 for each of three others), five
+# prompts of 32..512 tokens and one of 4300, which crosses the 4096 window
+GEMMA_BATCH, GEMMA_MAX_LEN, GEMMA_BLOCKS, GEMMA_LONG = 4, 4608, 400, 4300
+
+
+def phase_wall(name, t0):
+    wall = time.perf_counter() - t0
+    print(f"phase {name}: wall {wall:.1f} s", flush=True)
+    return wall
+
+
+def phase_vit(torch, np, fa, fq, pa, im):
+    """Phase 7a: ViT-S/16 (f32, 12 layers) evaluated by phase 5's protocol
+    for vanilla, clipped (alpha 4) and gated attention over SeededEmbeds
+    batches (64 x 197 x 384) with the paper models' gates, then trained
+    16 AdamW steps per method as phase 6b trains BERT and OPT."""
+    t0 = time.perf_counter()
+    cfg = paper_cfg("vit", "vanilla")
+    out = dict(
+        evals=[phase_eval(torch, np, fa, fq, pa, im, f"vit {name}",
+                          paper_cfg("vit", method, **kw), kind="frames", seq=VIT_SEQ,
+                          batch_size=VIT_BATCH, layer_tol=PAPER_LAYER_REL_RMS,
+                          own_tol=PAPER_LOGIT_REL_RMS, logit_tol=PAPER_LOGIT_REL_RMS,
+                          data=SeededEmbeds(torch, cfg.vocab_size, cfg.frontend_dim,
+                                            VIT_BATCH, VIT_SEQ))
+               for name, method, kw in METHODS],
+        trains=[phase_train(torch, np, fa, "vit", "frames", VIT_SEQ, VIT_BATCH, method, kw,
+                            trace=method == "vanilla") for _, method, kw in METHODS])
+    out["wall_s"] = phase_wall("7a (vit-s16)", t0)
+    return out
+
+
+def phase_hubert(torch, np, fa, fq, pa, im):
+    """Phase 7b: hubert-xlarge (bf16, 48 layers) evaluated by phase 5's
+    protocol (vanilla) over SeededEmbeds frames (2 x 4096 x 512): FP and
+    W8A8 fake-quant perplexity, each layer's flash output against its
+    plain version (FLASH_LAYER_REL_RMS, the bf16-P control above)."""
+    from repro_torch.configs.hubert_xlarge import full
+    cfg = dataclasses.replace(full(), scan_layers=False)     # unrolled, as PTQ needs
+    t0 = time.perf_counter()
+    out = phase_eval(torch, np, fa, fq, pa, im, "hubert-xlarge vanilla", cfg, kind="frames",
+                     seq=HUBERT_SEQ, batch_size=HUBERT_BATCH,
+                     data=SeededEmbeds(torch, cfg.vocab_size, cfg.frontend_dim, HUBERT_BATCH,
+                                       HUBERT_SEQ))
+    out["phase_wall_s"] = phase_wall("7b (hubert-xlarge)", t0)
+    return out
+
+
+def held_forward(torch, fa, name, cfg, run, keep_keys=False):
+    """One cache-free forward ``run()`` of ``cfg`` (logits, or a part of
+    them) through the flash kernel, every layer held against its plain
+    version (``held_layers``: FLASH_LAYER_REL_RMS, the bf16-P control
+    above in some layer); one flash launch per layer. With ``keep_keys``,
+    also the first attention call's post-RoPE keys of its first row."""
+    from repro_torch.models import transformer
+    keys, real_attention = [], transformer.attention
+
+    def keep(q, k, v, *args, **kw):
+        if not keys:
+            keys.append(k[0].clone())
+        return real_attention(q, k, v, *args, **kw)
+
+    if keep_keys:
+        transformer.attention = keep
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with torch.no_grad():
+            logits, rms, ctl, zero = held_layers(torch, fa, run)
+        torch.cuda.synchronize()
+    finally:
+        transformer.attention = real_attention
+    wall = time.perf_counter() - t0
+    launches, peak = fa.launches, torch.cuda.max_memory_allocated() / 1e9
+    finite = bool(torch.isfinite(logits).all())
+    print(f"{name}: cache-free forward, logits {tuple(logits.shape)} finite {finite}; flash "
+          f"per layer vs its plain version on the same inputs: relative RMS max "
+          f"{max(rms):.3e}, mean {sum(rms) / len(rms):.3e} over {len(rms)} layers (tol "
+          f"{FLASH_LAYER_REL_RMS:.0e}); the plain version with bf16 P: max {max(ctl):.3e}, "
+          f"{sum(v > FLASH_LAYER_REL_RMS for v in ctl)} layers above the tol; zero layers "
+          f"{zero or 'none'}; flash launches {launches}; {wall:.2f} s with the checks, peak "
+          f"memory {peak:.2f} GB", flush=True)
+    check(finite, f"{name}: non-finite logits")
+    check(launches == cfg.n_layers, f"{name}: {launches} flash launches, not {cfg.n_layers}")
+    check(len(rms) == cfg.n_layers and max(rms) <= FLASH_LAYER_REL_RMS,
+          f"{name}: a layer's flash output differs from its plain version: {rms}")
+    check(max(ctl) > FLASH_LAYER_REL_RMS,
+          f"{name}: no layer tells bf16 P from f32 P at the bound: {ctl}")
+    return dict(layer_rel_rms_max=max(rms), layer_bf16_p_rel_rms_max=max(ctl),
+                flash_launches=launches, peak_gb=peak, wall_s=wall,
+                keys=keys[0] if keys else None)
+
+
+def phase_phi3v(torch, np, pa, im, fa):
+    """Phase 7c: phi-3-vision-4.2b (bf16, 32 layers, random weights from
+    seed 0): one mixed forward (576 patch embeddings at d_model, then 1472
+    tokens: T 2048) held per layer; then ``ContinuousBatcher(paged=True)``
+    on the same weights serving 8 text prompts (batch 8, max_len 2048), its
+    first mixed tick against the plain path (LOGIT_REL_RMS)."""
+    from repro_torch.configs.base import apply_method
+    from repro_torch.configs.phi_3_vision_4_2b import full
+    from repro_torch.models.transformer import model_apply, model_init
+
+    t0 = time.perf_counter()
+    cfg = apply_method(full(), "vanilla")
+    params = model_init(0, cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"embeds": torch.randn(1, PHI_PATCHES, cfg.d_model, generator=gen, device="cuda"),
+             "tokens": torch.randint(0, cfg.vocab_size, (1, PHI_TOKENS), generator=gen,
+                                     device="cuda")}
+    fwd = held_forward(torch, fa, "phi-3-vision mixed", cfg,
+                       lambda: model_apply(params, cfg, batch)[0])
+    check(cfg.n_prefix_embeds == PHI_PATCHES, "phi-3-vision's prefix is not 576 patches")
+    del batch
+    serving = phase_serving(torch, np, pa, im, fa, "phi-3-vision vanilla", cfg,
+                            short_requests(np, cfg.vocab_size, 8), 2048, LOGIT_REL_RMS,
+                            params=params)
+    del params
+    torch.cuda.empty_cache()
+    return dict(forward=fwd, serving=serving, wall_s=phase_wall("7c (phi-3-vision)", t0))
+
+
+def gemma_requests(np, vocab):
+    """Phase 7d's 6 greedy requests of 32 new tokens: five prompts of
+    32..512 tokens and, last, one of GEMMA_LONG."""
+    return short_requests(np, vocab, 5) + [
+        (np.random.default_rng(1).integers(0, vocab, size=GEMMA_LONG).astype(np.int32), 32)]
+
+
+def phase_gemma2(torch, np, pa, im, fa):
+    """Phase 7d: gemma2-27b (bf16, 46 layers: local window 4096 and global
+    attention alternating, attention softcap 50, final softcap 30,
+    sandwich norms, GeGLU, scaled embeddings; random weights from seed 0).
+    One cache-free forward at (1, 4608) (the long request's prompt, then
+    more tokens) held per layer; then ``ContinuousBatcher(paged=True)``
+    (GEMMA_BATCH rows, max_len GEMMA_MAX_LEN, GEMMA_BLOCKS pool blocks)
+    over ``gemma_requests``: vanilla and clipped on these weights, then
+    gated on its own. Gates: the first tick past the window and the first
+    mixed tick against the plain path (LOGIT_REL_RMS), and at the former
+    the long request's first local_attn ring against the cache-free
+    forward's keys (RG_RING_REL_RMS; rolled one slot above); checked in
+    that order, so the past-window snapshot is freed before the mixed
+    tick's replays (the checks peak at 78.9 GB of the card's 79.2 with
+    both held). The vanilla engine's mixed and decode ticks are traced."""
+    from repro_torch.configs.base import apply_method
+    from repro_torch.configs.gemma2_27b import full
+    from repro_torch.models.transformer import model_apply, model_init
+
+    t0 = time.perf_counter()
+    cfg = apply_method(full(), "vanilla")
+    torch.cuda.empty_cache()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    params = model_init(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9 - before_gb
+    print(f"gemma2-27b: weights {weights_gb:.2f} GB ({before_gb:.2f} GB held before them), "
+          f"init {init_s:.2f} s", flush=True)
+    requests = gemma_requests(np, cfg.vocab_size)
+    long_uid = len(requests) - 1
+    extra = np.random.default_rng(2).integers(0, cfg.vocab_size, GEMMA_MAX_LEN - GEMMA_LONG)
+    tokens = torch.as_tensor(np.concatenate([requests[long_uid][0], extra]),
+                             dtype=torch.long, device="cuda")[None]
+    fwd = held_forward(torch, fa, "gemma2-27b", cfg,
+                       lambda: model_apply(params, cfg, {"tokens": tokens})[0][:, -1].clone(),
+                       keep_keys=True)
+    keys = fwd.pop("keys")
+    engines = []
+    for name, method, kw in METHODS:
+        ecfg = apply_method(full(), method, **kw)
+        if method == "gated_attention":
+            del params
+            torch.cuda.empty_cache()
+            params = model_init(0, ecfg, device="cuda")
+        engines.append(phase_serving(
+            torch, np, pa, im, fa, f"gemma2-27b {name}", ecfg, requests, GEMMA_MAX_LEN,
+            LOGIT_REL_RMS, ticks=("past the window", "mixed"), trace=method == "vanilla",
+            params=params, batch_size=GEMMA_BATCH, num_blocks=GEMMA_BLOCKS,
+            ring_ref=(long_uid, keys)))
+    del params, keys
+    torch.cuda.empty_cache()
+    return dict(forward=fwd, engines=engines, weights_gb=weights_gb, init_s=init_s,
+                wall_s=phase_wall("7d (gemma2-27b)", t0))
+
 
 def main() -> int:
     import torch
@@ -3213,16 +3636,19 @@ def main() -> int:
     # (both routes), must not spill
     held = [(name, fn, regs, spills) for name in ("flash_attention", "paged_attention")
             for fn, regs, spills in ptxas_report(build.BUILD_LOG.get(name, ""))
-            if bf16_dh128(fn) or flash_dh32(fn)]
-    n32 = sum(flash_dh32(fn) for _, fn, _, _ in held)
-    print(f"ptxas spill check: {len(held) - n32} bf16 Dh-128 instantiations of flash_attention "
-          f"and paged_attention, {n32} Dh-32 flash instantiations; registers "
+            if bf16_dh128(fn) or flash_dh(fn, (32, 80, 96))]
+    n32 = sum(flash_dh(fn, (32,)) for _, fn, _, _ in held)
+    n80 = sum(flash_dh(fn, (80, 96)) for _, fn, _, _ in held)
+    print(f"ptxas spill check: {len(held) - n32 - n80} bf16 Dh-128 instantiations of "
+          f"flash_attention and paged_attention (the flash ones also run bf16 Dh 80 and 96), "
+          f"{n32} Dh-32 and {n80} f32 Dh-80/96 flash instantiations; registers "
           f"{sorted({r for _, _, r, _ in held})}; spill stores "
           f"{sorted({sp for _, _, _, sp in held})}", flush=True)
-    check(len(held) - n32 >= 8 and n32 == 4,
-          f"expected the bf16 Dh-128 and the Dh-32 instantiations in the build log: {held}")
+    check(len(held) - n32 - n80 >= 8 and n32 == 4 and n80 == 4,
+          f"expected the bf16 Dh-128, the Dh-32 and the Dh-80/96 instantiations in the "
+          f"build log: {held}")
     check(all(sp == 0 for _, _, _, sp in held),
-          f"ptxas spills in bf16 Dh-128 or Dh-32 attention kernels: "
+          f"ptxas spills in bf16 Dh-128, Dh-32 or Dh-80/96 attention kernels: "
           f"{[(n, f) for n, f, _, sp in held if sp]}")
     # every int8 instantiation must not spill; ptxas's notes that it
     # serialized wgmma (C7515, C7520, ...) are printed
@@ -3270,6 +3696,7 @@ def main() -> int:
     flash_err = phase_flash_checks(torch, fa)
     flash_times = phase_flash_times(torch, fa)
     phase_flash_paper_times(torch, fa)
+    phase_flash_paper_times(torch, fa, MODEL_FLASH_TIMED, ("bfloat16",))
     phase_flash_decode_times(torch, fa, pa)
     fq_err = phase_fq_checks(torch, fq)
     fq_times = phase_fq_times(torch, fq)
@@ -3278,7 +3705,7 @@ def main() -> int:
     rg_times = phase_rg_times(torch, rl)
 
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    qwen_reqs = qwen_requests(np, qwen_cfg("vanilla").vocab_size)
+    qwen_reqs = short_requests(np, qwen_cfg("vanilla").vocab_size, 12)
     engines = [
         phase_serving(torch, np, pa, im, fa, name, qwen_cfg(method, **kw), qwen_reqs, 1024,
                       W8A8_LOGIT_REL_RMS if w8a8 else LOGIT_REL_RMS,
@@ -3319,6 +3746,15 @@ def main() -> int:
     trains = [phase_train(torch, np, fa, family, kind, seq, bsz, method, kw,
                           trace=method == "vanilla")
               for family, kind, seq, bsz in TRAIN_RUNS for _, method, kw in METHODS]
+    # phase 7: embeds inputs and sandwich norms
+    vit = phase_vit(torch, np, fa, fq, pa, im)
+    hubert = phase_hubert(torch, np, fa, fq, pa, im)
+    phi = phase_phi3v(torch, np, pa, im, fa)
+    gemma = phase_gemma2(torch, np, pa, im, fa)
+    evals += vit["evals"] + [hubert]
+    trains += vit["trains"]
+    forwards = [phi["forward"], gemma["forward"]]
+    new_engines = [phi["serving"]] + gemma["engines"]
 
     dec = times[("decode", "vanilla")]
     i8 = int8_times[(8, 5120, 17408)]
@@ -3328,13 +3764,14 @@ def main() -> int:
     dense = [e["dense"] for e in engines if "dense" in e]
     int8_launches = sum(e["int8_launches"] for e in engines + dense + opt_engines)
     flash_launches = sum(e["flash_launches"] + e.get("gen_launches", 0)
-                         for e in engines + evals + dense + opt_engines + trains)
+                         for e in engines + evals + dense + opt_engines + trains + forwards)
     rg_launches = sum(e["launches"] for e in rg_engines) + sum(
         g["rg_launches"] for e in rg_engines for g in e.get("generate", {}).values())
     kernels = [dict(name="paged_attention", route="cuda",
                     source=KERNEL_SOURCES["paged_attention"],
                     replaces=REPLACES["paged_attention"],
-                    launches=sum(e["paged_launches"] for e in engines + opt_engines),
+                    launches=sum(e["paged_launches"]
+                                 for e in engines + opt_engines + new_engines),
                     max_abs_err=max_err, ms=dec["ms"], plain_ms=dec["plain_ms"],
                     bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
                     library_ms=dec["library_ms"]),

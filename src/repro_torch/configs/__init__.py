@@ -1,4 +1,18 @@
-from repro_torch.configs import paper_models, qwen3_14b, recurrentgemma_9b
-from repro_torch.configs.base import apply_method
+"""Architecture config registry (port of ``repro.configs``): the ported
+archs and the paper's own models."""
+from repro_torch.configs.base import (
+    SHAPES,
+    ArchSpec,
+    ShapeSpec,
+    apply_method,
+    cache_specs,
+    get_arch,
+    input_specs,
+    list_archs,
+    to_bf16,
+)
 
-__all__ = ["apply_method", "paper_models", "qwen3_14b", "recurrentgemma_9b"]
+__all__ = [
+    "SHAPES", "ArchSpec", "ShapeSpec", "apply_method", "cache_specs",
+    "get_arch", "input_specs", "list_archs", "to_bf16",
+]

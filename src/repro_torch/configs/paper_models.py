@@ -4,8 +4,8 @@
 The reduced ``*_tiny`` variants run the same protocol at CPU scale (same
 family: post-LN MLM encoder for BERT, pre-LN CLM decoder for OPT). Params
 and compute are f32, as in the reference. ``vit_s16`` is an encoder over
-patch embeddings (``input_kind="embeds"``), which the port does not run
-yet: ``check_supported`` refuses it.
+197 patch embeddings (``input_kind="embeds"``, through a 384 -> 384
+``frontend_proj``) with a 1000-way head.
 """
 from repro_torch.models.transformer import ModelConfig
 

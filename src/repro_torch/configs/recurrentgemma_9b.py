@@ -7,6 +7,7 @@ groups + 2 trailing griffin blocks = 38 layers. d_ff=12288, vocab=256000.
 """
 import torch
 
+from repro_torch.configs.base import ArchSpec, register
 from repro_torch.models.transformer import ModelConfig
 from repro_torch.nn.recurrent import RGLRUConfig
 
@@ -37,3 +38,10 @@ def smoke() -> ModelConfig:
         mlp_kind="geglu", norm="rmsnorm", pos="rope",
         scan_layers=False, remat=False,
     )
+
+
+register(ArchSpec(
+    arch_id="recurrentgemma-9b", family="hybrid", full=full, smoke=smoke,
+    skip_shapes=(),              # sub-quadratic: runs long_500k
+    source="arXiv:2402.19427",
+))

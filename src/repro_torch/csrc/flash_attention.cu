@@ -35,8 +35,14 @@
 // (kernels/flash_attention.py : route), which passes its choice; this
 // file dispatches on it and refuses a route not built for the inputs:
 //   * bf16, Dh 32, 64 or 128 -> flash_kernel_tc, the tensor-core route;
-//   * f32 (Dh 32, 64, 128, 256), bf16 Dh 256 -> flash_kernel_cc, the
-//     CUDA-core route.
+//     bf16 Dh 80 and 96 (hubert-xlarge, phi-3-vision) run its Dh-128 body:
+//     the TMA boxes of columns 64..127 are zero-filled past Dh (the tensor
+//     maps name the true head dim), so QK^T adds exact zeros and P.V
+//     writes zero columns that the store drops; q's scale Dh^-0.5 comes
+//     from the caller. 1.6x / 1.33x the products of a native width, for
+//     no new instantiation;
+//   * f32 (Dh 32, 64, 80, 96, 128, 256), bf16 Dh 256 -> flash_kernel_cc,
+//     the CUDA-core route.
 // f32 inputs stay on CUDA cores because their tolerance (3e-5) rules out
 // bf16 products; bf16 Dh 256 (recurrentgemma's cache-free forward, off
 // the main path) would need a 64x256 f32 accumulator per warpgroup.
@@ -81,7 +87,7 @@
 // (m, Z, acc) in registers for the whole walk; products in f32, each
 // thread a 4x4 tile of scores; Q and K staged transposed in shared memory.
 // Each thread accumulates 4 query rows x NCG groups of CW consecutive
-// output columns (CW 4, NCG Dh/64; at Dh 32, CW 2 and NCG 1).
+// output columns (CW 4, NCG Dh/64; at Dh 32 and 96, CW 2; at Dh 80, CW 1).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,6 +120,7 @@ struct Args {
   // output u (B, Tq, Hq, Dh) contiguous, written beside out under a gate
   float* stats;
   float* u;
+  int dh;  // the head dim of the tensors (the tensor-core body's D may exceed it)
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -167,28 +174,41 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, const float* x) {
 
 // The CUDA-core route's output columns: each thread owns NCG groups of CW
 // consecutive columns, group c starting at column c * 16 * CW + tx * CW.
+// CW is the widest of 4, 2, 1 whose 16 threads' span divides D, so a row
+// need not be a multiple of 64: Dh 96 takes CW 2 (three groups), Dh 80
+// CW 1 (five groups).
 template <int D>
 struct Cols {
-  static constexpr int CW = D >= 64 ? 4 : D / 16;
+  static_assert(D % 16 == 0, "the CUDA-core route takes Dh a multiple of 16");
+  static constexpr int CW = D % 64 == 0 ? 4 : D % 32 == 0 ? 2 : 1;
   static constexpr int NCG = D / (16 * CW);
 };
+
+__device__ __forceinline__ void store1(float* p, const float* x) { *p = x[0]; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, const float* x) {
+  *p = __float2bfloat16_rn(x[0]);
+}
 
 template <int CW>
 __device__ __forceinline__ void load_cols(const float* p, float* x) {
   if constexpr (CW == 4) {
     const float4 v = *reinterpret_cast<const float4*>(p);
     x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
-  } else {
+  } else if constexpr (CW == 2) {
     const float2 v = *reinterpret_cast<const float2*>(p);
     x[0] = v.x, x[1] = v.y;
+  } else {
+    x[0] = *p;
   }
 }
 template <int CW, typename T>
 __device__ __forceinline__ void store_cols(T* p, const float* x) {
   if constexpr (CW == 4) {
     store4(p, x);
-  } else {
+  } else if constexpr (CW == 2) {
     store2(p, x);
+  } else {
+    store1(p, x);
   }
 }
 
@@ -850,6 +870,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       __nv_bfloat16* orow = out + (long long)t * a.sot;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
+        if (8 * j >= a.dh) break;  // the Dh-128 body at Dh 80 / 96: columns past Dh are zeros
         float v0 = o[4 * j + 2 * i], v1 = o[4 * j + 2 * i + 1];
         if (!CLIPPED) {
           v0 = v0 / zci;
@@ -881,16 +902,17 @@ cudaError_t launch_cc(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Tensor map of a bf16 (B, T, H, Dh) view with element strides (sb, st,
-// sh) and a unit last stride: boxes of Smem<D>::BOX Dh columns x 64 rows of
+// Tensor map of a bf16 (B, T, H, dh) view with element strides (sb, st,
+// sh) and a unit last stride: boxes of Smem<D>::BOX columns x 64 rows of
 // T under the swizzle of that width (128 bytes, or 64 at Dh 32), zeros
-// outside the view.
+// outside the view: rows past T, and columns dh..D-1 when the Dh-128 body
+// runs Dh 80 or 96.
 template <int D>
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int T, int H, long long sb,
-                     long long st, long long sh) {
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int T, int H, int dh,
+                     long long sb, long long st, long long sh) {
   const attn::EncodeFn enc = attn::encode_fn();
   if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {(cuuint32_t)tc::Smem<D>::BOX, 1, (cuuint32_t)tc::BK, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
@@ -905,9 +927,11 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int T, int H, lon
 template <bool CLIPPED, int D>
 cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  cudaError_t err = make_map<D>(&mq, a.q, a.B, a.Tq, a.Hq, a.sqb, a.sqt, a.sqh);
-  if (err == cudaSuccess) err = make_map<D>(&mk, a.k, a.B, a.Tk, a.Hkv, a.skb, a.skt, a.skh);
-  if (err == cudaSuccess) err = make_map<D>(&mv, a.v, a.B, a.Tk, a.Hkv, a.svb, a.svt, a.svh);
+  cudaError_t err = make_map<D>(&mq, a.q, a.B, a.Tq, a.Hq, a.dh, a.sqb, a.sqt, a.sqh);
+  if (err == cudaSuccess)
+    err = make_map<D>(&mk, a.k, a.B, a.Tk, a.Hkv, a.dh, a.skb, a.skt, a.skh);
+  if (err == cudaSuccess)
+    err = make_map<D>(&mv, a.v, a.B, a.Tk, a.Hkv, a.dh, a.svb, a.svt, a.svh);
   if (err != cudaSuccess) return err;
   auto kern = tc::flash_kernel_tc<CLIPPED, D>;
   const int smem = tc::Smem<D>::BYTES;
@@ -928,14 +952,15 @@ cudaError_t dispatch_tc(const Args& a, bool clipped, cudaStream_t s) {
   return clipped ? launch_tc<true, D>(a, s) : launch_tc<false, D>(a, s);
 }
 
-// route 1: the tensor-core kernels (bf16, Dh 32/64/128); route 0: the
-// CUDA-core kernels (f32 at Dh 32/64/128/256, bf16 at Dh 256)
+// route 1: the tensor-core kernels (bf16, Dh 32/64/128, and Dh 80/96
+// through the Dh-128 body); route 0: the CUDA-core kernels (f32 at Dh
+// 32/64/80/96/128/256, bf16 at Dh 256)
 cudaError_t dispatch(const Args& a, int dtype, int dh, int route, bool clipped,
                      cudaStream_t s) {
   if (route == 1) {
     if (dtype == 1 && dh == 32) return dispatch_tc<32>(a, clipped, s);
     if (dtype == 1 && dh == 64) return dispatch_tc<64>(a, clipped, s);
-    if (dtype == 1 && dh == 128) return dispatch_tc<128>(a, clipped, s);
+    if (dtype == 1 && (dh == 80 || dh == 96 || dh == 128)) return dispatch_tc<128>(a, clipped, s);
   } else if (route != 0) {
     return cudaErrorInvalidValue;
   } else if (dtype == 1) {
@@ -943,6 +968,8 @@ cudaError_t dispatch(const Args& a, int dtype, int dh, int route, bool clipped,
   } else if (dtype == 0) {
     if (dh == 32) return dispatch_cc<float, 32>(a, clipped, s);
     if (dh == 64) return dispatch_cc<float, 64>(a, clipped, s);
+    if (dh == 80) return dispatch_cc<float, 80>(a, clipped, s);
+    if (dh == 96) return dispatch_cc<float, 96>(a, clipped, s);
     if (dh == 128) return dispatch_cc<float, 128>(a, clipped, s);
     if (dh == 256) return dispatch_cc<float, 256>(a, clipped, s);
   }
@@ -971,7 +998,7 @@ extern "C" int flash_attention_launch(
   }
   Args a{q, k, v, gate, q_offs, out, B, Tq, Tk, Hq, Hkv, sqb, sqt, sqh, skb, skt, skh,
          svb, svt, svh, sob, sot, soh, sgb, sgt, sgh, q_offset, causal, window, softcap,
-         zg, gamma, scale, stats, u};
+         zg, gamma, scale, stats, u, Dh};
   return (int)dispatch(a, dtype, Dh, route, clipped != 0,
                        static_cast<cudaStream_t>(stream));
 }

@@ -63,7 +63,7 @@ launches = 0
 bwd_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128, 256)
+_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 _BWD_HEAD_DIMS = (32, 64)
 _lib: Optional[ctypes.CDLL] = None
 _bwd_lib: Optional[ctypes.CDLL] = None
@@ -98,11 +98,13 @@ def _bwd_kernel_lib() -> ctypes.CDLL:
 
 def route(dtype: torch.dtype, dh: int) -> str:
     """The kernel's route for q/k/v of ``dtype`` and head dim ``dh``, fixed
-    by the two alone: "tensor-core" (bf16 at Dh 32, 64 or 128: wgmma
-    products over a TMA-fed K/V ring, P carried as a hi/lo pair of bf16
-    operands) or "cuda-core" (f32, whose tolerance rules out bf16
-    products, and bf16 at Dh 256)."""
-    return "tensor-core" if dtype == torch.bfloat16 and dh in (32, 64, 128) else "cuda-core"
+    by the two alone: "tensor-core" (bf16 at Dh 32, 64, 80, 96 or 128:
+    wgmma products over a TMA-fed K/V ring, P carried as a hi/lo pair of
+    bf16 operands; Dh 80 and 96 run the Dh-128 body over TMA boxes
+    zero-filled past Dh) or "cuda-core" (f32, whose tolerance rules out
+    bf16 products, and bf16 at Dh 256)."""
+    tc = dtype == torch.bfloat16 and dh in (32, 64, 80, 96, 128)
+    return "tensor-core" if tc else "cuda-core"
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

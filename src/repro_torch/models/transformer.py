@@ -14,7 +14,12 @@ attention, over a per-row ring when the cache has one) and ``griffin``
 (the RG-LRU recurrent block, ``repro_torch.nn.recurrent``), in any
 pattern; ``embed_scale`` multiplies the embeddings by sqrt(d_model);
 ``pos="learned"`` adds a learned position table (BERT, OPT) and
-``norm_position="post"`` normalizes after each residual add (BERT).
+``norm_position="post"`` normalizes after each residual add (BERT);
+``post_block_norm`` normalizes each sub-block's output before its
+residual add (gemma-2's sandwich norms). ``input_kind`` "embeds" feeds
+precomputed embeddings (through ``frontend_proj`` when ``frontend_dim``
+is set; the head is then always an untied ``lm_head``), "mixed" a prefix
+of embeddings at ``d_model`` before the token embeddings.
 
 This port covers the serving and evaluation paths: ``model_apply``
 without a cache (the ``attention`` dispatcher: the flash kernel on the
@@ -24,8 +29,8 @@ shared scalar ``pos`` or per-row ``pos`` with a per-token ``active``
 mask, with a ``QuantContext`` whose site names are the reference's byte
 for byte (a block is named by its index inside the pattern,
 ``layer_attn0``, in every group; a tail block ``tail_griffin0``). MoE and
-xLSTM blocks, embeds inputs and post-block norms raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+xLSTM blocks raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 
 Cache writes update the cache IN PLACE (``aux["cache"]`` is the cache
 that was passed in): the KV cache is the largest tensor of a serving
@@ -186,13 +191,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.moe is not None:
         raise NotImplementedError("MoE blocks are not ported yet "
                                   "(ROADMAP queue 1, item 5.2: nn/moe.py)")
-    unported = {"input_kind": (cfg.input_kind != "tokens", "5.4"),
-                "post_block_norm": (cfg.post_block_norm, "5.4")}
-    bad = sorted((k, item) for k, (hit, item) in unported.items() if hit)
-    if bad:
-        raise NotImplementedError(
-            "ModelConfig settings not ported yet: " + ", ".join(
-                f"{k} (ROADMAP queue 1, item {item})" for k, item in bad))
 
 
 # ==========================================================================
@@ -362,6 +360,10 @@ def _attn_block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     if cfg.mlp_kind != "none":
         p["ln2"] = norm_init(cfg.norm, d, dt, dev)
         p["mlp"] = mlp_init(ks[5], d, cfg.d_ff, cfg.mlp_kind, dt)
+    if cfg.post_block_norm:
+        p["post_ln1"] = norm_init(cfg.norm, d, dt, dev)
+        if cfg.mlp_kind != "none":
+            p["post_ln2"] = norm_init(cfg.norm, d, dt, dev)
     return p
 
 
@@ -476,13 +478,19 @@ def _attn_block_apply(
                              gate_pi=gate_pi)
 
     attn_out = ctx.act(name + "/attn.out", attn_out.reshape(b, t, hq * dh))
-    x = x + linear_apply(p["o"], attn_out, ctx, name + "/o")
+    y = linear_apply(p["o"], attn_out, ctx, name + "/o")
+    if cfg.post_block_norm:
+        y = norm_apply(cfg.norm, p["post_ln1"], y, ctx, name + "/post_ln1")
+    x = x + y
     if post:
         x = norm_apply(cfg.norm, p["ln1"], x, ctx, name + "/ln1")
     attn_layer_out = x
     if cfg.mlp_kind != "none":
         h2 = x if post else norm_apply(cfg.norm, p["ln2"], x, ctx, name + "/ln2")
-        x = x + mlp_apply(p["mlp"], h2, cfg.mlp_kind, ctx, name + "/mlp")
+        y2 = mlp_apply(p["mlp"], h2, cfg.mlp_kind, ctx, name + "/mlp")
+        if cfg.post_block_norm:
+            y2 = norm_apply(cfg.norm, p["post_ln2"], y2, ctx, name + "/post_ln2")
+        x = x + y2
         if post:
             x = norm_apply(cfg.norm, p["ln2"], x, ctx, name + "/ln2")
     return x, attn_layer_out
@@ -564,8 +572,12 @@ def model_init(seed, cfg: ModelConfig, device="cuda") -> Params:
         gen.manual_seed(int(seed))
     keys = split_keys(gen, cfg.n_layers + 4)
     dt = cfg.param_dtype
-    p: Params = {"embed": embedding_init(keys[-1], cfg.padded_vocab,
-                                         cfg.d_model, cfg.init_std, dt)}
+    p: Params = {}
+    if cfg.input_kind in ("tokens", "mixed"):
+        p["embed"] = embedding_init(keys[-1], cfg.padded_vocab, cfg.d_model,
+                                    cfg.init_std, dt)
+    if cfg.input_kind in ("embeds", "mixed") and cfg.frontend_dim is not None:
+        p["frontend_proj"] = linear_init(keys[-2], cfg.frontend_dim, cfg.d_model, dtype=dt)
     if cfg.pos == "learned":
         p["pos_embed"] = positional_embedding_init(keys[-3], cfg.max_seq_len,
                                                    cfg.d_model, dt)
@@ -583,7 +595,7 @@ def model_init(seed, cfg: ModelConfig, device="cuda") -> Params:
         p["tail"] = {f"t{i}": _block_init(keys[cfg.n_groups * glen + i], cfg, kind)
                      for i, kind in enumerate(cfg.tail_pattern)}
     p["final_norm"] = norm_init(cfg.norm, cfg.d_model, dt, gen.device)
-    if not cfg.tie_embeddings:
+    if not cfg.tie_embeddings or cfg.input_kind == "embeds":
         p["lm_head"] = linear_init(keys[-4], cfg.d_model, cfg.padded_vocab,
                                    bias=False, std=cfg.init_std, dtype=dt)
     return p
@@ -741,6 +753,28 @@ def copy_pool_blocks(cache: Params, src: torch.Tensor, dst: torch.Tensor
     return cache
 
 
+def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                  ctx: QuantContext) -> torch.Tensor:
+    """The residual stream's input before learned positions, in the
+    reference's order: the embeds (through ``frontend_proj`` when the
+    params have one), then the token embeddings concatenated after them.
+    A config whose ``input_kind`` takes neither part present raises."""
+    parts = []
+    if cfg.input_kind in ("embeds", "mixed") and "embeds" in batch:
+        e = batch["embeds"].to(cfg.compute_dtype)
+        if "frontend_proj" in params:
+            e = linear_apply(params["frontend_proj"], e, ctx, "frontend_proj")
+        parts.append(e)
+    if cfg.input_kind in ("tokens", "mixed") and "tokens" in batch:
+        scale = math.sqrt(cfg.d_model) if cfg.embed_scale else None
+        parts.append(embedding_apply(params["embed"], batch["tokens"], ctx, "embed", scale
+                                     ).to(cfg.compute_dtype))
+    if not parts:
+        raise ValueError(f"input_kind {cfg.input_kind!r} takes none of the batch's "
+                         f"parts {sorted(batch)}")
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
 def model_apply(
     params: Params,
     cfg: ModelConfig,
@@ -755,7 +789,9 @@ def model_apply(
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Forward pass. Returns (logits (B, T, vocab) f32, aux).
 
-    ``batch``: {"tokens": (B, T) int}. ``cache``/``pos``: a dense
+    ``batch``: {"tokens": (B, T) int} and/or {"embeds": (B, T, F)} as
+    ``cfg.input_kind`` takes them (``_embed_inputs``: a mixed batch's
+    embeds come first, and T counts both parts). ``cache``/``pos``: a dense
     (``init_cache``) or paged (``init_paged_cache``) cache and the block's
     start position, a shared int or a per-row (B,) tensor. ``active``:
     optional per-row (B,) or per-token (B, T) bool mask for per-row
@@ -779,12 +815,9 @@ def model_apply(
     "attn_outputs" lists the block outputs of the unrolled layers and of
     the tail (for a scanned config, the tail's only)."""
     check_supported(cfg)
-    tokens = batch["tokens"]
-    b, t = tokens.shape
-    dev = tokens.device
-    scale = math.sqrt(cfg.d_model) if cfg.embed_scale else None
-    x = embedding_apply(params["embed"], tokens, ctx, "embed", scale
-                        ).to(cfg.compute_dtype)
+    x = _embed_inputs(params, cfg, batch, ctx)
+    b, t, _ = x.shape
+    dev = x.device
     st = _Step(cfg, b, t, pos, active, dev, paged_live_width, paged_live_widths)
     if cfg.pos == "learned":
         # a padded tail past the table reads NaN rows, as in the reference

@@ -50,7 +50,9 @@ does (a ring or recurrent write cannot be hidden or shared), and run
 
 This port refuses, outright and with the ROADMAP item that ports each:
 W8A8 (``qconfig=``) on a config that is not all-``attn``, and the block
-kinds and settings ``check_supported`` refuses. Host bookkeeping is
+kinds ``check_supported`` refuses. A config of ``input_kind`` "embeds"
+has no token path and raises ``ValueError``; a "mixed" one serves text
+prompts through its token embeddings. Host bookkeeping is
 numpy; the tick's tensors live on ``device`` (default ``"cuda"``).
 """
 from __future__ import annotations
@@ -317,6 +319,11 @@ class ContinuousBatcher:
                  debug_audit: bool = False,
                  device="cuda") -> None:
         check_supported(cfg)
+        if cfg.input_kind == "embeds":
+            raise ValueError(
+                "ContinuousBatcher serves token prompts, and a config of "
+                "input_kind 'embeds' has no token path (an encoder over "
+                "precomputed embeddings: run it through model_apply)")
         kinds = cfg.pattern + cfg.tail_pattern
         if qconfig is not None and any(k != "attn" for k in kinds):
             raise NotImplementedError(

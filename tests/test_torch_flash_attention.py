@@ -9,7 +9,12 @@
   * ``mha_flash`` (GQA, model layout) against the reference's ``mha_flash``;
   * the ``attention`` dispatcher against the reference's on both of its
     CPU routes (dense, and chunked above tq*tk = 2048^2, here at a tiny
-    width with T = 2100), at atol 2e-5, taking the same route.
+    width with T = 2100), at atol 2e-5, taking the same route;
+  * the head dims 80 (hubert-xlarge) and 96 (phi-3-vision): the plain
+    version against the Pallas kernel in interpret mode at a ragged T,
+    causal and not, vanilla, clipped, gated, softcap and window (f32 at
+    3e-5, bf16 against the oracle at 2e-2), and, without a card, the
+    route each dtype takes and the arguments ``_launch`` hands the kernel.
 
 The kernel itself runs only on the card; ``chip_smoke.py`` holds it
 against ``attention_ref`` there."""
@@ -199,3 +204,106 @@ def test_scale_q_plain_version_matches_dense_attention(dtype, sm_kw):
     assert got.dtype == dt
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
                                atol=ATOL if dtype == "float32" else 2e-2)
+
+
+# ---------------------------------------------------------------------------
+# head dims 80 and 96
+# ---------------------------------------------------------------------------
+NEW_DH = (80, 96)
+NEW_DH_VARIANTS = {
+    "vanilla": dict(), "noncausal": dict(causal=False),
+    "clipped": dict(gamma=-0.03), "clipped-noncausal": dict(gamma=-0.03, causal=False),
+    "gated": dict(), "clipped-gated": dict(gamma=-0.02, zeta=1.01),
+    "softcap": dict(softcap=50.0), "window": dict(window=40, softcap=30.0),
+}
+
+
+@pytest.mark.parametrize("dh", NEW_DH)
+@pytest.mark.parametrize("variant", list(NEW_DH_VARIANTS))
+def test_new_head_dims_vs_reference_kernel(dh, variant):
+    """T 100, a length no block of 32 divides."""
+    kw = NEW_DH_VARIANTS[variant]
+    q, k, v, g = _inputs((2, 100, 100, dh), seed=6, gate="gated" in variant)
+    got = tfa.attention_ref(_t(q), _t(k), _t(v), _t(g), **kw).numpy()
+    kern = np.asarray(jflash(_j(q), _j(k), _j(v), _j(g), block_q=32, block_kv=32, **kw))
+    oracle = np.asarray(jref(_j(q), _j(k), _j(v), _j(g), **kw))
+    np.testing.assert_allclose(got, kern, atol=ATOL)
+    np.testing.assert_allclose(got, oracle, atol=ATOL)
+
+
+@pytest.mark.parametrize("dh", NEW_DH)
+@pytest.mark.parametrize("variant", ["vanilla", "clipped-noncausal"])
+def test_new_head_dims_bf16_vs_reference_oracle(dh, variant):
+    kw = NEW_DH_VARIANTS[variant]
+    q, k, v, _ = _inputs((2, 100, 100, dh), seed=7)
+    got = tfa.attention_ref(*(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)),
+                            None, **kw)
+    want = jref(*(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)), None, **kw)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("dh", NEW_DH)
+def test_new_head_dims_mha_flash_gqa_vs_reference(dh):
+    b, t, h, hkv = 2, 70, 4, 2
+    rng = np.random.default_rng(8)
+    q = rng.standard_normal((b, t, h, dh)).astype(np.float32)
+    k = rng.standard_normal((b, t, hkv, dh)).astype(np.float32)
+    v = rng.standard_normal((b, t, hkv, dh)).astype(np.float32)
+    got = tfa.mha_flash(_t(q), _t(k), _t(v), None, gamma=-0.02).numpy()
+    want = np.asarray(jmha(_j(q), _j(k), _j(v), None, gamma=-0.02, block_q=32, block_kv=32))
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.fixture
+def fake_launch(monkeypatch):
+    """``_launch`` with the library, the device guard and the stream stood
+    in (this machine has no card): returns the argument tuples the kernel
+    was handed."""
+    calls = []
+
+    class Lib:
+        def flash_attention_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    class Guard:
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(tfa, "_kernel_lib", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: Stream())
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: Guard())
+    return calls
+
+
+@pytest.mark.parametrize("dh", NEW_DH)
+@pytest.mark.parametrize("dtype,want_route", [(torch.bfloat16, 1), (torch.float32, 0)])
+def test_new_head_dims_route_and_launch_arguments(dh, dtype, want_route, fake_launch):
+    """bf16 at Dh 80 / 96 takes the tensor-core route (the Dh-128 body over
+    zero-filled boxes), f32 the CUDA-core one; the kernel is handed the
+    true head dim and q's scale Dh^-0.5."""
+    assert dh in tfa._HEAD_DIMS
+    assert tfa.route(dtype, dh) == ("tensor-core" if want_route else "cuda-core")
+    q = torch.zeros(2, 8, 4, dh, dtype=dtype)
+    kv = torch.zeros(2, 8, 2, dh, dtype=dtype)
+    launches = tfa.launches
+    out = tfa._launch(q, kv, kv, None, 0, True, None, 50.0, 0.0, 1.0)
+    assert out.shape == q.shape and tfa.launches == launches + 1
+    args = fake_launch[-1]
+    assert args[11] == dh                                   # Dh
+    assert args[6:11] == (2, 8, 8, 4, 2)                    # B, Tq, Tk, Hq, Hkv
+    assert args[12:15] == (8 * 4 * dh, 4 * dh, dh)          # q's strides
+    assert args[-2] == want_route and args[-3] == tfa._DTYPE_CODE[dtype]
+    assert args[34] == pytest.approx(dh ** -0.5)            # scale
+    # a view whose rows are not 16-byte aligned is refused, not copied
+    wide = torch.zeros(2, 8, 4, dh + 8 // q.element_size(), dtype=dtype)[..., :dh]
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        tfa._launch(wide, wide, wide, None, 0, True, None, None, 0.0, 1.0)

@@ -2,8 +2,8 @@
 on the CPU, in float32.
 
 ``repro_torch.configs.paper_models`` against ``repro.configs.paper_models``
-(fields and what ``check_supported`` accepts: every config but ViT-S/16,
-whose patch-embedding input is ROADMAP item 5.4); the learned position
+(fields and what ``check_supported`` accepts: every config, ViT-S/16's
+patch-embedding input among them); the learned position
 table (``positional_embedding_apply``, bitwise, with the reference's
 ``jnp.take`` fill: an index outside the table gives a NaN row); one
 post-LN block (BERT's, ``attn_layer_out`` taken after ``ln1``); whole-model
@@ -115,12 +115,7 @@ def test_config_fields_equal_reference(maker):
 
 @pytest.mark.parametrize("maker", CONFIGS)
 def test_check_supported_paper_configs(maker):
-    cfg = getattr(tpm, maker)()
-    if maker == "vit_s16":
-        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 5\.4"):
-            ttr.check_supported(cfg)
-    else:
-        ttr.check_supported(cfg)
+    ttr.check_supported(getattr(tpm, maker)())
 
 
 def test_entry_points_default_to_cuda():

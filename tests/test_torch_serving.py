@@ -234,13 +234,15 @@ def test_refuses_what_this_slice_does_not_port(models):
     cases = [
         ({}, dataclasses.replace(tc, pattern=("attn", "mlstm"))),
         ({}, dataclasses.replace(tc, moe=object())),
-        ({}, dataclasses.replace(tc, input_kind="embeds")),
-        ({}, dataclasses.replace(tc, post_block_norm=True)),
     ]
     for kw, cfg in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tserve.ContinuousBatcher(tp, cfg, batch_size=2, max_len=64,
                                      device="cpu", **kw)
+    # an embeds config has no token path to serve
+    with pytest.raises(ValueError, match="no token path"):
+        tserve.ContinuousBatcher(tp, dataclasses.replace(tc, input_kind="embeds"),
+                                 batch_size=2, max_len=64, device="cpu")
     # the reference's own refusals of the dense cache
     for kw, match in ((dict(kv_int8=True), "kv_int8 requires paged=True"),
                       (dict(prefix_cache=True), "prefix_cache=True requires paged=True")):
