@@ -37,8 +37,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      reads (4 rows, 16 KV heads of 128 with 2 query heads each, bf16,
      softcap 50, max_len 4608; decode and Tq 128 at live lengths past 4096,
      with and without the 4096 window) and phi-3-vision's (8 rows of 32
-     heads of 96, bf16, max_len 2048; decode and Tq 128) at the bfloat16
-     tolerance; each line names the route and the number of KV splits. The tensor-core prefill read (Tq
+     heads of 96, bf16, max_len 2048; decode and Tq 128) and phase 8's
+     MoE models' (MOE_PAGED: granite-moe-1b-a400m's 8 rows of 8 KV heads
+     of 64 with 2 query heads each, qwen2-moe-a2.7b's 16 of 128, bf16,
+     max_len 1024; decode at LIVE lengths and Tq 128; vanilla, clipped,
+     gated) at the bfloat16 tolerance, each MoE model's vanilla read timed
+     beside SDPA and the bound; each line names the route and the number
+     of KV splits. The tensor-core prefill read (Tq
      128, bf16 q; vanilla, clipped and gated over bf16 and int8 pools) is
      also held against the plain version (P in f32) within
      PAGED_TC_REL_RMS, and the plain version with P rounded to bf16 (the
@@ -49,8 +54,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      sides of the route boundary (16: mma.sync weight streaming; 17: TMA
      + wgmma), an N no tile divides (130, 5120, 1040) and two ragged
      shapes; static and dynamic activation ranges, x in float32 and in
-     bfloat16; and OPT-125m's linears (768x768, 768x3072, 3072x768) at M 8
-     and 2048. The check is bitwise (max abs difference 0), and the
+     bfloat16; OPT-125m's linears (768x768, 768x3072, 3072x768) at M 8
+     and 2048; phase 8's (MOE_LINEARS: granite-moe's q/o 1024x1024 and k/v
+     1024x512, qwen2-moe's q/k/v/o 2048x2048 and shared experts'
+     2048x5632 and 5632x2048) at M 8 and 2048, each also timed. The check
+     is bitwise (max abs difference 0), and the
      pre-pass's codes are held bitwise against ``quantize_activations``
      on their own. Then device times at every tick shape of the kernel,
      its plain version and ``torch._int_mm`` (cuBLASLt, a yardstick the
@@ -80,7 +88,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      shapes (``model_flash_shapes``: ViT-S/16 f32 (64, 197, 6/6, 64) and
      hubert-xlarge bf16 (2, 4096, 16/16, 80) without the causal mask,
      phi-3-vision bf16 (1, 2048, 32/32, 96), gemma2-27b bf16 (1, 4608,
-     32/16, 128) with softcap 50, with and without the 4096 window); each
+     32/16, 128) with softcap 50, with and without the 4096 window, and
+     phase 8's: granite-moe bf16 (1, 2048, 16/8, 64) and f32 (2, 1024, 16/8,
+     64), its training read, and qwen2-moe bf16 (1, 2048, 16/16, 128), all
+     causal, each also timed (MOE_FLASH_TIMED); each
      line names the route (bf16 Dh 32/64/80/96/128: tensor cores). Then device times at (1, 2048) bf16 of the kernel, its
      plain version and ``F.scaled_dot_product_attention(is_causal=True,
      enable_gqa=True)`` (vanilla only; a yardstick the port never calls),
@@ -313,8 +324,50 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      rolled one slot above; the vanilla engine's mixed and decode ticks
      traced (device time by family, the f32 head among the rest, idle
      share); peak memory printed.
-  8. The kernels line (six kernels, the backward among them), then the
-     device line.
+  8. Mixture-of-Experts blocks (``repro_torch.nn.moe``) at published
+     widths and depths, random weights from seed 0, unrolled layers, one
+     model at a time (``phase_moe``). (a) The MoE layer alone, on the
+     hidden states of a real evaluation forward (``phase_moe_layer``):
+     every layer's claims dropped at the config's capacity, printed; on
+     the first layer's input, dispatch at capacity factor E/k (no claim can
+     drop) against the dense path on the same router outputs, dispatch at
+     MOE_DROP_CF against ``dispatch_ref`` (a host loop replaying the
+     slot-major claims, the dropped weights zeroed in the dense combine;
+     the same number of drops), and a tick's worth of tokens (8 rows of
+     256) with every other row dead against the live rows alone at the same
+     capacity; each within MOE_LAYER_REL_RMS, each control above it (one
+     slot's weight zeroed; the claims replayed token-major; the dead rows
+     claiming). (b) granite-moe-1b-a400m (bf16, 24 layers, 32 experts,
+     top-8): phase 5's evaluation for vanilla (with (a)), clipped (alpha 4)
+     and gated, each attention layer held per layer at FLASH_LAYER_REL_RMS
+     and the logits at MOE_LOGIT_REL_RMS;
+     an fp and a W8A8 ``ContinuousBatcher(paged=True)`` on the vanilla
+     weights (batch 8, max_len 1024, ``short_requests``' 12 requests at its
+     vocabulary) through ``phase_serving``; then trained in f32
+     (``phase_moe_train``: phase 6b's step-vs-plain gate at
+     MOE_STEP_GRAD_REL_RMS / MOE_STEP_ATTN_LEAF_REL, MOE_TRAIN_STEPS AdamW
+     steps at 2 x 1024, the loss falling, ``moe_lb`` and ``moe_z`` finite
+     and printed). (c) qwen2-moe-a2.7b (bf16, 24 layers, 60 routed experts
+     top-4 and 4 shared; 28.6 GB of weights): the evaluation, vanilla, with
+     (a); an fp and a W8A8 engine (its shared experts through the int8
+     kernel: 7 launches per layer and forward) on the same weights, each
+     with its mixed and first decode tick traced: device time by family
+     (``moe_annotations``: the router, the experts' batched products, the
+     dispatch's index ops, the shared experts, the head; the paged reads
+     and int8 GEMMs by name) and the idle share. Every end-to-end gate of a
+     MoE model holds its second forward routed as the first one routed
+     (``routing_taps``: a near-tie of the k-th and k+1-th router
+     probabilities flips under another rounding, moves that token by a
+     whole expert's share, and the moved residual flips later layers'
+     choices: free, 29-58 % of the pairs flip), prints the (layer, token)
+     pairs the two route to other experts when free, and has a fault
+     control above its bound: the evaluation's logits every MoE layer at MOE_DROP_CF, the
+     ticks every MoE layer at its least capacity ("MoE capacity 8"; the fp
+     ticks also one position early). Peak memory is printed per engine.
+  9. The kernels line (six kernels, the backward among them; the launch
+     counts include phase 8's evaluations, engines and training), then
+     the device line. Each phase from 3 on prints its start, in seconds
+     into the run.
 
 TF32 is switched off for matmuls and convolutions, so float32 compares
 are full float32. Requires ``torch.cuda.is_available()``; exits non-zero
@@ -380,6 +433,14 @@ INT8_SHAPES = INT8_TICK_SHAPES + [(16, 5120, 5120), (17, 5120, 5120), (130, 5120
 # and OPT-125m's W8A8 linears (q/k/v/o 768x768, up 768x3072, down
 # 3072x768) at its decode and padded mixed ticks (phase 5b)
 INT8_SHAPES += [(m, k, n) for m in (8, 2048) for k, n in ((768, 768), (768, 3072), (3072, 768))]
+# and phase 8's: granite-moe-1b-a400m's q/o (1024x1024) and k/v (1024x512);
+# qwen2-moe-a2.7b's q/k/v/o (2048x2048) and its shared experts' gate/up
+# (2048x5632) and down (5632x2048); the routers and expert stacks stay fp
+MOE_LINEARS = {"granite-moe": ((1024, 1024), (1024, 512)),
+               "qwen2-moe": ((2048, 2048), (2048, 5632), (5632, 2048))}
+MOE_INT8_SHAPES = [(m, k, n) for m in (8, 2048) for kns in MOE_LINEARS.values()
+                   for k, n in kns]
+INT8_SHAPES += MOE_INT8_SHAPES
 KERNEL_SOURCES = {"paged_attention": "src/repro_torch/csrc/paged_attention.cu",
                   "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu",
                   "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
@@ -779,6 +840,15 @@ PAGED_EXTRA += [("gemma2-27b", tq, variant, "bfloat16", "bfloat16",
 PAGED_EXTRA += [("phi-3-vision", tq, variant, "bfloat16", "bfloat16",
                  dict(PHI_PAGED, lengths=OPT_LIVE) if tq == 1 else PHI_PAGED)
                 for tq in (1, 128) for variant in ("vanilla", "clipped", "gated")]
+# phase 8's MoE engines (batch 8, max_len 1024, bf16): granite-moe-1b-a400m
+# reads 8 KV heads of 64 with 2 query heads each, qwen2-moe-a2.7b 16 of 128
+# with one each (the CUDA-core route at decode); decode and chunks of 128
+MOE_PAGED = {"granite-moe": dict(b=8, hkv=8, g=2, dh=64, max_len=1024),
+             "qwen2-moe": dict(b=8, hkv=16, g=1, dh=128, max_len=1024)}
+PAGED_EXTRA += [(name, tq, variant, "bfloat16", "bfloat16",
+                 dict(shape, lengths=LIVE) if tq == 1 else shape)
+                for name, shape in MOE_PAGED.items() for tq in (1, 128)
+                for variant in ("vanilla", "clipped", "gated")]
 
 
 def phase_kernel_checks(torch, pa):
@@ -843,12 +913,17 @@ def phase_paged_tc_precision(torch, pa):
     check(not bad, f"paged tensor-core read: P's precision not told apart: {bad}")
 
 
-def phase_kernel_times(torch, pa):
+def phase_kernel_times(torch, pa, heads=None, variants=("vanilla", "clipped", "gated", "int8"),
+                       who=""):
+    """Device times of the bf16 paged read at qwen3-14b's shapes, or at
+    ``heads`` (attention_case's shape arguments; decode at LIVE lengths):
+    kernel, plain version, SDPA (vanilla) and the bound."""
     import torch.nn.functional as F
     times = {}
     for tq, shape in ((1, "decode"), (128, "prefill")):
-        for variant in ("vanilla", "clipped", "gated", "int8"):
-            c = attention_case(torch, tq, torch.bfloat16, variant, seed=7 + tq, copies=4)
+        for variant in variants:
+            kw = {} if heads is None else dict(heads, lengths=LIVE) if tq == 1 else heads
+            c = attention_case(torch, tq, torch.bfloat16, variant, seed=7 + tq, copies=4, **kw)
             reps = 40 if tq == 1 else 10
             kern = device_ms(torch, [lambda k=k: run_kernel(pa, c, k) for k in range(4)], reps)
             plain = device_ms(torch, [lambda k=k: run_plain(pa, c, k) for k in range(4)],
@@ -863,7 +938,7 @@ def phase_kernel_times(torch, pa):
             bound, by = attention_bound_ms(c, 2)
             times[(shape, variant)] = dict(ms=kern, plain_ms=plain, library_ms=lib,
                                            bound_ms=bound, bound_by=by)
-            print(f"kernel time {shape:<7} {variant:<7} bf16: kernel {kern:.4f} ms, "
+            print(f"kernel time {who}{shape:<7} {variant:<7} bf16: kernel {kern:.4f} ms, "
                   f"plain {plain:.4f} ms, library "
                   f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {bound:.4f} ms "
                   f"({by})", flush=True)
@@ -938,15 +1013,16 @@ def phase_int8_checks(torch, im):
     return max_err
 
 
-def phase_int8_times(torch, im):
-    """Device times at every shape the tick runs, x in f32 (what the tick
-    feeds every linear after layer 0's first projections), static range:
-    kernel, plain version, and torch._int_mm on the same codes plus the
-    f32 epilogue (cuBLASLt wants its B K-contiguous: the kernel's K-major
-    w_q as it is; decode runs it at M padded to 32, its least M), beside
-    the bound. Then a layer's seven linears summed, at M 8 and M 2048."""
+def phase_int8_times(torch, im, shapes=INT8_TICK_SHAPES, layer=LAYER_LINEARS):
+    """Device times at every shape the tick runs (``shapes``), x in f32
+    (what the tick feeds every linear after layer 0's first projections),
+    static range: kernel, plain version, and torch._int_mm on the same
+    codes plus the f32 epilogue (cuBLASLt wants its B K-contiguous: the
+    kernel's K-major w_q as it is; decode runs it at M padded to 32, its
+    least M), beside the bound. Then, with ``layer``, a layer's seven
+    linears summed, at M 8 and M 2048."""
     times = {}
-    for m, k, n in INT8_TICK_SHAPES:
+    for m, k, n in shapes:
         x, sets, kw = int8_case(torch, im, m, k, n, torch.float32, True, seed=3, copies=2)
         reps = 40 if m == 8 else 10
         kern = device_ms(torch, [lambda w=w: im.int8_matmul(x, w[0], w[1], **kw)
@@ -969,8 +1045,8 @@ def phase_int8_times(torch, im):
               f"{bound:.4f} ms ({by})", flush=True)
         del x, sets, cols, codes
         torch.cuda.empty_cache()
-    for m in (8, 2048):
-        total = {key: sum(times[(m, k, n)][key] * c for (k, n), c in LAYER_LINEARS)
+    for m in (8, 2048) if layer else ():
+        total = {key: sum(times[(m, k, n)][key] * c for (k, n), c in layer)
                  for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
         print(f"int8 time, a layer's seven linears at M {m}: kernel {total['ms']:.4f} ms, "
               f"plain {total['plain_ms']:.4f} ms, _int_mm+epilogue "
@@ -1161,7 +1237,10 @@ def model_flash_shapes(torch):
             ("gemma2-27b local", 4608, torch.bfloat16, dict(b=1, hq=32, hkv=16, dh=128),
              dict(softcap=50.0, window=4096)),
             ("gemma2-27b global", 4608, torch.bfloat16, dict(b=1, hq=32, hkv=16, dh=128),
-             dict(softcap=50.0))]
+             dict(softcap=50.0)),
+            ("granite-moe", 2048, torch.bfloat16, dict(b=1, hq=16, hkv=8, dh=64), {}),
+            ("granite-moe training", 1024, torch.float32, dict(b=2, hq=16, hkv=8, dh=64), {}),
+            ("qwen2-moe", 2048, torch.bfloat16, dict(b=1, hq=16, hkv=16, dh=128), {})]
 
 
 # Phase 3c's timed shapes of the paper models: BERT-base's evaluation read
@@ -1177,6 +1256,11 @@ PAPER_FLASH_TIMED = [("bert", 512, BERT_HEADS, False), ("opt", EVAL_SEQ, OPT_HEA
 # ... and hubert-xlarge's and phi-3-vision's reads (Dh 80 and 96), bf16
 MODEL_FLASH_TIMED = [("hubert-xlarge", 4096, dict(b=2, hq=16, hkv=16, dh=80), False),
                      ("phi-3-vision", 2048, dict(b=1, hq=32, hkv=32, dh=96), True)]
+# ... and phase 8's evaluation reads, bf16 (granite-moe GQA 2 at Dh 64,
+# qwen2-moe Dh 128), and granite-moe's f32 training read (B 2, T 1024)
+MOE_FLASH_TIMED = [("granite-moe", 2048, dict(b=1, hq=16, hkv=8, dh=64), True),
+                   ("qwen2-moe", 2048, dict(b=1, hq=16, hkv=16, dh=128), True)]
+MOE_FLASH_TIMED_F32 = [("granite-moe training", 1024, dict(b=2, hq=16, hkv=8, dh=64), True)]
 
 
 def phase_flash_paper_times(torch, fa, timed=PAPER_FLASH_TIMED, dtypes=("float32", "bfloat16")):
@@ -1199,8 +1283,9 @@ def phase_flash_paper_times(torch, fa, timed=PAPER_FLASH_TIMED, dtypes=("float32
                 if variant == "vanilla":
                     ins = [(q.transpose(1, 2).contiguous(), s[0].transpose(1, 2).contiguous(),
                             s[1].transpose(1, 2).contiguous()) for s in c["sets"]]
+                    gqa = shape["hq"] != shape["hkv"]
                     lib = device_ms(torch, [lambda a=a: F.scaled_dot_product_attention(
-                        a[0], a[1], a[2], is_causal=causal) for a in ins], 10)
+                        a[0], a[1], a[2], is_causal=causal, enable_gqa=gqa) for a in ins], 10)
                     del ins
                 bound, by = flash_bound_ms(c, causal=causal)
                 dt = str(dtype).replace("torch.", "")
@@ -1407,6 +1492,11 @@ def phase_kv_quant(torch):
 TRACE_FAMILIES = (("int8 GEMM + pre-pass", "int8_"), ("paged read", "paged_attn"),
                   ("RG-LRU scan", "rglru"), ("flash backward", "::bwd_"),
                   ("flash forward", "flash_kernel_"))
+# families by the host code that launched a kernel: the user annotations
+# ``moe_annotations`` opens around the MoE layer's parts and the head (a
+# kernel belongs to the innermost one open when it was launched, unless
+# its name already puts it in a family above)
+TRACE_ANNOTATED = ("MoE router", "MoE experts", "MoE dispatch", "MoE shared", "head")
 
 
 def busy_us(spans):
@@ -1433,12 +1523,26 @@ def trace_split(events, label):
     dev = [e for e in events if e.get("ph") == "X"
            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
            and t0 <= e["ts"] and e["ts"] + e["dur"] <= t1]
+    anns = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                  if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                  and e.get("name") in TRACE_ANNOTATED)
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+
+    def annotated(e):
+        ts = launched.get(e.get("args", {}).get("correlation"))
+        inside = [a for a in anns if ts is not None and a[0] <= ts <= a[1]]
+        return max(inside)[2] if inside else None      # the latest start: innermost
+
     fam = {name: 0.0 for name, _ in TRACE_FAMILIES}
+    fam.update({name: 0.0 for name in TRACE_ANNOTATED if any(a[2] == name for a in anns)})
     fam["rest"] = 0.0
     count = dict.fromkeys(fam, 0)
     rest = {}
     for e in dev:
-        key = next((name for name, sub in TRACE_FAMILIES if sub in e["name"]), "rest")
+        key = next((name for name, sub in TRACE_FAMILIES if sub in e["name"]), None) \
+            or annotated(e) or "rest"
         fam[key] += e["dur"] / 1e3
         count[key] += 1
         if key == "rest":
@@ -1548,7 +1652,7 @@ def short_requests(np, vocab, n):
 
 def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
                   max_abs=None, ticks=("mixed",), paged=True, kv_int8=None, w8a8=False,
-                  controls=False, trace=False, dense=None, params=None, batch_size=8,
+                  controls=(), trace=False, dense=None, params=None, batch_size=8,
                   num_blocks=None, ring_ref=None):
     """One engine, ``ContinuousBatcher`` (batch ``batch_size``, block 16,
     budget 256, ``num_blocks`` pool blocks) on ``params`` or random weights
@@ -1557,10 +1661,15 @@ def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
     per forward; at the first tick of each kind in ``ticks`` (TICKS), the
     live logits through the kernels against the plain path's (the gather
     read or ``dense_attention``, the int8 product's plain version): finite,
-    within ``tick_tol`` relative RMS (and ``max_abs``); with ``controls``,
-    the plain path with P rounded to bf16 and the tick one position early
-    must land above ``tick_tol``. Under W8A8, at the mixed tick: the int8
-    kernel alone leaves the plain path's logits bitwise, and W8A8 stays
+    within ``tick_tol`` relative RMS (and ``max_abs``); each run named in
+    ``controls`` must land above ``tick_tol``: "P in bf16" (the plain path
+    with P rounded to bf16), "positions one early" (the tick one position
+    early), "MoE capacity 8" (the kernel path with every MoE layer at its
+    least capacity). A MoE config's tick lines print the (layer, token)
+    pairs the kernel and the plain paths route to other experts when
+    free, and hold the plain path routed as the kernel path routed
+    (``routing_taps``). Under W8A8, at the mixed tick: the int8 kernel
+    alone leaves the plain path's logits bitwise, and W8A8 stays
     within W8A8_VS_FP_REL_RMS of fp. ``trace``: the mixed and a decode
     tick replayed under torch.profiler. ``dense``: (method, method_kw) of
     ``phase_dense_serving``, run after on the same weights. ``ring_ref``:
@@ -1659,6 +1768,9 @@ def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
     # local_attn layer reads its ring with dense_attention); W8A8: every
     # linear of a layer (q, k, v, o and the MLP's two or three)
     linears = 4 + (3 if "glu" in cfg.mlp_kind else 2)
+    if cfg.moe is not None:
+        # the router and the expert stacks stay fp; the shared experts' SwiGLU
+        linears = 4 + (3 if cfg.moe.n_shared_experts else 0)
     n_glob = cfg.n_groups * cfg.pattern.count("attn") + cfg.tail_pattern.count("attn")
     expect = dict(paged=n_glob * fwd if paged else 0, flash=0 if paged else n_glob * fwd,
                   int8=linears * nl * fwd if w8a8 else 0)
@@ -1681,14 +1793,20 @@ def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
                   peak_gb=peak_gb, init_s=init_s, **setup,
                   **{f"{k}_launches": v for k, v in launches.items()})
 
-    def replay(snap, run):
+    def replay(snap, run, force=None):
         """The tick's live logits through the kernels ("kernel"), through
         the plain path ("plain"), the plain attention with the int8
-        kernel ("int8 kernel"), the fp tick ("fp"), or a control."""
+        kernel ("int8 kernel"), the fp tick ("fp"), or a control; a MoE
+        config's routing recorded (and forced to ``force``)."""
         tokens, pos, counts, lw, lws = snap["args"]
         live = torch.arange(tokens.shape[1], device=tokens.device)[None, :] < counts[:, None]
-        plain_attn = run not in ("kernel", "fp")
+        plain_attn = run not in ("kernel", "fp", "MoE capacity 8")
         c2 = dataclasses.replace(b.cfg, paged_backend="gather") if plain_attn else b.cfg
+        if run == "MoE capacity 8":
+            # every MoE layer at its least capacity, 8 claims an expert: most
+            # live claims drop (a padded tick's dead tokens claim nothing, so
+            # a capacity the padding sizes drops little at MOE_DROP_CF)
+            c2 = dataclasses.replace(c2, moe=dataclasses.replace(c2.moe, capacity_factor=0.0))
         if run == "positions one early":
             pos = (pos - 1).clamp(min=0)
         real_attention = transformer.attention
@@ -1700,14 +1818,16 @@ def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
         cache = tree_map(lambda x: x.clone(), snap["cache"])
         try:
             with torch.no_grad(), (bf16_p(torch, matmuls=False) if run == "P in bf16"
-                                   else contextlib.nullcontext()):
+                                   else contextlib.nullcontext()), \
+                    (routing_taps(force) if cfg.moe is not None else
+                     contextlib.nullcontext()) as routes:
                 out = step_rows_full(b.params, c2, cache, tokens, pos, counts, lw, lws,
                                      ctx=NO_QUANT if run == "fp" else b._qctx)[0]
         finally:
             layers.int8_matmul = im.int8_matmul
             transformer.attention = real_attention
         pad_nan = int(torch.isnan(out[~live]).any(-1).sum())
-        return out[live][:, :cfg.vocab_size], pad_nan
+        return out[live][:, :cfg.vocab_size], pad_nan, routes
 
     taps = None
     for kind in ticks:
@@ -1717,21 +1837,27 @@ def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
         # increment at the live tokens, for the dense engine's gate (b)
         live = torch.arange(tokens.shape[1], device=tokens.device)[None, :] < counts[:, None]
         with tapped_blocks(live) if kind == "mixed" else contextlib.nullcontext() as t:
-            kern, pad_nan = replay(snap, "kernel")
+            kern, pad_nan, kern_routes = replay(snap, "kernel")
         taps = t if kind == "mixed" else taps
-        plain, _ = replay(snap, "plain")
+        # a MoE tick's plain path routes as the kernel path routed (its
+        # free routing's flips are printed)
+        plain = replay(snap, "plain", kern_routes)[0]
+        flips = None if cfg.moe is None else \
+            routing_flips(kern_routes, replay(snap, "plain")[2])
         finite = bool(torch.isfinite(kern).all())
         rms = rel_rms(kern, plain)
         diff = (kern - plain).abs().max().item()
         agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
-        ctl = {run: rel_rms(replay(snap, run)[0], plain)
-               for run in (("P in bf16", "positions one early") if controls else ())}
+        ctl = {run: rel_rms(replay(snap, run)[0], plain) for run in controls}
         print(f"serving {name}: {kind} tick (counts {counts.tolist()}, positions up to "
               f"{int(pos.max()) + tokens.shape[1] - 1} with padding, T {tokens.shape[1]}): "
               f"kernel vs plain live logits relative RMS {rms:.3e} (tol {tick_tol}), "
               f"max_abs_diff {diff:.4f}{'' if max_abs is None else f' (tol {max_abs})'} "
               f"(logit std {plain.std().item():.3f}), argmax agreement {agree:.4f}, live "
               f"logits finite {finite}, padded tokens with NaN logits {pad_nan}" +
+              ("" if flips is None else f"; the plain path routed as the kernel path (free, "
+                                        f"it routes {flips[0]} of {flips[1]} (layer, token) "
+                                        f"pairs to other experts)") +
               "".join(f"; control {k} {v:.3e} (must exceed the tol)" for k, v in ctl.items()),
               flush=True)
         check(finite and rms <= tick_tol and (max_abs is None or diff <= max_abs),
@@ -1740,7 +1866,7 @@ def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
         check(all(v > tick_tol for v in ctl.values()),
               f"{name}: {kind} tick, a control lands within the bound: {ctl}")
         result.update({f"{kind} rel_rms": rms, f"{kind} max_abs_diff": diff,
-                       f"{kind} argmax_agreement": agree,
+                       f"{kind} argmax_agreement": agree, f"{kind} routing_flips": flips,
                        **{f"{kind} control {k}": v for k, v in ctl.items()}})
         if kind == "mixed":
             mixed_logits = kern
@@ -1765,16 +1891,21 @@ def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
         if w8a8 and kind == "mixed":
             # the tick with only the int8 product swapped for its plain
             # version: every product is bitwise equal, so the logits are too
-            same = torch.equal(replay(snap, "int8 kernel")[0], plain)
+            same = torch.equal(replay(snap, "int8 kernel", kern_routes)[0], plain)
             print(f"serving {name}: mixed tick through the plain attention: int8 kernel vs "
                   f"its plain version, logits bitwise equal: {same}", flush=True)
             check(same, f"{name}: the int8 kernel changed the tick's logits")
-            fp = replay(snap, "fp")[0]
+            fp = replay(snap, "fp", kern_routes)[0]
             vs_fp = rel_rms(kern, fp)
             agree_fp = (kern.argmax(-1) == fp.argmax(-1)).float().mean().item()
+            fp_flips = None if cfg.moe is None else \
+                routing_flips(kern_routes, replay(snap, "fp")[2])
             print(f"serving {name}: W8A8 tick vs fp tick on the same weights: logits "
                   f"relative RMS {vs_fp:.4f} (tol {W8A8_VS_FP_REL_RMS}), argmax agreement "
-                  f"{agree_fp:.4f}", flush=True)
+                  f"{agree_fp:.4f}" + ("" if fp_flips is None else
+                                       f"; the fp tick routed as the W8A8 tick (free, it "
+                                       f"routes {fp_flips[0]} of {fp_flips[1]} (layer, "
+                                       f"token) pairs to other experts)"), flush=True)
             check(vs_fp <= W8A8_VS_FP_REL_RMS,
                   f"{name}: W8A8 logits far from fp logits: relative RMS {vs_fp}")
             result.update(w8a8_vs_fp_rel_rms=vs_fp, w8a8_vs_fp_argmax_agreement=agree_fp)
@@ -1795,8 +1926,9 @@ def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
             return step_rows_full(b.params, b.cfg, cache, *args, ctx=b._qctx)
 
         torch.cuda.empty_cache()
-        traces = trace_replays(torch, forward, {"mixed": snaps["mixed"]}, f"serving {name}",
-                               "tick")
+        with moe_annotations(torch) if cfg.moe is not None else contextlib.nullcontext():
+            traces = trace_replays(torch, forward, {"mixed": snaps["mixed"]},
+                                   f"serving {name}", "tick")
         del snaps["mixed"]["cache"]
         want.append("decode")
         for u, (p, n) in enumerate(requests[:batch_size]):
@@ -1806,12 +1938,16 @@ def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
                 break
             b.step()
         check("decode" in snaps, f"{name}: no all-decode tick was seen")
-        traces.update(trace_replays(torch, forward, {"decode": snaps.pop("decode")},
-                                    f"serving {name}", "tick"))
+        with moe_annotations(torch) if cfg.moe is not None else contextlib.nullcontext():
+            traces.update(trace_replays(torch, forward, {"decode": snaps.pop("decode")},
+                                        f"serving {name}", "tick"))
         for kind, tr in traces.items():
             check((tr["family_kernels"]["int8 GEMM + pre-pass"] > 0 or not w8a8) and
                   tr["family_kernels"]["paged read"] > 0,
                   f"{name}: the traced {kind} tick ran no int8 or paged kernel: {tr}")
+            check(cfg.moe is None or min(tr["family_kernels"].get(f, 0) for f in
+                                         ("MoE router", "MoE experts", "MoE dispatch")) > 0,
+                  f"{name}: the traced {kind} tick shows no MoE kernel: {tr}")
         result.update(traces=traces)
     result.update(peak_gb_with_checks=torch.cuda.max_memory_allocated() / 1e9)
     print(f"serving {name}: peak memory over the run, its checks and traces "
@@ -1924,6 +2060,89 @@ def tapped_blocks(sel, force=None):
         yield taps
     finally:
         transformer._block_apply = real
+
+
+@contextlib.contextmanager
+def routing_taps(force=None):
+    """Records the routing of every MoE layer call of ``model_apply``: its
+    top-k expert indices (N, k), in the order the layer claims them, and
+    its live-token mask. Yields the list. With ``force`` (another run's
+    list), each layer call routes to the experts recorded there for it
+    (``moe._router``'s ``top_i``: their renormalized probabilities), so
+    the two runs differ by what the layers compute, not by where tokens
+    go: on random weights a near-tie of router probabilities flips under
+    another rounding, moves that token by a whole expert's share, and the
+    moved residual flips later layers' choices in turn."""
+    from repro_torch.models import transformer
+    from repro_torch.nn import moe
+
+    taps, live = [], []
+    real_apply, real_router = transformer.moe_apply, moe._router
+
+    def apply(p, x, cfg, *args, active=None, **kw):
+        live.append(moe._token_mask(active, x.shape[0], x.shape[1]))
+        try:
+            return real_apply(p, x, cfg, *args, active=active, **kw)
+        finally:
+            live.pop()
+
+    def router(p, x2d, cfg):
+        top_i = None if force is None else force[len(taps)]["top_i"]
+        top_p, top_i, aux = real_router(p, x2d, cfg, top_i=top_i)
+        taps.append(dict(top_i=top_i, live=live[-1] if live else None))
+        return top_p, top_i, aux
+
+    transformer.moe_apply, moe._router = apply, router
+    try:
+        yield taps
+    finally:
+        transformer.moe_apply, moe._router = real_apply, real_router
+
+
+def routing_flips(a, b):
+    """(the (layer, live token) pairs whose expert sets differ between two
+    runs' ``routing_taps``, the pairs compared)."""
+    check(len(a) == len(b), f"routing taps of {len(a)} and {len(b)} layer calls")
+    flips = pairs = 0
+    for x, y in zip(a, b):
+        keep = x["live"]
+        xs, ys = x["top_i"].sort(dim=-1).values, y["top_i"].sort(dim=-1).values
+        if keep is not None:
+            xs, ys = xs[keep], ys[keep]
+        flips += int((xs != ys).any(-1).sum())
+        pairs += xs.shape[0]
+    return flips, pairs
+
+
+@contextlib.contextmanager
+def moe_annotations(torch):
+    """Profiler annotations around the MoE layer's parts (router, experts,
+    the dispatch's index ops, the shared experts) and the head, for
+    ``trace_split``'s TRACE_ANNOTATED families."""
+    from torch.profiler import record_function
+    from repro_torch.models import transformer
+    from repro_torch.nn import moe
+
+    parts = {(moe, "_router"): "MoE router", (moe, "_experts"): "MoE experts",
+             (moe, "_moe_dispatch"): "MoE dispatch", (moe, "mlp_apply"): "MoE shared"}
+    heads = ((transformer, "linear_apply"),)      # an untied head (qwen2-moe's)
+    real = {key: getattr(*key) for key in list(parts) + list(heads)}
+
+    def wrap(key, label):
+        def f(*a, **kw):
+            if label is None and not (len(a) > 3 and a[3] == "lm_head"):
+                return real[key](*a, **kw)
+            with record_function(label or "head"):
+                return real[key](*a, **kw)
+        return f
+
+    for key in real:
+        setattr(*key, wrap(key, parts.get(key)))
+    try:
+        yield
+    finally:
+        for key, fn in real.items():
+            setattr(*key, fn)
 
 
 def layer_rms(taps, ref_inc):
@@ -2616,13 +2835,19 @@ def held_layers(torch, fa, run):
 
 def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, batch_size=1,
                layer_tol=FLASH_LAYER_REL_RMS, own_tol=FLASH_VS_OWN_PLAIN_REL_RMS,
-               logit_tol=LOGIT_REL_RMS, data=None):
-    """The paper's evaluation protocol on ``cfg`` (random weights from seed
-    0) over ``SyntheticLM`` batches of ``kind`` ("clm" or "mlm"), (batch_size,
-    seq) each, or over ``data``'s ("frames": ``SeededEmbeds``, a per-position
-    classification loss); the flash kernel held per layer (``layer_tol``)
-    and in the logits (``own_tol`` against its plain version, ``logit_tol``
-    against dense_attention)."""
+               logit_tol=LOGIT_REL_RMS, data=None, params=None, moe_layer=False):
+    """The paper's evaluation protocol on ``cfg`` (``params``, or random
+    weights from seed 0) over ``SyntheticLM`` batches of ``kind`` ("clm" or
+    "mlm"), (batch_size, seq) each, or over ``data``'s ("frames":
+    ``SeededEmbeds``, a per-position classification loss); the flash kernel
+    held per layer (``layer_tol``) and in the logits (``own_tol`` against
+    its plain version, ``logit_tol`` against dense_attention). A MoE
+    config's logits gates hold the other forwards routed as the kernel's
+    forward routed (``routing_taps``) and print the (layer, token) pairs
+    they route to other experts when free; the forward with every MoE
+    layer at capacity MOE_DROP_CF (claims dropped: a fault) must land above
+    both bounds; with ``moe_layer``, phase 8a's checks of the MoE layer
+    (``phase_moe_layer``) run on the first held-out batch."""
     from repro_torch.data import SyntheticLM, SyntheticLMConfig
     from repro_torch.models import transformer
     from repro_torch.quant import quantizer
@@ -2635,7 +2860,8 @@ def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, b
     sites = count_fake_quant_sites(torch, cfg)
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    params = transformer.model_init(0, cfg, device="cuda")
+    if params is None:
+        params = transformer.model_init(0, cfg, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t_phase
     if data is None:
@@ -2694,17 +2920,32 @@ def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, b
           f"{name}: serving kernels launched during evaluation: {launches}")
 
     batch = held_out[0]
+    moe = cfg.moe is not None
+    flips = {}
+
+    def routed(name, fn, force=None):
+        # fn() with its MoE routing recorded (forced to ``force``); a
+        # forced run is repeated free to count its routing flips
+        if not moe:
+            return fn(), None
+        if force is not None:
+            with routing_taps() as free:
+                fn()
+            flips[name] = routing_flips(force, free)
+        with routing_taps(force) as taps:
+            return fn(), taps
+
     with torch.no_grad():
         # one FP forward with the flash kernel (each layer held against the
         # plain version), one with the kernel's plain version in its place
         # (attention() reads fa.mha_flash at each call), and one with the
         # model's plain attention
-        kern, layer_rms, layer_control, zero_layers = held_layers(
-            torch, fa, lambda: apply_fn(params, batch, NO_QUANT))
+        (kern, layer_rms, layer_control, zero_layers), kern_routes = routed(
+            "kernel", lambda: held_layers(torch, fa, lambda: apply_fn(params, batch, NO_QUANT)))
         real_mha_flash = fa.mha_flash
         try:
             fa.mha_flash = fa.mha_flash_ref
-            own = apply_fn(params, batch, NO_QUANT)
+            own, _ = routed("own", lambda: apply_fn(params, batch, NO_QUANT), kern_routes)
         finally:
             fa.mha_flash = real_mha_flash
         # over the real vocabulary: the padded columns hold -1e30 (hubert:
@@ -2718,13 +2959,26 @@ def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, b
         transformer.attention = lambda q, k, v, c, q_offset=0, gate_pi=None: dense_attention(
             q, k, v, c, q_offset=q_offset, gate_pi=gate_pi)
         try:
-            plain = apply_fn(params, batch, NO_QUANT)
+            plain, _ = routed("plain", lambda: apply_fn(params, batch, NO_QUANT), kern_routes)
         finally:
             transformer.attention = real_attention
         plain = plain[..., :cfg.vocab_size]
         logit_rms = rel_rms(kern, plain)
         agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
-        del kern, plain
+        routing = ""
+        if moe:
+            fault_cfg = dataclasses.replace(
+                cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=MOE_DROP_CF))
+            fault = transformer.model_apply(params, fault_cfg, batch)[0][..., :cfg.vocab_size]
+            fault_rms = rel_rms(fault, plain)
+            del fault
+            routing = (f"; both plain forwards routed as the kernel's; free, they route "
+                       f"(layer, token) pairs to other experts: its plain version "
+                       f"{flips['own'][0]}, plain attention {flips['plain'][0]}, of "
+                       f"{flips['own'][1]}; control, the kernel forward with every MoE layer "
+                       f"at capacity {MOE_DROP_CF}, vs plain attention: relative RMS "
+                       f"{fault_rms:.3e} (must exceed {max(own_tol, logit_tol)})")
+        del kern, plain, kern_routes
         # one W8A8 forward with only the fake-quant kernel swapped for its
         # plain version: every site is bitwise, so the logits are
         q_kern = apply_fn(params, batch, ctx)
@@ -2746,9 +3000,9 @@ def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, b
           f"FP logits, flash kernel vs its plain version: "
           f"relative RMS {own_rms:.3e} (tol {own_tol}), argmax agreement "
           f"{own_agree:.4f}; flash kernel vs plain attention (dense_attention): relative "
-          f"RMS {logit_rms:.3e} (tol {logit_tol}), argmax agreement {agree:.4f}; W8A8 "
-          f"logits with the fake-quant kernel vs its plain version bitwise equal: {same}; "
-          f"phase {wall:.1f} s, peak memory {peak_gb:.2f} GB", flush=True)
+          f"RMS {logit_rms:.3e} (tol {logit_tol}), argmax agreement {agree:.4f}{routing}; "
+          f"W8A8 logits with the fake-quant kernel vs its plain version bitwise equal: "
+          f"{same}; phase {wall:.1f} s, peak memory {peak_gb:.2f} GB", flush=True)
     check(len(layer_rms) == cfg.n_layers and max(layer_rms) <= layer_tol,
           f"{name}: a layer's flash output differs from its plain version: {layer_rms}")
     check(max(layer_control) > layer_tol or len(zero_layers) == cfg.n_layers,
@@ -2759,9 +3013,18 @@ def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, b
     check(logit_rms <= logit_tol, f"{name}: flash and plain attention logits differ: "
                                     f"relative RMS {logit_rms}")
     check(same, f"{name}: the fake-quant kernel changed the W8A8 logits")
+    extra = {}
+    if moe:
+        check(fault_rms > max(own_tol, logit_tol),
+              f"{name}: the MoE fault (capacity {MOE_DROP_CF}) lands within the logits "
+              f"bounds: {fault_rms}")
+        extra = dict(routing_flips_own=flips["own"], routing_flips_plain=flips["plain"],
+                     moe_fault_rel_rms=fault_rms)
+        if moe_layer:
+            extra["moe_layer"] = phase_moe_layer(torch, name, params, cfg, batch["tokens"])
     del params, ctx, cal, held_out, batch
     torch.cuda.empty_cache()
-    return dict(model=name, layers=cfg.n_layers, fp_ppl=ppl, w8a8_ppl=q_ppl,
+    return dict(model=name, layers=cfg.n_layers, fp_ppl=ppl, w8a8_ppl=q_ppl, **extra,
                 max_inf_norm=ostats["max_inf_norm"], avg_kurtosis=ostats["avg_kurtosis"],
                 fp_eval_s=fp_s, calib_s=calib_s, w8a8_eval_s=q_s,
                 fp_tok_per_s=tokens / fp_s, w8a8_tok_per_s=tokens / q_s, wall_s=wall,
@@ -3204,17 +3467,22 @@ def phase_train_step_vs_plain(torch, fa, task, params, batch, who, bound, leaf_b
     autograd in the flash kernel's place) on the same weights and batch,
     the whole gradient at ``bound`` and each attention leaf at
     ``leaf_bound``; the same plain path with P rounded to bf16 is the
-    control."""
+    control. A MoE config's plain steps route as the kernel step routed
+    (``routing_taps``)."""
     from repro_torch.nn.module import flatten_params
     from repro_torch.train.step import _grads
+    moe = task.cfg.moe is not None
     real = fa.mha_flash
     fa.launches = fa.bwd_launches = 0
-    loss_k, _, g_k = _grads(params, task, batch)
+    with routing_taps() if moe else contextlib.nullcontext() as routes:
+        loss_k, _, g_k = _grads(params, task, batch)
     launched = (fa.launches, fa.bwd_launches)
     try:
         fa.mha_flash = fa.mha_flash_ref
-        loss_p, _, g_p = _grads(params, task, batch)
-        with bf16_p(torch, matmuls=False):
+        with routing_taps(routes) if moe else contextlib.nullcontext():
+            loss_p, _, g_p = _grads(params, task, batch)
+        with bf16_p(torch, matmuls=False), \
+                routing_taps(routes) if moe else contextlib.nullcontext():
             _, _, g_c = _grads(params, task, batch)
     finally:
         fa.mha_flash = real
@@ -3596,6 +3864,299 @@ def phase_gemma2(torch, np, pa, im, fa):
                 wall_s=phase_wall("7d (gemma2-27b)", t0))
 
 
+# ---------------------------------------------------------------------------
+# phase 8: Mixture-of-Experts blocks (granite-moe-1b-a400m, qwen2-moe-a2.7b)
+# ---------------------------------------------------------------------------
+GRANITE_MOE, QWEN2_MOE = "granite-moe-1b-a400m", "qwen2-moe-a2.7b"
+MOE_SHORT = {GRANITE_MOE: "granite-moe", QWEN2_MOE: "qwen2-moe"}
+# Phase 8a's bound on the MoE layer's routed output, dispatch against its
+# plain yardstick on the same router outputs, bf16 (relative RMS): the two
+# run the same expert products over buffers of other shapes and combine in
+# another order (dense: an einsum over every expert; dispatch: each kept
+# claim's output times its weight, summed over the k slots), so they differ
+# by bf16 roundings. Its controls must land above it: one slot's weight
+# zeroed (no drops), the claims replayed token-major (drops), the dead rows
+# claiming capacity (dead rows). Measured on an H100 80GB HBM3 at 700 W
+# (granite-moe / qwen2-moe, layer 0 of a T-2048 forward): no drops
+# 2.643e-3 / 2.682e-3, drops 2.707e-3 / 2.388e-3, dead rows 1.067e-4 / 0
+# (the router's GEMM over other row counts); the controls 0.176 / 0.338,
+# 0.787 / 0.784, 0.207 / 0.167. Bounded at 1e-2: 3.7x above the largest
+# reading, 17x below the least control.
+MOE_LAYER_REL_RMS = 1e-2
+# the lowered capacity factor at which claims drop (phase 8a) and every MoE
+# layer's fault (phase 8's logits gates)
+MOE_DROP_CF = 0.5
+# Phase 8's logits gates of the evaluation (a MoE model's forward through
+# the flash kernel against its plain version and against dense_attention,
+# both routed as the kernel's forward). Free, the plain forwards route
+# 29-58 % of the (layer, token) pairs elsewhere (a near-tie flips, the
+# moved residual flips later layers), and the logits read 0.21-0.56;
+# routed alike, measured on an H100 80GB HBM3 at 700 W: granite-moe
+# vanilla / clipped / gated 0.0198 / 0.0480 / 0.0595 (own plain version),
+# 0.0237 / 0.0666 / 0.0833 (dense_attention); qwen2-moe 0.0266 / 0.0316;
+# the fault (every MoE layer at capacity MOE_DROP_CF) 0.73-1.31. The
+# random routers make 24 MoE layers amplify a layer's one-ulp attention
+# differences more than qwen3-14b's 40 dense ones (0.012-0.048), so the
+# bound is MoE's own: 1.8x the largest reading, 4.9x below the least fault.
+# The per-layer flash gate (FLASH_LAYER_REL_RMS) is the tight one.
+MOE_LOGIT_REL_RMS = 0.15
+# Phase 8b: granite-moe-1b-a400m trained in f32 (the backward kernel takes
+# f32 only), vanilla, B 2 x T 1024, 8 AdamW steps on the SyntheticLM chain.
+# At phase 6's lr 3e-4 the mean of the last four losses sat only 0.4 %
+# under the first four's (11.054 -> 11.009; H100 80GB HBM3, 700 W); at
+# 1e-3 the fall is clear of the step-to-step noise.
+MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_LR = 8, 2, 1024, 1e-3
+# Its step-vs-plain gate (phase 6b's, on the whole gradient and each
+# attention leaf), the plain steps routed as the kernel step: free, 76 of
+# 49152 (layer, token) pairs route elsewhere in f32, which moved the loss
+# by 1.6e-5 and the gradient by 1.9e-2. Routed alike, measured on an H100
+# 80GB HBM3 at 700 W: the whole gradient 6.358e-6 (control, P in bf16,
+# 6.368e-3), attention leaves at most 7.424e-6 (least control 1.482e-3).
+# Bounded at 5e-5: 6.7x above the largest leaf, 30x below the least
+# control.
+MOE_STEP_GRAD_REL_RMS = 5e-5
+MOE_STEP_ATTN_LEAF_REL = 5e-5
+
+
+def moe_arch_cfg(arch, method="vanilla", **method_kw):
+    """``arch``'s published config with ``method``, unrolled (as PTQ and the
+    train-step gate's per-layer paths need)."""
+    from repro_torch.configs.base import apply_method, get_arch
+    return dataclasses.replace(apply_method(get_arch(arch).full(), method, **method_kw),
+                               scan_layers=False)
+
+
+def phase_moe_layer(torch, name, params, cfg, tokens):
+    """Phase 8a: the MoE layer alone on the card, on hidden states of a real
+    forward over ``tokens`` (1, T): every layer's claims dropped at the
+    config's capacity (printed), then on the first layer's input:
+    (no drops) dispatch at capacity factor E/k, where no claim can drop,
+    against the dense path on the same router outputs, the control one
+    slot's weight zeroed; (drops) dispatch at MOE_DROP_CF against
+    ``dispatch_ref`` (a host loop replaying the slot-major claims, the
+    dropped weights zeroed in the dense combine), the same number of drops,
+    the control the claims replayed token-major; (dead rows) the T tokens
+    as 8 rows of T / 8 with every other row dead, the live rows against the
+    same rows alone at the same capacity (the factor doubled, since ``cap``
+    follows the group's size), the control the dead rows claiming."""
+    from repro_torch.models import transformer
+    from repro_torch.nn import moe
+
+    t0 = time.perf_counter()
+    layers, real = [], transformer.moe_apply
+
+    def keep(p, x, c, *args, **kw):
+        layers.append((p, x.clone()))
+        return real(p, x, c, *args, **kw)
+
+    transformer.moe_apply = keep
+    try:
+        with torch.no_grad():
+            transformer.model_apply(params, cfg, {"tokens": tokens})
+    finally:
+        transformer.moe_apply = real
+    mc, d = cfg.moe, cfg.d_model
+    n = tokens.numel()
+    gsz, n_groups, cap = moe.dispatch_capacity(mc, n)
+    drops = [moe.dropped_claims(p, x, mc) for p, x in layers]
+    print(f"moe layer {name}: {len(layers)} MoE layers, {n} tokens x top-{mc.top_k} of "
+          f"{mc.n_experts} experts, groups of {gsz}, capacity {cap} per expert "
+          f"(factor {mc.capacity_factor}); claims dropped per layer {drops} "
+          f"({sum(drops) / (len(layers) * n * mc.top_k):.4f} of all)", flush=True)
+    check(len(layers) == cfg.n_layers, f"{name}: {len(layers)} MoE layer calls")
+    p, x = layers[0]
+    del layers
+    x2d = x.reshape(n, d)
+    e, k = mc.n_experts, mc.top_k
+    with torch.no_grad():
+        top_p, top_i, _ = moe._router(p, x2d, mc)
+        # (no drops) capacity factor E / k: cap = the group's size
+        slack = dataclasses.replace(mc, exec_mode="dispatch", capacity_factor=e / k)
+        dense = moe._moe_dense(p, x2d, top_p, top_i, mc)
+        got = moe._moe_dispatch(p, x2d, top_p, top_i, slack)
+        zeroed = top_p.clone()
+        zeroed[:, -1] = 0
+        ctl = moe._moe_dispatch(p, x2d, zeroed, top_i, slack)
+        slack_drops = moe.dropped_claims(p, x, slack)
+        r_slack, r_slack_ctl = rel_rms(got, dense), rel_rms(ctl, dense)
+        # (drops) against the host replay of the slot-major claims
+        low = dataclasses.replace(mc, exec_mode="dispatch", capacity_factor=MOE_DROP_CF)
+        got = moe._moe_dispatch(p, x2d, top_p, top_i, low)
+        ref, ref_drops = moe.dispatch_ref(p, x, low)
+        tok, tok_drops = moe.dispatch_ref(p, x, low, order="token")
+        low_drops = moe.dropped_claims(p, x, low)
+        ref = ref.reshape(n, d)
+        r_low, r_low_ctl = rel_rms(got, ref), rel_rms(tok.reshape(n, d), ref)
+        bitwise = torch.equal(got, ref)
+        # (dead rows) 8 rows of n / 8, every other one dead
+        rows = x.reshape(8, n // 8, d)
+        active = torch.tensor([True, False] * 4, device=x.device)
+        alone_cfg = dataclasses.replace(mc, capacity_factor=2 * mc.capacity_factor)
+        same_cap = moe.dispatch_capacity(alone_cfg, n // 2)[2] == cap
+        masked = moe.moe_apply(p, rows, mc, active=active)[0][active]
+        alone = moe.moe_apply(p, rows[active], alone_cfg)[0]
+        opened = moe.moe_apply(p, rows, mc)[0][active]
+        r_dead, r_dead_ctl = rel_rms(masked, alone), rel_rms(opened, alone)
+        dead_drops = (moe.dropped_claims(p, rows, mc, active=active),
+                      moe.dropped_claims(p, rows[active], alone_cfg),
+                      moe.dropped_claims(p, rows, mc))
+    wall = time.perf_counter() - t0
+    print(f"moe layer {name} (layer 0, bf16): (no drops) dispatch at capacity factor "
+          f"{e / k:g} ({slack_drops} drops) vs the dense path: relative RMS {r_slack:.3e} "
+          f"(bound {MOE_LAYER_REL_RMS:.0e}), control (slot {k - 1}'s weight zeroed) "
+          f"{r_slack_ctl:.3e}; (drops) dispatch at capacity factor {MOE_DROP_CF} "
+          f"({low_drops} of {n * k} claims dropped; the host replay {ref_drops}) vs the "
+          f"replay: relative RMS {r_low:.3e}, bitwise {bitwise}, control (claims "
+          f"token-major: {tok_drops} dropped) {r_low_ctl:.3e}; (dead rows) 8 rows x "
+          f"{n // 8}, 4 dead: the live rows vs the same rows alone (capacity {cap} in both: "
+          f"{same_cap}) relative RMS {r_dead:.3e}, control (the dead rows claiming) "
+          f"{r_dead_ctl:.3e}; drops masked / alone / open {dead_drops}; {wall:.1f} s",
+          flush=True)
+    check(slack_drops == 0 and r_slack <= MOE_LAYER_REL_RMS < r_slack_ctl,
+          f"{name}: MoE dispatch without drops vs dense: {r_slack} (control {r_slack_ctl}, "
+          f"drops {slack_drops})")
+    check(low_drops == ref_drops > 0 and r_low <= MOE_LAYER_REL_RMS < r_low_ctl,
+          f"{name}: MoE dispatch with drops vs the replayed claims: {r_low} (control "
+          f"{r_low_ctl}, drops {low_drops} / {ref_drops})")
+    check(same_cap and dead_drops[0] == dead_drops[1] and
+          r_dead <= MOE_LAYER_REL_RMS < r_dead_ctl,
+          f"{name}: MoE dead rows: {r_dead} (control {r_dead_ctl}, drops {dead_drops})")
+    return dict(drops_per_layer=drops, cap=cap, slack_rel_rms=r_slack,
+                slack_control=r_slack_ctl, drops_rel_rms=r_low, drops_bitwise=bitwise,
+                drops_control=r_low_ctl, drops=low_drops, dead_rel_rms=r_dead,
+                dead_control=r_dead_ctl, wall_s=wall)
+
+
+def phase_moe_train(torch, np, fa):
+    """Phase 8b's training: granite-moe-1b-a400m at full width and depth in
+    f32 (params and compute: the flash backward takes f32), vanilla, from
+    seed 0: step 1 through the kernels against the plain attention path
+    (phase 6b's gate: the whole gradient, each attention leaf, the bf16-P
+    control above; the plain steps routed as the kernel step, the (layer,
+    token) pairs the two forwards route to other experts when free
+    printed), then MOE_TRAIN_STEPS AdamW steps at MOE_TRAIN_BATCH x
+    MOE_TRAIN_SEQ on the SyntheticLM chain (TRAIN_DATA_VOCAB ids): one flash
+    and one backward launch per layer and step, every loss, ``moe_lb`` and
+    ``moe_z`` finite and printed, the mean of the last four losses below the
+    first four's."""
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    from repro_torch.models.transformer import model_apply
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainTask, init_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    who = "granite-moe vanilla"
+    cfg = dataclasses.replace(moe_arch_cfg(GRANITE_MOE), param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    task = TrainTask(cfg=cfg, loss_kind="clm", optimizer=AdamWConfig(lr=MOE_TRAIN_LR))
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=TRAIN_DATA_VOCAB, seq_len=MOE_TRAIN_SEQ,
+                                         batch_size=MOE_TRAIN_BATCH, seed=0))
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(0, task, device="cuda")
+    batch = {k: torch.as_tensor(v).cuda() for k, v in data.batch(0, "clm").items()}
+    gate = phase_train_step_vs_plain(torch, fa, task, state.params, batch, who,
+                                     MOE_STEP_GRAD_REL_RMS, MOE_STEP_ATTN_LEAF_REL,
+                                     cfg.n_layers)
+    real = fa.mha_flash
+    with torch.no_grad(), routing_taps() as kern_routes:
+        model_apply(state.params, cfg, batch)
+    try:
+        fa.mha_flash = fa.mha_flash_ref
+        with torch.no_grad(), routing_taps() as plain_routes:
+            model_apply(state.params, cfg, batch)
+    finally:
+        fa.mha_flash = real
+    flips = routing_flips(kern_routes, plain_routes)
+    del kern_routes, plain_routes
+    print(f"train {who}: step 1's forward through the kernels vs the plain attention "
+          f"path: (layer, token) pairs routed to other experts {flips[0]} of {flips[1]}",
+          flush=True)
+    step = make_train_step(task)
+    fa.launches = fa.bwd_launches = 0
+    losses, lbs, zs, times = [], [], [], []
+    for i in range(MOE_TRAIN_STEPS):
+        batch = {k: torch.as_tensor(v).cuda() for k, v in data.batch(i, "clm").items()}
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        lbs.append(float(metrics["moe_lb"]))
+        zs.append(float(metrics["moe_z"]))
+        times.append(time.perf_counter() - ts)
+    launches = (fa.launches, fa.bwd_launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n, steps = cfg.n_layers, MOE_TRAIN_STEPS
+    first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    step_ms = float(np.median(times)) * 1e3
+    tok_s = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / (step_ms / 1e3)
+    print(f"train {who} (f32, {n} layers, {MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ}, lr {MOE_TRAIN_LR}, "
+          f"{steps} steps): step {step_ms:.1f} ms (median), {tok_s:.0f} trained tok/s, peak "
+          f"{peak:.2f} GB; launches (flash, bwd) {launches}; losses "
+          f"{[round(v, 4) for v in losses]} (mean of the first 4 {first:.4f}, last 4 "
+          f"{last:.4f}); moe_lb {[round(v, 4) for v in lbs]} (top_k {cfg.moe.top_k} when "
+          f"the load is even); moe_z {[round(v, 3) for v in zs]}", flush=True)
+    values = losses + lbs + zs
+    check(all(np.isfinite(v) for v in values), f"{who}: a loss or MoE term is not finite")
+    check(last < first, f"{who}: the loss did not fall: {losses}")
+    check(launches == (steps * n, steps * n),
+          f"{who}: launches (flash, bwd) {launches}, expected {(steps * n, steps * n)}")
+    del state, batch, step
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, tok_s=tok_s, peak_gb=peak, losses=losses, moe_lb=lbs,
+                moe_z=zs, flash_launches=launches[0], bwd_launches=launches[1],
+                routing_flips=flips, wall_s=time.perf_counter() - t0, **gate)
+
+
+def phase_moe(torch, np, pa, im, fa, fq):
+    """Phase 8: the MoE archs at their published widths and depths, random
+    weights from seed 0, one model at a time (each freed before the next),
+    peak memory printed. (b) granite-moe-1b-a400m, bf16: phase 5's
+    evaluation for vanilla (with phase 8a's layer checks), clipped (alpha 4)
+    and gated; an fp and a W8A8 paged engine (batch 8, max_len 1024,
+    ``short_requests``' 12 requests at its vocabulary) whose tick gates
+    print their routing flips, the control the tick one position early;
+    training (``phase_moe_train``). (c) qwen2-moe-a2.7b, bf16 (28.6 GB of
+    weights): the evaluation, vanilla, with phase 8a's checks; an fp and a
+    W8A8 engine (its shared experts through the int8 kernel) on the same
+    weights, each with a mixed and a decode tick traced (device time by
+    family: the router, the experts' batched products, the dispatch's index
+    ops, the shared experts, the paged reads, the int8 GEMMs, the head)."""
+    from repro_torch.models.transformer import model_init
+
+    out = dict(evals=[], engines=[])
+    for arch in (GRANITE_MOE, QWEN2_MOE):
+        t0 = time.perf_counter()
+        short = MOE_SHORT[arch]
+        methods = METHODS if arch == GRANITE_MOE else METHODS[:1]
+        for name, method, kw in methods:
+            cfg = moe_arch_cfg(arch, method, **kw)
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated() / 1e9
+            params = model_init(0, cfg, device="cuda")
+            weights_gb = torch.cuda.memory_allocated() / 1e9 - before
+            out["evals"].append(phase_eval(torch, np, fa, fq, pa, im, f"{short} {name}", cfg,
+                                           own_tol=MOE_LOGIT_REL_RMS,
+                                           logit_tol=MOE_LOGIT_REL_RMS, params=params,
+                                           moe_layer=method == "vanilla"))
+            if method == "vanilla":
+                print(f"{arch}: weights {weights_gb:.2f} GB", flush=True)
+                reqs = short_requests(np, cfg.vocab_size, 12)
+                out["engines"] += [
+                    phase_serving(torch, np, pa, im, fa, f"{short} {'w8a8' if w8a8 else 'fp'}",
+                                  cfg, reqs, 1024,
+                                  W8A8_LOGIT_REL_RMS if w8a8 else LOGIT_REL_RMS,
+                                  w8a8=w8a8, controls=("MoE capacity 8",) if w8a8 else
+                                  ("positions one early", "MoE capacity 8"),
+                                  trace=arch == QWEN2_MOE, params=params)
+                    for w8a8 in (False, True)]
+            del params
+            torch.cuda.empty_cache()
+        if arch == GRANITE_MOE:
+            out["train"] = phase_moe_train(torch, np, fa)
+        out[f"{short} wall_s"] = phase_wall(f"8 ({arch})", t0)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3621,6 +4182,11 @@ def main() -> int:
 
     card = nvidia_smi()
     print(card, flush=True)
+    t_run = time.perf_counter()
+
+    def mark(phase):
+        print(f"phase {phase} starts {time.perf_counter() - t_run:.1f} s into the run",
+              flush=True)
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:   # one nvcc per source
@@ -3688,23 +4254,34 @@ def main() -> int:
     check(all(sp == 0 for _, _, sp in bwd_fns),
           f"ptxas spills in flash_attention_bwd: {[f for f, _, sp in bwd_fns if sp]}")
 
+    mark("3")
     max_err = phase_kernel_checks(torch, pa)
     phase_paged_tc_precision(torch, pa)
     times = phase_kernel_times(torch, pa)
+    mark("3b")
     int8_err = phase_int8_checks(torch, im)
     int8_times = phase_int8_times(torch, im)
+    mark("3c")
     flash_err = phase_flash_checks(torch, fa)
     flash_times = phase_flash_times(torch, fa)
     phase_flash_paper_times(torch, fa)
     phase_flash_paper_times(torch, fa, MODEL_FLASH_TIMED, ("bfloat16",))
     phase_flash_decode_times(torch, fa, pa)
+    phase_flash_paper_times(torch, fa, MOE_FLASH_TIMED, ("bfloat16",))
+    phase_flash_paper_times(torch, fa, MOE_FLASH_TIMED_F32, ("float32",))
+    for moe_name, heads in MOE_PAGED.items():
+        phase_kernel_times(torch, pa, heads, ("vanilla",), f"{moe_name} ")
+    phase_int8_times(torch, im, MOE_INT8_SHAPES, None)
+    mark("3d")
     fq_err = phase_fq_checks(torch, fq)
     fq_times = phase_fq_times(torch, fq)
     phase_kv_quant(torch)
+    mark("3f")
     rg_err = phase_rg_checks(torch, rl)
     rg_times = phase_rg_times(torch, rl)
 
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    mark("4")
     qwen_reqs = short_requests(np, qwen_cfg("vanilla").vocab_size, 12)
     engines = [
         phase_serving(torch, np, pa, im, fa, name, qwen_cfg(method, **kw), qwen_reqs, 1024,
@@ -3717,13 +4294,15 @@ def main() -> int:
             ("gated-int8kv", "gated_attention", {}, True, False, True),
             ("clipped-w8a8", "clipped_softmax", {"alpha": 4.0}, False, True, True),
             ("gated-w8a8-int8kv", "gated_attention", {}, None, True, False))]
+    mark("4b")
     rg_engines = [
         phase_rg_serving(torch, np, rl, fa, pa, "vanilla", "vanilla", trace=True, gen=True),
         phase_rg_serving(torch, np, rl, fa, pa, "clipped", "clipped_softmax", alpha=4.0),
         phase_rg_serving(torch, np, rl, fa, pa, "gated", "gated_attention")]
+    mark("5")
     evals = [phase_eval(torch, np, fa, fq, pa, im, name, qwen_eval_cfg(method, **kw))
              for name, method, kw in METHODS]
-    # phase 5b: the paper's own models
+    mark("5b")
     evals += [phase_eval(torch, np, fa, fq, pa, im, f"{family} {name}",
                          paper_cfg(family, method, **kw), kind=kind, seq=seq, batch_size=bsz,
                          layer_tol=PAPER_LAYER_REL_RMS, own_tol=PAPER_LOGIT_REL_RMS,
@@ -3734,27 +4313,31 @@ def main() -> int:
         phase_serving(torch, np, pa, im, fa, f"opt-125m {name}",
                       paper_cfg("opt", method, **kw), opt_reqs, OPT_MAX_LEN,
                       OPT_W8A8_TICK_REL_RMS if w8a8 else OPT_TICK_REL_RMS,
-                      ticks=("mixed", "past the table"), paged=paged, w8a8=w8a8, controls=True)
+                      ticks=("mixed", "past the table"), paged=paged, w8a8=w8a8,
+                      controls=("P in bf16", "positions one early"))
         for name, method, kw, paged, w8a8 in (
             *((name, method, kw, True, False) for name, method, kw in METHODS),
             ("clipped-w8a8", "clipped_softmax", {"alpha": 4.0}, True, True),
             ("vanilla-dense", "vanilla", {}, False, False))]
     contrast = phase_outlier_contrast(torch, np)
-    # phase 6: training through the flash backward kernel
+    mark("6")
     bwd_err = phase_bwd_checks(torch, fa)
     bwd_times = phase_bwd_times(torch, fa)
     trains = [phase_train(torch, np, fa, family, kind, seq, bsz, method, kw,
                           trace=method == "vanilla")
               for family, kind, seq, bsz in TRAIN_RUNS for _, method, kw in METHODS]
-    # phase 7: embeds inputs and sandwich norms
+    mark("7")
     vit = phase_vit(torch, np, fa, fq, pa, im)
     hubert = phase_hubert(torch, np, fa, fq, pa, im)
     phi = phase_phi3v(torch, np, pa, im, fa)
     gemma = phase_gemma2(torch, np, pa, im, fa)
-    evals += vit["evals"] + [hubert]
-    trains += vit["trains"]
+    mark("8")
+    moe = phase_moe(torch, np, pa, im, fa, fq)
+    mark("9")
+    evals += vit["evals"] + [hubert] + moe["evals"]
+    trains += vit["trains"] + [moe["train"]]
     forwards = [phi["forward"], gemma["forward"]]
-    new_engines = [phi["serving"]] + gemma["engines"]
+    new_engines = [phi["serving"]] + gemma["engines"] + moe["engines"]
 
     dec = times[("decode", "vanilla")]
     i8 = int8_times[(8, 5120, 17408)]
@@ -3762,7 +4345,7 @@ def main() -> int:
     # (generate and paged=False), phase 4b with recurrentgemma's generate,
     # phase 5
     dense = [e["dense"] for e in engines if "dense" in e]
-    int8_launches = sum(e["int8_launches"] for e in engines + dense + opt_engines)
+    int8_launches = sum(e["int8_launches"] for e in engines + dense + opt_engines + new_engines)
     flash_launches = sum(e["flash_launches"] + e.get("gen_launches", 0)
                          for e in engines + evals + dense + opt_engines + trains + forwards)
     rg_launches = sum(e["launches"] for e in rg_engines) + sum(

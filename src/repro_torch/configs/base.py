@@ -13,10 +13,8 @@ The paper's technique is selected per-run with ``method``:
     "vanilla" | "clipped_softmax" | "gated_attention"
 applied uniformly to every softmax-attention block of any arch.
 
-The MoE archs (``granite-moe-1b-a400m``, ``qwen2-moe-a2.7b``) and
-``xlstm-1.3b`` are not registered: their configs need ``MoEConfig`` and
-``XLSTMConfig``, which are not ported, and ``get_arch`` names the ROADMAP
-item that ports each.
+``xlstm-1.3b`` is not registered: its config needs ``XLSTMConfig``, which
+is not ported, and ``get_arch`` names the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -67,8 +65,6 @@ _REGISTRY: Dict[str, ArchSpec] = {}
 
 # the archs whose blocks the port lacks, with the ROADMAP item of each
 _UNPORTED = {
-    "granite-moe-1b-a400m": "5.2 (nn/moe.py)",
-    "qwen2-moe-a2.7b": "5.2 (nn/moe.py)",
     "xlstm-1.3b": "5.3 (nn/xlstm.py)",
 }
 
@@ -106,9 +102,11 @@ def _ensure_loaded() -> None:
         codeqwen1_5_7b,
         deepseek_67b,
         gemma2_27b,
+        granite_moe_1b_a400m,
         hubert_xlarge,
         paper_models,
         phi_3_vision_4_2b,
+        qwen2_moe_a2_7b,
         qwen3_14b,
         recurrentgemma_9b,
     )

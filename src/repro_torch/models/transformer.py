@@ -28,9 +28,12 @@ card), with a dense cache (``init_cache``: ``generate`` and the
 shared scalar ``pos`` or per-row ``pos`` with a per-token ``active``
 mask, with a ``QuantContext`` whose site names are the reference's byte
 for byte (a block is named by its index inside the pattern,
-``layer_attn0``, in every group; a tail block ``tail_griffin0``). MoE and
-xLSTM blocks raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+``layer_attn0``, in every group; a tail block ``tail_griffin0``). With
+``cfg.moe`` set, an attention block's MLP is a Mixture-of-Experts layer
+(``repro_torch.nn.moe``) whose dispatch takes the forward's ``active``
+mask, and ``aux["moe_aux"]`` sums its aux losses over the layers. xLSTM
+blocks raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 
 Cache writes update the cache IN PLACE (``aux["cache"]`` is the cache
 that was passed in): the KV cache is the largest tensor of a serving
@@ -71,6 +74,7 @@ from repro_torch.nn.layers import (
     rope_angles,
 )
 from repro_torch.nn.mlp import mlp_apply, mlp_init
+from repro_torch.nn.moe import MoEConfig, moe_apply, moe_init
 from repro_torch.nn.recurrent import (
     griffin_block_apply,
     griffin_block_init,
@@ -118,7 +122,7 @@ class ModelConfig:
 
     # mlp
     mlp_kind: str = "swiglu"                    # gelu | gelu_tanh | swiglu | none
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
 
     # paper knobs
     softmax_cfg: ClippedSoftmaxConfig = ClippedSoftmaxConfig()
@@ -188,9 +192,6 @@ def check_supported(cfg: ModelConfig) -> None:
             f"(ROADMAP queue 1, item 5.3: nn/xlstm.py)")
     if "griffin" in kinds and cfg.rglru is None:
         raise ValueError("griffin blocks need cfg.rglru (an RGLRUConfig)")
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE blocks are not ported yet "
-                                  "(ROADMAP queue 1, item 5.2: nn/moe.py)")
 
 
 # ==========================================================================
@@ -359,7 +360,10 @@ def _attn_block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
         p["gate"] = init_gate(ks[4], cfg.gate_cfg, hq, dh, d, dt)
     if cfg.mlp_kind != "none":
         p["ln2"] = norm_init(cfg.norm, d, dt, dev)
-        p["mlp"] = mlp_init(ks[5], d, cfg.d_ff, cfg.mlp_kind, dt)
+        if cfg.moe is not None:
+            p["moe"] = moe_init(ks[5], d, cfg.moe, dt)
+        else:
+            p["mlp"] = mlp_init(ks[5], d, cfg.d_ff, cfg.mlp_kind, dt)
     if cfg.post_block_norm:
         p["post_ln1"] = norm_init(cfg.norm, d, dt, dev)
         if cfg.mlp_kind != "none":
@@ -403,6 +407,9 @@ class _Step:
         self.live_width = paged_live_width
         self.live_widths = paged_live_widths
         self.write_idx: Dict = {}
+        # the MoE layers' aux losses, summed in layer order
+        self.moe_aux = {k: torch.zeros((), dtype=torch.float32, device=device)
+                        for k in ("load_balance", "router_z")}
 
 
 def _attn_block_apply(
@@ -411,7 +418,8 @@ def _attn_block_apply(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x_out, attention-layer output): the residual-stream value
     after the attention sub-block (after ``ln1`` in a post-norm block),
-    the tensor whose outliers the paper measures."""
+    the tensor whose outliers the paper measures. A MoE layer adds its aux
+    losses to ``st.moe_aux``."""
     b, t, d = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     acfg = cfg.attn_cfg(kind)
@@ -487,7 +495,14 @@ def _attn_block_apply(
     attn_layer_out = x
     if cfg.mlp_kind != "none":
         h2 = x if post else norm_apply(cfg.norm, p["ln2"], x, ctx, name + "/ln2")
-        y2 = mlp_apply(p["mlp"], h2, cfg.mlp_kind, ctx, name + "/mlp")
+        if cfg.moe is not None:
+            # dead tokens (inactive rows, padding tails) claim no capacity
+            y2, moe_aux = moe_apply(p["moe"], h2, cfg.moe, ctx, name + "/moe",
+                                    active=st.act_tok)
+            for k in st.moe_aux:
+                st.moe_aux[k] = st.moe_aux[k] + moe_aux[k]
+        else:
+            y2 = mlp_apply(p["mlp"], h2, cfg.mlp_kind, ctx, name + "/mlp")
         if cfg.post_block_norm:
             y2 = norm_apply(cfg.norm, p["post_ln2"], y2, ctx, name + "/post_ln2")
         x = x + y2
@@ -813,7 +828,9 @@ def model_apply(
     len(pattern)) max |block output| of the groups (here for cache-free
     forwards, the ones that read it), and with ``collect_acts``
     "attn_outputs" lists the block outputs of the unrolled layers and of
-    the tail (for a scanned config, the tail's only)."""
+    the tail (for a scanned config, the tail's only). "moe_aux" holds the
+    MoE layers' ``load_balance`` and ``router_z`` summed over every layer
+    and the tail (f32 zeros without MoE), as in the reference."""
     check_supported(cfg)
     x = _embed_inputs(params, cfg, batch, ctx)
     b, t, _ = x.shape
@@ -859,7 +876,7 @@ def model_apply(
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=dev) >= cfg.vocab_size
         logits = torch.where(pad, -1e30, logits)
-    aux: Dict[str, Any] = {}
+    aux: Dict[str, Any] = {"moe_aux": st.moe_aux}
     if stats:
         aux["act_stats"] = torch.stack(stats)
     if acts:

@@ -9,8 +9,10 @@ from repro_torch.nn.module import (
     tree_slice,
     tree_stack,
 )
+from repro_torch.nn.moe import MoEConfig, dropped_claims, moe_apply, moe_init
 
 __all__ = [
-    "DTypePolicy", "cast_tree", "flatten_params", "param_bytes",
-    "param_count", "split_keys", "tree_slice", "tree_stack",
+    "DTypePolicy", "MoEConfig", "cast_tree", "dropped_claims", "flatten_params",
+    "moe_apply", "moe_init", "param_bytes", "param_count", "split_keys",
+    "tree_slice", "tree_stack",
 ]

@@ -19,9 +19,11 @@ PyTorch runs eagerly, so each builder returns a plain callable:
 ``TrainState`` keeps the reference's field order, so a checkpoint's
 paths (``0/...`` params, ``1/0`` optimizer step, ``1/1/...`` and
 ``1/2/...`` moments, ``2/0/...`` error feedback, ``3`` step) are the
-reference's and checkpoints cross between the packages. MoE configs are
-refused by ``check_supported`` (ROADMAP 5.2), so the MoE loss terms are
-not ported.
+reference's and checkpoints cross between the packages. A MoE config's
+loss adds ``moe_lb_weight`` times the load-balance loss and
+``moe_z_weight`` times the router z-loss, each summed over the layers and
+divided by ``n_layers``; the metrics carry them as ``moe_lb`` and
+``moe_z``.
 """
 from __future__ import annotations
 
@@ -78,6 +80,13 @@ def _loss_and_metrics(params, task: TrainTask, batch
     nll, ntok = loss_for(task.loss_kind)(logits, batch["labels"])
     loss = nll / torch.clamp(ntok, min=1.0)
     metrics = {"loss": loss.detach(), "ntok": ntok}
+    moe = aux.get("moe_aux")
+    if moe is not None and task.cfg.moe is not None:
+        n_moe = max(task.cfg.n_layers, 1)
+        lb = moe["load_balance"] / n_moe
+        rz = moe["router_z"] / n_moe
+        loss = loss + task.moe_lb_weight * lb + task.moe_z_weight * rz
+        metrics.update(moe_lb=lb.detach(), moe_z=rz.detach())
     if "act_stats" in aux:
         metrics["max_act"] = torch.amax(aux["act_stats"]).detach()
     return loss, metrics

@@ -2,22 +2,26 @@
 package, on the CPU, in float32.
 
   * the registry (``repro_torch.configs``): ``list_archs`` is the
-    reference's minus the three archs whose blocks are not ported (MoE,
-    xLSTM), which ``get_arch`` refuses naming their ROADMAP item; every
-    ``full()`` and ``smoke()`` field by field, ``family``,
+    reference's minus the arch whose blocks are not ported (xLSTM), which
+    ``get_arch`` refuses naming its ROADMAP item; every ``full()`` and
+    ``smoke()`` field by field (a MoE config's ``MoEConfig`` too), ``family``,
     ``skip_shapes``, ``source`` and ``SHAPES``; ``input_specs`` and
     ``cache_specs`` (meta-device tensors) against the reference's
     ``ShapeDtypeStruct`` trees, shape and dtype, at every shape an arch
     runs;
   * every ported arch's ``smoke()`` (tokens, embeds and mixed inputs,
-    sandwich norms, local/global patterns, Griffin) under vanilla,
+    sandwich norms, local/global patterns, Griffin, MoE) under vanilla,
     clipped and gated attention: cache-free logits against
     ``repro.models.model_apply`` (atol 1e-4) and one train step's loss
     (rtol 1e-6) and gradients (relative L2 1e-2 per tensor) against
     ``jax.value_and_grad`` of the reference's loss; the Griffin config
-    refuses a gradient (ROADMAP 1.4, the RG-LRU reverse scan);
+    refuses a gradient (ROADMAP 1.4, the RG-LRU reverse scan); the MoE
+    archs' loss terms (``moe_aux``, ``moe_lb``/``moe_z``) among them (their
+    dispatch mode with drops: ``tests/test_torch_moe.py``, through
+    ``_check_logits`` / ``_check_train_step``);
   * ``convert.from_jax_params`` on the new leaves (``frontend_proj``,
-    ``post_ln1``/``post_ln2``, an embeds config's ``lm_head``);
+    ``post_ln1``/``post_ln2``, an embeds config's ``lm_head``, the MoE
+    router, expert stacks and shared experts);
   * decode-cache consistency (a dense cache fed token by token against
     the cache-free forward), as ``tests/test_archs.py`` checks the
     reference;
@@ -57,8 +61,8 @@ tptq = importlib.import_module("repro_torch.quant.ptq")
 jqc = importlib.import_module("repro.quant.qconfig")
 tqc = importlib.import_module("repro_torch.quant.qconfig")
 
-UNPORTED = {"granite-moe-1b-a400m": r"item 5\.2", "qwen2-moe-a2.7b": r"item 5\.2",
-            "xlstm-1.3b": r"item 5\.3"}
+UNPORTED = {"xlstm-1.3b": r"item 5\.3"}
+MOE_ARCHS = ["granite-moe-1b-a400m", "qwen2-moe-a2.7b"]
 PORTED = sorted(set(jbase.list_archs()) - set(UNPORTED))
 METHODS = {"vanilla": ("vanilla", {}), "clipped": ("clipped_softmax", {"alpha": 4.0}),
            "gated": ("gated_attention", {})}
@@ -71,9 +75,11 @@ _jax_apply = jax.jit(jtr.model_apply, static_argnums=(1,), static_argnames=("col
 _MODELS: dict = {}
 
 
-def _models(arch, method, maker="smoke", **replace):
-    """(jax cfg, jax params, port cfg, port params), built once each."""
-    key = (arch, method, maker, tuple(sorted(replace.items())))
+def _models(arch, method, maker="smoke", moe=None, **replace):
+    """(jax cfg, jax params, port cfg, port params), built once each;
+    ``moe`` replaces fields of the MoE config in both packages."""
+    key = (arch, method, maker, tuple(sorted((moe or {}).items())),
+           tuple(sorted(replace.items())))
     if key not in _MODELS:
         name, kw = METHODS[method]
         if arch == "vit-s16":
@@ -83,6 +89,9 @@ def _models(arch, method, maker="smoke", **replace):
             tc0 = getattr(tbase.get_arch(arch), maker)()
         jc = dataclasses.replace(jbase.apply_method(jc0, name, **kw), **replace)
         tc = dataclasses.replace(tbase.apply_method(tc0, name, **kw), **replace)
+        if moe:
+            jc = dataclasses.replace(jc, moe=dataclasses.replace(jc.moe, **moe))
+            tc = dataclasses.replace(tc, moe=dataclasses.replace(tc.moe, **moe))
         jp = jtr.model_init(jax.random.PRNGKey(0), jc)
         tp = from_jax_params(jax.tree_util.tree_map(np.asarray, jp), tc, device="cpu")
         _MODELS[key] = (jc, jp, tc, tp)
@@ -135,7 +144,8 @@ def _dtype_name(x):
 # ---------------------------------------------------------------------------
 def test_list_archs_is_the_reference_minus_the_unported():
     assert tbase.list_archs() == PORTED
-    assert len(PORTED) == len(jbase.list_archs()) - 3
+    assert len(PORTED) == len(jbase.list_archs()) - 1
+    assert set(MOE_ARCHS) <= set(PORTED)
     for arch, item in UNPORTED.items():
         with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1, {item}"):
             tbase.get_arch(arch)
@@ -158,7 +168,13 @@ def _fields_equal(t, j):
             assert getattr(t, f.name) == getattr(j, f.name), f.name
     for f in ("param_dtype", "compute_dtype"):
         assert _dtype_name(getattr(t, f)) == jnp.dtype(getattr(j, f)).name
-    assert (t.moe, t.xlstm, j.moe, j.xlstm) == (None,) * 4
+    assert (t.xlstm, j.xlstm) == (None, None)
+    if j.moe is None:
+        assert t.moe is None
+    else:
+        assert type(t.moe).__name__ == "MoEConfig"
+        assert dataclasses.asdict(t.moe) == dataclasses.asdict(j.moe)
+        assert t.moe.shared_ff == j.moe.shared_ff
     if j.rglru is not None:
         assert dataclasses.asdict(t.rglru) == dataclasses.asdict(j.rglru)
 
@@ -211,13 +227,13 @@ def test_to_bf16_equals_reference():
 
 
 def test_check_supported_refuses_only_moe_and_xlstm():
+    """Named when MoE was refused too; now only xLSTM is, and both MoE
+    archs' ``full()`` configs are accepted."""
     cfg = tbase.get_arch("qwen3-14b").smoke()
-    with pytest.raises(NotImplementedError, match=r"item 5\.2"):
-        ttr.check_supported(dataclasses.replace(cfg, moe=object()))
     with pytest.raises(NotImplementedError, match=r"item 5\.3"):
         ttr.check_supported(dataclasses.replace(cfg, pattern=("attn", "mlstm")))
     for name in ("hubert_xlarge", "phi_3_vision_4_2b", "gemma2_27b", "codeqwen1_5_7b",
-                 "deepseek_67b"):
+                 "deepseek_67b", "granite_moe_1b_a400m", "qwen2_moe_a2_7b"):
         ttr.check_supported(importlib.import_module(f"repro_torch.configs.{name}").full())
     ttr.check_supported(tpm.vit_s16())
 
@@ -232,7 +248,13 @@ def test_check_supported_refuses_only_moe_and_xlstm():
                            "['lm_head']['w']")),
     ("hubert-xlarge", {"tie_embeddings": True}, ("['frontend_proj']['w']", "['lm_head']['w']")),
     ("phi-3-vision-4.2b", {}, ("['embed']['table']", "['lm_head']['w']")),
-], ids=["sandwich-norms", "embeds", "embeds-tied", "mixed"])
+    ("granite-moe-1b-a400m", {}, ("['layers'][0]['b0']['moe']['router']['w']",
+                                  "['layers'][1]['b0']['moe']['w_gate']",
+                                  "['layers'][1]['b0']['moe']['w_down']")),
+    ("qwen2-moe-a2.7b", {"scan_layers": True},
+     ("['groups']['b0']['moe']['router']['w']", "['groups']['b0']['moe']['w_up']",
+      "['groups']['b0']['moe']['shared']['gate']['w']")),
+], ids=["sandwich-norms", "embeds", "embeds-tied", "mixed", "moe", "moe-shared-scanned"])
 def test_from_jax_params_carries_the_new_leaves(arch, replace, new_leaves):
     """Every leaf, path, dtype and value; an embeds config has no token
     table and always an untied head, as in the reference; ``model_init``
@@ -255,36 +277,46 @@ def test_from_jax_params_carries_the_new_leaves(arch, replace, new_leaves):
 # ---------------------------------------------------------------------------
 # every ported arch's smoke(): logits and one train step
 # ---------------------------------------------------------------------------
+def _check_logits(jc, jp, tc, tp, batch):
+    jl, jaux = _jax_apply(jp, jc, _jb(batch), collect_acts=True)
+    tl, taux = ttr.model_apply(tp, tc, _tb(batch), collect_acts=True)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
+    assert len(taux["attn_outputs"]) == len(jaux["attn_outputs"]) == tc.n_layers
+    for a, b in zip(taux["attn_outputs"], jaux["attn_outputs"]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, rtol=0)
+    for k in ("load_balance", "router_z"):
+        np.testing.assert_allclose(float(taux["moe_aux"][k]), float(jaux["moe_aux"][k]),
+                                   rtol=LOSS_RTOL, atol=1e-7)
+    assert (float(taux["moe_aux"]["load_balance"]) > 0) == (tc.moe is not None)
+    return tl
+
+
 @pytest.mark.parametrize("method", list(METHODS))
 @pytest.mark.parametrize("arch", PORTED)
 def test_smoke_logits_match_reference(arch, method):
     jc, jp, tc, tp = _models(arch, method)
     batch = _batch(tc, labels=False)
-    jl, jaux = _jax_apply(jp, jc, _jb(batch), collect_acts=True)
-    tl, taux = ttr.model_apply(tp, tc, _tb(batch), collect_acts=True)
+    tl = _check_logits(jc, jp, tc, tp, batch)
     assert tuple(tl.shape) == (2, 16, tc.padded_vocab)
-    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
-    assert len(taux["attn_outputs"]) == len(jaux["attn_outputs"]) == tc.n_layers
-    for a, b in zip(taux["attn_outputs"], jaux["attn_outputs"]):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("method", list(METHODS))
-@pytest.mark.parametrize("arch", PORTED)
-def test_smoke_train_step_matches_reference(arch, method):
-    jc, jp, tc, tp = _models(arch, method)
+def _check_train_step(jc, jp, tc, tp, batch):
     kind = "clm" if tc.causal else "frames"
     jt = jstep.TrainTask(cfg=jc, loss_kind=kind)
     tt = tstep.TrainTask(cfg=tc, loss_kind=kind)
-    batch = _batch(tc)
     if "griffin" in tc.pattern:
         with pytest.raises(RuntimeError, match=r"ROADMAP 1\.4"):
             tstep._grads(tp, tt, _tb(batch))
         return
-    (jl, _), jg = jax.value_and_grad(
+    (jl, jm), jg = jax.value_and_grad(
         lambda p: jstep._loss_and_metrics(p, jt, _jb(batch)), has_aux=True)(jp)
-    tl, _, tg = tstep._grads(tp, tt, _tb(batch))
+    tl, tm, tg = tstep._grads(tp, tt, _tb(batch))
     np.testing.assert_allclose(float(tl), float(jl), rtol=LOSS_RTOL)
+    assert sorted(tm) == sorted(jm)
+    assert ("moe_lb" in tm) == (tc.moe is not None)
+    for k in ("loss", "moe_lb", "moe_z"):
+        if k in tm:
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=LOSS_RTOL)
     want = dict(flatten_params(jax.tree_util.tree_map(np.asarray, jg)))
     for path, g in flatten_params(tg):
         w = want[path]
@@ -296,11 +328,18 @@ def test_smoke_train_step_matches_reference(arch, method):
         assert err <= GRAD_REL, (path, err)
 
 
+@pytest.mark.parametrize("method", list(METHODS))
+@pytest.mark.parametrize("arch", PORTED)
+def test_smoke_train_step_matches_reference(arch, method):
+    jc, jp, tc, tp = _models(arch, method)
+    _check_train_step(jc, jp, tc, tp, _batch(tc))
+
+
 # ---------------------------------------------------------------------------
 # decode-cache consistency (the port's copy of tests/test_archs.py's)
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", ["deepseek-67b", "gemma2-27b", "recurrentgemma-9b",
-                                  "qwen3-14b"])
+                                  "qwen3-14b", *MOE_ARCHS])
 def test_decode_cache_consistency(arch):
     cfg = dataclasses.replace(tbase.get_arch(arch).smoke(), max_seq_len=32)
     params = ttr.model_init(0, cfg, device="cpu")

@@ -233,7 +233,10 @@ def test_refuses_what_this_slice_does_not_port(models):
     _, _, tc, tp = models["vanilla"]
     cases = [
         ({}, dataclasses.replace(tc, pattern=("attn", "mlstm"))),
-        ({}, dataclasses.replace(tc, moe=object())),
+        # MoE is served (tests/test_torch_moe_serving.py); W8A8 of a ring
+        # config is not (item 4)
+        ({"qconfig": tqc.QConfig()},
+         dataclasses.replace(tc, pattern=("attn", "local_attn"), window=8)),
     ]
     for kw, cfg in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
