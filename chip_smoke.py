@@ -106,6 +106,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      route the f32 paper models run) and bf16, vanilla and clipped: the
      kernel, its plain version, SDPA (vanilla) and the bound; and, bf16,
      at hubert-xlarge's and phi-3-vision's reads (MODEL_FLASH_TIMED).
+     Then bf16 Dh 256 (``phase_flash_dh256``, the CUDA-core route
+     recurrentgemma-9b's evaluation takes): vanilla, clipped and gated,
+     causal with window 2048 at (1, 2048, 16/1, 256) and window 300 at a
+     ragged T 1000, against the plain version at the bf16 tolerance; the
+     kernel, its plain version and SDPA timed at (1, 2048, 16/1, 256)
+     beside the bound; the Dh-256 instantiations' ptxas spill stores
+     printed (not gated).
   3d. The fake-quant kernel against its plain version, bitwise, at the
      evaluation's shapes (MLP activation (2048, 17408) bf16, residual
      (2048, 5120) f32, gate/up weight (5120, 17408) bf16) and ragged n
@@ -134,9 +141,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      beside the bound (12 B T D bytes / 3.35 TB/s); no single PyTorch call
      computes a linear recurrence, so there is no library time.
   4. Serving: ``ContinuousBatcher(paged=True)`` at qwen3-14b's full width
-     and 40 layers in bfloat16 with random weights from a seed: 12 greedy
-     requests (prompts of 32..512 tokens from a numpy seed, 32 new tokens
-     each), batch 8, max_len 1024, token budget 256, on five engines one
+     and QWEN_LAYERS (20 of its 40) layers in bfloat16 with random weights
+     from a seed: 12 greedy requests (prompts of 32..512 tokens from a
+     numpy seed, 32 new tokens each), batch 8, max_len 1024, token budget 256, on five engines one
      after another: vanilla, clipped softmax (alpha 4) and gated attention
      over an int8 KV pool, then W8A8 (``qconfig=QConfig()``): clipped
      softmax (alpha 4) over a bfloat16 pool (float32 queries) and gated
@@ -159,24 +166,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      idle share over the tick. Then, on the same weights, the dense cache
      (the paged engine freed first), on vanilla, clipped, gated and
      clipped-w8a8: ``generate`` on 4 prompts of 512 tokens, 32 new, greedy
-     (fp engines: 32 forwards, 40 flash and 0 paged launches each), whose
+     (fp engines: 32 forwards, one flash and no paged launch a layer), whose
      last decode step must agree with a prefill over the same tokens at
      the same max_len (gate (a)): logits within DENSE_LOGIT_REL_RMS, and
      every block, its input forced to the prefill's, within
      DENSE_LAYER_REL_RMS (the decode one position early and, clipped,
      gamma from the step's T must land above in some block); and
      ``ContinuousBatcher(paged=False)`` (batch 8, max_len 1024, budget
-     256) over the 12 requests: every request done, 40 flash, 0 paged
-     (and, W8A8, 280 int8) launches per forward, its first mixed tick on
+     256) over the 12 requests: every request done, one flash, no paged
+     (and, W8A8, 7 int8) launches per layer and forward, its first mixed tick on
      the paged engine's tokens against the paged engine's tick (gate (b)):
      logits within DENSE_LOGIT_REL_RMS (W8A8: W8A8_LOGIT_REL_RMS), every
      block, its input forced to the paged tick's, within
      DENSE_LAYER_REL_RMS (the writes one slot late must land above).
      Greedy tokens of the dense engine against the paged engine's and
      generate's are printed, not held.
-  5. Evaluation, the paper's protocol, at qwen3-14b's full width and 40
-     layers in bfloat16 (random weights from seed 0, unrolled layers, as
-     PTQ needs), for vanilla, clipped softmax (alpha 4) and gated
+  5. Evaluation, the paper's protocol, at qwen3-14b's full width and
+     QWEN_LAYERS layers in bfloat16 (random weights from seed 0, unrolled
+     layers, as PTQ needs), for vanilla, clipped softmax (alpha 4) and gated
      attention, one model at a time: ``train.evaluate`` on 2 held-out
      ``SyntheticLM`` batches (vocab 151936, T 2048, batch 1) gives the FP
      perplexity, max inf-norm and average kurtosis; ``quant.calibrate``
@@ -227,6 +234,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      3000 (chunked past the window): 26 RG-LRU launches on every forward of
      T > 1, none at T 1, no flash or paged launch, and gate (a) with the
      decode one position early and the recurrent state h lost as faults.
+  4c. recurrentgemma-9b served in W8A8 at full width and all 38 layers
+     (``phase_rg_w8a8``): ``ContinuousBatcher(paged=True,
+     qconfig=QConfig())``, clipped softmax (alpha 4), batch 8, max_len
+     4096, budget 256, phase 4b's 10 prompts (three past 2304 tokens), 16
+     new tokens each, through ``phase_recurrent_serving`` (phase 9c's
+     gates): every request done, no block leak, the RG-LRU kernel once per
+     Griffin layer on every forward of T > 1 and never at T 1, the int8
+     kernel the same number of times on every forward, no flash or paged
+     launch; the longest prompt's last chunk (past the 2048-token window)
+     against a cache-free W8A8 forward over its prefix (gamma at the
+     ring's -4/2048) within RECURRENT_W8A8_ROW_REL_RMS, the row's recurrent
+     state and ring reset to a fresh row's above it; that prefill sub-step
+     and the fullest decode sub-step against the same sub-steps with the
+     int8 products' plain version within W8A8_LOGIT_REL_RMS (bitwise
+     printed), both traced under torch.profiler.
   5b. The paper's own models at their published widths, f32, random
      weights from seed 0. Evaluation by phase 5's protocol (2 FP batches,
      4 calibration batches, W8A8 on the 2) of BERT-base (masked LM, batch
@@ -253,6 +275,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the fp function unchanged): W8A8 against fp logits of one cache-free
      8 x 512 forward; the injected model must read above the clean one by
      OUTLIER_MARGIN.
+  5c. recurrentgemma-9b's evaluation (``rg_eval_cfg``: bf16, 38 layers,
+     unrolled) by phase 5's protocol for vanilla, clipped (alpha 4) and
+     gated: its 12 local_attn layers reach the flash kernel at bf16 Dh 256
+     with window 2048 (the CUDA-core route), each held per layer against
+     its plain version at FLASH_LAYER_REL_RMS; the RG-LRU kernel once per
+     Griffin layer (26) on every forward.
   6. Training, through the hand-written flash-attention backward kernel
      (``csrc/flash_attention_bwd.cu``; the reference differentiates its
      plain attention with XLA, so no TPU kernel corresponds). (a) The
@@ -300,7 +328,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      197 patches of 384, a class per position: the JAX package's
      ``frames`` batches are 24 wide): phase 5's protocol for vanilla,
      clipped (alpha 4) and gated at the paper models' gates, then phase
-     6b's training (16 AdamW steps per method, the step-vs-plain gate,
+     6b's training (2 x TRAIN_HALF AdamW steps per method, the step-vs-plain gate,
      falling losses, a bitwise restart at step 8). (b) hubert-xlarge
      (bf16, 48 layers, 2 x 4096 frames of 512): phase 5's protocol,
      vanilla, at phase 5's bf16 gates. (c) phi-3-vision-4.2b (bf16, 32
@@ -364,10 +392,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      control above its bound: the evaluation's logits every MoE layer at MOE_DROP_CF, the
      ticks every MoE layer at its least capacity ("MoE capacity 8"; the fp
      ticks also one position early). Peak memory is printed per engine.
-  9. The kernels line (six kernels, the backward among them; the launch
-     counts include phase 8's evaluations, engines and training), then
-     the device line. Each phase from 3 on prints its start, in seconds
-     into the run.
+  9. xlstm-1.3b (``phase_xlstm``) at its published width and depth (bf16,
+     48 blocks, 7 mLSTM to 1 sLSTM, chunk 128; random weights from seed 0).
+     (a) One mLSTM layer's cell (4 heads of 1024, T 512, f32): the
+     chunkwise form against the recurrent oracle within MLSTM_REL_RMS (h
+     and the final C, n, m), the halves without the state carried above
+     it; then the sLSTM scan's eager kernels per step, counted in a
+     torch.profiler trace. (b) Phase 5's evaluation (FP perplexity, max
+     inf-norm, kurtosis, W8A8 perplexity) at XLSTM_EVAL_BATCH x
+     XLSTM_EVAL_SEQ (the sLSTM runs one eager step a token), unrolled: no
+     flash launch, the fake-quant kernel once per site. (c) fp and W8A8
+     ``ContinuousBatcher(paged=True)`` engines on the same weights (batch
+     8, max_len 1024, budget 256, ``short_requests``' 12 requests) through
+     ``phase_recurrent_serving``: every request done, no block leak, no
+     flash or paged launch, the int8 kernel the same number of times on
+     every W8A8 forward; the longest prompt's last chunk against a
+     cache-free forward over its prefix (fp XLSTM_ROW_REL_RMS, W8A8
+     RECURRENT_W8A8_ROW_REL_RMS), the row's state reset above it; each
+     W8A8 sub-step checked (prefill and decode) against the same sub-step
+     with the int8 products' plain version within W8A8_LOGIT_REL_RMS
+     (bitwise printed), and traced (device time by family: the int8 GEMMs,
+     the mLSTM cells, the sLSTM scans, the rest; idle share); tokens/s.
+  10. The kernels line (six kernels, the backward among them; the launch
+     counts include phase 8's and phase 9's evaluations, engines and
+     training, phase 4c's engine and phase 5c's evaluations), then the
+     device line. Each phase from 3 on prints its start, in seconds into
+     the run.
 
 TF32 is switched off for matmuls and convolutions, so float32 compares
 are full float32. Requires ``torch.cuda.is_available()``; exits non-zero
@@ -490,6 +540,10 @@ FLASH_VS_OWN_PLAIN_REL_RMS = 0.05
 # int8 pools: the kernel 8.798e-5..1.010e-4, the control 2.278e-3..2.609e-3;
 # the bound sits 5x above the one and 4.5x below the other.
 PAGED_TC_REL_RMS = 5e-4
+# qwen3-14b's depth in phases 4 and 5 (of its 40 layers): the run's wall
+# stays inside its limit with phases 4c, 5c and 9 added; every check there
+# is per layer or per block, or gates a tick at a bound the 40 layers held
+QWEN_LAYERS = 20
 EVAL_SEQ, EVAL_BATCHES, CALIB_BATCHES = 2048, 2, 4
 # the attention heads of BERT-base and OPT-125m (12 of 64, no GQA)
 BERT_HEADS = dict(b=8, hq=12, hkv=12, dh=64)
@@ -1493,10 +1547,12 @@ TRACE_FAMILIES = (("int8 GEMM + pre-pass", "int8_"), ("paged read", "paged_attn"
                   ("RG-LRU scan", "rglru"), ("flash backward", "::bwd_"),
                   ("flash forward", "flash_kernel_"))
 # families by the host code that launched a kernel: the user annotations
-# ``moe_annotations`` opens around the MoE layer's parts and the head (a
+# ``moe_annotations`` opens around the MoE layer's parts and the head, and
+# ``xlstm_annotations`` around the xLSTM cells (a
 # kernel belongs to the innermost one open when it was launched, unless
 # its name already puts it in a family above)
-TRACE_ANNOTATED = ("MoE router", "MoE experts", "MoE dispatch", "MoE shared", "head")
+TRACE_ANNOTATED = ("MoE router", "MoE experts", "MoE dispatch", "MoE shared", "head",
+                   "mLSTM cell", "sLSTM scan")
 
 
 def busy_us(spans):
@@ -2768,6 +2824,10 @@ def count_fake_quant_sites(torch, cfg):
     tiny = dataclasses.replace(cfg, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
                                d_ff=128, vocab_size=256, vocab_pad_to=1,
                                param_dtype=torch.float32, compute_dtype=torch.float32)
+    if cfg.rglru is not None:
+        tiny = dataclasses.replace(tiny, rglru=dataclasses.replace(cfg.rglru, width=64))
+    if cfg.xlstm is not None:
+        tiny = dataclasses.replace(tiny, xlstm=dataclasses.replace(cfg.xlstm, d_model=64))
     params = model_init(0, tiny, device="cpu")
     gen = torch.Generator().manual_seed(0)
     if tiny.input_kind == "embeds":
@@ -2791,10 +2851,10 @@ def count_fake_quant_sites(torch, cfg):
 
 
 def qwen_cfg(method, **method_kw):
-    """qwen3-14b at full width with ``method``."""
+    """qwen3-14b at full width and QWEN_LAYERS layers with ``method``."""
     from repro_torch.configs.base import apply_method
     from repro_torch.configs.qwen3_14b import full
-    return apply_method(full(), method, **method_kw)
+    return apply_method(dataclasses.replace(full(), n_layers=QWEN_LAYERS), method, **method_kw)
 
 
 def qwen_eval_cfg(method, **method_kw):
@@ -2835,7 +2895,7 @@ def held_layers(torch, fa, run):
 
 def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, batch_size=1,
                layer_tol=FLASH_LAYER_REL_RMS, own_tol=FLASH_VS_OWN_PLAIN_REL_RMS,
-               logit_tol=LOGIT_REL_RMS, data=None, params=None, moe_layer=False):
+               logit_tol=LOGIT_REL_RMS, data=None, params=None, moe_layer=False, rl=None):
     """The paper's evaluation protocol on ``cfg`` (``params``, or random
     weights from seed 0) over ``SyntheticLM`` batches of ``kind`` ("clm" or
     "mlm"), (batch_size, seq) each, or over ``data``'s ("frames":
@@ -2847,7 +2907,11 @@ def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, b
     they route to other experts when free; the forward with every MoE
     layer at capacity MOE_DROP_CF (claims dropped: a fault) must land above
     both bounds; with ``moe_layer``, phase 8a's checks of the MoE layer
-    (``phase_moe_layer``) run on the first held-out batch."""
+    (``phase_moe_layer``) run on the first held-out batch. The flash
+    checks cover the config's attention layers (recurrentgemma's
+    local_attn; none in an xLSTM stack, whose three forwards would be one);
+    with ``rl``, the RG-LRU kernel must launch once per Griffin layer on
+    every forward."""
     from repro_torch.data import SyntheticLM, SyntheticLMConfig
     from repro_torch.models import transformer
     from repro_torch.quant import quantizer
@@ -2882,6 +2946,8 @@ def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, b
     cal, held_out = batches(5_000_000, CALIB_BATCHES), batches(10_000_000, EVAL_BATCHES)
     # the path, with every count at 0 just before it and read just after
     fa.launches = fq.launches = pa.launches = im.launches = 0
+    if rl is not None:
+        rl.launches = 0
     t0 = time.perf_counter()
     task = TrainTask(cfg=cfg, loss_kind="frames" if kind == "frames" else "clm")
     ppl, ostats = evaluate(task, params, data, EVAL_BATCHES, kind)
@@ -2897,6 +2963,9 @@ def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, b
     q_s = time.perf_counter() - t0
     launches = dict(flash=fa.launches, fake_quant=fq.launches, paged=pa.launches,
                     int8=im.launches)
+    if rl is not None:
+        launches["rg_lru"] = rl.launches
+    n_attn = attn_layers(cfg)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     forwards = 2 * EVAL_BATCHES + CALIB_BATCHES + EVAL_BATCHES
     tokens = EVAL_BATCHES * batch_size * seq
@@ -2911,13 +2980,15 @@ def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, b
     values = [ppl, q_ppl, ostats["max_inf_norm"], ostats["avg_kurtosis"]]
     check(all(np.isfinite(v) for v in values), f"{name}: non-finite evaluation {values}")
     check(ostats["max_inf_norm"] > 0, f"{name}: no attention-layer outputs were measured")
-    check(launches["flash"] == cfg.n_layers * forwards,
+    check(launches["flash"] == n_attn * forwards,
           f"{name}: {launches['flash']} flash launches for {forwards} forwards")
     check(launches["fake_quant"] == sites * EVAL_BATCHES,
           f"{name}: {launches['fake_quant']} fake-quant launches, expected {sites} x "
           f"{EVAL_BATCHES}")
     check(launches["paged"] == 0 and launches["int8"] == 0,
           f"{name}: serving kernels launched during evaluation: {launches}")
+    check(rl is None or launches["rg_lru"] == griffin_layers(cfg) * forwards,
+          f"{name}: {launches.get('rg_lru')} rg_lru launches for {forwards} forwards")
 
     batch = held_out[0]
     moe = cfg.moe is not None
@@ -2936,35 +3007,44 @@ def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, b
             return fn(), taps
 
     with torch.no_grad():
-        # one FP forward with the flash kernel (each layer held against the
-        # plain version), one with the kernel's plain version in its place
-        # (attention() reads fa.mha_flash at each call), and one with the
-        # model's plain attention
-        (kern, layer_rms, layer_control, zero_layers), kern_routes = routed(
-            "kernel", lambda: held_layers(torch, fa, lambda: apply_fn(params, batch, NO_QUANT)))
-        real_mha_flash = fa.mha_flash
-        try:
-            fa.mha_flash = fa.mha_flash_ref
-            own, _ = routed("own", lambda: apply_fn(params, batch, NO_QUANT), kern_routes)
-        finally:
-            fa.mha_flash = real_mha_flash
-        # over the real vocabulary: the padded columns hold -1e30 (hubert:
-        # 504 classes padded to 512), which would swamp the RMS
-        kern = kern[..., :cfg.vocab_size]
-        own = own[..., :cfg.vocab_size]
-        own_rms = rel_rms(kern, own)
-        own_agree = (kern.argmax(-1) == own.argmax(-1)).float().mean().item()
-        del own
-        real_attention = transformer.attention
-        transformer.attention = lambda q, k, v, c, q_offset=0, gate_pi=None: dense_attention(
-            q, k, v, c, q_offset=q_offset, gate_pi=gate_pi)
-        try:
-            plain, _ = routed("plain", lambda: apply_fn(params, batch, NO_QUANT), kern_routes)
-        finally:
-            transformer.attention = real_attention
-        plain = plain[..., :cfg.vocab_size]
-        logit_rms = rel_rms(kern, plain)
-        agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+        if n_attn:
+            # one FP forward with the flash kernel (each layer held against the
+            # plain version), one with the kernel's plain version in its place
+            # (attention() reads fa.mha_flash at each call), and one with the
+            # model's plain attention
+            (kern, layer_rms, layer_control, zero_layers), kern_routes = routed(
+                "kernel",
+                lambda: held_layers(torch, fa, lambda: apply_fn(params, batch, NO_QUANT)))
+            real_mha_flash = fa.mha_flash
+            try:
+                fa.mha_flash = fa.mha_flash_ref
+                own, _ = routed("own", lambda: apply_fn(params, batch, NO_QUANT), kern_routes)
+            finally:
+                fa.mha_flash = real_mha_flash
+            # over the real vocabulary: the padded columns hold -1e30 (hubert:
+            # 504 classes padded to 512), which would swamp the RMS
+            kern = kern[..., :cfg.vocab_size]
+            own = own[..., :cfg.vocab_size]
+            own_rms = rel_rms(kern, own)
+            own_agree = (kern.argmax(-1) == own.argmax(-1)).float().mean().item()
+            del own
+            real_attention = transformer.attention
+            transformer.attention = lambda q, k, v, c, q_offset=0, gate_pi=None: \
+                dense_attention(q, k, v, c, q_offset=q_offset, gate_pi=gate_pi)
+            try:
+                plain, _ = routed("plain", lambda: apply_fn(params, batch, NO_QUANT),
+                                  kern_routes)
+            finally:
+                transformer.attention = real_attention
+            plain = plain[..., :cfg.vocab_size]
+            logit_rms = rel_rms(kern, plain)
+            agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+        else:
+            # no attention layer: the three forwards would be one
+            kern = apply_fn(params, batch, NO_QUANT)[..., :cfg.vocab_size]
+            layer_rms, layer_control, zero_layers = [], [], []
+            own_rms = logit_rms = 0.0
+            own_agree = agree = 1.0
         routing = ""
         if moe:
             fault_cfg = dataclasses.replace(
@@ -2978,7 +3058,9 @@ def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, b
                        f"{flips['own'][1]}; control, the kernel forward with every MoE layer "
                        f"at capacity {MOE_DROP_CF}, vs plain attention: relative RMS "
                        f"{fault_rms:.3e} (must exceed {max(own_tol, logit_tol)})")
-        del kern, plain, kern_routes
+        del kern
+        if n_attn:
+            del plain, kern_routes
         # one W8A8 forward with only the fake-quant kernel swapped for its
         # plain version: every site is bitwise, so the logits are
         q_kern = apply_fn(params, batch, ctx)
@@ -2991,10 +3073,11 @@ def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, b
         del q_kern, q_plain
     wall = time.perf_counter() - t_phase
     print(f"eval {name}: attention per layer, flash kernel vs its plain version on the "
-          f"same inputs: relative RMS max {max(layer_rms):.3e}, mean "
-          f"{sum(layer_rms) / len(layer_rms):.3e} over {len(layer_rms)} layers (tol "
-          f"{layer_tol:.3e}); the plain version with bf16 P: relative RMS max "
-          f"{max(layer_control):.3e}, min {min(layer_control):.3e}, "
+          f"same inputs: relative RMS max {max(layer_rms, default=0.0):.3e}, mean "
+          f"{sum(layer_rms) / max(len(layer_rms), 1):.3e} over {len(layer_rms)} of "
+          f"{n_attn} layers (tol {layer_tol:.3e}); the plain version with bf16 P: relative "
+          f"RMS max {max(layer_control, default=0.0):.3e}, min "
+          f"{min(layer_control, default=0.0):.3e}, "
           f"{sum(v > layer_tol for v in layer_control)} layers above the tol; layers whose "
           f"attention output is exactly zero: {zero_layers or 'none'}; "
           f"FP logits, flash kernel vs its plain version: "
@@ -3003,9 +3086,10 @@ def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, b
           f"RMS {logit_rms:.3e} (tol {logit_tol}), argmax agreement {agree:.4f}{routing}; "
           f"W8A8 logits with the fake-quant kernel vs its plain version bitwise equal: "
           f"{same}; phase {wall:.1f} s, peak memory {peak_gb:.2f} GB", flush=True)
-    check(len(layer_rms) == cfg.n_layers and max(layer_rms) <= layer_tol,
+    check(len(layer_rms) == n_attn and max(layer_rms, default=0.0) <= layer_tol,
           f"{name}: a layer's flash output differs from its plain version: {layer_rms}")
-    check(max(layer_control) > layer_tol or len(zero_layers) == cfg.n_layers,
+    check(not n_attn or max(layer_control, default=0.0) > layer_tol or
+          len(zero_layers) == n_attn,
           f"{name}: no layer tells bf16 P from f32 P at the bound: {layer_control}")
     check(own_rms <= own_tol,
           f"{name}: flash kernel and its plain version give different logits: relative "
@@ -3031,8 +3115,9 @@ def phase_eval(torch, np, fa, fq, pa, im, name, cfg, kind="clm", seq=EVAL_SEQ, b
                 peak_gb=peak_gb, init_s=init_s, sites=sites, forwards=forwards,
                 logit_rel_rms=logit_rms, argmax_agreement=agree,
                 own_plain_rel_rms=own_rms, own_plain_argmax_agreement=own_agree,
-                layer_rel_rms_max=max(layer_rms),
-                layer_bf16_p_rel_rms_max=max(layer_control), **{
+                layer_rel_rms_max=max(layer_rms, default=0.0),
+                layer_bf16_p_rel_rms_max=max(layer_control, default=0.0), attn_layers=n_attn,
+                **{
                     f"{k}_launches": v for k, v in launches.items()})
 
 
@@ -3204,7 +3289,7 @@ CUDA_CORE_BWD_MS = {("bert-base", "vanilla"): 1.5407, ("bert-base", "clipped"): 
 # Phase 6b: the paper models trained at full width, f32, from seed 0
 TRAIN_RUNS = (("bert", "mlm", 512, 8), ("opt", "clm", 2048, 2))
 TRAIN_LR = 3e-4
-TRAIN_HALF = 8                     # k: 2k uninterrupted steps, a restart at k
+TRAIN_HALF = 4                     # k: 2k uninterrupted steps, a restart at k
 # The synthetic chain's token ids, the first 4096 of the model's
 # vocabulary. Over the full vocabularies each id appears ~0.1 times a
 # batch and 16 steps do not move the loss (measured on an H100 80GB HBM3
@@ -3691,7 +3776,7 @@ def phase_vit(torch, np, fa, fq, pa, im):
     """Phase 7a: ViT-S/16 (f32, 12 layers) evaluated by phase 5's protocol
     for vanilla, clipped (alpha 4) and gated attention over SeededEmbeds
     batches (64 x 197 x 384) with the paper models' gates, then trained
-    16 AdamW steps per method as phase 6b trains BERT and OPT."""
+    2 x TRAIN_HALF AdamW steps per method as phase 6b trains BERT and OPT."""
     t0 = time.perf_counter()
     cfg = paper_cfg("vit", "vanilla")
     out = dict(
@@ -4157,6 +4242,461 @@ def phase_moe(torch, np, pa, im, fa, fq):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 3c (bf16 Dh 256), 4c, 5c: recurrentgemma-9b's W8A8 serving and
+# evaluation; phase 9: xlstm-1.3b
+# ---------------------------------------------------------------------------
+# recurrentgemma-9b's local_attn read in its cache-free forward (the
+# evaluation): 16 query heads over one KV head of 256, window 2048
+RG_FLASH_HEADS = dict(b=1, hq=16, hkv=1, dh=256)
+RG_WINDOW = 2048
+# phase 4c's served last chunk against a cache-free W8A8 forward over the
+# row's prefix, at phase 4's W8A8 bound: the chunked and the one-shot
+# forwards quantize activations that differ by f32 roundings, so codes at
+# a rounding edge flip and 38 layers carry that on (on an H100 80GB HBM3
+# at 700 W: 0.114, argmax agreement 1.0; the row's state reset to a fresh
+# row's, the control: 1.31)
+RECURRENT_W8A8_ROW_REL_RMS = W8A8_LOGIT_REL_RMS
+# xLSTM's row check: in bf16 the served chunks and the one-shot forward
+# round in other places (GEMMs of other M, the chunkwise form's other
+# chunks), and 48 random-weight xLSTM blocks grow that to the size of the
+# signal (on the CPU at xlstm-1.3b's width: one block 1.5e-3, eight 8e-2;
+# on the card, 48 blocks: 0.98, the reset-state control 1.03); int8 codes
+# flipped at rounding edges do the same under W8A8 (f32, eight blocks:
+# 0.05-0.16). So the gated check runs an fp engine in f32 at the published
+# width over one pattern group (eight blocks; on the CPU: 4e-5), and the
+# published depth's readings are printed
+XLSTM_ROW_REL_RMS = 1e-3
+# phase 9a: the mLSTM chunkwise form against its recurrent oracle in f32 on
+# the card (sums in another order: ~1e-6); the control drops the state
+# between two halves
+MLSTM_REL_RMS = 1e-4
+XLSTM_EVAL_SEQ, XLSTM_EVAL_BATCH = 512, 2
+
+
+def phase_flash_dh256(torch, fa, build):
+    """bf16 Dh 256 (the CUDA-core route; recurrentgemma's evaluation):
+    vanilla, clipped and gated, causal with window 2048 at T 2048 and a
+    window that binds (300) at a ragged T 1000, against the plain version
+    at the bf16 tolerance; then the kernel, its plain version and SDPA
+    (vanilla; at T 2048 a 2048 window hides no causal key, so is_causal
+    computes the same function) timed at (1, 2048, 16/1, 256) beside the
+    bound; the ptxas spill stores of the Dh-256 instantiations printed
+    (not gated)."""
+    import torch.nn.functional as F
+    bad = []
+    for t, window in ((2048, RG_WINDOW), (1000, 300)):
+        for variant in ("vanilla", "clipped", "gated"):
+            c = flash_case(torch, t, torch.bfloat16, variant, seed=31, **RG_FLASH_HEADS)
+            q, (k, v) = c["q"], c["sets"][0]
+            kw = dict(c["kw"], causal=True, window=window)
+            out = fa.mha_flash(q, k, v, c["gate"], **kw)
+            ref = fa.mha_flash_ref(q, k, v, c["gate"], **kw)
+            err = (out.float() - ref.float()).abs().max().item()
+            ok = err <= FLASH_TOL["bfloat16"] and bool(torch.isfinite(out).all())
+            print(f"flash check Dh 256 {tuple(q.shape)} window {window} {variant} bfloat16 "
+                  f"route={fa.route(q.dtype, 256)}: max |kernel - plain| {err:.3e} (tol "
+                  f"{FLASH_TOL['bfloat16']})", flush=True)
+            if not ok:
+                bad.append((t, window, variant, err))
+            del c, out, ref
+    check(not bad, f"flash kernel at bf16 Dh 256 disagrees with its plain version: {bad}")
+    for variant in ("vanilla", "clipped"):
+        c = flash_case(torch, 2048, torch.bfloat16, variant, seed=11, copies=3, **RG_FLASH_HEADS)
+        q, kw = c["q"], dict(c["kw"], causal=True, window=RG_WINDOW)
+        kern = device_ms(torch, [lambda s=s: fa.mha_flash(q, s[0], s[1], **kw)
+                                 for s in c["sets"]], 10)
+        plain = device_ms(torch, [lambda s=s: fa.mha_flash_ref(q, s[0], s[1], **kw)
+                                  for s in c["sets"]], 3)
+        lib = None
+        if variant == "vanilla":
+            ins = [(q.transpose(1, 2).contiguous(), s[0].transpose(1, 2).contiguous(),
+                    s[1].transpose(1, 2).contiguous()) for s in c["sets"]]
+            lib = device_ms(torch, [lambda a=a: F.scaled_dot_product_attention(
+                a[0], a[1], a[2], is_causal=True, enable_gqa=True) for a in ins], 10)
+            del ins
+        bound, by = flash_bound_ms(c)
+        print(f"flash time recurrentgemma-9b local_attn {tuple(q.shape)} window {RG_WINDOW} "
+              f"{variant} bfloat16 route={fa.route(q.dtype, 256)}: kernel {kern:.4f} ms, plain "
+              f"{plain:.4f} ms, SDPA {'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+              f"{bound:.4f} ms ({by})", flush=True)
+        del c
+    spills = [("bf16" if "bfloat16" in fn else "f32", regs, sp)
+              for fn, regs, sp in ptxas_report(build.BUILD_LOG.get("flash_attention", ""))
+              if "flash_kernel_" in fn and "ELi256EE" in fn]
+    print(f"ptxas Dh-256 flash instantiations (reported, not gated): (data type, "
+          f"registers, spill-store bytes) {spills}", flush=True)
+    torch.cuda.empty_cache()
+
+
+def attn_layers(cfg):
+    """Attention blocks of ``cfg`` (the flash kernel's launches per
+    cache-free forward)."""
+    kinds = cfg.pattern * cfg.n_groups + cfg.tail_pattern
+    return sum(k in ("attn", "local_attn") for k in kinds)
+
+
+def griffin_layers(cfg):
+    return sum(k == "griffin" for k in cfg.pattern * cfg.n_groups + cfg.tail_pattern)
+
+
+@contextlib.contextmanager
+def xlstm_annotations(torch):
+    """Profiler annotations around the xLSTM cells (the mLSTM chunkwise and
+    recurrent forms, the sLSTM scan), for ``trace_split``'s TRACE_ANNOTATED
+    families."""
+    from torch.profiler import record_function
+    from repro_torch.nn import xlstm
+
+    parts = {"mlstm_chunkwise": "mLSTM cell", "mlstm_recurrent_ref": "mLSTM cell",
+             "slstm_scan": "sLSTM scan"}
+    real = {name: getattr(xlstm, name) for name in parts}
+
+    def wrap(name):
+        def f(*a, **kw):
+            with record_function(parts[name]):
+                return real[name](*a, **kw)
+        return f
+
+    for name in parts:
+        setattr(xlstm, name, wrap(name))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(xlstm, name, fn)
+
+
+def phase_recurrent_serving(torch, np, rl, im, fa, pa, name, cfg, requests, max_len,
+                            params=None, w8a8=False, trace=False, row_tol=RG_LOGIT_REL_RMS,
+                            min_pos=1):
+    """One ``ContinuousBatcher(paged=True)`` engine (batch 8, block 16,
+    budget 256) of a recurrent config (uniform sub-steps) over
+    ``requests`` ((prompt, new tokens)), fp or W8A8 (``qconfig=QConfig()``).
+    Gates: every request done, no block leak, no flash or paged launch, the
+    RG-LRU kernel once per Griffin layer on every forward of T > 1 and
+    never at T 1, the int8 kernel the same number of times on every
+    forward (W8A8). At the first prefill sub-step where a row runs a last
+    chunk (of more than one token) starting at position ``min_pos`` or
+    later, that chunk's logits against a cache-free forward over its
+    prefix (the same ``ctx``; a clipped ring's gamma at -alpha / window,
+    the ring's) within ``row_tol`` (None: printed, not gated), and the same
+    chunk with the row's recurrent state and ring reset to a fresh row's
+    (the control) above it. W8A8: that sub-step and the decode sub-step with the
+    most rows again with the int8 products on ``int8_matmul_ref``, each
+    within W8A8_LOGIT_REL_RMS (bitwise printed). ``trace``: both replayed
+    under torch.profiler."""
+    from repro_torch.models.transformer import model_apply, model_init, row_leaves
+    from repro_torch.nn import layers
+    from repro_torch.nn.module import flatten_params, tree_map
+    from repro_torch.quant.qconfig import NO_QUANT, QConfig
+    from repro_torch.serving import ContinuousBatcher, Request
+    from repro_torch.serving.decode import step_rows_full
+
+    t0 = time.perf_counter()
+    own_params = params is None
+    if own_params:
+        params = model_init(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    b = ContinuousBatcher(params, cfg, batch_size=8, max_len=max_len, block_size=16,
+                          token_budget=256, qconfig=QConfig() if w8a8 else None,
+                          device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_griffin = griffin_layers(cfg)
+    step_fn, per_forward, snaps = b._step_fn, [], {}
+
+    def observe(params_, cache, tokens, pos, counts, keys, lw, lws):
+        t = tokens.shape[1]
+        live = int((counts > 0).sum())
+        if t == 1 and live > snaps.get("decode", {}).get("live", 0):
+            snaps["decode"] = dict(cache=tree_map(lambda x: x.clone(), cache), live=live,
+                                   args=(tokens.clone(), pos.clone(), counts.clone(), lw,
+                                         lws.clone()))
+        if t > 1 and "prefill" not in snaps:
+            c = counts.cpu()
+            for i, s in enumerate(b.slots):
+                st = s.prefill
+                if c[i] > 1 and st is not None and s.pos >= min_pos and \
+                        st.done + int(c[i]) == len(st.feed):
+                    snaps["prefill"] = dict(
+                        cache=tree_map(lambda x: x.clone(), cache), row=i,
+                        prefix=st.feed[:st.done + int(c[i])].copy(),
+                        args=(tokens.clone(), pos.clone(), counts.clone(), lw, lws.clone()))
+                    break
+        before = (im.launches, rl.launches, fa.launches, pa.launches)
+        out = step_fn(params_, cache, tokens, pos, counts, keys, lw, lws)
+        per_forward.append((t, im.launches - before[0], rl.launches - before[1],
+                            fa.launches - before[2], pa.launches - before[3]))
+        return out
+
+    b._step_fn = observe
+    for u, (p, n) in enumerate(requests):
+        b.submit(Request(uid=u, prompt=p, max_new_tokens=n))
+    im.launches = rl.launches = fa.launches = pa.launches = 0
+    ticks = 0
+    t0 = time.perf_counter()
+    while b.queue or any(s.req is not None for s in b.slots):
+        b.step()
+        ticks += 1
+        if ticks > 4000:
+            raise RuntimeError(f"{name}: engine did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(int8=im.launches, rg_lru=rl.launches, flash=fa.launches, paged=pa.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    outs = {r.uid: r.output for r in b.done}
+    n_tokens = sum(len(o) for o in outs.values())
+    multi = sum(1 for f in per_forward if f[0] > 1)
+    int8_per = sorted({f[1] for f in per_forward})
+    q8 = sum(1 for path, _ in flatten_params(b.params) if path.endswith("w_q8"))
+    print(f"serving {name} ({cfg.n_layers} layers, {'W8A8' if w8a8 else 'fp'}, paged, "
+          f"kv_int8 {b.kv_int8}): {ticks} ticks, {len(per_forward)} forwards ({multi} of "
+          f"T > 1), {n_tokens} generated tokens in {wall:.3f} s = {n_tokens / wall:.2f} tok/s, "
+          f"peak memory {peak_gb:.2f} GB, weights init {init_s:.2f} s, engine set-up "
+          f"(calibration, int8 weights) {setup_s:.2f} s; launches {launches}; int8 launches "
+          f"per forward {int8_per} ({q8} int8 weight leaves)", flush=True)
+    check(len(outs) == len(requests) and
+          all(len(outs[u]) == n for u, (_, n) in enumerate(requests)),
+          f"{name}: not every request finished with its tokens")
+    check(all(((o >= 0) & (o < cfg.vocab_size)).all() for o in outs.values()),
+          f"{name}: token ids outside the vocabulary")
+    check(not b.failed, f"{name}: failed requests {[r.status for r in b.failed]}")
+    b.audit()
+    check(b.allocator.available == b.num_blocks and (b.tables == -1).all(),
+          f"{name}: block leak")
+    check(launches["flash"] == 0 and launches["paged"] == 0,
+          f"{name}: flash/paged kernels launched while serving: {launches}")
+    wrong = [f for f in per_forward if f[2] != (n_griffin if f[0] > 1 else 0)]
+    check(not wrong, f"{name}: rg_lru launches per forward (T, int8, rg_lru, ...) off: "
+                     f"{wrong[:6]}")
+    check(int8_per == ([int8_per[0]] if w8a8 else [0]) and (not w8a8 or int8_per[0] > 0),
+          f"{name}: int8 launches per forward {int8_per}")
+    check("prefill" in snaps and "decode" in snaps,
+          f"{name}: no last chunk from position {min_pos} on or no decode sub-step was seen")
+    ctx = b._qctx if w8a8 else NO_QUANT
+
+    def sub_step(snap, int8_plain=False, fresh_row=None):
+        tokens, pos, counts, lw, lws = snap["args"]
+        live = torch.arange(tokens.shape[1], device=tokens.device)[None, :] < counts[:, None]
+        cache = tree_map(lambda x: x.clone(), snap["cache"])
+        if fresh_row is not None:
+            for path, leaf, ax in row_leaves(cache):
+                src = b._row_template[path]
+                leaf[(slice(None),) * ax + (fresh_row,)] = src[(slice(None),) * ax + (0,)]
+        if int8_plain:
+            layers.int8_matmul = im.int8_matmul_ref
+        try:
+            with torch.no_grad():
+                out = step_rows_full(b.params, b.cfg, cache, tokens, pos, counts, lw, lws,
+                                     ctx=ctx)[0]
+        finally:
+            layers.int8_matmul = im.int8_matmul
+        del cache
+        return out, live
+
+    snap = snaps["prefill"]
+    r, prefix = snap["row"], snap["prefix"]
+    tokens, pos, counts = snap["args"][:3]
+    c = int(counts[r])
+    served, live = sub_step(snap)
+    reset, _ = sub_step(snap, fresh_row=r)
+    ref_cfg = b.cfg
+    if not cfg.softmax_cfg.is_vanilla and cfg.window:
+        ref_cfg = dataclasses.replace(b.cfg, softmax_cfg=dataclasses.replace(
+            cfg.softmax_cfg, alpha=None, gamma=cfg.softmax_cfg.resolve_gamma(cfg.window)))
+    with torch.no_grad():
+        full_logits, _ = model_apply(b.params, ref_cfg, {
+            "tokens": torch.as_tensor(prefix, dtype=torch.long, device=b.device)[None]}, ctx=ctx)
+    ref = full_logits[0, -c:, :cfg.vocab_size].float()
+    del full_logits
+    row = served[r, :c, :cfg.vocab_size].float()
+    row_rms, reset_rms = rel_rms(row, ref), rel_rms(reset[r, :c, :cfg.vocab_size], ref)
+    agree = (row.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    print(f"serving {name}: row {r}'s last chunk ({c} tokens at positions "
+          f"{int(pos[r])}..{int(pos[r]) + c - 1}) vs a cache-free forward over its "
+          f"{len(prefix)}-token prefix: relative RMS {row_rms:.4e} (tol "
+          f"{'none: printed' if row_tol is None else row_tol}), argmax agreement "
+          f"{agree:.4f}; control, the row's state reset to a fresh row's: {reset_rms:.4e}",
+          flush=True)
+    if row_tol is not None:
+        check(row_rms <= row_tol,
+              f"{name}: the served chunk differs from the cache-free forward: {row_rms}")
+        check(reset_rms > row_tol,
+              f"{name}: the row check cannot tell a lost state: {reset_rms}")
+    result = dict(engine=name, layers=cfg.n_layers, w8a8=w8a8, ticks=ticks,
+                  forwards=len(per_forward), multi_forwards=multi, tokens=n_tokens,
+                  wall_s=wall, tok_per_s=n_tokens / wall, peak_gb=peak_gb, init_s=init_s,
+                  setup_s=setup_s, row_rel_rms=row_rms, row_reset_rel_rms=reset_rms,
+                  int8_per_forward=int8_per[0], **{f"{k}_launches": v
+                                                   for k, v in launches.items()})
+    del served, reset, ref, row
+    if w8a8:
+        ticks_rms = {}
+        for kind in ("prefill", "decode"):
+            kern, live = sub_step(snaps[kind])
+            plain, _ = sub_step(snaps[kind], int8_plain=True)
+            kern, plain = kern[live][:, :cfg.vocab_size], plain[live][:, :cfg.vocab_size]
+            ticks_rms[kind] = rel_rms(kern, plain)
+            same = torch.equal(kern, plain)
+            print(f"serving {name}: the {kind} sub-step (counts "
+                  f"{snaps[kind]['args'][2].tolist()}) with the int8 kernel vs the int8 "
+                  f"products' plain version: relative RMS {ticks_rms[kind]:.3e} (tol "
+                  f"{W8A8_LOGIT_REL_RMS}), bitwise equal {same}, finite "
+                  f"{bool(torch.isfinite(kern).all())}", flush=True)
+            check(bool(torch.isfinite(kern).all()) and ticks_rms[kind] <= W8A8_LOGIT_REL_RMS,
+                  f"{name}: the {kind} sub-step's int8 kernel path differs from the plain "
+                  f"one: {ticks_rms[kind]}")
+            del kern, plain
+        result.update(tick_rel_rms=ticks_rms)
+    if trace:
+        with xlstm_annotations(torch) if cfg.xlstm is not None else contextlib.nullcontext():
+            traces = trace_replays(
+                torch, lambda cache, *args: step_rows_full(b.params, b.cfg, cache, *args,
+                                                           ctx=ctx),
+                {k: snaps[k] for k in ("prefill", "decode")}, f"serving {name}", "sub-step")
+        result.update(traces=traces)
+    del b, snaps, snap
+    if own_params:
+        del params
+    torch.cuda.empty_cache()
+    return result
+
+
+def rg_w8a8_requests(np, vocab):
+    """Phase 4b's 10 prompts (three past 2304 tokens), 16 new tokens each."""
+    return [(p, 16) for p in rg_prompts(np, vocab)]
+
+
+def phase_rg_w8a8(torch, np, rl, im, fa, pa):
+    """4c: recurrentgemma-9b (bf16, 38 layers) served by a clipped-softmax
+    (alpha 4) W8A8 engine: ``phase_recurrent_serving`` with its sub-steps
+    traced."""
+    from repro_torch.configs.base import apply_method
+    from repro_torch.configs.recurrentgemma_9b import full
+    cfg = apply_method(full(), "clipped_softmax", alpha=4.0)
+    t0 = time.perf_counter()
+    out = phase_recurrent_serving(torch, np, rl, im, fa, pa, "rg clipped-w8a8", cfg,
+                                  rg_w8a8_requests(np, cfg.vocab_size), 4096, w8a8=True,
+                                  trace=True, row_tol=RECURRENT_W8A8_ROW_REL_RMS,
+                                  min_pos=cfg.window)
+    phase_wall("4c", t0)
+    return out
+
+
+def rg_eval_cfg(method, **method_kw):
+    """recurrentgemma-9b at full width with ``method``, unrolled (as PTQ
+    needs)."""
+    from repro_torch.configs.base import apply_method
+    from repro_torch.configs.recurrentgemma_9b import full
+    return dataclasses.replace(apply_method(full(), method, **method_kw), scan_layers=False)
+
+
+def xlstm_cfg():
+    from repro_torch.configs.xlstm_1_3b import full
+    return full()
+
+
+def phase_mlstm_cell(torch):
+    """9a: one mLSTM layer's cell at xlstm-1.3b's shapes (4 heads of 1024),
+    T 512, f32 from a seed: the chunkwise form (chunk 128) against the
+    recurrent oracle within MLSTM_REL_RMS, h and the final (C, n, m); the
+    chunkwise form over two halves without the state carried (the
+    control) above it; both forms timed. Then the sLSTM scan's eager
+    kernels per step, counted in a torch.profiler trace at (8, 64, 2048)."""
+    from repro_torch.nn import xlstm
+
+    xc = xlstm_cfg().xlstm
+    h, d, t = xc.n_heads, xc.dh_inner, 512
+    gen = torch.Generator().manual_seed(41)
+    q, k, v = (torch.randn(1, t, h, d, generator=gen).cuda() for _ in range(3))
+    logi = torch.randn(1, t, h, generator=gen).cuda()
+    logf = torch.nn.functional.logsigmoid(torch.randn(1, t, h, generator=gen) + 3.0).cuda()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hc, sc = xlstm.mlstm_chunkwise(q, k, v, logi, logf, xc.chunk_size)
+        torch.cuda.synchronize()
+        chunk_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        hr, sr = xlstm.mlstm_recurrent_ref(q, k, v, logi, logf)
+        torch.cuda.synchronize()
+        rec_ms = (time.perf_counter() - t0) * 1e3
+        half = t // 2
+        h1, _ = xlstm.mlstm_chunkwise(*(x[:, :half] for x in (q, k, v, logi, logf)),
+                                      xc.chunk_size)
+        h2, _ = xlstm.mlstm_chunkwise(*(x[:, half:] for x in (q, k, v, logi, logf)),
+                                      xc.chunk_size)
+        lost = torch.cat([h1, h2], dim=1)
+    errs = {"h": rel_rms(hc, hr), "C": rel_rms(sc[0], sr[0]), "n": rel_rms(sc[1], sr[1]),
+            "m": rel_rms(sc[2], sr[2])}
+    control = rel_rms(lost, hr)
+    print(f"xlstm mLSTM cell (1, {t}, {h}, {d}) f32, chunk {xc.chunk_size}: chunkwise vs the "
+          f"recurrent oracle, relative RMS {', '.join(f'{k} {v:.3e}' for k, v in errs.items())} "
+          f"(tol {MLSTM_REL_RMS}); control, the state not carried across the halves: "
+          f"{control:.3e}; host wall chunkwise {chunk_ms:.2f} ms, recurrent {rec_ms:.2f} ms",
+          flush=True)
+    check(max(errs.values()) <= MLSTM_REL_RMS and bool(torch.isfinite(hc).all()),
+          f"mLSTM chunkwise differs from its recurrent oracle: {errs}")
+    check(control > MLSTM_REL_RMS, f"the mLSTM check cannot tell a dropped state: {control}")
+    del q, k, v, hc, hr, sc, sr, lost, h1, h2
+    # the sLSTM scan's eager kernels per step
+    bsz, steps, dm = 8, 64, xc.d_model
+    zifo = [torch.randn(bsz, steps, dm, generator=gen).cuda() for _ in range(4)]
+    r = {n: (0.1 * xc.dh_model ** -0.5 * torch.randn(
+        xc.n_heads, xc.dh_model, xc.dh_model, generator=gen)).cuda()
+        for n in ("rz", "ri", "rf", "ro")}
+    with torch.no_grad():
+        xlstm.slstm_scan(*zifo, r, xc.n_heads)         # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xlstm.slstm_scan(*zifo, r, xc.n_heads)
+        torch.cuda.synchronize()
+        scan_ms = (time.perf_counter() - t0) * 1e3
+        tr = trace_tick(torch, lambda: xlstm.slstm_scan(*zifo, r, xc.n_heads), "sLSTM scan")
+    kernels = sum(tr["family_kernels"].values())
+    per_step = kernels / steps
+    print(f"xlstm sLSTM scan ({bsz}, {steps}, {dm}) f32: {kernels} device kernels under "
+          f"torch.profiler = {per_step:.2f} per step; host wall {scan_ms:.2f} ms = "
+          f"{scan_ms / steps:.4f} ms per step", flush=True)
+    return dict(errs=errs, control=control, chunk_ms=chunk_ms, recurrent_ms=rec_ms,
+                slstm_kernels_per_step=per_step, slstm_ms_per_step=scan_ms / steps)
+
+
+def phase_xlstm(torch, np, rl, im, fa, fq, pa):
+    """9: xlstm-1.3b at its published width and depth (bf16, 48 blocks,
+    7:1 mLSTM:sLSTM, random weights from seed 0): (a) ``phase_mlstm_cell``;
+    (b) phase 5's evaluation (XLSTM_EVAL_BATCH x XLSTM_EVAL_SEQ: the sLSTM
+    runs one eager step a token), unrolled; (c) fp and W8A8 paged engines
+    on the same weights over ``short_requests``' 12 requests, the W8A8
+    one's sub-steps traced."""
+    t0 = time.perf_counter()
+    cell = phase_mlstm_cell(torch)
+    cfg = dataclasses.replace(xlstm_cfg(), scan_layers=False)
+    ev = phase_eval(torch, np, fa, fq, pa, im, "xlstm-1.3b", cfg, seq=XLSTM_EVAL_SEQ,
+                    batch_size=XLSTM_EVAL_BATCH)
+    from repro_torch.models.transformer import model_init
+    reqs = short_requests(np, cfg.vocab_size, 12)
+    # the row check, gated: f32, one pattern group (7 mLSTM + 1 sLSTM)
+    f32 = dataclasses.replace(xlstm_cfg(), n_layers=len(cfg.pattern),
+                              param_dtype=torch.float32, compute_dtype=torch.float32)
+    engines = [phase_recurrent_serving(torch, np, rl, im, fa, pa, "xlstm-1.3b fp f32 8 blocks",
+                                       f32, reqs, 1024, row_tol=XLSTM_ROW_REL_RMS)]
+    # published depth, bf16: the row check printed (see XLSTM_ROW_REL_RMS)
+    params = model_init(0, xlstm_cfg(), device="cuda")
+    engines += [phase_recurrent_serving(torch, np, rl, im, fa, pa, f"xlstm-1.3b {kind}",
+                                        xlstm_cfg(), reqs, 1024, params=params, w8a8=w8a8,
+                                        trace=w8a8, row_tol=None)
+                for kind, w8a8 in (("fp", False), ("w8a8", True))]
+    del params
+    torch.cuda.empty_cache()
+    phase_wall("9", t0)
+    return dict(cell=cell, eval=ev, engines=engines)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4272,6 +4812,7 @@ def main() -> int:
     for moe_name, heads in MOE_PAGED.items():
         phase_kernel_times(torch, pa, heads, ("vanilla",), f"{moe_name} ")
     phase_int8_times(torch, im, MOE_INT8_SHAPES, None)
+    phase_flash_dh256(torch, fa, build)
     mark("3d")
     fq_err = phase_fq_checks(torch, fq)
     fq_times = phase_fq_times(torch, fq)
@@ -4299,6 +4840,8 @@ def main() -> int:
         phase_rg_serving(torch, np, rl, fa, pa, "vanilla", "vanilla", trace=True, gen=True),
         phase_rg_serving(torch, np, rl, fa, pa, "clipped", "clipped_softmax", alpha=4.0),
         phase_rg_serving(torch, np, rl, fa, pa, "gated", "gated_attention")]
+    mark("4c")
+    rg_w8a8 = phase_rg_w8a8(torch, np, rl, im, fa, pa)
     mark("5")
     evals = [phase_eval(torch, np, fa, fq, pa, im, name, qwen_eval_cfg(method, **kw))
              for name, method, kw in METHODS]
@@ -4320,6 +4863,11 @@ def main() -> int:
             ("clipped-w8a8", "clipped_softmax", {"alpha": 4.0}, True, True),
             ("vanilla-dense", "vanilla", {}, False, False))]
     contrast = phase_outlier_contrast(torch, np)
+    mark("5c")
+    t0 = time.perf_counter()
+    evals += [phase_eval(torch, np, fa, fq, pa, im, f"recurrentgemma-9b {name}",
+                         rg_eval_cfg(method, **kw), rl=rl) for name, method, kw in METHODS]
+    phase_wall("5c", t0)
     mark("6")
     bwd_err = phase_bwd_checks(torch, fa)
     bwd_times = phase_bwd_times(torch, fa)
@@ -4334,10 +4882,13 @@ def main() -> int:
     mark("8")
     moe = phase_moe(torch, np, pa, im, fa, fq)
     mark("9")
-    evals += vit["evals"] + [hubert] + moe["evals"]
+    xl = phase_xlstm(torch, np, rl, im, fa, fq, pa)
+    mark("10")
+    evals += vit["evals"] + [hubert] + moe["evals"] + [xl["eval"]]
     trains += vit["trains"] + [moe["train"]]
     forwards = [phi["forward"], gemma["forward"]]
     new_engines = [phi["serving"]] + gemma["engines"] + moe["engines"]
+    recurrent = [rg_w8a8] + xl["engines"]
 
     dec = times[("decode", "vanilla")]
     i8 = int8_times[(8, 5120, 17408)]
@@ -4345,11 +4896,13 @@ def main() -> int:
     # (generate and paged=False), phase 4b with recurrentgemma's generate,
     # phase 5
     dense = [e["dense"] for e in engines if "dense" in e]
-    int8_launches = sum(e["int8_launches"] for e in engines + dense + opt_engines + new_engines)
+    int8_launches = sum(e["int8_launches"]
+                        for e in engines + dense + opt_engines + new_engines + recurrent)
     flash_launches = sum(e["flash_launches"] + e.get("gen_launches", 0)
                          for e in engines + evals + dense + opt_engines + trains + forwards)
     rg_launches = sum(e["launches"] for e in rg_engines) + sum(
-        g["rg_launches"] for e in rg_engines for g in e.get("generate", {}).values())
+        g["rg_launches"] for e in rg_engines for g in e.get("generate", {}).values()) + sum(
+        e.get("rg_lru_launches", 0) for e in evals + recurrent)
     kernels = [dict(name="paged_attention", route="cuda",
                     source=KERNEL_SOURCES["paged_attention"],
                     replaces=REPLACES["paged_attention"],

@@ -12,9 +12,6 @@ device.
 The paper's technique is selected per-run with ``method``:
     "vanilla" | "clipped_softmax" | "gated_attention"
 applied uniformly to every softmax-attention block of any arch.
-
-``xlstm-1.3b`` is not registered: its config needs ``XLSTMConfig``, which
-is not ported, and ``get_arch`` names the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -63,11 +60,6 @@ class ArchSpec:
 
 _REGISTRY: Dict[str, ArchSpec] = {}
 
-# the archs whose blocks the port lacks, with the ROADMAP item of each
-_UNPORTED = {
-    "xlstm-1.3b": "5.3 (nn/xlstm.py)",
-}
-
 SKIP_LONG = ("long_500k",
              "full softmax attention is quadratic; 500k decode reserved for "
              "sub-quadratic archs per assignment")
@@ -82,10 +74,6 @@ def register(spec: ArchSpec) -> ArchSpec:
 
 def get_arch(arch_id: str) -> ArchSpec:
     _ensure_loaded()
-    if arch_id in _UNPORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP queue 1, item "
-            f"{_UNPORTED[arch_id]})")
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]
@@ -109,6 +97,7 @@ def _ensure_loaded() -> None:
         qwen2_moe_a2_7b,
         qwen3_14b,
         recurrentgemma_9b,
+        xlstm_1_3b,
     )
 
 

@@ -6,7 +6,9 @@ nested dicts of tensors. The two packages share one layout, so this is a
 leaf-wise conversion that keeps the structure: the scanned ``groups``
 stack (leading layer-group axis) stays stacked, the unrolled ``layers``
 list stays a list, an unrolled ``tail`` stays a dict, and Griffin's
-leaves and ``w_q8``/``w_scale`` convert like any other. Every leaf keeps
+leaves, the xLSTM blocks' (the (H, dh, dh) sLSTM recurrences, the
+head-wise norm scales, the gate biases) and ``w_q8``/``w_scale`` convert
+like any other. Every leaf keeps
 its dtype (Griffin's ``lambda`` stays f32 in a bf16 model). bfloat16 leaves arrive as ml_dtypes arrays numpy cannot hand to
 torch directly; they go through float32, which holds them exactly.
 An int8 leaf of two or more axes (the codes ``w_q8``, the only int8

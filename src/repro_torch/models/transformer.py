@@ -10,9 +10,10 @@ the pattern does not divide keeps its last blocks, always unrolled, under
 ``"tail"``.
 
 Block kinds: ``attn`` (global attention), ``local_attn`` (windowed
-attention, over a per-row ring when the cache has one) and ``griffin``
-(the RG-LRU recurrent block, ``repro_torch.nn.recurrent``), in any
-pattern; ``embed_scale`` multiplies the embeddings by sqrt(d_model);
+attention, over a per-row ring when the cache has one), ``griffin`` (the
+RG-LRU recurrent block, ``repro_torch.nn.recurrent``) and ``mlstm`` /
+``slstm`` (the xLSTM blocks, ``repro_torch.nn.xlstm``), in any pattern;
+``embed_scale`` multiplies the embeddings by sqrt(d_model);
 ``pos="learned"`` adds a learned position table (BERT, OPT) and
 ``norm_position="post"`` normalizes after each residual add (BERT);
 ``post_block_norm`` normalizes each sub-block's output before its
@@ -31,15 +32,16 @@ for byte (a block is named by its index inside the pattern,
 ``layer_attn0``, in every group; a tail block ``tail_griffin0``). With
 ``cfg.moe`` set, an attention block's MLP is a Mixture-of-Experts layer
 (``repro_torch.nn.moe``) whose dispatch takes the forward's ``active``
-mask, and ``aux["moe_aux"]`` sums its aux losses over the layers. xLSTM
-blocks raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+mask, and ``aux["moe_aux"]`` sums its aux losses over the layers.
 
 Cache writes update the cache IN PLACE (``aux["cache"]`` is the cache
 that was passed in): the KV cache is the largest tensor of a serving
 engine, and copying it every layer of every tick would double it. Dense
 KV, ring KV, ring position ids and recurrent states are per row
-("batch-led"), updated in place for the rows the ``active`` mask keeps.
+("batch-led"), updated in place for the rows the ``active`` mask keeps;
+a recurrent state whose dtype changes (the W8A8 tick's f32 conv history
+over a bf16 leaf) replaces its leaf instead, as the reference's
+functional update does.
 """
 from __future__ import annotations
 
@@ -85,6 +87,14 @@ from repro_torch.nn.module import (
     split_keys,
     tree_map,
     tree_slice,
+)
+from repro_torch.nn.xlstm import (
+    XLSTMConfig,
+    mlstm_block_apply,
+    mlstm_block_init,
+    slstm_block_apply,
+    slstm_block_init,
+    xlstm_init_state,
 )
 from repro_torch.quant.kv_cache import kv_quant
 from repro_torch.quant.qconfig import NO_QUANT, QuantContext
@@ -139,9 +149,9 @@ class ModelConfig:
     frontend_dim: Optional[int] = None
     n_prefix_embeds: int = 0
 
-    # sub-configs for non-attention mixers (RGLRUConfig; xlstm not ported)
-    rglru: Optional[Any] = None
-    xlstm: Optional[Any] = None
+    # sub-configs for non-attention mixers
+    rglru: Optional[Any] = None                 # RGLRUConfig
+    xlstm: Optional[XLSTMConfig] = None
 
     vocab_pad_to: int = 1
 
@@ -179,19 +189,19 @@ class ModelConfig:
             chunk_size=self.attn_chunk_size)
 
 
-_KINDS = {"attn", "local_attn", "griffin"}
+_KINDS = {"attn", "local_attn", "griffin", "mlstm", "slstm"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse what the port does not run yet, naming the ROADMAP item
-    (queue 1) that ports it."""
+    """Refuse a config the model cannot build: an unknown block kind, or a
+    recurrent kind without its sub-config."""
     kinds = set(cfg.pattern) | set(cfg.tail_pattern)
     if kinds - _KINDS:
-        raise NotImplementedError(
-            f"block kinds {sorted(kinds - _KINDS)} are not ported yet "
-            f"(ROADMAP queue 1, item 5.3: nn/xlstm.py)")
+        raise ValueError(f"unknown block kinds {sorted(kinds - _KINDS)}")
     if "griffin" in kinds and cfg.rglru is None:
         raise ValueError("griffin blocks need cfg.rglru (an RGLRUConfig)")
+    if kinds & {"mlstm", "slstm"} and cfg.xlstm is None:
+        raise ValueError("mlstm/slstm blocks need cfg.xlstm (an XLSTMConfig)")
 
 
 # ==========================================================================
@@ -374,8 +384,12 @@ def _attn_block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
 def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
     if kind in ("attn", "local_attn"):
         return _attn_block_init(gen, cfg)
-    g1, g2, _ = split_keys(gen, 3)
     dt, dev = cfg.param_dtype, gen.device
+    if kind in ("mlstm", "slstm"):
+        init = mlstm_block_init if kind == "mlstm" else slstm_block_init
+        return {"ln": norm_init(cfg.norm, cfg.d_model, dt, dev),
+                "blk": init(gen, cfg.xlstm, dt)}
+    g1, g2, _ = split_keys(gen, 3)
     return {"ln1": norm_init(cfg.norm, cfg.d_model, dt, dev),
             "griffin": griffin_block_init(g1, cfg.d_model, cfg.rglru, dt),
             "ln2": norm_init(cfg.norm, cfg.d_model, dt, dev),
@@ -522,11 +536,7 @@ def _griffin_block_apply(
     y, new_state = griffin_block_apply(p["griffin"], h, cfg.rglru, cache, ctx,
                                        name + "/griffin")
     if cache is not None:
-        for leaf, new in new_state.items():
-            if st.act_row is not None:
-                m = st.act_row.reshape(-1, *([1] * (new.ndim - 1)))
-                new = torch.where(m, new, cache[leaf].to(new.dtype))
-            cache[leaf].copy_(new)
+        _store_state(cache, new_state, st.act_row)
     x = x + y
     mix_out = x
     h2 = norm_apply(cfg.norm, p["ln2"], x, ctx, name + "/ln2")
@@ -534,11 +544,63 @@ def _griffin_block_apply(
     return x, mix_out
 
 
+def _xlstm_block_apply(
+    p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str, cache: Optional[dict],
+    st: _Step, ctx: QuantContext, name: str,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An mLSTM or sLSTM block (the reference's :538-545): pre-norm, the
+    block, the residual add; the residual value is also the mixer output.
+    With a cache, the rows ``st.act_row`` keeps take their new state
+    (conv history and cell), in place."""
+    h = norm_apply(cfg.norm, p["ln"], x, ctx, name + "/ln")
+    fn = mlstm_block_apply if kind == "mlstm" else slstm_block_apply
+    y, new_state = fn(p["blk"], h, cfg.xlstm, cache, ctx, f"{name}/{kind}")
+    if cache is not None:
+        _store_state(cache, new_state, st.act_row)
+    x = x + y
+    return x, x
+
+
+def _store_state(cache: dict, new_state: dict, act_row: Optional[torch.Tensor]) -> None:
+    """Write a recurrent block's new state into ``cache``, keeping the old
+    state of the rows ``act_row`` masks off (the reference's
+    ``_row_select``). A leaf takes the new state's dtype, as the
+    reference's functional update does: under W8A8 the int8 GEMMs return
+    f32, so a bf16 model's conv history turns f32 after its first tick,
+    and an in-place copy into the bf16 leaf would round it. Such a leaf is
+    replaced in its dict; a leaf of a stacked (scanned) cache is a view
+    and cannot change dtype, so that raises."""
+    def keep_rows(new, old):
+        if act_row is None:
+            return new
+        m = act_row.reshape(-1, *([1] * (new.ndim - 1)))
+        return torch.where(m, new, old.to(new.dtype))
+
+    for key, new in new_state.items():
+        old = cache[key]
+        if isinstance(new, tuple):      # an xLSTM cell: f32 leaves, in place
+            for o, n in zip(old, new):
+                o.copy_(keep_rows(n, o))
+            continue
+        new = keep_rows(new, old)
+        if new.dtype == old.dtype:
+            old.copy_(new)
+        elif old._base is not None:
+            raise ValueError(
+                f"a recurrent state of dtype {new.dtype} cannot be stored into a "
+                f"{old.dtype} leaf of a stacked cache: run the unrolled layers "
+                f"(scan_layers=False), as the W8A8 engine does")
+        else:
+            cache[key] = new.clone()
+
+
 def _block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
                  cache: Optional[dict], st: _Step, ctx: QuantContext, name: str
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     if kind == "griffin":
         return _griffin_block_apply(p, x, cfg, cache, st, ctx, name)
+    if kind in ("mlstm", "slstm"):
+        return _xlstm_block_apply(p, x, cfg, kind, cache, st, ctx, name)
     return _attn_block_apply(p, x, cfg, kind, cache, st, ctx, name)
 
 
@@ -620,10 +682,11 @@ def _cache_entry(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
                  device, lead: Tuple[int, ...] = ()) -> Params:
     """Dense decode state of one block (the reference's ``_cache_entry``),
     with the stacked groups' ``lead`` axes in front: K/V rows for attention
-    blocks (a ring for ``local_attn``), recurrent states for ``griffin``."""
-    if kind == "griffin":
-        state = griffin_init_state(batch, cfg.rglru, dtype, device)
-        return {k: v.expand(lead + tuple(v.shape)).clone() for k, v in state.items()}
+    blocks (a ring for ``local_attn``), recurrent states otherwise."""
+    if kind in ("griffin", "mlstm", "slstm"):
+        state = griffin_init_state(batch, cfg.rglru, dtype, device) if kind == "griffin" \
+            else xlstm_init_state(batch, kind, cfg.xlstm, dtype, device)
+        return tree_map(lambda v: v.expand(lead + tuple(v.shape)).clone(), state)
     # local attention only ever needs ``window`` history: a ring
     length = min(max_len, cfg.window) if (kind == "local_attn" and cfg.window) else max_len
     shape = lead + (batch, length, cfg.n_kv_heads, cfg.head_dim)
@@ -648,7 +711,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
         empty, when L < max_seq_len; otherwise a plain dense row read with
         the window mask;
       * ``griffin``: the recurrent state ``h`` (batch, width) f32 and the
-        conv history ``conv`` (batch, conv_width - 1, width).
+        conv history ``conv`` (batch, conv_width - 1, width);
+      * ``mlstm`` / ``slstm``: the conv history ``conv`` and the f32 cell
+        ``cell``, a tuple (C, n, m) / (c, n, m, h) (``xlstm_init_state``).
 
     ``init_paged_cache`` is the alternative whose memory scales with live
     tokens."""
@@ -670,7 +735,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
         max_len // block_size) of physical ids (-1 = unallocated);
         ``kv_int8=True`` stores int8 pools plus per-slot f32 scale vectors
         ``k_scale``/``v_scale`` (num_blocks, block_size);
-      * ``local_attn`` and ``griffin``: the dense per-row state of
+      * every other kind: the dense per-row state of
         ``init_cache`` (a ring, or a dense row without a ring; recurrent
         state); it stays in ``dtype`` under ``kv_int8``, as in the
         reference."""
@@ -731,7 +796,7 @@ def paged_entries(cache: Params):
 
 def row_leaves(cache: Params, path: Tuple = ()):
     """(path, leaf, batch axis) of every batch-led leaf of ``cache``: ring
-    K/V and ``pos_ids``, recurrent ``h``/``conv`` — every leaf outside a
+    K/V and ``pos_ids``, recurrent ``h``/``conv``/``cell`` — every leaf outside a
     paged entry. Scanned caches stack the groups in front, so the batch is
     axis 1 under ``"groups"``, else 0."""
     if isinstance(cache, dict):

@@ -32,13 +32,19 @@ W8A8 serving: ``qconfig=`` calibrates static per-site activation ranges
 once at construction (``_calibrate_engine``: a few synthetic batches
 through the fp model in 'collect' mode, then ``use_int8_runtime``, which
 leaves the ranges as python floats), attaches int8 weights beside the fp
-ones (``attach_int8_weights``) and runs every q/k/v/o/gate/up/down linear
-of the tick through the ``int8_matmul`` kernel; ``kv_int8`` defaults to
-on with it. Nothing in the tick reads a range back from the device.
+ones (``attach_int8_weights``) and runs every matmul weight the reference
+caches (attention and MLP linears, the Griffin block's, the xLSTM blocks'
+projections) through the ``int8_matmul`` kernel, on every block kind;
+``kv_int8`` defaults to on with it in a paged engine, as in the
+reference, and quantizes only global-attention pools (a ring or a
+recurrent state stays fp). Nothing in the tick reads a range back from
+the device. The int8 GEMMs return f32, so a bf16 model's conv histories
+turn f32 after the first tick, as in the reference.
 
-Ring (``local_attn``) and recurrent (``griffin``) layers keep per-row
-("batch-led") state beside the shared pools: the ring's K/V and position
-ids, the recurrence's h and conv history. Admission resets a slot's rows
+Ring (``local_attn``) and recurrent (``griffin``, ``mlstm``, ``slstm``)
+layers keep per-row ("batch-led") state beside the shared pools: the
+ring's K/V and position ids, the recurrences' h / cell and conv history.
+Admission resets a slot's rows
 to a fresh template, and swap preemption carries them to the host and
 back. A recurrence has no per-token write index to mask, so a config
 with recurrent blocks cannot run ragged rows: its tick is a decode
@@ -48,11 +54,9 @@ Such configs refuse ``spec=`` and ``prefix_cache=True`` as the reference
 does (a ring or recurrent write cannot be hidden or shared), and run
 ``Request(n=k)`` branches as independent requests.
 
-This port refuses, outright and with the ROADMAP item that ports each:
-W8A8 (``qconfig=``) on a config that is not all-``attn``, and the block
-kinds ``check_supported`` refuses. A config of ``input_kind`` "embeds"
-has no token path and raises ``ValueError``; a "mixed" one serves text
-prompts through its token embeddings. Host bookkeeping is
+A config of ``input_kind`` "embeds" has no token path and raises
+``ValueError``; a "mixed" one serves text prompts through its token
+embeddings. Host bookkeeping is
 numpy; the tick's tensors live on ``device`` (default ``"cuda"``).
 """
 from __future__ import annotations
@@ -87,6 +91,8 @@ from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.speculate import NGramDrafter, SpecConfig
 
 _POOL_LEAVES = ("k", "v", "k_scale", "v_scale")
+# block kinds whose state has no per-token write index
+_RECURRENT_KINDS = ("griffin", "mlstm", "slstm")
 
 
 class AllocatorAuditError(RuntimeError):
@@ -166,7 +172,7 @@ class SwappedState:
     """Host copy-out of a swap-preempted row: ``pool`` maps each pool
     leaf's path (layer entry index, leaf name) to the victim's blocks in
     table order, ``row`` each batch-led leaf's path (ring K/V and
-    position ids, recurrent h/conv) to the victim's row. The device
+    position ids, recurrent h/conv/cell) to the victim's row. The device
     blocks are freed at swap-out; swap-in restores both bit-exactly, the
     blocks into freshly allocated ones."""
     pool: Dict[Tuple, torch.Tensor]
@@ -325,10 +331,6 @@ class ContinuousBatcher:
                 "input_kind 'embeds' has no token path (an encoder over "
                 "precomputed embeddings: run it through model_apply)")
         kinds = cfg.pattern + cfg.tail_pattern
-        if qconfig is not None and any(k != "attn" for k in kinds):
-            raise NotImplementedError(
-                "W8A8 serving (qconfig=) of ring/Griffin configs is not ported "
-                "yet (ROADMAP queue 1, item 4)")
         self.device = resolve_device(device)
         if kv_int8 is None:
             kv_int8 = qconfig is not None and paged
@@ -407,12 +409,12 @@ class ContinuousBatcher:
             self.cache = init_cache(cfg, batch_size, max_len, device=self.device)
             template = init_cache(cfg, 1, max_len, device=self.device)
         # a fresh batch-1 state: admission resets the slot's batch-led rows
-        # (dense and ring K/V, ring pos_ids, recurrent h/conv) from it, so
+        # (dense and ring K/V, ring pos_ids, recurrent h/conv/cell) from it, so
         # the previous occupant cannot leak into the new request
         self._row_template = {path: leaf for path, leaf, _ in row_leaves(template)}
         # recurrent states have no per-token write index to mask, so ragged
         # steps are not expressible: split decode / uniform prefill ticks
-        self._uniform = "griffin" in kinds
+        self._uniform = any(k in _RECURRENT_KINDS for k in kinds)
         # sharing rides on the paged attn pools only: ring and recurrent
         # layers keep per-row state a shared block cannot carry
         self._can_share = paged and all(k == "attn" for k in kinds)
@@ -646,7 +648,7 @@ class ContinuousBatcher:
 
     def _reset_row(self, i: int) -> None:
         """Reset slot ``i``'s batch-led rows (dense and ring K/V, ring
-        pos_ids, recurrent h/conv) to the fresh template; pool leaves are
+        pos_ids, recurrent h/conv/cell) to the fresh template; pool leaves are
         shared and left alone (new blocks are written before any causally
         reachable read)."""
         for path, leaf, ax in row_leaves(self.cache):

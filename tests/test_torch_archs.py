@@ -2,15 +2,14 @@
 package, on the CPU, in float32.
 
   * the registry (``repro_torch.configs``): ``list_archs`` is the
-    reference's minus the arch whose blocks are not ported (xLSTM), which
-    ``get_arch`` refuses naming its ROADMAP item; every ``full()`` and
-    ``smoke()`` field by field (a MoE config's ``MoEConfig`` too), ``family``,
+    reference's; every ``full()`` and ``smoke()`` field by field (a MoE
+    config's ``MoEConfig`` and an xLSTM config's ``XLSTMConfig`` too), ``family``,
     ``skip_shapes``, ``source`` and ``SHAPES``; ``input_specs`` and
     ``cache_specs`` (meta-device tensors) against the reference's
     ``ShapeDtypeStruct`` trees, shape and dtype, at every shape an arch
     runs;
   * every ported arch's ``smoke()`` (tokens, embeds and mixed inputs,
-    sandwich norms, local/global patterns, Griffin, MoE) under vanilla,
+    sandwich norms, local/global patterns, Griffin, MoE, xLSTM) under vanilla,
     clipped and gated attention: cache-free logits against
     ``repro.models.model_apply`` (atol 1e-4) and one train step's loss
     (rtol 1e-6) and gradients (relative L2 1e-2 per tensor) against
@@ -21,7 +20,8 @@ package, on the CPU, in float32.
     ``_check_logits`` / ``_check_train_step``);
   * ``convert.from_jax_params`` on the new leaves (``frontend_proj``,
     ``post_ln1``/``post_ln2``, an embeds config's ``lm_head``, the MoE
-    router, expert stacks and shared experts);
+    router, expert stacks and shared experts, the xLSTM blocks' leaves in a
+    scanned stack);
   * decode-cache consistency (a dense cache fed token by token against
     the cache-free forward), as ``tests/test_archs.py`` checks the
     reference;
@@ -61,9 +61,8 @@ tptq = importlib.import_module("repro_torch.quant.ptq")
 jqc = importlib.import_module("repro.quant.qconfig")
 tqc = importlib.import_module("repro_torch.quant.qconfig")
 
-UNPORTED = {"xlstm-1.3b": r"item 5\.3"}
 MOE_ARCHS = ["granite-moe-1b-a400m", "qwen2-moe-a2.7b"]
-PORTED = sorted(set(jbase.list_archs()) - set(UNPORTED))
+PORTED = sorted(jbase.list_archs())
 METHODS = {"vanilla": ("vanilla", {}), "clipped": ("clipped_softmax", {"alpha": 4.0}),
            "gated": ("gated_attention", {})}
 ATOL = 1e-4            # logits (tests/test_torch_paper_models.py)
@@ -143,12 +142,11 @@ def _dtype_name(x):
 # the registry
 # ---------------------------------------------------------------------------
 def test_list_archs_is_the_reference_minus_the_unported():
-    assert tbase.list_archs() == PORTED
-    assert len(PORTED) == len(jbase.list_archs()) - 1
-    assert set(MOE_ARCHS) <= set(PORTED)
-    for arch, item in UNPORTED.items():
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1, {item}"):
-            tbase.get_arch(arch)
+    """Named when xLSTM was unported; now nothing is, and ``list_archs()``
+    is the reference's."""
+    assert tbase.list_archs() == PORTED == sorted(jbase.list_archs())
+    assert set(MOE_ARCHS) | {"xlstm-1.3b"} <= set(PORTED)
+    assert tbase.get_arch("xlstm-1.3b").family == "ssm"
     with pytest.raises(KeyError, match="unknown arch"):
         tbase.get_arch("no-such-arch")
 
@@ -168,7 +166,13 @@ def _fields_equal(t, j):
             assert getattr(t, f.name) == getattr(j, f.name), f.name
     for f in ("param_dtype", "compute_dtype"):
         assert _dtype_name(getattr(t, f)) == jnp.dtype(getattr(j, f)).name
-    assert (t.xlstm, j.xlstm) == (None, None)
+    if j.xlstm is None:
+        assert t.xlstm is None
+    else:
+        assert type(t.xlstm).__name__ == "XLSTMConfig"
+        assert dataclasses.asdict(t.xlstm) == dataclasses.asdict(j.xlstm)
+        assert (t.xlstm.d_inner, t.xlstm.dh_inner, t.xlstm.dh_model) == \
+            (j.xlstm.d_inner, j.xlstm.dh_inner, j.xlstm.dh_model)
     if j.moe is None:
         assert t.moe is None
     else:
@@ -227,15 +231,20 @@ def test_to_bf16_equals_reference():
 
 
 def test_check_supported_refuses_only_moe_and_xlstm():
-    """Named when MoE was refused too; now only xLSTM is, and both MoE
-    archs' ``full()`` configs are accepted."""
-    cfg = tbase.get_arch("qwen3-14b").smoke()
-    with pytest.raises(NotImplementedError, match=r"item 5\.3"):
-        ttr.check_supported(dataclasses.replace(cfg, pattern=("attn", "mlstm")))
-    for name in ("hubert_xlarge", "phi_3_vision_4_2b", "gemma2_27b", "codeqwen1_5_7b",
-                 "deepseek_67b", "granite_moe_1b_a400m", "qwen2_moe_a2_7b"):
-        ttr.check_supported(importlib.import_module(f"repro_torch.configs.{name}").full())
+    """Named when MoE and xLSTM were refused; now every registered arch's
+    ``full()`` is accepted, and what is refused is a config the model cannot
+    build: an unknown block kind, or a recurrent kind without its
+    sub-config."""
+    for arch in tbase.list_archs():
+        ttr.check_supported(tbase.get_arch(arch).full())
     ttr.check_supported(tpm.vit_s16())
+    cfg = tbase.get_arch("qwen3-14b").smoke()
+    with pytest.raises(ValueError, match="unknown block kinds"):
+        ttr.check_supported(dataclasses.replace(cfg, pattern=("attn", "rwkv")))
+    with pytest.raises(ValueError, match="cfg.xlstm"):
+        ttr.check_supported(dataclasses.replace(cfg, pattern=("attn", "mlstm")))
+    with pytest.raises(ValueError, match="cfg.rglru"):
+        ttr.check_supported(dataclasses.replace(cfg, pattern=("griffin",)))
 
 
 # ---------------------------------------------------------------------------
@@ -254,7 +263,12 @@ def test_check_supported_refuses_only_moe_and_xlstm():
     ("qwen2-moe-a2.7b", {"scan_layers": True},
      ("['groups']['b0']['moe']['router']['w']", "['groups']['b0']['moe']['w_up']",
       "['groups']['b0']['moe']['shared']['gate']['w']")),
-], ids=["sandwich-norms", "embeds", "embeds-tied", "mixed", "moe", "moe-shared-scanned"])
+    ("xlstm-1.3b", {"scan_layers": True, "n_layers": 5},
+     ("['groups']['b0']['blk']['ifgate']['b']", "['groups']['b0']['blk']['norm']['scale']",
+      "['groups']['b3']['blk']['rz']", "['groups']['b3']['blk']['ro']",
+      "['tail']['t0']['blk']['up']['w']", "['tail']['t0']['ln']['bias']")),
+], ids=["sandwich-norms", "embeds", "embeds-tied", "mixed", "moe", "moe-shared-scanned",
+        "xlstm-scanned"])
 def test_from_jax_params_carries_the_new_leaves(arch, replace, new_leaves):
     """Every leaf, path, dtype and value; an embeds config has no token
     table and always an untied head, as in the reference; ``model_init``
@@ -339,7 +353,7 @@ def test_smoke_train_step_matches_reference(arch, method):
 # decode-cache consistency (the port's copy of tests/test_archs.py's)
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", ["deepseek-67b", "gemma2-27b", "recurrentgemma-9b",
-                                  "qwen3-14b", *MOE_ARCHS])
+                                  "qwen3-14b", *MOE_ARCHS, "xlstm-1.3b"])
 def test_decode_cache_consistency(arch):
     cfg = dataclasses.replace(tbase.get_arch(arch).smoke(), max_seq_len=32)
     params = ttr.model_init(0, cfg, device="cpu")

@@ -231,17 +231,8 @@ def test_sampling_is_a_pure_function_of_seed_and_position():
 
 def test_refuses_what_this_slice_does_not_port(models):
     _, _, tc, tp = models["vanilla"]
-    cases = [
-        ({}, dataclasses.replace(tc, pattern=("attn", "mlstm"))),
-        # MoE is served (tests/test_torch_moe_serving.py); W8A8 of a ring
-        # config is not (item 4)
-        ({"qconfig": tqc.QConfig()},
-         dataclasses.replace(tc, pattern=("attn", "local_attn"), window=8)),
-    ]
-    for kw, cfg in cases:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tserve.ContinuousBatcher(tp, cfg, batch_size=2, max_len=64,
-                                     device="cpu", **kw)
+    # xLSTM blocks and W8A8 of ring/recurrent configs are served
+    # (tests/test_torch_xlstm_serving.py, tests/test_torch_recurrent_w8a8.py)
     # an embeds config has no token path to serve
     with pytest.raises(ValueError, match="no token path"):
         tserve.ContinuousBatcher(tp, dataclasses.replace(tc, input_kind="embeds"),
