@@ -124,7 +124,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      times of the kernel, its plain version and
      ``torch.fake_quantize_per_tensor_affine`` (a yardstick for time only:
      it multiplies by 1/s), beside the bound (bytes / 3.35 TB/s).
-  3e. ``kv_quant`` of 2^20 bf16 K and V tokens (Hkv 8, Dh 128) on the card
+  3e. ``kv_quant`` of 2^19 bf16 K and V tokens (Hkv 8, Dh 128) on the card
      and on the CPU: codes and scales bitwise equal (the scale divides by
      a device tensor; a multiplication by 1/127 would differ on the
      counted tokens).
@@ -337,8 +337,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      plain version (the bf16-P control above); then
      ``ContinuousBatcher(paged=True)`` on 8 text prompts (batch 8, max_len
      2048) through phase 4's ``phase_serving``: its first mixed tick
-     within LOGIT_REL_RMS of the plain path. (d) gemma2-27b (bf16, 46
-     layers, local window 4096 and global layers alternating, softcaps
+     within LOGIT_REL_RMS of the plain path. (d) gemma2-27b (bf16, 24 of
+     its 46 layers, local window 4096 and global layers alternating, softcaps
      50 / 30, sandwich norms): one cache-free forward at (1, 4608) held
      per layer as (c); then ``ContinuousBatcher(paged=True)`` (batch 4,
      max_len 4608, 400 blocks, budget 256) over six greedy requests (five
@@ -392,8 +392,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      control above its bound: the evaluation's logits every MoE layer at MOE_DROP_CF, the
      ticks every MoE layer at its least capacity ("MoE capacity 8"; the fp
      ticks also one position early). Peak memory is printed per engine.
-  9. xlstm-1.3b (``phase_xlstm``) at its published width and depth (bf16,
-     48 blocks, 7 mLSTM to 1 sLSTM, chunk 128; random weights from seed 0).
+  9. xlstm-1.3b (``phase_xlstm``) at its published width, 24 of its 48
+     blocks (bf16, 7 mLSTM to 1 sLSTM, chunk 128; random weights from seed 0).
      (a) One mLSTM layer's cell (4 heads of 1024, T 512, f32): the
      chunkwise form against the recurrent oracle within MLSTM_REL_RMS (h
      and the final C, n, m), the halves without the state carried above
@@ -413,11 +413,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      with the int8 products' plain version within W8A8_LOGIT_REL_RMS
      (bitwise printed), and traced (device time by family: the int8 GEMMs,
      the mLSTM cells, the sLSTM scans, the rest; idle share); tokens/s.
+  11. Open-loop traffic and fault injection (``serving.workload``,
+     ``serving.chaos``), after phase 9. Their CPU twins (``cpu_twins``)
+     run in a spawned child process on the host's cores, started after
+     the build, so they overlap the card's phases. (a) ``phase_traffic``:
+     the TRAFFIC trace (48 requests at qwen3-14b's vocabulary, prompts
+     around 192 tokens, half behind a shared 128-token prefix, a tenth
+     cancelled, DEFAULT_TIERS) through ``ContinuousBatcher`` engines at
+     qwen3-14b's full width and QWEN_LAYERS layers (batch 8, max_len
+     1024, block 16, budget 256, prefix cache on, no EOS, greedy): vanilla
+     over a bf16 pool and clipped (alpha 4) W8A8 over an int8 pool. On the
+     virtual clock at 12 / s the report must equal, field by field, the
+     CPU twin's (qwen3-14b's smoke width and depth at the full
+     vocabulary) and shed requests; on the wall clock at 3 / s the report
+     is printed (goodput, TTFT and TPOT per tier, stall p99,
+     decode_tpot). Both runs: every trace uid in done or failed once,
+     the audit clean, no block left held, the paged kernel once per layer
+     and forward, the int8 one 7 times (W8A8). (b) ``phase_chaos``: the
+     chaos smoke's six plans on OPT-125m (f32, W8A8 clipped over an int8
+     pool, q/k sharpened), then a storm plan on qwen3-14b (W8A8 clipped,
+     int8 pool), each in the smoke's engine (24 blocks of 8): every tick
+     audited, the drain, no leak, launches per forward; events, outcomes
+     and fault counts equal to the CPU twin's; each fault kind fired over
+     the seven plans; every swap round trip (pool blocks and batch-led
+     rows) bitwise; OPT-125m's survivors token-exact against an
+     unperturbed engine or a near-tie of a cache-free forward
+     (CHAOS_MARGIN_REL), a control with rotated swap-ins failing that
+     check.
   10. The kernels line (six kernels, the backward among them; the launch
      counts include phase 8's and phase 9's evaluations, engines and
-     training, phase 4c's engine and phase 5c's evaluations), then the
-     device line. Each phase from 3 on prints its start, in seconds into
-     the run.
+     training, phase 4c's engine, phase 5c's evaluations and phase 11's
+     engines), then the device line. Each phase from 3 on prints its
+     start, in seconds into the run.
 
 TF32 is switched off for matmuls and convolutions, so float32 compares
 are full float32. Requires ``torch.cuda.is_available()``; exits non-zero
@@ -428,6 +455,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1008,9 +1036,9 @@ def int8_case(torch, im, m, k, n, x_dtype, static, seed, copies=1):
     """x (M, K) and ``copies`` weight sets (K, N) int8 with their scales;
     a static range is taken slightly inside x's own so that some codes
     saturate, as they do under calibrated ranges."""
-    gen = torch.Generator().manual_seed(seed)
-    x = (torch.randn(m, k, generator=gen) * 1.5 + 0.2).to(x_dtype).cuda()
-    sets = [im.quantize_weights_int8((torch.randn(k, n, generator=gen) * 0.02).cuda())
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(m, k, generator=gen, device="cuda") * 1.5 + 0.2).to(x_dtype)
+    sets = [im.quantize_weights_int8(torch.randn(k, n, generator=gen, device="cuda") * 0.02)
             for _ in range(copies)]
     kw = {}
     if static:
@@ -1117,12 +1145,12 @@ def flash_case(torch, t, dtype, variant, seed, b=1, hq=40, hkv=8, dh=128, tk=Non
     """q (B, T, Hq, Dh), ``copies`` K/V sets (B, Tk, Hkv, Dh), the gate
     (B, T, Hq) for gated variants and the resolved (gamma, zeta). q is
     scaled by 2 so that attention is peaked rather than near uniform."""
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     tk = tk or t
-    q = (torch.randn(b, t, hq, dh, generator=gen) * 2).to(dtype).cuda()
-    sets = [tuple(torch.randn(b, tk, hkv, dh, generator=gen).to(dtype).cuda()
+    q = (torch.randn(b, t, hq, dh, generator=gen, device="cuda") * 2).to(dtype)
+    sets = [tuple(torch.randn(b, tk, hkv, dh, generator=gen, device="cuda").to(dtype)
                   for _ in range(2)) for _ in range(copies)]
-    gate = torch.sigmoid(torch.randn(b, t, hq, generator=gen)).cuda() \
+    gate = torch.sigmoid(torch.randn(b, t, hq, generator=gen, device="cuda")) \
         if "gated" in variant else None
     gamma, zeta = (-4.0 / tk, 1.0) if "clipped" in variant else (0.0, 1.0)
     return dict(q=q, sets=sets, gate=gate, kw=dict(gamma=gamma, zeta=zeta))
@@ -1418,27 +1446,26 @@ def fq_case(torch, shape, dtype, bits, per_channel, kind, seed):
     some values; ``kind`` "ties": s is a power of two and a third of x
     sits exactly half-way between codes after x / s + z; "specials": one
     element in 97 is NaN, one in 101 +inf, one in 103 -inf."""
-    gen = torch.Generator().manual_seed(seed)
-    x = torch.randn(shape, generator=gen) * 1.5
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device="cuda") * 1.5
     top = 2 ** bits - 1
     c = shape[-1] if per_channel else 1
     if kind == "ties":
-        s = torch.full((c,), 2.0 ** -4)
-        z = torch.full((c,), float(top // 2))
+        s = torch.full((c,), 2.0 ** -4, device="cuda")
+        z = torch.full((c,), float(top // 2), device="cuda")
         flat = x.reshape(-1)
         n = flat.numel() // 3
-        k = torch.randint(-2, top + 2, (n,), generator=gen).float()
+        k = torch.randint(-2, top + 2, (n,), generator=gen, device="cuda").float()
         zc = z.expand(shape).reshape(-1)[:n]
         flat[:n] = (k + 0.5 - zc) * s[0]
     else:
-        s = (torch.rand(c, generator=gen) * 0.02 + 3.0 / top)
-        z = torch.randint(0, top + 1, (c,), generator=gen).float()
+        s = (torch.rand(c, generator=gen, device="cuda") * 0.02 + 3.0 / top)
+        z = torch.randint(0, top + 1, (c,), generator=gen, device="cuda").float()
     if kind == "specials":
         flat = x.reshape(-1)
         for step, val in ((97, float("nan")), (101, float("inf")), (103, float("-inf"))):
             flat[step // 2::step] = val
-    x = x.to(getattr(torch, dtype)).cuda()
-    return x, s.cuda(), z.cuda()
+    return x.to(getattr(torch, dtype)), s, z
 
 
 def fq_same(torch, out, ref):
@@ -1508,14 +1535,14 @@ def phase_fq_times(torch, fq):
 # phase 3e: kv_quant on the card and on the CPU
 # ---------------------------------------------------------------------------
 def phase_kv_quant(torch):
-    """2^20 random bf16 tokens each of K and V (Hkv 8, Dh 128): codes and
+    """2^19 random bf16 tokens each of K and V (Hkv 8, Dh 128): codes and
     scales bitwise equal on the card and on the CPU (the CPU side in
     chunks of 2^16 tokens; each token is quantized on its own). Also
     counts the tokens whose scale a multiplication by 1/127 (what CUDA
     makes of a division by a python float) would change: the check can
     tell the two apart only if that count is not 0."""
     from repro_torch.quant.kv_cache import kv_quant
-    n, chunk = 1 << 20, 1 << 16
+    n, chunk = 1 << 19, 1 << 16
     gen = torch.Generator(device="cuda").manual_seed(11)
     differ = 0
     for name in ("k", "v"):
@@ -3764,6 +3791,9 @@ PHI_PATCHES, PHI_TOKENS = 576, 1472
 # at once: 271 for the long prompt, 34 for each of three others), five
 # prompts of 32..512 tokens and one of 4300, which crosses the 4096 window
 GEMMA_BATCH, GEMMA_MAX_LEN, GEMMA_BLOCKS, GEMMA_LONG = 4, 4608, 400, 4300
+# gemma2-27b's depth on the card: 24 of its 46 layers (12 local, 12
+# global), to hold the run's wall
+GEMMA_LAYERS = 24
 
 
 def phase_wall(name, t0):
@@ -3893,9 +3923,10 @@ def gemma_requests(np, vocab):
 
 
 def phase_gemma2(torch, np, pa, im, fa):
-    """Phase 7d: gemma2-27b (bf16, 46 layers: local window 4096 and global
-    attention alternating, attention softcap 50, final softcap 30,
-    sandwich norms, GeGLU, scaled embeddings; random weights from seed 0).
+    """Phase 7d: gemma2-27b (bf16, GEMMA_LAYERS of its 46 layers: local
+    window 4096 and global attention alternating, attention softcap 50,
+    final softcap 30, sandwich norms, GeGLU, scaled embeddings; random
+    weights from seed 0).
     One cache-free forward at (1, 4608) (the long request's prompt, then
     more tokens) held per layer; then ``ContinuousBatcher(paged=True)``
     (GEMMA_BATCH rows, max_len GEMMA_MAX_LEN, GEMMA_BLOCKS pool blocks)
@@ -3905,11 +3936,15 @@ def phase_gemma2(torch, np, pa, im, fa):
     the long request's first local_attn ring against the cache-free
     forward's keys (RG_RING_REL_RMS; rolled one slot above); checked in
     that order, so the past-window snapshot is freed before the mixed
-    tick's replays (the checks peak at 78.9 GB of the card's 79.2 with
-    both held). The vanilla engine's mixed and decode ticks are traced."""
+    tick's replays (at 46 layers the checks peaked at 78.9 GB of the
+    card's 79.2 with both held). The vanilla engine's mixed and decode
+    ticks are traced."""
+    from repro_torch.configs import gemma2_27b
     from repro_torch.configs.base import apply_method
-    from repro_torch.configs.gemma2_27b import full
     from repro_torch.models.transformer import model_apply, model_init
+
+    def full():
+        return dataclasses.replace(gemma2_27b.full(), n_layers=GEMMA_LAYERS)
 
     t0 = time.perf_counter()
     cfg = apply_method(full(), "vanilla")
@@ -4265,13 +4300,16 @@ RECURRENT_W8A8_ROW_REL_RMS = W8A8_LOGIT_REL_RMS
 # flipped at rounding edges do the same under W8A8 (f32, eight blocks:
 # 0.05-0.16). So the gated check runs an fp engine in f32 at the published
 # width over one pattern group (eight blocks; on the CPU: 4e-5), and the
-# published depth's readings are printed
+# deep engines' readings are printed
 XLSTM_ROW_REL_RMS = 1e-3
 # phase 9a: the mLSTM chunkwise form against its recurrent oracle in f32 on
 # the card (sums in another order: ~1e-6); the control drops the state
 # between two halves
 MLSTM_REL_RMS = 1e-4
 XLSTM_EVAL_SEQ, XLSTM_EVAL_BATCH = 512, 2
+# xlstm-1.3b's depth on the card: 24 of its 48 blocks (three pattern
+# groups), to hold the run's wall
+XLSTM_LAYERS = 24
 
 
 def phase_flash_dh256(torch, fa, build):
@@ -4596,8 +4634,9 @@ def rg_eval_cfg(method, **method_kw):
 
 
 def xlstm_cfg():
+    """xlstm-1.3b at XLSTM_LAYERS layers."""
     from repro_torch.configs.xlstm_1_3b import full
-    return full()
+    return dataclasses.replace(full(), n_layers=XLSTM_LAYERS)
 
 
 def phase_mlstm_cell(torch):
@@ -4667,8 +4706,8 @@ def phase_mlstm_cell(torch):
 
 
 def phase_xlstm(torch, np, rl, im, fa, fq, pa):
-    """9: xlstm-1.3b at its published width and depth (bf16, 48 blocks,
-    7:1 mLSTM:sLSTM, random weights from seed 0): (a) ``phase_mlstm_cell``;
+    """9: xlstm-1.3b at its published width, XLSTM_LAYERS of its 48 blocks
+    (bf16, 7:1 mLSTM:sLSTM, random weights from seed 0): (a) ``phase_mlstm_cell``;
     (b) phase 5's evaluation (XLSTM_EVAL_BATCH x XLSTM_EVAL_SEQ: the sLSTM
     runs one eager step a token), unrolled; (c) fp and W8A8 paged engines
     on the same weights over ``short_requests``' 12 requests, the W8A8
@@ -4685,7 +4724,7 @@ def phase_xlstm(torch, np, rl, im, fa, fq, pa):
                               param_dtype=torch.float32, compute_dtype=torch.float32)
     engines = [phase_recurrent_serving(torch, np, rl, im, fa, pa, "xlstm-1.3b fp f32 8 blocks",
                                        f32, reqs, 1024, row_tol=XLSTM_ROW_REL_RMS)]
-    # published depth, bf16: the row check printed (see XLSTM_ROW_REL_RMS)
+    # XLSTM_LAYERS deep, bf16: the row check printed (see XLSTM_ROW_REL_RMS)
     params = model_init(0, xlstm_cfg(), device="cuda")
     engines += [phase_recurrent_serving(torch, np, rl, im, fa, pa, f"xlstm-1.3b {kind}",
                                         xlstm_cfg(), reqs, 1024, params=params, w8a8=w8a8,
@@ -4695,6 +4734,555 @@ def phase_xlstm(torch, np, rl, im, fa, fq, pa):
     torch.cuda.empty_cache()
     phase_wall("9", t0)
     return dict(cell=cell, eval=ev, engines=engines)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: open-loop traffic and fault injection (ROADMAP 5.1)
+# ---------------------------------------------------------------------------
+# 11a: a seeded open-loop trace (``serving.workload``) at qwen3-14b's
+# vocabulary: lognormal prompts around 192 tokens (up to 768) and outputs
+# around 24 (up to 96), DEFAULT_TIERS, a tenth cancelled, half behind one
+# shared 128-token system prompt (the prefix cache's traffic)
+TRAFFIC = dict(seed=0, n_requests=48, vocab=151936, prompt_log_mu=math.log(192.0),
+               prompt_log_sigma=0.8, prompt_max=768, out_log_mu=math.log(24.0),
+               out_log_sigma=0.7, out_max=96, cancel_frac=0.1, prefix_len=128,
+               prefix_frac=0.5)
+TRAFFIC_ENGINE = dict(batch_size=8, max_len=1024, block_size=16, token_budget=256,
+                      paged=True, prefix_cache=True, debug_audit=True)
+# (run, arrival rate / s, wall clock): the virtual clock at about twice
+# what 256-token ticks at TickCostModel()'s 0.13 s take (so infeasible
+# requests are shed), the wall clock at 3 / s
+TRAFFIC_RUNS = (("virtual", 12.0, False), ("wall", 3.0, True))
+# (name, method, method kwargs, W8A8): vanilla over a bf16 pool, and the
+# paper's serving claim, clipped softmax in W8A8 over an int8 pool
+TRAFFIC_ENGINES = (("vanilla", "vanilla", {}, False),
+                   ("clipped-w8a8", "clipped_softmax", {"alpha": 4.0}, True))
+# int8 GEMMs per layer and forward: q, k, v, o, gate, up, down (qwen3-14b);
+# q, k, v, o, fc1, fc2 (OPT-125m)
+INT8_PER_LAYER = {"qwen3-14b": 7, "opt-125m": 6}
+# 11b: the chaos smoke's six plans (``chaos.smoke_plans``, its requests) on
+# OPT-125m in W8A8 (clipped, alpha 4) over an int8 pool, then a storm plan
+# on qwen3-14b: the smoke's prefix-storm rates with preemption storms and
+# swap-in denials at three and five times theirs, so that swap-ins meet
+# denial windows (the smoke's plans never deny one: their few swap-ins
+# fall outside the windows)
+CHAOS_STORM_SEED = 6
+CHAOS_STORM = dict(p_alloc=0.10, p_storm=0.30, p_flood=0.05, p_deny=0.50, p_prefix=0.35)
+# OPT-125m's q and k projections are sharpened by phase 6b's factor: at
+# random init every clipped probability clips, the attention outputs zero
+# and a row's tokens would not depend on its cache, so neither the
+# survivor check nor its control could see a corrupted block
+CHAOS_QK_SCALE = STEP_QK_SCALE["opt"]
+# a survivor's token that differs from the unperturbed engine's passes
+# only if a cache-free W8A8 forward over the row's prefix has both
+# candidates as its top two, within this fraction of its logits' RMS (the
+# engine reads an int8 pool the cache-free forward does not, and a W8A8
+# tick moves the logits by up to 6e-3 of their RMS between kernel and
+# plain paths: a flip needs a near-tie)
+CHAOS_MARGIN_REL = 0.02
+# the control's requests decode this many tokens (the smoke's decode 2..8,
+# so their few swap-ins come back with a token or two to go)
+CHAOS_CONTROL_NEW = 24
+FAULT_KINDS = ("denied allocations", "denied swap-ins", "preemptions", "swap-outs",
+               "swap-ins", "recompute resumes", "trie hits", "CoW copies")
+TWIN_THREADS = 3
+_TWINS = {}
+
+
+def traffic_twin_cfg(method, **method_kw):
+    """The CPU twin of an 11a engine: qwen3-14b's smoke width and depth at
+    its full vocabulary (the trace draws prompt tokens from all of it)."""
+    from repro_torch.configs.base import apply_method
+    from repro_torch.configs.qwen3_14b import smoke
+    return apply_method(dataclasses.replace(smoke(), vocab_size=TRAFFIC["vocab"]), method,
+                        **method_kw)
+
+
+def chaos_twin_cfg(model):
+    """The CPU twin of an 11b engine: ``model``'s tiny width and depth,
+    clipped (alpha 4) as the card's."""
+    from repro_torch.configs import paper_models
+    from repro_torch.configs.base import apply_method
+    from repro_torch.configs.qwen3_14b import smoke
+    tiny = smoke() if model == "qwen3-14b" else dataclasses.replace(
+        paper_models.opt_tiny(vocab=paper_models.opt_125m().vocab_size), max_seq_len=2048)
+    return apply_method(tiny, "clipped_softmax", alpha=4.0)
+
+
+def chaos_card_cfg(model):
+    return (qwen_cfg("clipped_softmax", alpha=4.0) if model == "qwen3-14b"
+            else paper_cfg("opt", "clipped_softmax", alpha=4.0))
+
+
+def chaos_cases():
+    """11b's seven (model, request seed, plan): the smoke's six on
+    OPT-125m, the storm plan on qwen3-14b."""
+    from repro_torch.serving import FaultPlan, chaos
+    cases = [("opt-125m", seed, plan) for seed, plan in enumerate(chaos.smoke_plans())]
+    return cases + [("qwen3-14b", CHAOS_STORM_SEED,
+                     FaultPlan.random(CHAOS_STORM_SEED, ticks=30, **CHAOS_STORM))]
+
+
+def chaos_requests(seed, new=None):
+    """The chaos smoke's requests of plan ``seed`` (each decoding ``new``
+    tokens if given)."""
+    from repro_torch.serving import chaos
+    reqs = chaos.smoke_requests(seed)
+    return reqs if new is None else [dataclasses.replace(r, max_new_tokens=new) for r in reqs]
+
+
+def sync(torch, dev):
+    if str(dev).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def report_fields(rep):
+    """A ``WorkloadReport`` as plain data (NaN as the string "nan", so two
+    reports compare with ==), its derived rates and percentiles too."""
+    def plain(x):
+        if isinstance(x, float) and x != x:
+            return "nan"
+        if isinstance(x, (list, tuple)):
+            return [plain(v) for v in x]
+        if isinstance(x, dict):
+            return {k: plain(v) for k, v in x.items()}
+        return x
+    d = dataclasses.asdict(rep)
+    d["goodput_tok_s"], d["decode_tpot"] = rep.goodput_tok_s, rep.decode_tpot
+    for name, tr in rep.tiers.items():
+        d["tiers"][name].update(ttft_p50=tr.ttft_p50, ttft_p99=tr.ttft_p99,
+                                tpot_p50=tr.tpot_p50, tpot_p99=tr.tpot_p99)
+    return plain(d)
+
+
+def outcomes(b):
+    """(uid, status, tokens delivered) of every request that left ``b``."""
+    return sorted((r.uid, r.status, 0 if r.output is None else len(r.output))
+                  for r in b.done + b.failed)
+
+
+def engine_left_clean(b, who):
+    """The block-leak check of a drained engine: audit clean, then with
+    the prefix trie emptied every block free, every table entry -1, no
+    swapped bytes held."""
+    b.audit()
+    if b.prefix_cache is not None:
+        b.prefix_cache.clear()
+    b.audit()
+    check(b.allocator.available == b.num_blocks and bool((b.tables == -1).all())
+          and b._swap_bytes == 0,
+          f"{who}: block leak (available {b.allocator.available} of {b.num_blocks}, "
+          f"swap bytes {b._swap_bytes})")
+
+
+def traffic_run(torch, pa, im, fa, name, params, cfg, w8a8, trace, wall, dev):
+    """``run_workload`` of ``trace`` through a fresh TRAFFIC_ENGINE on
+    ``dev``. Gates: every trace uid in exactly one of done and failed, the
+    engine left clean; on the card the paged kernel once per layer and
+    forward, the int8 one INT8_PER_LAYER times (W8A8), flash never in the
+    run (the W8A8 calibration's flash launches are counted apart)."""
+    from repro_torch.quant.qconfig import QConfig
+    from repro_torch.serving import ContinuousBatcher, TickCostModel, run_workload
+    fa.launches = 0
+    t0 = time.perf_counter()
+    b = ContinuousBatcher(params, cfg, **TRAFFIC_ENGINE, qconfig=QConfig() if w8a8 else None,
+                          device=dev)
+    sync(torch, dev)
+    setup_s, calib_flash = time.perf_counter() - t0, fa.launches
+    pa.launches = im.launches = fa.launches = 0
+    t0 = time.perf_counter()
+    rep = run_workload(b, trace, TickCostModel(), wall_clock=wall)
+    sync(torch, dev)
+    secs = time.perf_counter() - t0
+    launches = dict(paged=pa.launches, int8=im.launches, flash=fa.launches)
+    left = sorted(r.uid for r in b.done + b.failed)
+    check(left == sorted(e.uid for e in trace),
+          f"{name}: trace uids not each in exactly one of done and failed")
+    engine_left_clean(b, name)
+    if str(dev).startswith("cuda"):
+        n = cfg.n_layers * b.forward_calls
+        check(launches["paged"] == n, f"{name}: paged launches {launches} for "
+                                      f"{b.forward_calls} forwards of {cfg.n_layers} layers")
+        check(launches["int8"] == (INT8_PER_LAYER["qwen3-14b"] * n if w8a8 else 0),
+              f"{name}: int8 launches {launches} for {b.forward_calls} forwards")
+        check(launches["flash"] == 0, f"{name}: flash launched while serving: {launches}")
+        check(not w8a8 or calib_flash > 0, f"{name}: no flash launch in the calibration")
+    return dict(engine=name, report=rep, fields=report_fields(rep), outcomes=outcomes(b),
+                forwards=b.forward_calls, launches=launches, calib_flash=calib_flash,
+                secs=secs, setup_s=setup_s, trie_hits=b.prefix_cache.hits,
+                shared_tokens=b.shared_tokens)
+
+
+@contextlib.contextmanager
+def fault_tally(torch, rotate=False):
+    """Counts preemptions, swap-outs, swap-ins and recompute resumes of
+    every ``ContinuousBatcher`` inside, and holds each swap round trip:
+    what a swap-in puts on the device (the pool at the new blocks, the
+    slot's row of every batch-led leaf) must equal bitwise what the
+    swap-out took. ``rotate``: the control, each swap-in restores its
+    blocks rotated by one."""
+    from repro_torch.models.transformer import row_leaves
+    from repro_torch.serving import scheduler as sched
+    B = sched.ContinuousBatcher
+    names = ("_preempt", "_swap_out", "_try_swap_in", "_drop_swap", "_bind_slot")
+    real = {n: getattr(B, n) for n in names}
+    tally = dict.fromkeys(("preemptions", "swap-outs", "swap-ins", "recompute resumes"), 0)
+    trips, taken, rotated, swapped_in = [], {}, [], []
+
+    def contents(b, i, blocks):
+        idx = torch.as_tensor(blocks, dtype=torch.long, device=b.device)
+        pool = {p: leaf.index_select(ax, idx).clone() for p, leaf, ax in
+                sched._pool_leaves(b.cache)}
+        rows = {p: leaf.select(ax, i).clone() for p, leaf, ax in row_leaves(b.cache)}
+        return pool, rows
+
+    def preempt(self, i):
+        tally["preemptions"] += 1
+        return real["_preempt"](self, i)
+
+    def swap_out(self, i):
+        tally["swap-outs"] += 1
+        taken[id(self.slots[i].req)] = contents(self, i, self.slots[i].blocks)
+        return real["_swap_out"](self, i)
+
+    def try_swap_in(self, i, j):
+        req = self.queue[j]
+        sw = req.swapped
+        if rotate and not any(sw is r for r in rotated):
+            rotated.append(sw)
+            axes = {p: ax for p, _, ax in sched._pool_leaves(self.cache)}
+            for p in sw.pool:
+                sw.pool[p] = torch.roll(sw.pool[p], 1, dims=axes[p])
+        ok = real["_try_swap_in"](self, i, j)
+        if ok:
+            tally["swap-ins"] += 1
+            swapped_in.append(req.uid)
+            pool, rows = taken.pop(id(req))
+            now_pool, now_rows = contents(self, i, self.slots[i].blocks)
+            trips.append(all(torch.equal(now_pool[p], pool[p]) for p in pool)
+                         and all(torch.equal(now_rows[p], rows[p]) for p in rows))
+        return ok
+
+    def drop_swap(self, req):
+        taken.pop(id(req), None)
+        return real["_drop_swap"](self, req)
+
+    def bind_slot(self, i, req):
+        tally["recompute resumes"] += bool(req.resume_generated)
+        return real["_bind_slot"](self, i, req)
+
+    for n, fn in zip(names, (preempt, swap_out, try_swap_in, drop_swap, bind_slot)):
+        setattr(B, n, fn)
+    try:
+        yield tally, trips, swapped_in
+    finally:
+        for n in names:
+            setattr(B, n, real[n])
+
+
+def chaos_run(torch, params, cfg, plan, reqs, dev, rotate=False, perturbed=True):
+    """``reqs`` through a fresh ``chaos.SMOKE_ENGINE`` in W8A8 on ``dev``,
+    under ``plan`` (``ChaosHarness.run``: the audit after every tick, then
+    the drain; the swap-in gate wrapped to count its denials), or
+    unperturbed (no harness). Returns the events, outcomes, every traced
+    request's tokens, the fault counts and the swap round trips."""
+    from repro_torch.quant.qconfig import QConfig
+    from repro_torch.serving import ChaosHarness, ContinuousBatcher, chaos
+    b = ContinuousBatcher(params, cfg, **chaos.SMOKE_ENGINE, qconfig=QConfig(), device=dev)
+    for r in reqs:
+        b.submit(dataclasses.replace(r, prompt=r.prompt.copy(), output=None))
+    events, denied = [], [0]
+    with fault_tally(torch, rotate) as (tally, trips, swapped_in):
+        if perturbed:
+            h = ChaosHarness(b, plan)
+            gate = b._swap_in_gate
+
+            def counted(req):
+                ok = gate(req)
+                denied[0] += not ok
+                return ok
+
+            b._swap_in_gate = counted
+            h.run()
+            events = h.events
+        else:
+            while b.queue or any(s.req is not None for s in b.slots):
+                b.step()
+                b.audit()
+    sync(torch, dev)
+    engine_left_clean(b, f"chaos plan {plan.seed} on {dev}")
+    tally.update({"denied allocations": getattr(b.allocator, "denied", 0),
+                  "denied swap-ins": denied[0], "trie hits": b.prefix_cache.hits,
+                  "CoW copies": b.cow_copies, "evictions": b.prefix_cache.evictions})
+    tokens = {r.uid: r.output.tolist() for r in b.done if r.uid < ChaosHarness.JUNK_UID0}
+    return dict(events=events, outcomes=outcomes(b), tokens=tokens, tally=tally,
+                trips=trips, swapped_in=swapped_in, b=b, reqs={r.uid: r for r in reqs})
+
+
+def survivors(torch, run, base, cfg):
+    """Every traced survivor of ``run`` against the unperturbed ``base``:
+    equal tokens, or at the first differing position both candidates the
+    top two of a cache-free W8A8 forward over the row's prefix (gamma
+    resolved at the engine's logical length), within CHAOS_MARGIN_REL of
+    the logits' RMS. Returns (rows checked, [(uid, position, margin /
+    RMS, top two, ok)])."""
+    from repro_torch.models.transformer import model_apply
+    b = run["b"]
+    ref_cfg = cfg
+    if not cfg.softmax_cfg.is_vanilla:
+        ref_cfg = dataclasses.replace(cfg, softmax_cfg=dataclasses.replace(
+            cfg.softmax_cfg, alpha=None,
+            gamma=cfg.softmax_cfg.resolve_gamma(b.tables.shape[1] * b.block_size)))
+    diffs = []
+    for uid, got in run["tokens"].items():
+        want = base["tokens"][uid]
+        if got == want:
+            continue
+        p = next(k for k, (x, y) in enumerate(zip(got, want)) if x != y)
+        prefix = list(run["reqs"][uid].prompt) + got[:p]
+        with torch.no_grad():
+            logits = model_apply(b.params, ref_cfg, {"tokens": torch.as_tensor(
+                prefix, dtype=torch.long, device=b.device)[None]}, ctx=b._qctx)[0]
+        row = logits[0, -1, :cfg.vocab_size].float()
+        rms = row.square().mean().sqrt().item()
+        top2 = row.topk(2).indices.tolist()
+        margin = abs(row[got[p]].item() - row[want[p]].item()) / rms
+        diffs.append((uid, p, round(margin, 5), top2,
+                      set(top2) == {got[p], want[p]} and margin <= CHAOS_MARGIN_REL))
+    return len(run["tokens"]), diffs
+
+
+def cpu_twins():
+    """The CPU twins of phase 11, in a child process on the CPU alone
+    (``start_twins``): 11a's virtual-clock runs (``traffic_twin_cfg``, the
+    same engine and trace) and 11b's seven plans (``chaos_twin_cfg``, the
+    same engine, plan and requests). With no EOS and no speculation no
+    scheduling decision reads a token's value, so the card must take every
+    decision its twin takes."""
+    import os
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    os.nice(19)              # the card's phases keep the host's cores first
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.transformer import model_init
+    from repro_torch.serving import WorkloadConfig, generate_trace
+    torch.set_num_threads(TWIN_THREADS)
+    t0 = time.perf_counter()
+    out = dict(traffic={}, chaos=[])
+    trace = generate_trace(WorkloadConfig(**TRAFFIC, rate=TRAFFIC_RUNS[0][1]))
+    params = model_init(0, traffic_twin_cfg("vanilla"), device="cpu")
+    for name, method, kw, w8a8 in TRAFFIC_ENGINES:
+        r = traffic_run(torch, pa, im, fa, f"traffic {name} virtual (CPU twin)", params,
+                        traffic_twin_cfg(method, **kw), w8a8, trace, False, "cpu")
+        out["traffic"][name] = dict(fields=r["fields"], outcomes=r["outcomes"], secs=r["secs"])
+    params = {m: model_init(0, chaos_twin_cfg(m), device="cpu")
+              for m in ("opt-125m", "qwen3-14b")}
+    for model, seed, plan in chaos_cases():
+        r = chaos_run(torch, params[model], chaos_twin_cfg(model), plan, chaos_requests(seed),
+                      "cpu")
+        out["chaos"].append(dict(events=r["events"], outcomes=r["outcomes"], tally=r["tally"]))
+    out["secs"] = time.perf_counter() - t0
+    return out
+
+
+def start_twins():
+    """Starts ``cpu_twins`` in a spawned child process: its minutes on the
+    host's cores overlap the card's phases."""
+    import multiprocessing
+    _TWINS["pool"] = pool = multiprocessing.get_context("spawn").Pool(1)
+    _TWINS["result"] = pool.apply_async(cpu_twins)
+
+
+def twins_result():
+    out = _TWINS["result"].get(timeout=600)
+    stop_twins()
+    return out
+
+
+def stop_twins():
+    pool = _TWINS.pop("pool", None)
+    if pool is not None:
+        pool.terminate()
+        pool.join()
+
+
+def print_wall_report(name, r, card):
+    rep = r["report"]
+    print(f"traffic {name} wall clock ({card}): {rep.ticks} ticks, {r['forwards']} forwards "
+          f"in {r['secs']:.3f} s; goodput {rep.goodput_tokens} tok = "
+          f"{rep.goodput_tok_s:.2f} tok/s, delivered {rep.delivered_tokens} tok, tick p50 "
+          f"{rep.tick_p50 * 1e3:.2f} ms, stall p99 {rep.stall_p99 * 1e3:.2f} ms, decode_tpot "
+          f"{rep.decode_tpot * 1e3:.2f} ms/tok; trie hits {r['trie_hits']}, shared tokens "
+          f"{r['shared_tokens']}", flush=True)
+    for line in rep.table().splitlines():
+        print(f"traffic {name} wall table: {line}", flush=True)
+    for tr in rep.tiers.values():
+        print(f"traffic {name} wall tier {tr.name}: TTFT p50 {tr.ttft_p50 * 1e3:.1f} ms, "
+              f"p99 {tr.ttft_p99 * 1e3:.1f} ms; TPOT p50 {tr.tpot_p50 * 1e3:.2f} ms, p99 "
+              f"{tr.tpot_p99 * 1e3:.2f} ms; failed {tr.failed}", flush=True)
+
+
+def phase_traffic(torch, np, pa, im, fa, card, twins, dev="cuda"):
+    """11a: the TRAFFIC trace through both TRAFFIC_ENGINES at qwen3-14b's
+    full width and QWEN_LAYERS layers (bf16, random weights from seed 0,
+    one set for both engines): (i) on the virtual clock at 12 / s, the
+    report equal, field by field, with outcomes per uid, to the CPU
+    twin's (``cpu_twins``); (ii) on the wall clock at 3 / s, the report
+    printed (goodput, TTFT and TPOT per tier, stall p99, decode_tpot), not
+    gated. Returns the launch counts and the weights (11b's qwen3-14b
+    engine reuses them)."""
+    from repro_torch.models.transformer import model_init
+    from repro_torch.serving import WorkloadConfig, generate_trace
+    t0 = time.perf_counter()
+    params = model_init(0, qwen_cfg("vanilla"), device=dev)
+    traces = {run: generate_trace(WorkloadConfig(**TRAFFIC, rate=rate))
+              for run, rate, _ in TRAFFIC_RUNS}
+    tr = traces["virtual"]
+    # the shared prefix is the trace's first draw
+    shared = np.random.default_rng(TRAFFIC["seed"]).integers(
+        4, TRAFFIC["vocab"], size=TRAFFIC["prefix_len"]).astype(np.int32)
+    n_shared = sum(len(e.prompt) > len(shared) and bool((e.prompt[:len(shared)] == shared).all())
+                   for e in tr)
+    tiers = {t: sum(e.tier == t for e in tr) for t in sorted({e.tier for e in tr})}
+    print(f"traffic trace: {len(tr)} requests, prompts {sum(len(e.prompt) for e in tr)} tokens "
+          f"({min(len(e.prompt) for e in tr)}..{max(len(e.prompt) for e in tr)}), {n_shared} "
+          f"behind the shared prefix, outputs {sum(e.max_new_tokens for e in tr)} tokens, "
+          f"{sum(e.cancel_at is not None for e in tr)} cancelled; tiers {tiers}", flush=True)
+    out = []
+    for name, method, kw, w8a8 in TRAFFIC_ENGINES:
+        cfg = qwen_cfg(method, **kw)
+        runs = {run: traffic_run(torch, pa, im, fa, f"traffic {name} {run}", params, cfg, w8a8,
+                                 traces[run], wall, dev)
+                for run, _, wall in TRAFFIC_RUNS}
+        v, twin = runs["virtual"], twins["traffic"][name]
+        rep = v["report"]
+        statuses = {}
+        for _, st, _ in v["outcomes"]:
+            statuses[st] = statuses.get(st, 0) + 1
+        same = v["fields"] == twin["fields"] and v["outcomes"] == twin["outcomes"]
+        print(f"traffic {name} virtual clock (rate {TRAFFIC_RUNS[0][1]:g} / s): {rep.ticks} "
+              f"ticks, {v['forwards']} forwards in {v['secs']:.2f} s of wall (CPU twin "
+              f"{twin['secs']:.2f} s); outcomes {statuses}; goodput {rep.goodput_tokens} tok "
+              f"({rep.goodput_tok_s:.2f} tok/s virtual), delivered {rep.delivered_tokens}, "
+              f"stall p99 {rep.stall_p99 * 1e3:.2f} ms virtual; trie hits {v['trie_hits']}; "
+              f"launches {v['launches']}, calibration flash {v['calib_flash']}; report and "
+              f"outcomes equal to the CPU twin's: {same}", flush=True)
+        if not same:
+            diff = [k for k in v["fields"] if v["fields"][k] != twin["fields"].get(k)]
+            print(f"traffic {name}: fields that differ {diff}; outcomes card "
+                  f"{v['outcomes']} twin {twin['outcomes']}", flush=True)
+        check(same, f"traffic {name}: the card's virtual-clock report differs from the "
+                    f"CPU twin's")
+        check(statuses.get("shed", 0) > 0,
+              f"traffic {name}: rate {TRAFFIC_RUNS[0][1]:g} / s shed nothing: {statuses}")
+        print_wall_report(name, runs["wall"], card)
+        out.append(dict(engine=name, runs=runs))
+    phase_wall("11a", t0)
+    every = [r for e in out for r in e["runs"].values()]
+    return dict(engines=out, params=params,
+                paged_launches=sum(r["launches"]["paged"] for r in every),
+                int8_launches=sum(r["launches"]["int8"] for r in every),
+                flash_launches=sum(r["calib_flash"] for r in every))
+
+
+def print_chaos(who, run, same, rows, diffs):
+    counts = ", ".join(f"{k} {run['tally'][k]}" for k in FAULT_KINDS)
+    print(f"{who}: {len(run['events'])} events, outcomes {len(run['b'].done)} done / "
+          f"{len(run['b'].failed)} failed; {counts}, evictions {run['tally']['evictions']}; "
+          f"swap round trips {len(run['trips'])}, bitwise {sum(run['trips'])}; events, "
+          f"outcomes and counts equal to the CPU twin's: {same}; survivors "
+          f"{rows - len(diffs)} of {rows} token-exact vs the unperturbed engine, differing "
+          f"(uid, position, margin / RMS, cache-free top two, near-tie) {diffs}", flush=True)
+
+
+def phase_chaos(torch, pa, im, fa, twins, qwen_params, dev="cuda"):
+    """11b: ``chaos_cases()``, each in ``chaos.SMOKE_ENGINE`` (24 blocks of
+    8: preemption, swap, shedding and the trie all reach it) in W8A8,
+    clipped (alpha 4), over an int8 pool: OPT-125m (f32, published width,
+    q/k sharpened by CHAOS_QK_SCALE) under the smoke's six plans, then
+    qwen3-14b (QWEN_LAYERS layers, bf16, 11a's weights) under the storm
+    plan. Gates: no exception, the audit after every tick and the drain,
+    no leak; launches per forward; each fault kind (FAULT_KINDS) fired
+    over the seven plans; events, outcomes and counts equal to the same
+    plan's on the CPU twin (``cpu_twins``); every swap round trip bitwise;
+    OPT-125m's survivors equal to an unperturbed engine's (``survivors``).
+    The check's control: OPT-125m under the storm plan with
+    CHAOS_CONTROL_NEW-token requests passes it, and fails it when each
+    swap-in restores its blocks rotated. qwen3-14b's survivor agreement
+    is printed."""
+    from repro_torch.models.transformer import model_init
+    t0 = time.perf_counter()
+    opt_params = sharpen(model_init(0, chaos_card_cfg("opt-125m"), device=dev),
+                         CHAOS_QK_SCALE)
+    launched = dict(paged=0, int8=0, flash=0)
+    totals = dict.fromkeys(FAULT_KINDS, 0)
+    trips_all, opt_rows, opt_diffs = [], 0, []
+    for (model, seed, plan), twin in zip(chaos_cases(), twins["chaos"]):
+        cfg = chaos_card_cfg(model)
+        params = opt_params if model == "opt-125m" else qwen_params
+        who = f"chaos {model} plan {seed}{' (prefix storm)' if plan.prefix_storm else ''}"
+        pa.launches = im.launches = fa.launches = 0
+        run = chaos_run(torch, params, cfg, plan, chaos_requests(seed), dev)
+        got = dict(paged=pa.launches, int8=im.launches, flash=fa.launches)
+        for k in launched:
+            launched[k] += got[k]
+        if str(dev).startswith("cuda"):
+            n = cfg.n_layers * run["b"].forward_calls
+            check(got["paged"] == n and got["int8"] == INT8_PER_LAYER[model] * n,
+                  f"{who}: launches {got} for {run['b'].forward_calls} forwards")
+        base = chaos_run(torch, params, cfg, plan, chaos_requests(seed), dev, perturbed=False)
+        same = (run["events"] == twin["events"] and run["outcomes"] == twin["outcomes"]
+                and run["tally"] == twin["tally"])
+        rows, diffs = survivors(torch, run, base, cfg)
+        for k in FAULT_KINDS:
+            totals[k] += run["tally"][k]
+        trips_all += run["trips"]
+        print_chaos(who, run, same, rows, diffs)
+        if not same:
+            first = next((k for k, (x, y) in enumerate(zip(run["events"], twin["events"]))
+                          if x != y), None)
+            print(f"{who}: card vs twin: first differing event {first}; tallies "
+                  f"{run['tally']} / {twin['tally']}", flush=True)
+        check(same, f"{who}: the card's chaos run differs from the CPU twin's")
+        if model == "opt-125m":
+            opt_rows += rows
+            opt_diffs += diffs
+            check(all(ok for *_, ok in diffs),
+                  f"{who}: a survivor's tokens differ beyond a near-tie: {diffs}")
+        del run, base
+    check(trips_all and all(trips_all), f"swap round trips not bitwise: {trips_all}")
+    check(all(totals[k] > 0 for k in FAULT_KINDS),
+          f"a fault kind never fired over the seven plans: {totals}")
+    print(f"chaos over seven plans: {totals}; swap round trips {len(trips_all)}, all bitwise; "
+          f"OPT-125m survivors {opt_rows}, {len(opt_diffs)} differing from the unperturbed "
+          f"engine, each a near-tie (top two within {CHAOS_MARGIN_REL} of the logits' RMS); "
+          f"launches {launched}", flush=True)
+    # the control: a plan whose swap-ins come back with tokens to go
+    cfg, (_, seed, plan) = chaos_card_cfg("opt-125m"), chaos_cases()[-1]
+    reqs = chaos_requests(seed, CHAOS_CONTROL_NEW)
+    base = chaos_run(torch, opt_params, cfg, plan, reqs, dev, perturbed=False)
+    held, caught = [], []
+    for rotate in (False, True):
+        run = chaos_run(torch, opt_params, cfg, plan, reqs, dev, rotate=rotate)
+        rows, diffs = survivors(torch, run, base, cfg)
+        ok = all(ok for *_, ok in diffs)
+        (caught if rotate else held).append(ok)
+        back = len(set(run["swapped_in"]) & set(run["tokens"]))
+        print(f"chaos control, OPT-125m under the storm plan, {CHAOS_CONTROL_NEW} new tokens a "
+              f"request{', each swap-in restoring its blocks rotated by one' if rotate else ''}: "
+              f"{run['tally']['swap-ins']} swap-ins ({back} survivors among them), round "
+              f"trips bitwise {sum(run['trips'])} of "
+              f"{len(run['trips'])}; survivors {rows - len(diffs)} of {rows} token-exact, "
+              f"differing {diffs}; the survivor check {'passes' if ok else 'fails'}", flush=True)
+        del run
+    check(held == [True], "the control plan's survivors differ beyond a near-tie")
+    check(caught == [False], "the survivor check cannot tell blocks restored in rotated order")
+    phase_wall("11b", t0)
+    return dict(totals=totals, paged_launches=launched["paged"],
+                int8_launches=launched["int8"], flash_launches=launched["flash"])
 
 
 def main() -> int:
@@ -4738,6 +5326,8 @@ def main() -> int:
         print(f"built {name}: {path.name} in {secs:.1f} s; ptxas per kernel: "
               f"{'; '.join(ptxas) or 'n/a'}", flush=True)
     print(f"build phase {time.perf_counter() - t0:.1f} s", flush=True)
+    # phase 11's CPU twins need no card: they run beside the card's phases
+    start_twins()
     # the instantiations bf16 data at Dh 128 runs, and flash's Dh-32 ones
     # (both routes), must not spill
     held = [(name, fn, regs, spills) for name in ("flash_attention", "paged_attention")
@@ -4883,6 +5473,13 @@ def main() -> int:
     moe = phase_moe(torch, np, pa, im, fa, fq)
     mark("9")
     xl = phase_xlstm(torch, np, rl, im, fa, fq, pa)
+    mark("11")
+    twins = twins_result()
+    print(f"CPU twins of phase 11: {twins['secs']:.1f} s in a child process "
+          f"({TWIN_THREADS} threads)", flush=True)
+    traffic = phase_traffic(torch, np, pa, im, fa, card, twins)
+    faults = phase_chaos(torch, pa, im, fa, twins, traffic.pop("params"))
+    torch.cuda.empty_cache()
     mark("10")
     evals += vit["evals"] + [hubert] + moe["evals"] + [xl["eval"]]
     trains += vit["trains"] + [moe["train"]]
@@ -4897,9 +5494,11 @@ def main() -> int:
     # phase 5
     dense = [e["dense"] for e in engines if "dense" in e]
     int8_launches = sum(e["int8_launches"]
-                        for e in engines + dense + opt_engines + new_engines + recurrent)
+                        for e in engines + dense + opt_engines + new_engines + recurrent
+                        + [traffic, faults])
     flash_launches = sum(e["flash_launches"] + e.get("gen_launches", 0)
-                         for e in engines + evals + dense + opt_engines + trains + forwards)
+                         for e in engines + evals + dense + opt_engines + trains + forwards
+                         + [traffic, faults])
     rg_launches = sum(e["launches"] for e in rg_engines) + sum(
         g["rg_launches"] for e in rg_engines for g in e.get("generate", {}).values()) + sum(
         e.get("rg_lru_launches", 0) for e in evals + recurrent)
@@ -4907,7 +5506,8 @@ def main() -> int:
                     source=KERNEL_SOURCES["paged_attention"],
                     replaces=REPLACES["paged_attention"],
                     launches=sum(e["paged_launches"]
-                                 for e in engines + opt_engines + new_engines),
+                                 for e in engines + opt_engines + new_engines
+                                 + [traffic, faults]),
                     max_abs_err=max_err, ms=dec["ms"], plain_ms=dec["plain_ms"],
                     bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
                     library_ms=dec["library_ms"]),
@@ -4947,4 +5547,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_twins()
+    sys.exit(rc)

@@ -62,7 +62,7 @@ numpy; the tick's tensors live on ``device`` (default ``"cuda"``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -384,6 +384,9 @@ class ContinuousBatcher:
         self._alloc_fault = False
         self._fault_streak = 0
         self._swap_bytes = 0
+        # fault-injection hook (``serving.chaos``): called before each
+        # swap-in; False denies it, which costs a retry attempt
+        self._swap_in_gate: Optional[Callable[[Request], bool]] = None
         # FED tokens of the last step() (drafts included) vs tokens BANKED
         # into outputs; the counts vector of the last sub-step
         self.last_tick_tokens = 0
@@ -746,11 +749,14 @@ class ContinuousBatcher:
 
     def _try_swap_in(self, i: int, j: int) -> Optional[bool]:
         """Restore queued request ``j`` into slot ``i``: True on success,
-        False when the pool cannot hand out its blocks this tick, None
-        when it degraded to recompute."""
+        False when denied this tick (the pool cannot hand out its blocks,
+        or ``_swap_in_gate`` says no), None when the retry budget is spent
+        and it degraded to recompute."""
         req = self.queue[j]
         sw = req.swapped
-        blocks = self._alloc(sw.n_blocks)
+        denied = self._swap_in_gate is not None and \
+            not self._swap_in_gate(req)
+        blocks = None if denied else self._alloc(sw.n_blocks)
         if blocks is None:
             sw.attempts += 1
             if sw.attempts > self.swap_retry_limit:
