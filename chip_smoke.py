@@ -309,9 +309,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      STEP_ATTN_CONTROL_SHARE of that leaf's control; on a SyntheticLM
      chain over TRAIN_DATA_VOCAB token ids, 2 x TRAIN_HALF steps with
      one flash and one backward launch per layer and step, every loss
-     finite and the last four steps' mean below the first four's; a
-     checkpoint at TRAIN_HALF restored into a fresh run that must end
-     bitwise equal to the uninterrupted one. Each run prints its median
+     finite and the last four steps' mean below the first four's; for
+     the vanilla runs, a checkpoint at TRAIN_HALF restored into a fresh
+     run that must end bitwise equal to the uninterrupted one (the other
+     methods write no checkpoint: resume is a loop property, not a
+     method's). Each run prints its median
      step time, trained tokens/s, peak memory, losses and its last
      evaluation's perplexity, max inf-norm and kurtosis; one vanilla step
      of each model is replayed under torch.profiler (device time of the
@@ -329,7 +331,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``frames`` batches are 24 wide): phase 5's protocol for vanilla,
      clipped (alpha 4) and gated at the paper models' gates, then phase
      6b's training (2 x TRAIN_HALF AdamW steps per method, the step-vs-plain gate,
-     falling losses, a bitwise restart at step 8). (b) hubert-xlarge
+     falling losses, the vanilla run's bitwise restart at step 8). (b) hubert-xlarge
      (bf16, 48 layers, 2 x 4096 frames of 512): phase 5's protocol,
      vanilla, at phase 5's bf16 gates. (c) phi-3-vision-4.2b (bf16, 32
      layers): one mixed forward (576 patch embeddings, then 1472 tokens)
@@ -375,7 +377,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (``phase_moe_train``: phase 6b's step-vs-plain gate at
      MOE_STEP_GRAD_REL_RMS / MOE_STEP_ATTN_LEAF_REL, MOE_TRAIN_STEPS AdamW
      steps at 2 x 1024, the loss falling, ``moe_lb`` and ``moe_z`` finite
-     and printed). (c) qwen2-moe-a2.7b (bf16, 24 layers, 60 routed experts
+     and printed). (d) The training launcher (``phase_launcher``,
+     ``launch.train.train_on_mesh``) trains (b)'s task on a (1, 1) CUDA
+     mesh (``make_host_mesh``) under ``tp_fsdp``, the state placed as
+     DTensors: its losses and final state bitwise (b)'s plain loop's, one
+     flash and one backward launch per layer and step, every leaf's
+     placements those of ``tree_param_specs`` under the three profiles; no
+     checkpoint (the CPU tests hold resume); the phase's wall printed.
+     (c) qwen2-moe-a2.7b (bf16, 24 layers, 60 routed experts
      top-4 and 4 shared; 28.6 GB of weights): the evaluation, vanilla, with
      (a); an fp and a W8A8 engine (its shared experts through the int8
      kernel: 7 launches per layer and forward) on the same weights, each
@@ -3659,14 +3668,16 @@ def phase_train_step_vs_plain(torch, fa, task, params, batch, who, bound, leaf_b
                 attn_leaf_control_ratio=ratio[attn_near])
 
 
-def phase_train(torch, np, fa, family, kind, seq, bsz, method, method_kw, trace=False):
+def phase_train(torch, np, fa, family, kind, seq, bsz, method, method_kw, trace=False,
+                restart=True):
     """Phase 6b: one model and method trained through ``run_training`` at
-    full width, f32: 2k steps uninterrupted (checkpoint at k), then a run
-    resumed from that checkpoint to 2k, which must end bitwise equal;
-    every loss finite and falling. With ``trace``, one more step from the
-    final state is replayed under torch.profiler (outside the counted
-    run): device time by family (flash backward, flash forward, the rest)
-    and the idle share. Returns the run's numbers."""
+    full width, f32: 2k steps uninterrupted and, with ``restart``
+    (checkpoint at k), a run resumed from that checkpoint to 2k, which
+    must end bitwise equal; every loss finite and falling. With ``trace``,
+    one more step from the final state is replayed under torch.profiler
+    (outside the counted run): device time by family (flash backward,
+    flash forward, the rest) and the idle share. Returns the run's
+    numbers."""
     import shutil
     import tempfile
     from repro_torch.data import SyntheticLM, SyntheticLMConfig
@@ -3701,18 +3712,23 @@ def phase_train(torch, np, fa, family, kind, seq, bsz, method, method_kw, trace=
         torch.cuda.reset_peak_memory_stats()
         fa.launches = fa.bwd_launches = 0
         run = run_training(task, data, LoopConfig(total_steps=2 * k, eval_every=2 * k,
-                                                  eval_batches=1, ckpt_every=k, ckpt_dir=full,
+                                                  eval_batches=1, ckpt_every=k if restart else 0,
+                                                  ckpt_dir=full if restart else None,
                                                   keep_ckpts=3, log_every=0, seed=0),
                            batch_kind=kind, log=quiet, device="cuda")
         launches = (fa.launches, fa.bwd_launches)
         peak = torch.cuda.max_memory_allocated() / 1e9
-        shutil.copytree(f"{full}/step_{k:08d}", f"{half}/step_{k:08d}")
-        resumed = run_training(task, data, LoopConfig(total_steps=2 * k, eval_every=0,
-                                                      ckpt_dir=half, log_every=0, seed=0),
-                               batch_kind=kind, log=quiet, device="cuda")
+        if restart:
+            shutil.copytree(f"{full}/step_{k:08d}", f"{half}/step_{k:08d}")
+            resumed = run_training(task, data, LoopConfig(total_steps=2 * k, eval_every=0,
+                                                          ckpt_dir=half, log_every=0, seed=0),
+                                   batch_kind=kind, log=quiet, device="cuda")
     losses = run["losses"]
     a = dict(flatten_params(run["state"]))
-    same = all(torch.equal(x, a[p]) for p, x in flatten_params(resumed["state"]))
+    same = all(torch.equal(x, a[p]) for p, x in flatten_params(resumed["state"])) \
+        if restart else None
+    restarted = (f"restart at {k}: {'bitwise equal' if same else 'DIFFERS'}, losses "
+                 f"{resumed['losses'] == losses[k:]}") if restart else "no restart"
     n = cfg.n_layers
     steps = 2 * k
     tok_s = bsz * seq / run["median_step_s"]
@@ -3724,14 +3740,12 @@ def phase_train(torch, np, fa, family, kind, seq, bsz, method, method_kw, trace=
           f"{losses[-1]:.4f} (mean of the first 4 {first:.4f}, last 4 {last:.4f}); eval ppl "
           f"{run['history']['eval_ppl'][-1]:.1f}, max inf-norm "
           f"{run['history']['max_inf_norm'][-1]:.3f}, kurtosis "
-          f"{run['history']['kurtosis'][-1]:.3f}; restart at {k}: "
-          f"{'bitwise equal' if same else 'DIFFERS'}, losses {resumed['losses'] == losses[k:]}",
-          flush=True)
+          f"{run['history']['kurtosis'][-1]:.3f}; {restarted}", flush=True)
     check(all(np.isfinite(losses)), f"{who}: a loss is not finite: {losses}")
     check(last < first, f"{who}: the loss did not fall: {losses}")
     check(launches == (steps * n + 2 * n, steps * n),
           f"{who}: launches (flash, bwd) {launches}, expected {(steps * n + 2 * n, steps * n)}")
-    check(same and resumed["losses"] == losses[k:],
+    check(not restart or (same and resumed["losses"] == losses[k:]),
           f"{who}: the resumed run is not bitwise the uninterrupted one")
     result = dict(step_ms=run["median_step_s"] * 1e3, tok_s=tok_s, peak_gb=peak,
                   losses=losses, flash_launches=launches[0], bwd_launches=launches[1],
@@ -3748,7 +3762,9 @@ def phase_train(torch, np, fa, family, kind, seq, bsz, method, method_kw, trace=
               f"{fam['rest']:.2f} ms ({tr['family_kernels']['rest']} kernels; largest: "
               f"{'; '.join(f'{n[:40]} {ms:.2f}' for n, ms in tr['rest_top'])})", flush=True)
         result["trace"] = tr
-    del run, resumed, a
+    del run, a
+    if restart:
+        del resumed
     torch.cuda.empty_cache()
     return result
 
@@ -3818,7 +3834,8 @@ def phase_vit(torch, np, fa, fq, pa, im):
                                             VIT_BATCH, VIT_SEQ))
                for name, method, kw in METHODS],
         trains=[phase_train(torch, np, fa, "vit", "frames", VIT_SEQ, VIT_BATCH, method, kw,
-                            trace=method == "vanilla") for _, method, kw in METHODS])
+                            trace=method == "vanilla", restart=method == "vanilla")
+                for _, method, kw in METHODS])
     out["wall_s"] = phase_wall("7a (vit-s16)", t0)
     return out
 
@@ -4161,6 +4178,7 @@ def phase_moe_train(torch, np, fa):
     first four's."""
     from repro_torch.data import SyntheticLM, SyntheticLMConfig
     from repro_torch.models.transformer import model_apply
+    from repro_torch.nn.module import flatten_params
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import TrainTask, init_train_state, make_train_step
 
@@ -4220,11 +4238,15 @@ def phase_moe_train(torch, np, fa):
     check(last < first, f"{who}: the loss did not fall: {losses}")
     check(launches == (steps * n, steps * n),
           f"{who}: launches (flash, bwd) {launches}, expected {(steps * n, steps * n)}")
+    # the plain loop's final state (~16 GB, kept on the card) for phase
+    # 8d's launcher
+    plain = dict(flatten_params(state))
     del state, batch, step
     torch.cuda.empty_cache()
     return dict(step_ms=step_ms, tok_s=tok_s, peak_gb=peak, losses=losses, moe_lb=lbs,
                 moe_z=zs, flash_launches=launches[0], bwd_launches=launches[1],
-                routing_flips=flips, wall_s=time.perf_counter() - t0, **gate)
+                routing_flips=flips, wall_s=time.perf_counter() - t0,
+                plain=(task, data, plain), **gate)
 
 
 def phase_moe(torch, np, pa, im, fa, fq):
@@ -4273,8 +4295,102 @@ def phase_moe(torch, np, pa, im, fa, fq):
             torch.cuda.empty_cache()
         if arch == GRANITE_MOE:
             out["train"] = phase_moe_train(torch, np, fa)
+            out["launcher"] = phase_launcher(torch, np, fa, *out["train"].pop("plain"),
+                                             out["train"]["losses"])
         out[f"{short} wall_s"] = phase_wall(f"8 ({arch})", t0)
     return out
+
+
+def phase_launcher(torch, np, fa, task, data, plain, plain_losses):
+    """Phase 8d: the training launcher (``launch.train.train_on_mesh``)
+    trains phase 8b's task (granite-moe-1b-a400m at full width and depth,
+    f32) on a one-device (1, 1) CUDA mesh (``make_host_mesh``: a one-rank
+    nccl group over an in-process store) under ``tp_fsdp``, for
+    MOE_TRAIN_STEPS = 2 x TRAIN_HALF steps from seed 0, the state placed as
+    DTensors. Its losses and final state must be bitwise those of 8b's
+    plain ``make_train_step`` loop over the same task, data and initial
+    state (``plain``: that loop's final state, left on the card), with one flash
+    forward and one backward launch per layer and step. Each leaf's
+    placements must be ``tree_param_specs``'s under all three profiles
+    (the trained state's DTensors under ``tp_fsdp``). No checkpoint is
+    written (the f32 state is ~16 GB; the CPU tests hold resume). The
+    smoke config (Dh 16) must raise from the flash backward (ROADMAP 1.3),
+    not train on a plain path. Prints the phase's wall."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    from repro_torch.distributed.sharding import (PROFILES, placement_leaves, placements_for,
+                                                  spec_leaves, tree_param_specs,
+                                                  tree_placements)
+    from repro_torch.launch.mesh import close_mesh, make_host_mesh
+    from repro_torch.launch.train import train_on_mesh
+    from repro_torch.nn.module import flatten_params
+
+    t0 = time.perf_counter()
+    who = "launcher granite-moe vanilla"
+    mesh = make_host_mesh("cuda")
+    t_mesh = time.perf_counter() - t0
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = fa.bwd_launches = 0
+        t1 = time.perf_counter()
+        run = train_on_mesh(task, data, mesh, "tp_fsdp", steps=MOE_TRAIN_STEPS,
+                            batch_kind="clm", device="cuda", log=lambda _m: None)
+        t_run = time.perf_counter() - t1
+        launches = (fa.launches, fa.bwd_launches)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        local = dict(flatten_params(run["local"]))
+        same_state = sorted(local) == sorted(plain) and all(
+            torch.equal(x, plain[p]) for p, x in local.items())
+        placed = {}
+        for profile in PROFILES:
+            specs = dict(spec_leaves(tree_param_specs(run["local"], profile, mesh)))
+            pls = dict(placement_leaves(tree_placements(run["local"], profile, mesh)))
+            placed[profile] = sorted(pls) == sorted(specs) == sorted(local) and all(
+                pls[p] == placements_for(specs[p], mesh) for p in specs)
+        specs = dict(spec_leaves(tree_param_specs(run["local"], "tp_fsdp", mesh)))
+        dtensors = all(tuple(x.placements) == placements_for(specs[p], mesh)
+                       for p, x in flatten_params(run["state"]))
+        n_sharded = sum(any(a is not None for a in s) for s in specs.values())
+        del run["state"], run["local"]
+        # no hidden fallback: a head dim the flash backward does not take
+        # (the smoke config's) raises on the card
+        smoke = dataclasses.replace(task, cfg=dataclasses.replace(
+            get_arch(GRANITE_MOE).smoke(), param_dtype=torch.float32,
+            compute_dtype=torch.float32))
+        smoke_data = SyntheticLM(SyntheticLMConfig(vocab_size=smoke.cfg.vocab_size,
+                                                   seq_len=64, batch_size=2, seed=0))
+        try:
+            train_on_mesh(smoke, smoke_data, mesh, "tp_fsdp", steps=1, device="cuda",
+                          log=lambda _m: None)
+            refused = "trained"
+        except NotImplementedError as e:
+            refused = str(e)
+    finally:
+        close_mesh()
+    losses, n, steps = run["losses"], task.cfg.n_layers, MOE_TRAIN_STEPS
+    step_ms = float(np.median(run["step_s"])) * 1e3
+    wall = time.perf_counter() - t0
+    print(f"{who} (f32, {n} layers, (1, 1) cuda mesh, tp_fsdp, {steps} steps): step "
+          f"{step_ms:.1f} ms (median), peak {peak:.2f} GB; launches (flash, bwd) {launches}; "
+          f"losses {[round(v, 4) for v in losses]}; losses bitwise the plain loop's: "
+          f"{losses == plain_losses}, final state bitwise: {same_state} ({len(local)} leaves); "
+          f"placements = tree_param_specs' per profile {placed}, the trained DTensors' "
+          f"{dtensors} ({n_sharded} leaves sharded under tp_fsdp); the smoke config "
+          f"(Dh {smoke.cfg.head_dim}): {refused[:120]!r}; phase 8d wall {wall:.1f} s "
+          f"(the mesh {t_mesh:.1f} s, train_on_mesh {t_run:.1f} s)", flush=True)
+    check(losses == plain_losses, f"{who}: losses {losses} differ from the plain loop's "
+          f"{plain_losses}")
+    check(same_state, f"{who}: the final state is not bitwise the plain loop's")
+    check(launches == (steps * n, steps * n),
+          f"{who}: launches (flash, bwd) {launches}, expected {(steps * n, steps * n)}")
+    check(all(placed.values()) and dtensors and n_sharded > 0,
+          f"{who}: placements differ from tree_param_specs': {placed}, DTensors {dtensors}")
+    check("ROADMAP 1.3" in refused,
+          f"{who}: a Dh-{smoke.cfg.head_dim} config did not raise from the flash backward")
+    del run, local, plain
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, peak_gb=peak, losses=losses, flash_launches=launches[0],
+                bwd_launches=launches[1], wall_s=wall)
 
 
 # ---------------------------------------------------------------------------
@@ -5462,7 +5578,7 @@ def main() -> int:
     bwd_err = phase_bwd_checks(torch, fa)
     bwd_times = phase_bwd_times(torch, fa)
     trains = [phase_train(torch, np, fa, family, kind, seq, bsz, method, kw,
-                          trace=method == "vanilla")
+                          trace=method == "vanilla", restart=method == "vanilla")
               for family, kind, seq, bsz in TRAIN_RUNS for _, method, kw in METHODS]
     mark("7")
     vit = phase_vit(torch, np, fa, fq, pa, im)
@@ -5482,7 +5598,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     mark("10")
     evals += vit["evals"] + [hubert] + moe["evals"] + [xl["eval"]]
-    trains += vit["trains"] + [moe["train"]]
+    trains += vit["trains"] + [moe["train"], moe["launcher"]]
     forwards = [phi["forward"], gemma["forward"]]
     new_engines = [phi["serving"]] + gemma["engines"] + moe["engines"]
     recurrent = [rg_w8a8] + xl["engines"]

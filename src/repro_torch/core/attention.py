@@ -234,12 +234,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     that need a gradient (training) take the kernel's autograd Function:
     its backward is the flash backward kernel, which takes f32 at Dh 32
     and 64 without window, softcap or query offset, and anything else
-    raises (``mha_flash``); there is no plain path for CUDA tensors. CPU
-    tensors: the reference's routing, dense when forced, when decoding
-    (tq == 1) with tk <= 8192, or when tq > 1 and tq*tk <= 2048^2;
-    chunked otherwise."""
+    raises (``mha_flash``); there is no plain path for CUDA tensors.
+    ``meta`` tensors (the dry-run) take the card's route, whose wrapper
+    runs its plain version on them. CPU tensors: the reference's routing,
+    dense when forced, when decoding (tq == 1) with tk <= 8192, or when
+    tq > 1 and tq*tk <= 2048^2; chunked otherwise."""
     tq, tk = q.shape[1], k.shape[1]
-    if q.is_cuda:
+    if q.is_cuda or q.is_meta:
         from repro_torch.kernels.flash_attention import mha_flash
         dt = torch.promote_types(q.dtype, k.dtype)
         q, k, v = q.to(dt), k.to(dt), v.to(dt)

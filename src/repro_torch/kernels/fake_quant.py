@@ -82,7 +82,7 @@ def fake_quant(x: torch.Tensor, s: Scalar, z: Scalar, bits: int = 8, *,
     """Fused fake-quant: the CUDA kernel on CUDA tensors, the plain version
     on CPU tensors. On the card ``s``/``z`` hold one value (per-tensor) or
     one per entry of x's last axis (per-channel)."""
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):  # meta: shapes only (the dry-run), the plain math
         return fake_quant_ref(x, s, z, bits, ste=ste)
     if not x.is_cuda:
         raise ValueError(f"fake_quant: unsupported device {x.device}")

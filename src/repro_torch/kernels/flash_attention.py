@@ -473,7 +473,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     version on CPU tensors."""
     kw = dict(causal=causal, window=window, softcap=softcap, gamma=gamma,
               zeta=zeta, q_offset=q_offset)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):  # meta: shapes only (the dry-run), the plain math
         return attention_ref(q, k, v, gate_pi, **kw)
     if not q.is_cuda:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
@@ -498,8 +498,9 @@ def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return FlashAttention.apply(q, k, v, gate_pi, causal, window, softcap, gamma,
                                         zeta, q_offset)
         return _launch(q, k, v, gate_pi, **kw)
-    if q.device.type != "cpu":
+    if q.device.type not in ("cpu", "meta"):
         raise ValueError(f"mha_flash: unsupported device {q.device}")
+    # meta: shapes only (the dry-run), the plain math
     return mha_flash_ref(q, k, v, gate_pi, **kw)
 
 

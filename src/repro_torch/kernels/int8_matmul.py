@@ -234,7 +234,7 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *,
     tensors. Static ``x_scale``/``x_zero`` (python floats, e.g. from
     ``QuantContext.act_qparams``) pass by value; without them the range
     of this batch is computed on the device. Returns (M, N) f32."""
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):  # meta: shapes only (the dry-run), the plain math
         return int8_matmul_ref(x, w_q, w_scale, x_scale=x_scale, x_zero=x_zero)
     if not x.is_cuda:
         raise ValueError(f"int8_matmul: unsupported device {x.device}")

@@ -232,7 +232,7 @@ def paged_flash_attention(
     kw = dict(group=group, causal=causal, window=window, softcap=softcap,
               gamma=gamma, zeta=zeta, k_scale=k_scale, v_scale=v_scale,
               live_widths=live_widths)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):  # meta: shapes only (the dry-run), the plain math
         return paged_flash_attention_ref(q, k_pool, v_pool, block_table, q_off,
                                          gate_pi, **kw)
     if not q.is_cuda:

@@ -112,6 +112,8 @@ def rglru(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The recurrence: the CUDA kernel on CUDA tensors, the plain version
     on CPU tensors. a, b (B, T, D) f32; h0 (B, D) f32 or None."""
+    if a.device.type == "meta":  # shapes only (the dry-run): the plain math
+        return rglru_ref(a, b, h0)
     if torch.is_grad_enabled() and any(
             x is not None and x.requires_grad for x in (a, b, h0)):
         raise RuntimeError("the RG-LRU kernel has no backward yet: call it under "

@@ -60,6 +60,7 @@ from repro_torch.core.attention import (
 from repro_torch.core.gating import GateConfig, gate_probs, init_gate
 from repro_torch.core.softmax import ClippedSoftmaxConfig, softcap
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import maybe_constrain
 from repro_torch.nn.layers import (
     apply_rope,
     embedding_apply,
@@ -449,6 +450,11 @@ def _attn_block_apply(
     if st.rope is not None:
         q = apply_rope(q, *st.rope)
         k = apply_rope(k, *st.rope)
+    if cache is not None:
+        # align fresh q/k/v with the d_head-sharded KV cache (under a mesh)
+        q = maybe_constrain(q, "dp", None, None, "tp")
+        k = maybe_constrain(k, "dp", None, None, "tp")
+        v = maybe_constrain(v, "dp", None, None, "tp")
 
     gate_pi = None
     if cfg.gate_cfg.enabled:

@@ -18,9 +18,12 @@ Two execution paths, as in the reference:
     token through), and the experts run as batched products over the
     (n_groups * E, cap, D) buffers; a weighted gather combines.
 
-The reference shards the dispatch's group axis over its mesh; the port
-has no mesh yet, so every group runs in one batched computation with the
-same semantics.
+Every group runs in one batched computation with the reference's
+semantics. Under a mesh (``distributed.sharding.use_mesh``, DTensor
+inputs) the group axis is constrained as the reference's is: over the
+data axes, or over the whole mesh when the number of groups divides it
+(then the expert weights are gathered whole); without one the
+constraints do nothing.
 
 Top-k keeps ``jax.lax.top_k``'s tie rule (equal probabilities: the lower
 expert index first, in index order): the order of the k choices decides
@@ -37,6 +40,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import active_mesh, axis_sizes, maybe_constrain
 from repro_torch.nn.layers import linear_init
 from repro_torch.nn.mlp import mlp_apply, mlp_init
 from repro_torch.nn.module import Params, normal_init, split_keys
@@ -162,6 +166,19 @@ def _claims(top_i: torch.Tensor, token_mask: torch.Tensor, cfg: MoEConfig, n: in
     return torch.where(kept, flat_e * cap + pos, e * cap), kept, cap
 
 
+def _group_axes(n_groups: int) -> tuple:
+    """The logical axes of the dispatch's group axis: the whole mesh when
+    the number of groups divides it, else the data axes."""
+    mesh = active_mesh()
+    if mesh is not None:
+        total = 1
+        for n in axis_sizes(mesh).values():
+            total *= n
+        if total > 1 and n_groups % total == 0:
+            return ("dp", "tp")
+    return ("dp",)
+
+
 def _moe_dispatch(p: Params, x2d: torch.Tensor, top_p: torch.Tensor, top_i: torch.Tensor,
                   cfg: MoEConfig, token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Capacity-based dispatch by scatter and gather (the reference's
@@ -183,17 +200,31 @@ def _moe_dispatch(p: Params, x2d: torch.Tensor, top_p: torch.Tensor, top_i: torc
     if pad:
         x2d = F.pad(x2d, (0, 0, 0, pad))
         top_p = F.pad(top_p, (0, 0, 0, pad))
+    ga = _group_axes(n_groups)
     xs = x2d.reshape(n_groups, 1, gsz, d).expand(n_groups, k, gsz, d).reshape(
         n_groups, kg, d)
-    xb = torch.zeros((n_groups, e * cap + 1, d), dtype=x2d.dtype, device=x2d.device)
+    xs = maybe_constrain(xs, ga, None, None)
+    idx = maybe_constrain(idx, ga, None)
+    # expert weights enter the dispatch gathered over the FSDP axis; with
+    # the groups over the whole mesh they are whole, else d_ff stays on tp
+    w_tp = None if "tp" in ga else "tp"
+    pw = {"w_gate": maybe_constrain(p["w_gate"], None, None, w_tp),
+          "w_up": maybe_constrain(p["w_up"], None, None, w_tp),
+          "w_down": maybe_constrain(p["w_down"], None, w_tp, None)}
+    # ``new_zeros``: a DTensor when x2d is one, so the in-place scatter
+    # below writes into a DTensor under a mesh
+    xb = maybe_constrain(x2d.new_zeros((n_groups, e * cap + 1, d)), ga, None, None)
     xb.scatter_(1, idx[..., None].expand(n_groups, kg, d), xs)
-    yb = _experts(p, xb[:, :e * cap].reshape(n_groups, e, cap, d)).reshape(
+    yb = _experts(pw, xb[:, :e * cap].reshape(n_groups, e, cap, d)).reshape(
         n_groups, e * cap, d)
+    yb = maybe_constrain(yb, ga, None, None)
     yt = torch.gather(yb, 1, torch.clamp(idx, max=e * cap - 1)[..., None].expand(
         n_groups, kg, d))
     w = top_p.reshape(n_groups, gsz, k).transpose(1, 2).reshape(n_groups, kg, 1)
+    w = maybe_constrain(w, ga, None, None)
     contrib = yt * kept[..., None].to(yt.dtype) * w.to(yt.dtype)
-    y = contrib.reshape(n_groups, k, gsz, d).sum(dim=1).reshape(n_groups * gsz, d)
+    y = contrib.reshape(n_groups, k, gsz, d).sum(dim=1)
+    y = maybe_constrain(y, ga, None, None).reshape(n_groups * gsz, d)
     return y[:n]
 
 

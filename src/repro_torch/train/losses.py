@@ -8,6 +8,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import maybe_constrain
+
 IGNORE = -100
 
 
@@ -15,7 +17,10 @@ def _nll(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    gold = torch.gather(logits, -1, torch.clamp(labels, min=0).long()[..., None])
+    # under a mesh, a vocab-sharded gather is a masked partial sum: reduce
+    # it while it still has the index's shape (DTensor masks by that shape)
+    gold = maybe_constrain(gold, "dp", None, None)[..., 0]
     nll = (logz - gold) * valid
     return nll.sum(), valid.sum()
 

@@ -25,11 +25,17 @@ package, on the CPU, in float32.
   * decode-cache consistency (a dense cache fed token by token against
     the cache-free forward), as ``tests/test_archs.py`` checks the
     reference;
-  * ``ContinuousBatcher(paged=True)`` greedy tokens on gemma2's and
-    phi-3-vision's ``smoke()`` bitwise the reference batcher's;
-  * ViT-S/16 at its full width (B 2, T 197): logits, ``evaluate`` (FP
-    perplexity and outlier statistics, rtol 1e-5) and the W8A8
-    fake-quant perplexity (rtol 1e-3) over embeds batches."""
+  * in ``tests/test_torch_archs_serving.py``: ``ContinuousBatcher(paged=True)``
+    greedy tokens on gemma2's and phi-3-vision's ``smoke()`` bitwise the
+    reference batcher's;
+  * in ``tests/test_torch_archs_vit.py``: ViT-S/16 at its full width (B 2,
+    T 197): logits, ``evaluate`` (FP perplexity and outlier statistics,
+    rtol 1e-5) and the W8A8 fake-quant perplexity (rtol 1e-3) over embeds
+    batches.
+
+The train step's test is in ``tests/test_torch_archs_train.py``. The three
+split files hold one family of cases each, so that ``--dist loadfile``
+spreads them over workers; their helpers stay here."""
 import dataclasses
 import importlib
 
@@ -45,6 +51,7 @@ from repro_torch.configs import base as tbase
 from repro_torch.configs import paper_models as tpm
 from repro_torch.convert import from_jax_params
 from repro_torch.nn.module import flatten_params
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 jtr = importlib.import_module("repro.models.transformer")
 ttr = importlib.import_module("repro_torch.models.transformer")
@@ -342,13 +349,6 @@ def _check_train_step(jc, jp, tc, tp, batch):
         assert err <= GRAD_REL, (path, err)
 
 
-@pytest.mark.parametrize("method", list(METHODS))
-@pytest.mark.parametrize("arch", PORTED)
-def test_smoke_train_step_matches_reference(arch, method):
-    jc, jp, tc, tp = _models(arch, method)
-    _check_train_step(jc, jp, tc, tp, _batch(tc))
-
-
 # ---------------------------------------------------------------------------
 # decode-cache consistency (the port's copy of tests/test_archs.py's)
 # ---------------------------------------------------------------------------
@@ -368,100 +368,3 @@ def test_decode_cache_consistency(arch):
             cache = aux["cache"]
             outs.append(lg)
     np.testing.assert_allclose(full.numpy(), torch.cat(outs, dim=1).numpy(), atol=5e-3)
-
-
-# ---------------------------------------------------------------------------
-# serving gemma2 and phi-3-vision smoke()
-# ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ["gemma2-27b", "phi-3-vision-4.2b"])
-@pytest.mark.parametrize("method", ["vanilla", "clipped"])
-def test_paged_batcher_tokens_equal_reference(arch, method):
-    """Four greedy requests over two slots (max_len 64, block 8, budget
-    16): gemma2's local layers keep a ring of 8 slots that the 30-token
-    prompt wraps; phi-3-vision serves text prompts through its token
-    embeddings."""
-    jc, jp, tc, tp = _models(arch, method)
-    rng = np.random.default_rng(5)
-    prompts = [rng.integers(1, tc.vocab_size, size=n).astype(np.int32) for n in (30, 5, 19, 9)]
-    max_new = [12, 3, 8, 6]
-
-    def serve(pkg, params, cfg, **kw):
-        b = pkg.ContinuousBatcher(params, cfg, batch_size=2, max_len=64, block_size=8,
-                                  token_budget=16, paged=True, **kw)
-        for u, p in enumerate(prompts):
-            b.submit(pkg.Request(uid=u, prompt=p, max_new_tokens=max_new[u]))
-        b.run()
-        assert not b.failed
-        return {r.uid: r.output.tolist() for r in b.done}, b
-
-    ref, _ = serve(jserve, jp, jc)
-    got, b = serve(tserve, tp, tc, device="cpu", debug_audit=True)
-    assert got == ref
-    assert [len(got[u]) for u in range(4)] == max_new
-    b.audit()
-    assert b.allocator.available == b.num_blocks
-
-
-def test_batcher_refuses_an_embeds_config():
-    _, _, tc, tp = _models("hubert-xlarge", "vanilla")
-    with pytest.raises(ValueError, match="no token path"):
-        tserve.ContinuousBatcher(tp, tc, batch_size=2, max_len=64, device="cpu")
-
-
-# ---------------------------------------------------------------------------
-# ViT-S/16 at its full width
-# ---------------------------------------------------------------------------
-VIT_B, VIT_T = 2, 197
-
-
-class _Embeds:
-    """Seeded embeds batches at ``frontend_dim`` with per-position class
-    labels: the reference's ``frames`` batches are 24 wide, which ViT's
-    384-wide frontend cannot take."""
-
-    def __init__(self, cfg):
-        self.cfg = cfg
-
-    def batch(self, index, kind="frames"):
-        return _batch(self.cfg, VIT_B, VIT_T, seed=index)
-
-
-@pytest.mark.parametrize("method", list(METHODS))
-def test_vit_s16_logits_evaluate_and_w8a8_match_reference(method):
-    jc, jp, tc, tp = _models("vit-s16", method)
-    assert (tc.d_model, tc.n_layers, tc.frontend_dim) == (384, 12, 384)
-    batch = _batch(tc, VIT_B, VIT_T, labels=False)
-    jl, _ = _jax_apply(jp, jc, _jb(batch))
-    tl, _ = ttr.model_apply(tp, tc, _tb(batch))
-    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
-
-    data = _Embeds(tc)
-    jppl, jst = jloop.evaluate(jstep.TrainTask(cfg=jc, loss_kind="frames"), jp, data, 2,
-                               "frames")
-    tppl, tst = tloop.evaluate(tstep.TrainTask(cfg=tc, loss_kind="frames"), tp, data, 2,
-                               "frames")
-    np.testing.assert_allclose(tppl, jppl, rtol=RTOL)
-    assert tst["max_inf_norm"] > 0
-    for key in jst:
-        np.testing.assert_allclose(tst[key], jst[key], rtol=RTOL)
-
-    def fns(tr, loss, qc, cfg, to_batch):
-        def apply_fn(p, b, ctx):
-            return tr.model_apply(p, cfg, b, ctx=ctx)[0]
-
-        def loss_fn(p, b, ctx):
-            ctx = ctx if ctx is not None else qc.QuantContext(None)
-            return loss.loss_for("frames")(tr.model_apply(p, cfg, b, ctx=ctx)[0], b["labels"])
-
-        return apply_fn, loss_fn, lambda start, n: [to_batch(data.batch(start + i))
-                                                    for i in range(n)]
-
-    japp, jlf, jbat = fns(jtr, jloss, jqc, jc, _jb)
-    tapp, tlf, tbat = fns(ttr, tloss, tqc, tc, _tb)
-    jctx = jptq.calibrate(japp, jp, jbat(100, 2), jqc.QConfig(), num_batches=2)
-    tctx = tptq.calibrate(tapp, tp, tbat(100, 2), tqc.QConfig(), num_batches=2)
-    assert sorted(tctx.ranges) == sorted(jctx.ranges)
-    assert "frontend_proj.out" in tctx.ranges
-    jq = jptq.evaluate_perplexity(jlf, jp, jbat(200, 2), jctx)
-    tq = tptq.evaluate_perplexity(tlf, tp, tbat(200, 2), tctx)
-    np.testing.assert_allclose(tq, jq, rtol=PTQ_RTOL)

@@ -30,6 +30,7 @@ import importlib
 import numpy as np
 import pytest
 import torch
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 tfa = importlib.import_module("repro_torch.kernels.flash_attention")
 tpa = importlib.import_module("repro_torch.kernels.paged_attention")

@@ -20,6 +20,7 @@ import torch
 
 from repro.kernels.fake_quant import fake_quant_pallas
 from repro.kernels.ref import fake_quant_ref as jref
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 jqz = importlib.import_module("repro.quant.quantizer")
 tqz = importlib.import_module("repro_torch.quant.quantizer")

@@ -30,6 +30,7 @@ import torch
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.ops import mha_flash as jmha
 from repro.kernels.ref import attention_ref as jref
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 jatt = importlib.import_module("repro.core.attention")
 jsm = importlib.import_module("repro.core.softmax")

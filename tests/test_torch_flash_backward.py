@@ -33,6 +33,7 @@ import pytest
 import torch
 
 from repro.kernels.ref import attention_ref as jref
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 tfa = importlib.import_module("repro_torch.kernels.flash_attention")
 

@@ -38,6 +38,7 @@ from repro_torch.configs.base import apply_method as tapply
 from repro_torch.configs.qwen3_14b import smoke as tqwen
 from repro_torch.configs.recurrentgemma_9b import smoke as trg
 from repro_torch.convert import from_jax_params
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 jtr = importlib.import_module("repro.models.transformer")
 jserve = importlib.import_module("repro.serving")

@@ -29,6 +29,7 @@ from repro.configs.qwen3_14b import smoke as jsmoke
 from repro_torch.configs.base import apply_method as tapply
 from repro_torch.configs.qwen3_14b import smoke as tsmoke
 from repro_torch.convert import from_jax_params
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 jtr = importlib.import_module("repro.models.transformer")
 jserve = importlib.import_module("repro.serving")

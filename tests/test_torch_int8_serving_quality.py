@@ -42,6 +42,7 @@ from repro_torch.configs.paper_models import opt_tiny as topt_tiny
 from repro_torch.convert import from_jax_params
 from repro_torch.quant import QConfig
 from repro_torch.serving import ContinuousBatcher, Request
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 VOCAB, SEQ = 64, 32
 TRAIN_STEPS = 400

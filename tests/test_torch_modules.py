@@ -20,6 +20,7 @@ import torch
 from repro.configs.qwen3_14b import smoke as jsmoke
 from repro_torch.configs.qwen3_14b import smoke as tsmoke
 from repro_torch.convert import from_jax_params
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 # by path: the packages' __init__ files export functions named like modules
 jbase = importlib.import_module("repro.configs.base")

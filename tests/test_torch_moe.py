@@ -35,6 +35,7 @@ from repro_torch.nn.module import flatten_params, tree_map
 from repro_torch.quant.int8_weights import attach_int8_weights
 from repro_torch.quant.qconfig import NO_QUANT
 from test_torch_archs import MOE_ARCHS, _batch, _check_logits, _check_train_step, _models
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ATOL = 2e-5
 BF16_ATOL = 2e-2

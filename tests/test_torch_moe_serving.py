@@ -26,6 +26,7 @@ import torch
 from repro.configs import base as jbase
 from repro_torch.configs import base as tbase
 from repro_torch.convert import from_jax_params
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 jtr = importlib.import_module("repro.models.transformer")
 jserve = importlib.import_module("repro.serving")

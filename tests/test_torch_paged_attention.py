@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 jatt = importlib.import_module("repro.core.attention")
 jsm = importlib.import_module("repro.core.softmax")

@@ -32,6 +32,7 @@ from repro.configs.base import apply_method as japply
 from repro_torch.configs import paper_models as tpm
 from repro_torch.configs.base import apply_method as tapply
 from repro_torch.convert import from_jax_params
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 jtr = importlib.import_module("repro.models.transformer")
 ttr = importlib.import_module("repro_torch.models.transformer")

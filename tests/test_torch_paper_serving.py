@@ -32,6 +32,7 @@ from repro_torch.models.transformer import init_cache, init_paged_cache, model_a
 from repro_torch.nn.module import tree_map
 from repro_torch.serving import (ContinuousBatcher, GenerateConfig, Request, decode_one,
                                  generate, prefill)
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 BS = 8                                   # the prefix-cache tests' block size
 

@@ -29,6 +29,7 @@ from repro_torch.configs.base import apply_method as tapply
 from repro_torch.configs.recurrentgemma_9b import smoke as tsmoke
 from repro_torch.convert import from_jax_params
 from repro_torch.nn.module import flatten_params, tree_map
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 jlay = importlib.import_module("repro.nn.layers")
 jrec = importlib.import_module("repro.nn.recurrent")

@@ -43,6 +43,7 @@ from repro_torch.configs.recurrentgemma_9b import smoke as tsmoke
 from repro_torch.convert import from_jax_params
 from repro_torch.nn.module import flatten_params
 from test_torch_xlstm_serving import _int8_matmul_as_written
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 jtr = importlib.import_module("repro.models.transformer")
 ttr = importlib.import_module("repro_torch.models.transformer")

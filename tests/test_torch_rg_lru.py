@@ -25,6 +25,7 @@ import torch
 
 from repro.kernels.ref import rglru_ref as jref
 from repro.kernels.rg_lru import rglru_pallas
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 trl = importlib.import_module("repro_torch.kernels.rg_lru")
 ATOL = 1e-6

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_workload import one_torch_thread  # noqa: F401 (an autouse fixture)
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 from test_torch_workload import opt_tiny_models, shared_reference_step
 
 jserve = importlib.import_module("repro.serving")

@@ -23,6 +23,7 @@ from repro.models.transformer import ModelConfig as JaxConfig
 from repro.models.transformer import model_init
 from repro_torch.convert import from_jax_params
 from repro_torch.models.transformer import ModelConfig
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 TINY = dict(name="tiny", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, d_ff=64,
             vocab_size=64, pos="rope", max_seq_len=1024, scan_layers=False,

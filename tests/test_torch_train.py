@@ -39,6 +39,7 @@ from repro_torch.configs import paper_models as tpm
 from repro_torch.configs.base import apply_method as tapply
 from repro_torch.convert import from_jax_params
 from repro_torch.nn.module import flatten_params
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 jopt = importlib.import_module("repro.optim")
 topt = importlib.import_module("repro_torch.optim")
@@ -96,18 +97,6 @@ HIST_RTOL = {"step": 0, "loss": 1e-3, "eval_ppl": 1e-3, "max_inf_norm": 1e-2,
 # edge between two codes (x / s at k + 1/2) takes the other code, so its
 # residual differs by one step s; the share of such elements is tiny
 CODE_FLIP_SHARE = 1e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The CPU suite runs six workers on the machine's cores, and torch's
-    intra-op thread pool in each worker oversubscribes them: the port's
-    CPU training loops (~35 ms a step alone) ran 100x slower beside the
-    other workers. One thread per worker for this module, restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _tree_np(tree):

@@ -15,11 +15,11 @@ import math
 import jax
 import numpy as np
 import pytest
-import torch
 
 from repro.configs.paper_models import opt_tiny as jopt_tiny
 from repro_torch.configs.paper_models import opt_tiny as topt_tiny
 from repro_torch.convert import from_jax_params
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 jserve = importlib.import_module("repro.serving")
 jsched = importlib.import_module("repro.serving.scheduler")
@@ -62,16 +62,6 @@ def opt_tiny_models(max_len):
     jp = jtr.model_init(jax.random.PRNGKey(0), jc)
     tp = from_jax_params(jax.tree_util.tree_map(np.asarray, jp), tc, device="cpu")
     return jc, jp, tc, tp
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's batcher runs many small ops; beside the other test
-    workers, torch's intra-op threads only contend for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

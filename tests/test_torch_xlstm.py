@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from repro_torch.nn.module import tree_map
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 jx = importlib.import_module("repro.nn.xlstm")
 tx = importlib.import_module("repro_torch.nn.xlstm")

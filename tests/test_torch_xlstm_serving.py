@@ -38,6 +38,7 @@ from repro_torch.configs.base import get_arch as tget
 from repro_torch.convert import from_jax_params
 from repro_torch.models.transformer import row_leaves
 from test_torch_train import GRAD_REL, LOSS_RTOL, LR, _assert_grads_close, _assert_step_close
+from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 jtr = importlib.import_module("repro.models.transformer")
 ttr = importlib.import_module("repro_torch.models.transformer")
