@@ -180,7 +180,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      block, its input forced to the paged tick's, within
      DENSE_LAYER_REL_RMS (the writes one slot late must land above).
      Greedy tokens of the dense engine against the paged engine's and
-     generate's are printed, not held.
+     generate's are printed, not held. On the vanilla and clipped-w8a8
+     engines, after the counted run (``phase_sync_ticks``): up to
+     SYNC_TICKS mixed and SYNC_TICKS all-decode ticks of fresh requests,
+     each under ``repro_torch.analysis.sync_guard.SyncGuard`` and
+     ``torch.cuda.set_sync_debug_mode("warn")`` (every warning recorded,
+     attributed to the port's line that made the call). The guard's host
+     syncs per tick must equal the CPU tests' budget
+     (``TICK_SYNCS_PER_FORWARD`` a forward), and CUDA's count of
+     synchronizing calls, which also sees blocking host-to-device copies,
+     must be at least the guard's. The mode is back at "default" before
+     the phase goes on.
   5. Evaluation, the paper's protocol, at qwen3-14b's full width and
      QWEN_LAYERS layers in bfloat16 (random weights from seed 0, unrolled
      layers, as PTQ needs), for vanilla, clipped softmax (alpha 4) and gated
@@ -469,6 +479,9 @@ import re
 import subprocess
 import sys
 import time
+import traceback
+import warnings
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -1742,10 +1755,131 @@ def short_requests(np, vocab, n):
             for k in rng.integers(32, 513, size=n)]
 
 
+SYNC_TICKS = 3                     # guarded ticks of each kind a sync phase reads
+SYNC_WARNING = "synchronizing CUDA operation"
+# blocking host -> device copies a paged forward makes, beside the guard's
+# syncs: its tokens, pos, counts, keys and live widths (scheduler._substep),
+# and the block table on a forward after an allocation (_set_tables)
+TICK_INPUT_COPIES = 5
+
+
+def sync_site(port_dir):
+    """The innermost frame of the port (its sync guard left out) or of
+    this script on the stack of the warning hook that calls this: where a
+    synchronizing call came from."""
+    for fr in reversed(traceback.extract_stack()[:-2]):
+        path = Path(fr.filename)
+        if path.name == "sync_guard.py":
+            continue
+        if port_dir in path.parents or path.name == "chip_smoke.py":
+            rel = path.relative_to(port_dir) if port_dir in path.parents else path.name
+            return f"{rel}:{fr.lineno} {fr.name}"
+    return "torch"
+
+
+def phase_sync_ticks(torch, np, b, cfg, name, step_fn):
+    """Fresh requests through engine ``b`` (its counted run drained): one
+    short request decodes, then two long ones prefill beside it in
+    chunks. Every tick from then on runs under a ``SyncGuard`` and CUDA's
+    sync debug mode in "warn", every warning recorded, until SYNC_TICKS
+    mixed and SYNC_TICKS all-decode ticks were seen; then the requests
+    drain unguarded and the engine's tick wrapper is put back. Gates, per
+    tick: the guard's syncs == the CPU tests' budget, and the guard's <=
+    CUDA's count <= the guard's + the tick's known blocking copies
+    (TICK_INPUT_COPIES a forward, one a table upload), so that a new
+    blocking call fails here even where the guard cannot see it."""
+    from repro_torch.analysis.sync_guard import SyncGuard, TICK_SYNCS_PER_FORWARD
+    from repro_torch.serving import Request
+    port_dir = ROOT / "src" / "repro_torch"
+    wrapper, b._step_fn = b._step_fn, step_fn
+    uploads = [0]
+    set_tables = b._set_tables
+
+    def counted_set_tables():
+        uploads[0] += 1
+        set_tables()
+    b._set_tables = counted_set_tables
+    rng = np.random.default_rng(27)
+    b.submit(Request(uid=900, prompt=rng.integers(0, cfg.vocab_size, 32).astype(np.int32),
+                     max_new_tokens=4 * SYNC_TICKS + 8))
+    b.step()
+    for u in (901, 902):
+        b.submit(Request(uid=u, prompt=rng.integers(0, cfg.vocab_size, 400).astype(np.int32),
+                         max_new_tokens=2))
+    seen = {"mixed": [], "decode": []}
+    t0 = time.perf_counter()
+    for _ in range(40):
+        if min(len(v) for v in seen.values()) >= SYNC_TICKS:
+            break
+        torch.cuda.synchronize()
+        f0, u0 = b.forward_calls, uploads[0]
+        sites = []
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = lambda msg, *a, **k: sites.append(
+                sync_site(port_dir) if SYNC_WARNING in str(msg) else None)
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with SyncGuard() as guard:
+                    b.step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        c = b.last_counts
+        live = c[c > 0]
+        kind = "mixed" if (live == 1).any() and (live > 1).any() else \
+            "decode" if live.size and (live == 1).all() else None
+        if kind is not None and len(seen[kind]) < SYNC_TICKS:
+            seen[kind].append(dict(forwards=b.forward_calls - f0, uploads=uploads[0] - u0,
+                                   syncs=guard.syncs,
+                                   by_kind=dict(guard.by_kind), ops=guard.ops,
+                                   launches={k: v for k, v in guard.launches.items() if v},
+                                   cuda=[x for x in sites if x is not None],
+                                   counts=c.tolist()))
+    guarded_s = time.perf_counter() - t0
+    while b.queue or any(s.req is not None for s in b.slots):
+        b.step()
+    b._step_fn = wrapper
+    del b._set_tables
+    check(torch.cuda.get_sync_debug_mode() == 0, f"{name}: sync debug mode left on")
+    out = {}
+    for kind, ticks in seen.items():
+        check(len(ticks) == SYNC_TICKS, f"{name}: {len(ticks)} guarded {kind} ticks, wanted "
+                                        f"{SYNC_TICKS}")
+        fwd = sum(t["forwards"] for t in ticks)
+        budget = [TICK_SYNCS_PER_FORWARD * t["forwards"] for t in ticks]
+        guard_syncs = [t["syncs"] for t in ticks]
+        cuda_syncs = [len(t["cuda"]) for t in ticks]
+        cuda_most = [t["syncs"] + TICK_INPUT_COPIES * t["forwards"] + t["uploads"]
+                     for t in ticks]
+        top = Counter(x for t in ticks for x in t["cuda"]).most_common(6)
+        kinds = Counter()
+        for t in ticks:
+            kinds.update(t["by_kind"])
+        print(f"sync {name}: {kind} ticks (counts {[t['counts'] for t in ticks]}): guard "
+              f"host syncs per tick {guard_syncs} ({sum(guard_syncs) / fwd:.2f} per forward; "
+              f"{dict(kinds)}), CPU budget per tick {budget}; CUDA synchronizing calls per "
+              f"tick {cuda_syncs} (at most {cuda_most}), top call sites {top}; dispatched "
+              f"aten ops per forward "
+              f"{sum(t['ops'] for t in ticks) / fwd:.1f}, kernel launches per tick "
+              f"{[t['launches'] for t in ticks]}", flush=True)
+        check(guard_syncs == budget, f"{name}: {kind} ticks' host syncs {guard_syncs}, the CPU "
+                                     f"budget {budget}")
+        check(all(g <= cs <= m for cs, g, m in zip(cuda_syncs, guard_syncs, cuda_most)),
+              f"{name}: {kind} ticks, CUDA counted {cuda_syncs} synchronizing calls, not "
+              f"between the guard's {guard_syncs} and the guard's with the known copies "
+              f"{cuda_most}")
+        out[kind] = dict(guard_syncs=guard_syncs, budget=budget, cuda_syncs=cuda_syncs,
+                         cuda_most=cuda_most,
+                         top_sites=top, ops_per_forward=sum(t["ops"] for t in ticks) / fwd)
+    print(f"sync {name}: guarded ticks {guarded_s:.2f} s", flush=True)
+    out["guarded_s"] = guarded_s
+    return out
+
+
 def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
                   max_abs=None, ticks=("mixed",), paged=True, kv_int8=None, w8a8=False,
                   controls=(), trace=False, dense=None, params=None, batch_size=8,
-                  num_blocks=None, ring_ref=None):
+                  num_blocks=None, ring_ref=None, sync=False):
     """One engine, ``ContinuousBatcher`` (batch ``batch_size``, block 16,
     budget 256, ``num_blocks`` pool blocks) on ``params`` or random weights
     from seed 0, over ``requests`` ((prompt, new tokens)).
@@ -1768,7 +1902,8 @@ def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
     (uid, keys): at the "past the window" tick, the first local_attn
     layer's ring of the row serving request ``uid`` against ``keys``, the
     post-RoPE keys a cache-free forward over its prompt computed there
-    (``ring_vs_keys``)."""
+    (``ring_vs_keys``). ``sync``: ``phase_sync_ticks`` after the counted
+    run."""
     from repro_torch.core.attention import dense_attention
     from repro_torch.models import transformer
     from repro_torch.models.transformer import model_init
@@ -1884,6 +2019,8 @@ def phase_serving(torch, np, pa, im, fa, name, cfg, requests, max_len, tick_tol,
                   forwards=fwd, tokens=n_tokens, wall_s=wall, tok_per_s=n_tokens / wall,
                   peak_gb=peak_gb, init_s=init_s, **setup,
                   **{f"{k}_launches": v for k, v in launches.items()})
+    if sync:
+        result.update(sync=phase_sync_ticks(torch, np, b, cfg, name, step_fn))
 
     def replay(snap, run, force=None):
         """The tick's live logits through the kernels ("kernel"), through
@@ -5534,7 +5671,8 @@ def main() -> int:
         phase_serving(torch, np, pa, im, fa, name, qwen_cfg(method, **kw), qwen_reqs, 1024,
                       W8A8_LOGIT_REL_RMS if w8a8 else LOGIT_REL_RMS,
                       max_abs=None if w8a8 else LOGIT_MAX_ABS, kv_int8=kv, w8a8=w8a8,
-                      trace=w8a8, dense=(method, kw) if dense else None)
+                      trace=w8a8, dense=(method, kw) if dense else None,
+                      sync=name in ("vanilla", "clipped-w8a8"))
         for name, method, kw, kv, w8a8, dense in (
             ("vanilla", "vanilla", {}, False, False, True),
             ("clipped", "clipped_softmax", {"alpha": 4.0}, False, False, True),

@@ -58,6 +58,7 @@ def _f32(v: Scalar, device) -> torch.Tensor:
     divides as the reference does."""
     if isinstance(v, torch.Tensor):
         return v.to(device=device, dtype=torch.float32)
+    # repro: ignore[R001] v is a python number here (a tensor returned above)
     return torch.full((), float(v), dtype=torch.float32, device=device)
 
 

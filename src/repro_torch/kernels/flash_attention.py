@@ -306,7 +306,8 @@ def _launch_saved(q, k, v, gate_pi, causal, gamma, zeta):
     return out, (out if u is None else u), stats
 
 
-def _launch_bwd(q, k, v, gate_pi, u, dout, stats, causal, gamma, zeta):
+def _launch_bwd(q, k, v, gate_pi, u, dout, stats, causal: bool, gamma: float,
+                zeta: float):
     """Launch the backward kernel over model-layout f32 tensors (q, k, v
     views with the forward's stride rules; u and stats from
     ``_launch_saved``); returns (dq, dk, dv, dgate) as new contiguous
@@ -405,8 +406,8 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, dg, None, None, None, None, None, None
 
 
-def _launch(q, k, v, gate_pi, q_offset, causal, window, softcap, gamma, zeta, stats=None,
-            u=None):
+def _launch(q, k, v, gate_pi, q_offset, causal: bool, window: Optional[int],
+            softcap: Optional[float], gamma: float, zeta: float, stats=None, u=None):
     """Launch the kernel over model-layout (B, T, H, Dh) tensors (views of
     any strides with a unit last stride); returns a new (B, Tq, Hq, Dh).
     ``stats`` ((2, B, Hq, Tq) f32) and ``u`` ((B, Tq, Hq, Dh) f32, under a

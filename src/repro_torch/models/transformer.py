@@ -239,6 +239,8 @@ def _paged_targets(table: torch.Tensor, tpos: torch.Tensor,
     keep = (entry < w) & (phys >= 0) & (phys < nb)
     if act_tok is not None:
         keep &= act_tok
+    # one host sync a forward: every paged layer reads these targets
+    # repro: ignore[R001] torch has no mode="drop" scatter: the kept count comes to the host
     bi, ti = keep.nonzero(as_tuple=True)
     return bi, ti, phys[bi, ti], (tpos % bs)[bi, ti]
 
@@ -270,6 +272,8 @@ def _row_targets(tpos: torch.Tensor, act_tok: Optional[torch.Tensor], length: in
     keep = torch.ones_like(tpos, dtype=torch.bool) if ring else tpos < length
     if act_tok is not None:
         keep = keep & act_tok
+    # one host sync a forward for each ring or row length the model writes
+    # repro: ignore[R001] torch has no mode="drop" scatter: the kept count comes to the host
     bi, ti = keep.nonzero(as_tuple=True)
     slot = tpos % length if ring else tpos
     return bi, ti, slot[bi, ti]

@@ -56,6 +56,8 @@ def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
 def PRNGKey(seed, device=None) -> torch.Tensor:  # noqa: N802 (JAX's name)
     """Raw key of a 32-bit integer seed (or a tensor of them): (..., 2)."""
     s = torch.as_tensor(seed, dtype=torch.int64, device=device)
+    # one host sync a sampling tick pays (sample_logits keys its rows here)
+    # repro: ignore[R001] a seed past 32 bits must raise, as JAX's PRNGKey does
     if ((s < -2 ** 31) | (s >= 2 ** 31)).any():
         raise OverflowError("seeds must fit in 32 bits (jax_enable_x64 off)")
     return torch.stack([torch.zeros_like(s), s & _M32], dim=-1)

@@ -112,7 +112,7 @@ def _step_grads(params, task: TrainTask, batch):
     if task.microbatch <= 1:
         _, metrics, grads = _grads(params, task, batch)
         return metrics, grads
-    mb = task.microbatch
+    mb: int = task.microbatch
     micro = [{k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
               for k, v in batch.items()} for i in range(mb)]
     grads = tree_map_with_path(
