@@ -232,9 +232,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     W8A8 tick's f32 queries over a bf16 dense cache) are promoted to one
     first, as the plain paths promote them before their products. Inputs
     that need a gradient (training) take the kernel's autograd Function:
-    its backward is the flash backward kernel, which takes f32 at Dh 32
-    and 64 without window, softcap or query offset, and anything else
-    raises (``mha_flash``); there is no plain path for CUDA tensors.
+    its backward is the flash backward kernel, which takes bf16 at Dh 32,
+    64, 80, 96 and 128 and f32 at Dh 32 and 64, with or without window and
+    softcap, and no query offset; anything else raises (``mha_flash``);
+    there is no plain path for CUDA tensors.
     ``meta`` tensors (the dry-run) take the card's route, whose wrapper
     runs its plain version on them. CPU tensors: the reference's routing,
     dense when forced, when decoding (tq == 1) with tk <= 8192, or when

@@ -5,7 +5,8 @@
 // merge of partial (m, Z) states, and the hi/lo split that carries an f32
 // probability through two bf16 tensor-core operands. Then the Hopper
 // plumbing of the tensor-core routes: mbarriers, TMA tile loads, wgmma
-// descriptors and fences, and the host's lookup of cuTensorMapEncodeTiled.
+// descriptors, fences and the bf16 products, the bf16 tiles' swizzled
+// layout and tensor maps, and the host's lookup of cuTensorMapEncodeTiled.
 #pragma once
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -29,6 +30,15 @@ __device__ __forceinline__ bool visible(int kp, int qp, bool causal, int window)
 // cap * tanh(x / cap); cap <= 0 leaves x as it is
 __device__ __forceinline__ float softcap(float x, float cap) {
   return cap > 0.f ? cap * tanhf(x / cap) : x;
+}
+
+// The softcap's slope at the capped score sc = cap * tanh(x / cap), given
+// icap = 1 / cap (0 without a cap): d sc / dx = 1 - (sc / cap)^2, exactly 1
+// without one; the factor that takes a gradient of the capped score back
+// to the raw one
+__device__ __forceinline__ float softcap_slope(float sc, float icap) {
+  const float t = sc * icap;
+  return fmaf(-t, t, 1.f);
 }
 
 // One online-softmax step: the row's running max m moves to max(m,
@@ -148,6 +158,103 @@ __device__ __forceinline__ void reg_fence(float* d) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// The bf16 tiles of the tensor-core routes (flash forward and backward):
+// 64 token rows x D columns of a (B, T, H, D) tensor, as TMA boxes of 64
+// rows x BOX columns: 64 columns (128-byte rows, the 128-byte swizzle) at
+// D >= 64, 32 columns (64-byte rows, the 64-byte swizzle) at D 32. The
+// swizzle repeats every 8 rows (SBO bytes); LAYOUT is its code in a wgmma
+// descriptor (1: 128 bytes, 2: 64 bytes); a tile is NCH boxes.
+template <int D>
+struct Bf16Tile {
+  static constexpr int BOX = D < 64 ? D : 64;  // columns of a box
+  static constexpr int ROW = 2 * BOX;          // bytes of a box row
+  static constexpr int CHUNK = 64 * ROW;       // bytes of a box
+  static constexpr int SBO = 8 * ROW;          // one swizzle atom
+  static constexpr int LAYOUT = ROW == 128 ? 1 : 2;
+  static constexpr int NCH = D / BOX;          // boxes per row of D
+  static constexpr int BYTES = NCH * CHUNK;    // a 64-row tile
+};
+
+// d (64 x 64 f32 fragment) += A (smem, K-major) * B (smem, K-major), bf16
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32 f32 fragment) += A (registers, bf16x2 fragment) * B (smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64 f32 fragment) += A (registers, bf16x2 fragment) * B (smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128 f32 fragment) += A (registers, bf16x2 fragment) * B (smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x D f32 fragment) += A (registers) * B (smem, MN-major): the
+// product over 16 tokens of a register fragment and a bf16 tile (P.V in
+// the forward; dS.K, P~.dO and dS.Q in the backward)
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t db) {
+  wgmma_rs_n32(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t db) {
+  wgmma_rs_n64(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t db) {
+  wgmma_rs_n128(d, a, db);
+}
 
 // cuTensorMapEncodeTiled, found through the runtime (no link to libcuda)
 using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -167,6 +274,27 @@ inline EncodeFn encode_fn() {
     }
   }
   return fn;
+}
+
+// Tensor map of a bf16 (B, T, H, dh) view with element strides (sb, st,
+// sh) and a unit last stride: boxes of Bf16Tile<D>::BOX columns x 64 rows
+// of T under the swizzle of that width, zeros outside the view: rows past
+// T, and columns dh..D-1 when the Dh-128 body runs Dh 80 or 96.
+template <int D>
+inline cudaError_t make_bf16_map(CUtensorMap* map, const void* ptr, int B, int T, int H, int dh,
+                                 long long sb, long long st, long long sh) {
+  const EncodeFn enc = encode_fn();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)Bf16Tile<D>::BOX, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      Bf16Tile<D>::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace attn

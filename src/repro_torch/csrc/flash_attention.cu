@@ -43,6 +43,11 @@
 //     no new instantiation;
 //   * f32 (Dh 32, 64, 80, 96, 128, 256), bf16 Dh 256 -> flash_kernel_cc,
 //     the CUDA-core route.
+// Both routes write, when asked (the backward's FlashAttention asks), each
+// row's (m, max(Z, 1e-30)) (the clipped softmax's from its first pass) and
+// the ungated output u in f32 (the f32 route under a gate, the bf16 route
+// always: bf16 out is too coarse for the backward's D_i); out is the same,
+// bitwise, with or without them.
 // f32 inputs stay on CUDA cores because their tolerance (3e-5) rules out
 // bf16 products; bf16 Dh 256 (recurrentgemma's cache-free forward, off
 // the main path) would need a 64x256 f32 accumulator per warpgroup.
@@ -115,9 +120,10 @@ struct Args {
   float softcap;                 // <= 0: none
   float zg, gamma;               // zeta - gamma, gamma
   float scale;                   // Dh^-0.5
-  // what the backward reads (CUDA-core route; null: not written): each
-  // row's (m, max(Z, 1e-30)) as 2 planes of (B, Hq, Tq), and the ungated
-  // output u (B, Tq, Hq, Dh) contiguous, written beside out under a gate
+  // what the backward reads (null: not written): each row's (m, max(Z,
+  // 1e-30)) as 2 planes of (B, Hq, Tq), and the ungated output u (B, Tq,
+  // Hq, Dh) f32 contiguous, written beside out (the f32 CUDA-core route
+  // under a gate, the bf16 tensor-core route always)
   float* stats;
   float* u;
   int dh;  // the head dim of the tensors (the tensor-core body's D may exceed it)
@@ -465,19 +471,14 @@ constexpr int BK = 64;        // keys per tile
 constexpr int STAGES = 3;     // K/V ring slots
 constexpr int THREADS = 384;  // two consumer warpgroups, one producer warpgroup
 
-// Shared-memory tiles of head dim D. A TMA box is 64 rows x BOX columns of
-// bf16: 64 columns (128-byte rows, the 128-byte swizzle) at Dh >= 64, 32
-// columns (64-byte rows, the 64-byte swizzle) at Dh 32. The swizzle
-// repeats every 8 rows (SBO bytes); LAYOUT is its code in a wgmma
-// descriptor (1: 128 bytes, 2: 64 bytes).
+// Shared-memory tiles of head dim D: attn::Bf16Tile's boxes (64 rows x 64
+// bf16 columns under the 128-byte swizzle, or x 32 under the 64-byte one
+// at Dh 32).
 template <int D>
 struct Smem {
-  static constexpr int BOX = D < 64 ? D : 64;        // columns of a box
-  static constexpr int ROW = 2 * BOX;                // bytes of a box row
-  static constexpr int CHUNK = 64 * ROW;             // bytes of a box
-  static constexpr int SBO = 8 * ROW;                // one swizzle atom
-  static constexpr int LAYOUT = ROW == 128 ? 1 : 2;
-  static constexpr int NCH = D / BOX;                // boxes per row of Dh
+  using T = attn::Bf16Tile<D>;
+  static constexpr int BOX = T::BOX, ROW = T::ROW, CHUNK = T::CHUNK, SBO = T::SBO;
+  static constexpr int LAYOUT = T::LAYOUT, NCH = T::NCH;
   static constexpr int Q_BYTES = 2 * NCH * CHUNK;    // both warpgroups' Q
   static constexpr int KV_BYTES = NCH * CHUNK;       // one K or V tile
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;   // K then V
@@ -497,83 +498,7 @@ using attn::wg_commit;
 using attn::wg_fence;
 using attn::wg_wait;
 
-// d (64 x 64 f32 fragment) += A (smem, K-major) * B (smem, K-major)
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 32 f32 fragment) += A (registers, bf16x2 fragment) * B (smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 64 f32 fragment) += A (registers, bf16x2 fragment) * B (smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 128 f32 fragment) += A (registers, bf16x2 fragment) * B (smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a, uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<32>(float* o, const uint32_t* a, uint64_t db) {
-  wgmma_rs_n32(o, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float* o, const uint32_t* a, uint64_t db) {
-  wgmma_rs_n64(o, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float* o, const uint32_t* a, uint64_t db) {
-  wgmma_rs_n128(o, a, db);
-}
+using attn::wgmma_ss_n64;
 
 // O += P V over one 64-key tile: P as hi and lo A fragments of four k16
 // steps, V (64 keys x D) at vs, read through the MN-major descriptor (16
@@ -584,10 +509,10 @@ __device__ __forceinline__ void pv(float* o, const uint32_t (*hi)[4], const uint
   using S = Smem<D>;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_pv<D>(o, hi[kk], desc(vs + kk * 16 * S::ROW, S::CHUNK, S::SBO, S::LAYOUT));
+    attn::wgmma_rs<D>(o, hi[kk], desc(vs + kk * 16 * S::ROW, S::CHUNK, S::SBO, S::LAYOUT));
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_pv<D>(o, lo[kk], desc(vs + kk * 16 * S::ROW, S::CHUNK, S::SBO, S::LAYOUT));
+    attn::wgmma_rs<D>(o, lo[kk], desc(vs + kk * 16 * S::ROW, S::CHUNK, S::SBO, S::LAYOUT));
 }
 
 // The scores of one tile (s[4j + 2i + c]: the thread's row i, key
@@ -868,6 +793,14 @@ __global__ void __launch_bounds__(THREADS, 1)
       const float zci = fmaxf(z[i], attn::Z_FLOOR);
       const float gt = a.gate != nullptr ? a.gate[b * a.sgb + t * a.sgt + h * a.sgh] : 1.f;
       __nv_bfloat16* orow = out + (long long)t * a.sot;
+      // what the backward reads: the row's (m, max(Z, 1e-30)) (the clipped
+      // softmax's from its first pass) and the ungated output u in f32
+      if (a.stats != nullptr && qd == 0) {
+        const long long si = ((long long)b * a.Hq + h) * a.Tq + t;
+        a.stats[si] = m[i];
+        a.stats[(long long)a.B * a.Hq * a.Tq + si] = zci;
+      }
+      float* urow = a.u != nullptr ? a.u + (((long long)b * a.Tq + t) * a.Hq + h) * a.dh : nullptr;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         if (8 * j >= a.dh) break;  // the Dh-128 body at Dh 80 / 96: columns past Dh are zeros
@@ -876,6 +809,8 @@ __global__ void __launch_bounds__(THREADS, 1)
           v0 = v0 / zci;
           v1 = v1 / zci;
         }
+        if (urow != nullptr)
+          *reinterpret_cast<float2*>(urow + 8 * j + 2 * qd) = make_float2(v0, v1);
         if (a.gate != nullptr) {
           v0 *= gt;
           v1 *= gt;
@@ -902,36 +837,14 @@ cudaError_t launch_cc(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Tensor map of a bf16 (B, T, H, dh) view with element strides (sb, st,
-// sh) and a unit last stride: boxes of Smem<D>::BOX columns x 64 rows of
-// T under the swizzle of that width (128 bytes, or 64 at Dh 32), zeros
-// outside the view: rows past T, and columns dh..D-1 when the Dh-128 body
-// runs Dh 80 or 96.
-template <int D>
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int T, int H, int dh,
-                     long long sb, long long st, long long sh) {
-  const attn::EncodeFn enc = attn::encode_fn();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)tc::Smem<D>::BOX, 1, (cuuint32_t)tc::BK, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      tc::Smem<D>::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <bool CLIPPED, int D>
 cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  cudaError_t err = make_map<D>(&mq, a.q, a.B, a.Tq, a.Hq, a.dh, a.sqb, a.sqt, a.sqh);
+  cudaError_t err = attn::make_bf16_map<D>(&mq, a.q, a.B, a.Tq, a.Hq, a.dh, a.sqb, a.sqt, a.sqh);
   if (err == cudaSuccess)
-    err = make_map<D>(&mk, a.k, a.B, a.Tk, a.Hkv, a.dh, a.skb, a.skt, a.skh);
+    err = attn::make_bf16_map<D>(&mk, a.k, a.B, a.Tk, a.Hkv, a.dh, a.skb, a.skt, a.skh);
   if (err == cudaSuccess)
-    err = make_map<D>(&mv, a.v, a.B, a.Tk, a.Hkv, a.dh, a.svb, a.svt, a.svh);
+    err = attn::make_bf16_map<D>(&mv, a.v, a.B, a.Tk, a.Hkv, a.dh, a.svb, a.svt, a.svh);
   if (err != cudaSuccess) return err;
   auto kern = tc::flash_kernel_tc<CLIPPED, D>;
   const int smem = tc::Smem<D>::BYTES;
@@ -981,8 +894,8 @@ cudaError_t dispatch(const Args& a, int dtype, int dh, int route, bool clipped,
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike). Strides in
 // elements. route: 1 = tensor cores, 0 = CUDA cores, as the note above
 // names them; a route not built for (dtype, Dh) is refused. stats and u
-// (null: not written; the f32 CUDA-core route only, else refused): what
-// the backward kernel reads, see Args. Returns the cudaError_t of the
+// (null: not written; the f32 CUDA-core and the bf16 tensor-core routes,
+// else refused): what the backward kernel reads, see Args. Returns the cudaError_t of the
 // launch (0 = success).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, const float* gate, const int* q_offs,
@@ -993,7 +906,9 @@ extern "C" int flash_attention_launch(
     float zg, float gamma, float scale, float* stats, float* u, int dtype, int route,
     void* stream) {
   if (B < 1 || Tq < 1 || Tk < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || B > 65535 ||
-      Hq > 65535 || ((stats != nullptr || u != nullptr) && (dtype != 0 || route != 0))) {
+      Hq > 65535 ||
+      ((stats != nullptr || u != nullptr) && !(dtype == 0 && route == 0) &&
+       !(dtype == 1 && route == 1))) {
     return (int)cudaErrorInvalidValue;
   }
   Args a{q, k, v, gate, q_offs, out, B, Tq, Tk, Hq, Hkv, sqb, sqt, sqh, skb, skt, skh,

@@ -1,5 +1,6 @@
-// Flash-attention backward for NVIDIA Hopper (sm_90a): f32 gradients from
-// products on the tensor cores (3xTF32 wgmma), fed by a TMA ring.
+// Flash-attention backward for NVIDIA Hopper (sm_90a): gradients from
+// products on the tensor cores, fed by a TMA ring. Two routes: f32 (3xTF32
+// wgmma) and bf16 (bf16 wgmma, f32 accumulation), below.
 //
 // The gradient of csrc/flash_attention.cu's forward. It has no TPU
 // counterpart: the JAX package trains through its plain attention
@@ -8,20 +9,28 @@
 // kernels has a custom_vjp. The port's cache-free attention on the card
 // is the flash kernel, so its gradient is this kernel.
 //
-// Scope: f32 q/k/v (the paper models' dtype), Dh 32 and 64, causal or not,
-// G = Hq / Hkv >= 1, model layout (B, T, H, Dh) with the forward's stride
-// rules, vanilla, clipped (gamma, zeta) and gated; no window, softcap or
-// query offset (the wrapper refuses them).
+// Scope: f32 q/k/v (the paper models' dtype) at Dh 32 and 64, and bf16
+// q/k/v (every other registry arch's) at Dh 32, 64, 80, 96 and 128; causal
+// or not, a local window or not, a logit softcap or not, G = Hq / Hkv >= 1,
+// model layout (B, T, H, Dh) with the forward's stride rules, vanilla,
+// clipped (gamma, zeta) and gated; no query offset (the wrapper refuses
+// it, and bf16 at Dh 256 and f32 above Dh 64: ROADMAP 1.3).
 //
-// For query row i, s_ij = (q_i Dh^-0.5) . k_j (q scaled in f32 first, as
-// the forward), masked p_ij = exp(s_ij - m_i) / Z_i, P~ = p (vanilla) or
+// For query row i, s_ij = (q_i Dh^-0.5) . k_j (q scaled in its dtype first,
+// as the forward), capped s_ij <- c tanh(s_ij / c) under a softcap c,
+// masked (causal, window) p_ij = exp(s_ij - m_i) / Z_i, P~ = p (vanilla) or
 // clip((zeta - gamma) p + gamma, 0, 1) masked (clipped), u_i = sum_j P~_ij
 // v_j, g_i = gate_i dO_i (gate 1 without gating):
 //   dgate_i = dO_i . u_i
 //   dv_j    = sum_i P~_ij g_i,     dP~_ij = g_i . v_j
 //   dp_ij   = dP~_ij (vanilla), (zeta - gamma) 1[0 < (zeta-gamma) p + gamma < 1] dP~_ij (clipped)
-//   ds_ij   = p_ij (dp_ij - D_i),  D_i = sum_l p_il dp_il
+//   ds_ij   = p_ij (dp_ij - D_i) (1 - (s_ij / c)^2),  D_i = sum_l p_il dp_il
+//             (the last factor, the softcap's slope at the capped score, 1
+//             without one)
 //   dq_i    = Dh^-0.5 sum_j ds_ij k_j,   dk_j = sum_i ds_ij (q_i Dh^-0.5)
+// A window cuts both walks at its edge: dq walks keys from the block's
+// first query - window + 1, dk/dv queries up to the key block's last key +
+// window - 1; the tiles across the edge are masked per entry.
 //
 // What it saves from the forward: the f32 CUDA-core forward writes each
 // row's (m_i, max(Z_i, 1e-30)) when asked (FlashAttention.forward asks),
@@ -94,9 +103,9 @@
 // warpgroup 1's, the G-head sum in head order); no atomics, so two calls
 // give bitwise equal gradients.
 //
-// What bounds it on an H100: operations. The function needs 10 flops per
-// visible pair and column (S, dP~, dv, dq, dk), here each f32 product
-// three TF32 ones: 30 at 495 TFLOP/s, i.e. 10 at an effective 165 TFLOP/s
+// The f32 route. What bounds it on an H100: operations. The function needs
+// 10 flops per visible pair and column (S, dP~, dv, dq, dk), here each f32
+// product three TF32 ones: 30 at 495 TFLOP/s, i.e. 10 at an effective 165 TFLOP/s
 // (0.098 ms at BERT-base's (8, 512, 12/12, 64), 0.195 at OPT-125m's (2,
 // 2048, 12/12, 64) causal), against ~10 bytes per token and head of inputs
 // and outputs. One CTA a SM, with two warpgroups for the overlap a second
@@ -104,9 +113,49 @@
 // KB of shared memory at Dh 64 (K, V: 64 KB; three ring slots of Q and G:
 // 96 KB; each warpgroup's P~/dS buffer: 32 KB) and dq as much (Q, G: 64
 // KB; three slots of K and V: 96 KB; dS: 2 x 32 KB).
+//
+// The bf16 route (namespace bf). The same two launches and GQA head sum,
+// the same D_i from the saved f32 u (vanilla, gated) or the A - D B walk
+// (clipped), the same determinism (each output has one owner summing in a
+// fixed order; GQA's per-query-head partials are f32 and summed in head
+// order, so dk and dv round to bf16 once), the same f32 re-check of
+// clipped scores within 1e-4 of an edge (from the bf16 data, q Dh^-0.5
+// rounded to bf16 as the forward rounds it). What differs:
+//   * Products: bf16 wgmma, f32 accumulation. q Dh^-0.5, k, v and dO are
+//     bf16 and enter exactly; the products over the head dim (S = Q K^T,
+//     dP = dO V^T, and their transposes in dk/dv) read both operands from
+//     the raw swizzled TMA tiles (K-major descriptors, as the forward's
+//     S); the products over tokens take the f32 factor from registers and
+//     the bf16 tile through the MN-major descriptor (as the forward's
+//     P.V): dq += dS K, dv += (P~ gate)^T dO, dk += dS^T (Q Dh^-0.5).
+//   * The f32 factors P~ and dS go in as hi = bf16(x) and lo = bf16(x -
+//     hi), two products against the same tile (the forward's P split): one
+//     bf16 operand misses the gradient bound (chip_smoke.py's control).
+//     The gate needs no operand of its own: gate_i (dO_i . v_j) is applied
+//     to dP in registers after the product, and folded into dV's factor
+//     (P~_ij gate_i), so no gated dO is written.
+//   * The accumulator's layout is the A fragment's, so the factors go from
+//     the S / dP accumulators to the next product without shared memory:
+//     dq's CTA owns 64 queries (M = queries), dk/dv's 64 keys (M = keys,
+//     S^T = K Q^T); two warpgroups take alternate tiles of the walk, each
+//     with the whole block's accumulators, warpgroup 0 adding warpgroup
+//     1's at the end. A ring of four slots (even, so a slot is only ever
+//     read by one warpgroup) refilled by the warpgroup that read it.
+//   * Head dims: 32 (64-byte swizzle), 64 and 128 native; 80 and 96 run
+//     the Dh-128 body over TMA boxes zero-filled past Dh (the tensor maps
+//     name the true head dim) and store Dh columns. The dk/dv launch at Dh
+//     128 holds dK and dV (64 f32 registers each a thread) beside S and dP
+//     (32 each): 246-249 registers, no spill (ptxas, PR 28).
+// What bounds it: operations, 10 flops per visible pair and column at 989
+// TFLOP/s (0.109 ms at qwen3-14b's (1, 2048, 40/8, 128) causal); it
+// issues 20 flops per pair and column (24 clipped): S and dP in both
+// launches, and dq, dv, dk each twice (hi and lo), and each product waits
+// for the last: a simple kernel, right first (PERF.md has its times).
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "attn_common.cuh"
 
@@ -137,6 +186,8 @@ struct Args {
   long long sqb, sqt, sqh, skb, skt, skh, sgb, sgt, sgh;  // q, k, gate strides
   int causal, clipped;
   float zg, gamma, scale;  // zeta - gamma, gamma, Dh^-0.5
+  int window;              // < 0: none
+  float softcap;           // <= 0: none
 };
 
 // byte offset of element (r, c) of a swizzled tile: boxes of 32 columns,
@@ -146,9 +197,10 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
   return (uint32_t)((c >> 5) * BOX + (r << 7) + ((((c >> 2) & 7) ^ (r & 7)) << 4) + ((c & 3) << 2));
 }
 
-// p, P~ and dp of one entry of a tile
+// p, P~ and dp of one entry of a tile, and fac, the softcap's slope at
+// its capped score (1 without a softcap): ds = p (dp - D) fac
 struct Entry {
-  float p, pt, dp;
+  float p, pt, dp, fac;
 };
 
 // x rounded to the nearest TF32 value, ties away from zero (cvt.rna's
@@ -345,33 +397,53 @@ __device__ __forceinline__ void split_tile(uint8_t* hi, uint8_t* lo, F&& f) {
 }
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int FAR = 1 << 30;  // a bound no position reaches
 
 // A row's statistics: c2 = m log2(e) + log2(Z), so that p = 2^(s log2(e) -
 // c2) is one fma and one exp2, and the forward's m and Z themselves
 __device__ __forceinline__ float row_c2(float m, float zc) { return fmaf(m, LOG2E, log2f(zc)); }
 
-// p, P~ and dp of one visible-or-masked entry; ds = p (dp - D). p =
-// exp(s - m) / Z to ~1e-6 (the score's own 3xTF32 error). Clipped, an entry
-// within 1e-4 (relative to zg p) of either edge of the clip has its score
-// recomputed in f32 (exact(): an fmaf chain over Dh in order) and p taken
-// as expf(s - m) / Z, as the forward computes it: the clip's indicator has
-// no slope to forgive rounding.
-template <typename F>
-__device__ __forceinline__ Entry entry(const Args& a, bool valid, float s, float c2, float m,
-                                       float zc, float dpt, F&& exact) {
-  float p = valid ? exp2f(fmaf(s, LOG2E, -c2)) : 0.f;
-  Entry e{p, p, dpt};
+// A tile's scores capped in place (cap <= 0: none), as the forward caps
+// them, before the masks; the branch is uniform (a kernel argument), so the
+// entries below pay nothing for it without a cap
+__device__ __forceinline__ void cap_scores(float* s, float cap) {
+  if (cap > 0.f) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = attn::softcap(s[i], cap);
+  }
+}
+
+// 1 / cap, or 0 without a cap (attn::softcap_slope's icap)
+template <typename A>
+__device__ __forceinline__ float inv_cap(const A& a) {
+  return a.softcap > 0.f ? 1.f / a.softcap : 0.f;
+}
+
+// p, P~, dp and the softcap's slope of one visible-or-masked entry of
+// capped score sc (icap: inv_cap); ds = p (dp - D) fac. p = exp(s_c - m)
+// / Z to ~1e-6 (the score's own product error). Clipped, an entry within
+// 1e-4 (relative to zg p) of either edge of the clip has its score
+// recomputed in f32 (exact(): an fmaf chain over Dh in order, then capped)
+// and p taken as expf(s_c - m) / Z, as the forward's CUDA-core route
+// computes it: the clip's indicator has no slope to forgive rounding.
+template <typename A, typename F>
+__device__ __forceinline__ Entry entry(const A& a, bool valid, float sc, float icap, float c2,
+                                       float m, float zc, float dpt, F&& exact) {
+  float p = valid ? exp2f(fmaf(sc, LOG2E, -c2)) : 0.f;
+  Entry e{p, p, dpt, 1.f};
   if (a.clipped) {
     float x = a.zg * p + a.gamma;
     const float near = 1e-4f * a.zg * p;
     if (valid && (fabsf(x) <= near || fabsf(x - 1.f) <= near)) {
-      p = expf(exact() - m) / zc;
+      sc = attn::softcap(exact(), a.softcap);
+      p = expf(sc - m) / zc;
       x = a.zg * p + a.gamma;
       e.p = p;
     }
     e.pt = valid ? fminf(fmaxf(x, 0.f), 1.f) : 0.f;
     e.dp = (valid && x > 0.f && x < 1.f) ? a.zg * dpt : 0.f;
   }
+  e.fac = attn::softcap_slope(sc, icap);
   return e;
 }
 
@@ -421,7 +493,8 @@ __device__ __forceinline__ int cols_of(int g) {
   return 8 * (g & 1) + 4 * ((g >> 1) & 1) + 2 * ((g >> 2) & 1);
 }
 
-__device__ __forceinline__ long long stat_index(const Args& a, int b, int h, int t) {
+template <typename A>
+__device__ __forceinline__ long long stat_index(const A& a, int b, int h, int t) {
   return ((long long)b * a.Hq + h) * a.Tq + t;
 }
 
@@ -469,8 +542,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest causal walks first
   const int h = blockIdx.y, b = blockIdx.z, hk = h / (a.Hq / a.Hkv);
+  // keys the block can see: cut at the causal edge of its last query and
+  // the window's start for its first
   const int k_hi = a.causal ? min(a.Tk, min(q0 + BQ, a.Tq)) : a.Tk;
-  const int n_tiles = (k_hi + BK - 1) / BK;
+  const int k_lo = a.window >= 0 ? max(0, q0 - a.window + 1) / BK * BK : 0;
+  const int n_tiles = max(0, (k_hi - k_lo + BK - 1) / BK);
   init_barriers(qg_full);
   // K and V of key tile n into its slot
   auto load = [&](int n) {
@@ -478,8 +554,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     const uint32_t slot = base + L::RING + st * 2 * L::TILE, fb = full0 + 8 * st;
     attn::mbar_expect_tx(fb, 2 * L::TILE);
     for (int c = 0; c < NB; ++c) {
-      attn::tma_load(slot + c * BOX, &tm_k, fb, 32 * c, hk, n * BK, b);
-      attn::tma_load(slot + L::TILE + c * BOX, &tm_v, fb, 32 * c, hk, n * BK, b);
+      attn::tma_load(slot + c * BOX, &tm_k, fb, 32 * c, hk, k_lo + n * BK, b);
+      attn::tma_load(slot + L::TILE + c * BOX, &tm_v, fb, 32 * c, hk, k_lo + n * BK, b);
     }
   };
   if (threadIdx.x == 0) {  // Q and dO once, and the ring's first tiles
@@ -552,6 +628,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   // dq; clipped, the sums A = sum_j p dp k_j (in dq) and B = sum_j p k_j
   // (in bq), D's partial sums in part, and dq = A - D B at the end
   float dq[32], bq[CLIPPED ? 32 : 1], s[32], dp[32], part[2] = {0.f, 0.f};
+  float v[CLIPPED ? 16 : 1];
 #pragma unroll
   for (int i = 0; i < 32; ++i) dq[i] = 0.f;
   if constexpr (CLIPPED) {
@@ -560,10 +637,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   Frag f;
   const bool live = lane.w < D / 16;  // rows of an M = Dh product
+  const float icap = inv_cap(a);
 #pragma unroll 1
   for (int n = wg; n < n_tiles; n += 2) {
     const Lane l = fresh(lane);
-    const int t0 = n * BK, st = n % STAGES;
+    const int t0 = k_lo + n * BK, st = n % STAGES;
     attn::mbar_wait(full0 + 8 * st, (n / STAGES) & 1);
     const uint32_t kt_s = base + L::RING + st * 2 * L::TILE;
     const uint8_t* kt = sm + L::RING + st * 2 * L::TILE;
@@ -572,16 +650,22 @@ __global__ void __launch_bounds__(THREADS, 1)
     wait_acc(s);
     product<KS>(dp, f, Rows{kt_s + L::TILE, 1.f, l}, base + L::G_HI, base + L::G_LO);
     wait_acc(dp);
+    cap_scores(s, a.softcap);
     wg_sync(wg);  // every warp's products of the last tile are done: the buffer is free
-    // entry (key row, query col) is visible iff lo[i] <= col - 2 qd < hi,
-    // col - 2 qd = 8 j + c a constant: a row past Tk sees nothing, causal
-    // rows see the queries at or after their key, every row none past Tq
-    int lo[2];
-    const int hi = a.Tq - q0 - 2 * l.qd;
+    // entry (key row, query col) is visible iff lo[i] <= col - 2 qd <
+    // hi[i], col - 2 qd = 8 j + c a constant: a row past Tk sees nothing,
+    // causal rows see the queries at or after their key, windowed rows those
+    // before key + window, every row none past Tq
+    int lo[2], hi[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int kp = t0 + 16 * l.w + l.g + 8 * i;
       lo[i] = (kp < a.Tk ? (a.causal ? kp - q0 : -BQ) : BQ) - 2 * l.qd;
+      hi[i] = min(a.Tq, a.window >= 0 ? kp + a.window : FAR) - q0 - 2 * l.qd;
+    }
+    if constexpr (CLIPPED) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) v[e] = 0.f;
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -592,24 +676,23 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int row = 16 * l.w + l.g + 8 * i, x = 4 * j + 2 * i + c;
-          const bool valid = lo[i] <= 8 * j + c && 8 * j + c < hi;
-          const Entry e = entry(a, valid, s[x], cst.x, cst.z, cst.w, dp[x],
+          const bool valid = lo[i] <= 8 * j + c && 8 * j + c < hi[i];
+          const Entry e = entry(a, valid, s[x], icap, cst.x, cst.z, cst.w, dp[x],
                                 [&] { return exact_score<D>(a, b, h, hk, q0 + col, t0 + row); });
-          if constexpr (CLIPPED) {  // p dp into dp, p into s, in place
-            dp[x] = e.p * e.dp;
-            s[x] = e.p;
+          if constexpr (CLIPPED) {  // p dp fac into dp, p fac into s, in place; p dp into D's sums
+            v[2 * j + c] += e.p * e.dp;
+            dp[x] = e.p * e.dp * e.fac;
+            s[x] = e.p * e.fac;
           } else {
-            store_split(dsb, swz(col, row), e.p * (e.dp - cst.y));
+            store_split(dsb, swz(col, row), e.p * (e.dp - cst.y) * e.fac);
           }
         }
       }
     if constexpr (CLIPPED) {
       // D's sums over the warp's 16 keys of the tile: the thread's 16
-      // columns (2 j + c) reduced across its 8 lane groups and scattered, 2
-      // columns a lane (reduce_cols), added to part
-      float v[16];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) v[e] = dp[2 * (e & ~1) + (e & 1)] + dp[2 * (e & ~1) + 2 + (e & 1)];
+      // columns (2 j + c, summed over its two rows above) reduced across its
+      // 8 lane groups and scattered, 2 columns a lane (reduce_cols), added
+      // to part
       reduce_cols(v, l.g);
       part[0] += v[0];
       part[1] += v[1];
@@ -740,7 +823,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int k0 = blockIdx.x * BK;
   const int h = blockIdx.y, b = blockIdx.z, G = a.Hq / a.Hkv, hk = h / G;
   const int q_lo = a.causal ? k0 : 0;  // BQ == BK: the tile holding query k0
-  const int n_tiles = q_lo < a.Tq ? (a.Tq - q_lo + BQ - 1) / BQ : 0;
+  // queries that can see the block's keys: none past the window's end for
+  // its last key
+  const int q_hi = a.window >= 0 ? min(a.Tq, k0 + BK + a.window - 1) : a.Tq;
+  const int n_tiles = q_lo < q_hi ? (q_hi - q_lo + BQ - 1) / BQ : 0;
   init_barriers(kv_full);
   // Q and G of query tile n into its slot
   auto load = [&](int n) {
@@ -779,6 +865,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   Frag f;
   const bool live = lane.w < D / 16;
   const long long bht = (long long)a.B * a.Hq * a.Tq;
+  const float icap = inv_cap(a);
 #pragma unroll 1
   for (int n = wg; n < n_tiles; n += 2) {
     const Lane l = fresh(lane);
@@ -803,14 +890,17 @@ __global__ void __launch_bounds__(THREADS, 1)
     product<KS>(dp, f, Rows{qt_s + L::TILE, 1.f, l},
                 base + L::V_HI, base + L::V_LO);
     wait_acc(dp);
+    cap_scores(s, a.softcap);
     // P~ into s, dS into dp, in place. Entry (query row, key col) is
-    // visible iff 8 j + c < lim[i] (col - 2 qd = 8 j + c): the keys before
-    // Tk and, causal, at or before the row's query; none past Tq
-    int lim[2];
+    // visible iff from[i] <= 8 j + c < lim[i] (col - 2 qd = 8 j + c): the
+    // keys before Tk and, causal, at or before the row's query, windowed
+    // after its query - window; none past Tq
+    int lim[2], from[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int qp = q0 + 16 * l.w + l.g + 8 * i;
       lim[i] = (qp < a.Tq ? min(a.Tk, a.causal ? qp + 1 : a.Tk) - k0 : 0) - 2 * l.qd;
+      from[i] = (a.window >= 0 ? qp - a.window + 1 : -FAR) - k0 - 2 * l.qd;
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -819,11 +909,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int x = 4 * j + 2 * i + c;
-          const Entry e = entry(a, 8 * j + c < lim[i], s[x], c2[i], m[i], zc[i], dp[x], [&] {
+          const bool valid = from[i] <= 8 * j + c && 8 * j + c < lim[i];
+          const Entry e = entry(a, valid, s[x], icap, c2[i], m[i], zc[i], dp[x], [&] {
             return exact_score<D>(a, b, h, hk, q0 + 16 * l.w + l.g + 8 * i, k0 + 8 * j + 2 * l.qd + c);
           });
           s[x] = e.pt;
-          dp[x] = e.p * (e.dp - dsum[i]);
+          dp[x] = e.p * (e.dp - dsum[i]) * e.fac;
         }
     wg_sync(wg);  // every warp's dK products of the last tile are done: the buffer is free
 #pragma unroll
@@ -899,10 +990,21 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// 3. GQA: dk, dv of each KV head = the sum of its G query heads' partials,
-// in head order
+// 3. GQA: dk, dv of each KV head = the sum of its G query heads' f32
+// partials, in head order, rounded once to the output's type
 // ---------------------------------------------------------------------------
-__global__ void bwd_sum_heads_kernel(const float4* pk, const float4* pv, float4* dk, float4* dv,
+__device__ __forceinline__ void put4(float4* p, float4 x) { *p = x; }
+__device__ __forceinline__ void put4(uint2* p, float4 x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y), hi = __floats2bfloat162_rn(x.z, x.w);
+  uint2 r;
+  memcpy(&r.x, &lo, 4);
+  memcpy(&r.y, &hi, 4);
+  *p = r;
+}
+
+// TO: float4 (f32 out) or uint2 (four bf16)
+template <typename TO>
+__global__ void bwd_sum_heads_kernel(const float4* pk, const float4* pv, TO* dk, TO* dv,
                                      long long n, int G, int d4) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
@@ -913,8 +1015,8 @@ __global__ void bwd_sum_heads_kernel(const float4* pk, const float4* pv, float4*
       a = make_float4(a.x + x.x, a.y + x.y, a.z + x.z, a.w + x.w);
       c = make_float4(c.x + y.x, c.y + y.y, c.z + y.z, c.w + y.w);
     }
-    dk[i] = a;
-    dv[i] = c;
+    put4(dk + i, a);
+    put4(dv + i, c);
   }
 }
 
@@ -936,13 +1038,23 @@ cudaError_t make_map(CUtensorMap* map, const float* ptr, int B, int T, int H, in
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <typename K>
+template <typename K, typename A>
 cudaError_t launch_one(K kern, dim3 grid, int smem, cudaStream_t s, const CUtensorMap& m0,
                        const CUtensorMap& m1, const CUtensorMap& m2, const CUtensorMap& m3,
-                       const Args& a) {
+                       const A& a) {
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kern<<<grid, THREADS, smem, s>>>(m0, m1, m2, m3, a);
+  return cudaGetLastError();
+}
+
+template <typename TO>
+cudaError_t sum_heads(const float* part_k, const float* part_v, TO* dk, TO* dv, long long n, int G,
+                      int d4, cudaStream_t s) {
+  const unsigned blocks = (unsigned)(n / 256 + 1 < 1024 ? n / 256 + 1 : 1024);
+  bwd_sum_heads_kernel<TO><<<blocks, 256, 0, s>>>(reinterpret_cast<const float4*>(part_k),
+                                                  reinterpret_cast<const float4*>(part_v), dk,
+                                                  dv, n, G, d4);
   return cudaGetLastError();
 }
 
@@ -967,39 +1079,601 @@ cudaError_t launch(const Args& a, long long sq[3], long long sk[3], long long sv
   err = launch_one(bwd_dkdv_kernel<D>, dim3((a.Tk + BK - 1) / BK, a.Hq, a.B), KvLayout<D>::BYTES,
                    s, mq, mg, mk, mv, kv);
   if (err != cudaSuccess || G == 1) return err;
-  const long long n = (long long)a.B * a.Tk * a.Hkv * D / 4;
-  const unsigned blocks = (unsigned)(n / 256 + 1 < 1024 ? n / 256 + 1 : 1024);
-  bwd_sum_heads_kernel<<<blocks, 256, 0, s>>>(
-      reinterpret_cast<const float4*>(part_k), reinterpret_cast<const float4*>(part_v),
-      reinterpret_cast<float4*>(a.dk), reinterpret_cast<float4*>(a.dv), n, G, D / 4);
-  return cudaGetLastError();
+  return sum_heads(part_k, part_v, reinterpret_cast<float4*>(a.dk),
+                   reinterpret_cast<float4*>(a.dv), (long long)a.B * a.Tk * a.Hkv * D / 4, G,
+                   D / 4, s);
 }
+
+// ---------------------------------------------------------------------------
+// The bf16 route: bf16 wgmma products with f32 accumulation, Dh 32, 64 and
+// 128 native, Dh 80 and 96 through the Dh-128 body.
+// ---------------------------------------------------------------------------
+namespace bf {
+
+constexpr int STAGES = 4;  // even: a slot is read by one warpgroup only (tiles n, n + 4, ...)
+constexpr int BT = 64;     // tokens a tile: queries of dq's block and of dk/dv's walk, keys likewise
+
+using attn::Bf16Tile;
+
+struct Args {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const float* gate;          // null: no gate
+  const float* u;             // (B, Tq, Hq, dh) f32 contiguous: the forward's ungated output
+  const __nv_bfloat16* dout;  // (B, Tq, Hq, dh) contiguous
+  const float* stats;         // 2 x (B, Hq, Tq): m, max(Z, 1e-30), from the forward
+  float* dsum;                // (B, Hq, Tq): D, written by dq, read by dk/dv
+  __nv_bfloat16* dq;          // (B, Tq, Hq, dh) contiguous
+  __nv_bfloat16* dk;          // (B, Tk, Hkv, dh) contiguous
+  __nv_bfloat16* dv;
+  float* dgate;               // (B, Tq, Hq) contiguous, or null
+  float* part_k;              // G > 1: (B, Tk, Hq, dh) f32 partials, else null
+  float* part_v;
+  int B, Tq, Tk, Hq, Hkv, dh;
+  long long sqb, sqt, sqh, skb, skt, skh, sgb, sgt, sgh;  // q, k, gate strides
+  int causal, clipped;
+  float zg, gamma, scale;
+  int window;
+  float softcap;
+};
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// the f32 score of query qp of head h and key kp of KV head hk from the
+// bf16 data, as the reference computes it: (q Dh^-0.5 rounded to bf16) .
+// k, an fmaf chain over dh in order
+__device__ __forceinline__ float exact_score(const Args& a, int b, int h, int hk, int qp, int kp) {
+  const __nv_bfloat16* qr = a.q + b * a.sqb + (long long)qp * a.sqt + h * a.sqh;
+  const __nv_bfloat16* kr = a.k + b * a.skb + (long long)kp * a.skt + hk * a.skh;
+  float acc = 0.f;
+#pragma unroll 1
+  for (int d = 0; d < a.dh; d += 2) {
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qr + d));
+    const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kr + d));
+    acc = fmaf(round_bf16(x.x * a.scale), y.x, acc);
+    acc = fmaf(round_bf16(x.y * a.scale), y.y, acc);
+  }
+  return acc;
+}
+
+// q Dh^-0.5 rounded to bf16 in place, over a tile of `bytes` at t, by
+// `n` threads (index i), as the forward scales its Q tile
+__device__ __forceinline__ void scale_tile(uint8_t* t, int bytes, float scale, int i, int n) {
+  uint4* p = reinterpret_cast<uint4*>(t);
+  for (int x = i; x < bytes / 16; x += n) {
+    uint4 r = p[x];
+    __nv_bfloat162 e[4];
+    memcpy(e, &r, sizeof(r));
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      const float2 f = __bfloat1622float2(e[y]);
+      e[y] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+    }
+    memcpy(&r, e, sizeof(r));
+    p[x] = r;
+  }
+}
+
+// acc (64 x 64) = A B^T over D: A and B 64-row tiles at shared addresses
+// a and b, both K-major (the product over the head dim)
+template <int D>
+__device__ __forceinline__ void product_ss(float* acc, uint32_t a, uint32_t b) {
+  using T = Bf16Tile<D>;
+  constexpr int KPB = T::ROW / 32;  // k16 steps per box row
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / KPB) * T::CHUNK + (kk % KPB) * 32;
+    attn::wgmma_ss_n64(acc, attn::desc(a + off, 16, T::SBO, T::LAYOUT),
+                       attn::desc(b + off, 16, T::SBO, T::LAYOUT), kk > 0);
+  }
+}
+
+// acc (64 x D) += X Y over the 64 tokens of a tile: X an f32 factor carried
+// as hi and lo bf16 fragments of four k16 steps, Y the bf16 tile at y read
+// through the MN-major descriptor (16 tokens a step)
+template <int D>
+__device__ __forceinline__ void product_rs(float* acc, const uint32_t (*hi)[4],
+                                           const uint32_t (*lo)[4], uint32_t y) {
+  using T = Bf16Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    attn::wgmma_rs<D>(acc, hi[kk], attn::desc(y + kk * 16 * T::ROW, T::CHUNK, T::SBO, T::LAYOUT));
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    attn::wgmma_rs<D>(acc, lo[kk], attn::desc(y + kk * 16 * T::ROW, T::CHUNK, T::SBO, T::LAYOUT));
+}
+
+// the 64 x 64 accumulator x (rows of the warpgroup, 64 tokens) as the A
+// fragments of four k16 steps, each entry split hi = bf16(x), lo = bf16(x
+// - hi)
+__device__ __forceinline__ void to_frags(const float* x, uint32_t (*hi)[4], uint32_t (*lo)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      attn::split_hi_lo2(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1], hi[kk][r], lo[kk][r]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float* x) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// 1. dq of one (b, h, block of 64 queries); D and dgate of its rows first
+// (vanilla, gated), or D summed over the walk (clipped). The warpgroups
+// take alternate key tiles, both over all 64 rows; warpgroup 0 adds
+// warpgroup 1's sums at the end.
+// ---------------------------------------------------------------------------
+template <int D>
+struct QLayout {
+  static constexpr int TILE = Bf16Tile<D>::BYTES;
+  static constexpr int Q = 0, DO = TILE, RING = 2 * TILE;  // slot s: K, then V
+  static constexpr int CS = RING + STAGES * 2 * TILE;       // float4 [64]: c2, D, m, Z
+  static constexpr int GT = CS + 64 * 16;                   // float [64]: the gate
+  static constexpr int BAR = GT + 64 * 4;
+  static constexpr int BYTES = BAR + (1 + STAGES) * 8 + 1024;
+};
+
+template <int D, bool CLIPPED>
+__global__ void __launch_bounds__(THREADS, 1)
+    bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+              const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+              Args a) {
+  using L = QLayout<D>;
+  using T = Bf16Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* sm = smem_raw + (base - raw);
+  const uint32_t qd_full = base + L::BAR, full0 = qd_full + 8;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BT;  // longest causal walks first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (a.Hq / a.Hkv);
+  const int k_hi = a.causal ? min(a.Tk, min(q0 + BT, a.Tq)) : a.Tk;
+  const int k_lo = a.window >= 0 ? max(0, q0 - a.window + 1) / BT * BT : 0;
+  const int n_tiles = max(0, (k_hi - k_lo + BT - 1) / BT);
+  if (threadIdx.x == 0) {
+    attn::mbar_init(qd_full, 1);
+    for (int s = 0; s < STAGES; ++s) attn::mbar_init(full0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  auto load = [&](int n) {  // K and V of key tile n into its slot
+    const int st = n % STAGES;
+    const uint32_t slot = base + L::RING + st * 2 * L::TILE, fb = full0 + 8 * st;
+    attn::mbar_expect_tx(fb, 2 * L::TILE);
+    for (int c = 0; c < T::NCH; ++c) {
+      attn::tma_load(slot + c * T::CHUNK, &tm_k, fb, c * T::BOX, hk, k_lo + n * BT, b);
+      attn::tma_load(slot + L::TILE + c * T::CHUNK, &tm_v, fb, c * T::BOX, hk, k_lo + n * BT, b);
+    }
+  };
+  if (threadIdx.x == 0) {  // Q and dO once, and the ring's first tiles
+    attn::mbar_expect_tx(qd_full, 2 * L::TILE);
+    for (int c = 0; c < T::NCH; ++c) {
+      attn::tma_load(base + L::Q + c * T::CHUNK, &tm_q, qd_full, c * T::BOX, h, q0, b);
+      attn::tma_load(base + L::DO + c * T::CHUNK, &tm_do, qd_full, c * T::BOX, h, q0, b);
+    }
+    for (int n = 0; n < min(STAGES, n_tiles); ++n) load(n);
+  }
+  const int wg = uniform(threadIdx.x / 128);
+  const int ct = threadIdx.x, tw = ct % 128;
+  const int warp = uniform(tw / 32), g = (tw % 32) / 4, qd = tw % 4;
+  float4* cs = reinterpret_cast<float4*>(sm + L::CS);
+  float* gs = reinterpret_cast<float*>(sm + L::GT);
+  const bool gated = a.gate != nullptr;
+
+  {  // the block's rows, four threads a row: c2, m, Z, the gate and,
+     // vanilla or gated, D = gate (dO . u); dgate = dO . u
+    const int row = ct / 4, t = min(q0 + row, a.Tq - 1);
+    const long long si = stat_index(a, b, h, t);
+    float dot = 0.f;
+    if (gated || !CLIPPED) {
+      const long long off = (((long long)b * a.Tq + t) * a.Hq + h) * a.dh;
+      for (int c = 2 * (ct & 3); c < a.dh; c += 8) {
+        const float2 o = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.dout + off + c));
+        const float2 x = *reinterpret_cast<const float2*>(a.u + off + c);
+        dot = fmaf(o.x, x.x, dot);
+        dot = fmaf(o.y, x.y, dot);
+      }
+      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+    }
+    if ((ct & 3) == 0) {
+      const float gt = gated ? a.gate[b * a.sgb + (long long)t * a.sgt + h * a.sgh] : 1.f;
+      const float dsum = CLIPPED ? 0.f : gt * dot;
+      const long long bht = (long long)a.B * a.Hq * a.Tq;
+      const float m = a.stats[si], zc = a.stats[bht + si];
+      cs[row] = make_float4(row_c2(m, zc), dsum, m, zc);
+      gs[row] = gt;
+      if (q0 + row < a.Tq) {
+        if (!CLIPPED) a.dsum[si] = dsum;
+        if (gated) a.dgate[((long long)b * a.Tq + t) * a.Hq + h] = dot;
+      }
+    }
+  }
+  attn::mbar_wait(qd_full, 0);
+  scale_tile(sm + L::Q, L::TILE, a.scale, ct, THREADS);
+  async_fence();
+  cta_sync();
+
+  // dq, or clipped A = sum_j (p dp fac) k_j; clipped, B = sum_j (p fac) k_j
+  // and D's partial sums, then dq = A - D B
+  float acc[D / 2], bacc[CLIPPED ? D / 2 : 1], s[32], dp[32], part[2] = {0.f, 0.f};
+  zero<D / 2>(acc);
+  if constexpr (CLIPPED) zero<D / 2>(bacc);
+  uint32_t hi[4][4], lo[4][4];
+  const float icap = inv_cap(a);
+  const int r0 = warp * 16 + g;  // the thread's rows r0, r0 + 8 of the block
+  float c2[2], dsr[2], mr[2], zr[2], gr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float4 x = cs[r0 + 8 * i];
+    c2[i] = x.x, dsr[i] = x.y, mr[i] = x.z, zr[i] = x.w;
+    gr[i] = gs[r0 + 8 * i];
+  }
+#pragma unroll 1
+  for (int n = wg; n < n_tiles; n += 2) {
+    const int t0 = k_lo + n * BT, st = n % STAGES;
+    attn::mbar_wait(full0 + 8 * st, (n / STAGES) & 1);
+    const uint32_t kt = base + L::RING + st * 2 * L::TILE, vt = kt + L::TILE;
+    // S = (Q Dh^-0.5) K^T, dP = dO V^T: M queries, N keys, K = Dh. The
+    // accumulators are zeroed first: their values came out of the clipped
+    // entries' lane-dependent branch (see clear())
+    zero<32>(s);
+    zero<32>(dp);
+    attn::wg_fence();
+    product_ss<D>(s, base + L::Q, kt);
+    product_ss<D>(dp, base + L::DO, vt);
+    attn::wg_commit();
+    attn::wg_wait<0>();
+    attn::reg_fence<32>(s);
+    attn::reg_fence<32>(dp);
+    cap_scores(s, a.softcap);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int x = 4 * j + 2 * i + c;
+          const int qp = q0 + r0 + 8 * i, kp = t0 + 8 * j + 2 * qd + c;
+          const bool valid = kp < a.Tk && qp < a.Tq && attn::visible(kp, qp, a.causal, a.window);
+          const Entry e = entry(a, valid, s[x], icap, c2[i], mr[i], zr[i], gr[i] * dp[x],
+                                [&] { return exact_score(a, b, h, hk, qp, kp); });
+          if constexpr (CLIPPED) {  // p dp fac into dp, p fac into s; p dp into D's sums
+            part[i] += e.p * e.dp;
+            dp[x] = e.p * e.dp * e.fac;
+            s[x] = e.p * e.fac;
+          } else {
+            s[x] = e.p * (e.dp - dsr[i]) * e.fac;  // dS
+          }
+        }
+    // dq += dS K (clipped: A += (p dp fac) K, B += (p fac) K): M queries,
+    // N = Dh, K keys
+    to_frags(CLIPPED ? dp : s, hi, lo);
+    attn::wg_fence();
+    product_rs<D>(acc, hi, lo, kt);
+    attn::wg_commit();
+    if constexpr (CLIPPED) {
+      attn::wg_wait<0>();
+      to_frags(s, hi, lo);
+      attn::wg_fence();
+      product_rs<D>(bacc, hi, lo, kt);
+      attn::wg_commit();
+    }
+    attn::wg_wait<0>();
+    attn::reg_fence<D / 2>(acc);
+    if constexpr (CLIPPED) attn::reg_fence<D / 2>(bacc);
+    wg_sync(wg);  // every warp of the warpgroup is done with the slot
+    if (tw == 0 && n + STAGES < n_tiles) {
+      async_fence();
+      load(n + STAGES);
+    }
+  }
+
+  // warpgroup 1 hands its sums to warpgroup 0, which adds them and stores
+  constexpr int XN = CLIPPED ? D + 2 : D / 2;
+  cta_sync();  // both warpgroups are done with the ring
+  float* xch = reinterpret_cast<float*>(sm + L::RING) + tw * XN;
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) xch[i] = acc[i];
+    if constexpr (CLIPPED) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) xch[D / 2 + i] = bacc[i];
+      xch[D] = part[0];
+      xch[D + 1] = part[1];
+    }
+  }
+  cta_sync();
+  if (wg == 1) return;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] += xch[i];
+  if constexpr (CLIPPED) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) bacc[i] += xch[D / 2 + i];
+    // D of each row: the two warpgroups' partial sums, then the row's quad
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float d = part[i] + xch[D + i];
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      const int t = q0 + r0 + 8 * i;
+      if (qd == 0 && t < a.Tq) a.dsum[stat_index(a, b, h, t)] = d;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j + 2 * i] = fmaf(-d, bacc[4 * j + 2 * i], acc[4 * j + 2 * i]);
+        acc[4 * j + 2 * i + 1] = fmaf(-d, bacc[4 * j + 2 * i + 1], acc[4 * j + 2 * i + 1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = q0 + r0 + 8 * i;
+    if (t >= a.Tq) continue;
+    __nv_bfloat16* row = a.dq + (((long long)b * a.Tq + t) * a.Hq + h) * a.dh;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      if (8 * j >= a.dh) break;  // the Dh-128 body at Dh 80 / 96: columns past Dh are zeros
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * qd) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * i] * a.scale, acc[4 * j + 2 * i + 1] * a.scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 2. dk and dv of one (b, query head, block of 64 keys). The warpgroups
+// take alternate query tiles, both over all 64 keys; warpgroup 0 adds
+// warpgroup 1's sums at the end.
+// ---------------------------------------------------------------------------
+template <int D>
+struct KvLayout {
+  static constexpr int TILE = Bf16Tile<D>::BYTES;
+  static constexpr int K = 0, V = TILE, RING = 2 * TILE;  // slot s: Q, then dO
+  static constexpr int CS = RING + STAGES * 2 * TILE;      // per warpgroup float4 [64]: c2, D, gate, m
+  static constexpr int ZS = CS + 2 * 64 * 16;               // per warpgroup float [64]: Z
+  static constexpr int BAR = ZS + 2 * 64 * 4;
+  static constexpr int BYTES = BAR + (1 + STAGES) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+                const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                Args a) {
+  using L = KvLayout<D>;
+  using T = Bf16Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* sm = smem_raw + (base - raw);
+  const uint32_t kv_full = base + L::BAR, full0 = kv_full + 8;
+
+  const int k0 = blockIdx.x * BT;
+  const int h = blockIdx.y, b = blockIdx.z, G = a.Hq / a.Hkv, hk = h / G;
+  const int q_lo = a.causal ? k0 : 0;
+  const int q_hi = a.window >= 0 ? min(a.Tq, k0 + BT + a.window - 1) : a.Tq;
+  const int n_tiles = q_lo < q_hi ? (q_hi - q_lo + BT - 1) / BT : 0;
+  if (threadIdx.x == 0) {
+    attn::mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) attn::mbar_init(full0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  auto load = [&](int n) {  // Q and dO of query tile n into its slot
+    const int st = n % STAGES;
+    const uint32_t slot = base + L::RING + st * 2 * L::TILE, fb = full0 + 8 * st;
+    attn::mbar_expect_tx(fb, 2 * L::TILE);
+    for (int c = 0; c < T::NCH; ++c) {
+      attn::tma_load(slot + c * T::CHUNK, &tm_q, fb, c * T::BOX, h, q_lo + n * BT, b);
+      attn::tma_load(slot + L::TILE + c * T::CHUNK, &tm_do, fb, c * T::BOX, h, q_lo + n * BT, b);
+    }
+  };
+  if (threadIdx.x == 0) {  // K and V once, and the ring's first tiles
+    attn::mbar_expect_tx(kv_full, 2 * L::TILE);
+    for (int c = 0; c < T::NCH; ++c) {
+      attn::tma_load(base + L::K + c * T::CHUNK, &tm_k, kv_full, c * T::BOX, hk, k0, b);
+      attn::tma_load(base + L::V + c * T::CHUNK, &tm_v, kv_full, c * T::BOX, hk, k0, b);
+    }
+    for (int n = 0; n < min(STAGES, n_tiles); ++n) load(n);
+  }
+  const int wg = uniform(threadIdx.x / 128);
+  const int ct = threadIdx.x, tw = ct % 128;
+  const int warp = uniform(tw / 32), g = (tw % 32) / 4, qd = tw % 4;
+  float4* cs = reinterpret_cast<float4*>(sm + L::CS) + wg * 64;
+  float* zs = reinterpret_cast<float*>(sm + L::ZS) + wg * 64;
+  const long long bht = (long long)a.B * a.Hq * a.Tq;
+  attn::mbar_wait(kv_full, 0);
+
+  float dk[D / 2], dv[D / 2], s[32], dp[32];
+  zero<D / 2>(dk);
+  zero<D / 2>(dv);
+  uint32_t hi[4][4], lo[4][4];
+  const float icap = inv_cap(a);
+  const int r0 = warp * 16 + g;  // the thread's keys k0 + r0, k0 + r0 + 8
+#pragma unroll 1
+  for (int n = wg; n < n_tiles; n += 2) {
+    const int q0 = q_lo + n * BT, st = n % STAGES;
+    wg_sync(wg);  // every warp of the warpgroup is done with the last tile's rows
+    if (tw < 64) {  // the tile's query rows: c2, D, gate, m, Z
+      const int t = min(q0 + tw, a.Tq - 1);
+      const long long si = stat_index(a, b, h, t);
+      const float m = a.stats[si], zc = a.stats[bht + si];
+      const float gt = a.gate != nullptr ? a.gate[b * a.sgb + (long long)t * a.sgt + h * a.sgh] : 1.f;
+      cs[tw] = make_float4(row_c2(m, zc), a.dsum[si], gt, m);
+      zs[tw] = zc;
+    }
+    attn::mbar_wait(full0 + 8 * st, (n / STAGES) & 1);
+    uint8_t* qt = sm + L::RING + st * 2 * L::TILE;
+    const uint32_t qt_s = base + L::RING + st * 2 * L::TILE, dot_s = qt_s + L::TILE;
+    scale_tile(qt, L::TILE, a.scale, tw, 128);
+    async_fence();
+    wg_sync(wg);
+    // S^T = K (Q Dh^-0.5)^T, dP^T = V dO^T: M keys, N queries, K = Dh
+    zero<32>(s);
+    zero<32>(dp);
+    attn::wg_fence();
+    product_ss<D>(s, base + L::K, qt_s);
+    product_ss<D>(dp, base + L::V, dot_s);
+    attn::wg_commit();
+    attn::wg_wait<0>();
+    attn::reg_fence<32>(s);
+    attn::reg_fence<32>(dp);
+    cap_scores(s, a.softcap);
+    // P~ gate into s (dV's factor), dS into dp, in place
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * j + 2 * qd + c;
+        const float4 cst = cs[col];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int x = 4 * j + 2 * i + c;
+          const int kp = k0 + r0 + 8 * i, qp = q0 + col;
+          const bool valid = kp < a.Tk && qp < a.Tq && attn::visible(kp, qp, a.causal, a.window);
+          const Entry e = entry(a, valid, s[x], icap, cst.x, cst.w, zs[col], cst.z * dp[x],
+                                [&] { return exact_score(a, b, h, hk, qp, kp); });
+          s[x] = e.pt * cst.z;
+          dp[x] = e.p * (e.dp - cst.y) * e.fac;
+        }
+      }
+    // dV += (P~ gate)^T dO, then dK += dS^T (Q Dh^-0.5): M keys, N = Dh,
+    // K queries
+    to_frags(s, hi, lo);
+    attn::wg_fence();
+    product_rs<D>(dv, hi, lo, dot_s);
+    attn::wg_commit();
+    attn::wg_wait<0>();
+    to_frags(dp, hi, lo);
+    attn::wg_fence();
+    product_rs<D>(dk, hi, lo, qt_s);
+    attn::wg_commit();
+    attn::wg_wait<0>();
+    attn::reg_fence<D / 2>(dv);
+    attn::reg_fence<D / 2>(dk);
+    wg_sync(wg);  // every warp of the warpgroup is done with the slot
+    if (tw == 0 && n + STAGES < n_tiles) {
+      async_fence();
+      load(n + STAGES);
+    }
+  }
+
+  // warpgroup 1 hands its dk, dv to warpgroup 0, which adds them and stores:
+  // bf16 at the KV head, or with G > 1 an f32 partial of the query head
+  cta_sync();
+  float* xch = reinterpret_cast<float*>(sm + L::RING) + tw * D;
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) {
+      xch[i] = dk[i];
+      xch[D / 2 + i] = dv[i];
+    }
+  }
+  cta_sync();
+  if (wg == 1) return;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    dk[i] += xch[i];
+    dv[i] += xch[D / 2 + i];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = k0 + r0 + 8 * i;
+    if (t >= a.Tk) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      if (8 * j >= a.dh) break;
+      const int x = 4 * j + 2 * i, d = 8 * j + 2 * qd;
+      if (G > 1) {
+        const long long row = (((long long)b * a.Tk + t) * a.Hq + h) * a.dh;
+        *reinterpret_cast<float2*>(a.part_k + row + d) = make_float2(dk[x], dk[x + 1]);
+        *reinterpret_cast<float2*>(a.part_v + row + d) = make_float2(dv[x], dv[x + 1]);
+      } else {
+        const long long row = (((long long)b * a.Tk + t) * a.Hkv + hk) * a.dh;
+        *reinterpret_cast<__nv_bfloat162*>(a.dk + row + d) = __floats2bfloat162_rn(dk[x], dk[x + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(a.dv + row + d) = __floats2bfloat162_rn(dv[x], dv[x + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const Args& a, long long sv[3], cudaStream_t s) {
+  const long long so[3] = {(long long)a.Tq * a.Hq * a.dh, (long long)a.Hq * a.dh, a.dh};
+  CUtensorMap mq, mdo, mk, mv;
+  cudaError_t err = attn::make_bf16_map<D>(&mq, a.q, a.B, a.Tq, a.Hq, a.dh, a.sqb, a.sqt, a.sqh);
+  if (err == cudaSuccess)
+    err = attn::make_bf16_map<D>(&mdo, a.dout, a.B, a.Tq, a.Hq, a.dh, so[0], so[1], so[2]);
+  if (err == cudaSuccess)
+    err = attn::make_bf16_map<D>(&mk, a.k, a.B, a.Tk, a.Hkv, a.dh, a.skb, a.skt, a.skh);
+  if (err == cudaSuccess)
+    err = attn::make_bf16_map<D>(&mv, a.v, a.B, a.Tk, a.Hkv, a.dh, sv[0], sv[1], sv[2]);
+  if (err != cudaSuccess) return err;
+  err = launch_one(a.clipped ? bwd_dq_kernel<D, true> : bwd_dq_kernel<D, false>,
+                   dim3((a.Tq + BT - 1) / BT, a.Hq, a.B), QLayout<D>::BYTES, s, mq, mdo, mk, mv, a);
+  if (err != cudaSuccess) return err;
+  return launch_one(bwd_dkdv_kernel<D>, dim3((a.Tk + BT - 1) / BT, a.Hq, a.B), KvLayout<D>::BYTES, s,
+                    mq, mdo, mk, mv, a);
+}
+
+}  // namespace bf
 
 }  // namespace
 
-// f32 only. q, k, v, gate: element strides (q, k, v 16-byte aligned rows
-// and strides); u, dout, dq, dk, dv, dgate contiguous; stats: the
-// forward's 2 x (B, Hq, Tq) (m, max(Z, 1e-30)); dsum: B * Hq * Tq floats of
-// scratch; g: B * Tq * Hq * Dh floats of scratch under a gate, else null;
-// part_k, part_v: B * Tk * Hq * Dh floats each of scratch when Hq > Hkv,
-// else null. Returns the cudaError_t of the launches (0 = success).
+// dtype 0: the f32 (3xTF32) route, Dh 32 or 64; dtype 1: the bf16 route, Dh
+// 32, 64, 80, 96 or 128. q, k, v, gate: element strides (16-byte aligned
+// rows and strides); u, dout, dq, dk, dv, dgate contiguous; q, k, v, dout,
+// dq, dk, dv of the dtype, u, gate and dgate f32; stats: the forward's 2 x
+// (B, Hq, Tq) (m, max(Z, 1e-30)); dsum: B * Hq * Tq floats of scratch; g:
+// B * Tq * Hq * Dh floats of scratch on the f32 route under a gate, else
+// null; part_k, part_v: B * Tk * Hq * Dh floats each of scratch when Hq >
+// Hkv, else null. window < 0: none; softcap <= 0: none. Returns the
+// cudaError_t of the launches (0 = success).
 extern "C" int flash_attention_bwd_launch(
-    const float* q, const float* k, const float* v, const float* gate, const float* u,
-    const float* dout, const float* stats, float* dsum, float* g, float* dq, float* dk, float* dv,
+    const void* q, const void* k, const void* v, const float* gate, const float* u,
+    const void* dout, const float* stats, float* dsum, float* g, void* dq, void* dk, void* dv,
     float* dgate, float* part_k, float* part_v, int B, int Tq, int Tk, int Hq, int Hkv, int Dh,
     long long sqb, long long sqt, long long sqh, long long skb, long long skt, long long skh,
     long long svb, long long svt, long long svh, long long sgb, long long sgt, long long sgh,
-    int causal, int clipped, float zg, float gamma, float scale, void* stream) {
+    int causal, int clipped, float zg, float gamma, float scale, int window, float softcap,
+    int dtype, void* stream) {
+  const bool f32 = dtype == 0;
   if (B < 1 || Tq < 1 || Tk < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || B > 65535 ||
-      Hq > 65535 || (gate == nullptr) != (dgate == nullptr) ||
-      (gate == nullptr) != (g == nullptr) || (Hq > Hkv && (part_k == nullptr || part_v == nullptr))) {
+      Hq > 65535 || (dtype != 0 && dtype != 1) || (gate == nullptr) != (dgate == nullptr) ||
+      (f32 && (gate == nullptr) != (g == nullptr)) || (!f32 && g != nullptr) ||
+      (Hq > Hkv && (part_k == nullptr || part_v == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
-  Args a{q, k, v, gate, u, dout, stats, dsum, g, dq, dk, dv, dgate, B, Tq, Tk, Hq, Hkv,
-         sqb, sqt, sqh, skb, skt, skh, sgb, sgt, sgh, causal, clipped, zg, gamma, scale};
   long long sq[3] = {sqb, sqt, sqh}, sk[3] = {skb, skt, skh}, sv[3] = {svb, svt, svh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Dh == 32) return (int)launch<32>(a, sq, sk, sv, part_k, part_v, s);
-  if (Dh == 64) return (int)launch<64>(a, sq, sk, sv, part_k, part_v, s);
-  return (int)cudaErrorInvalidValue;
+  if (f32) {
+    Args a{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+           gate, u, static_cast<const float*>(dout), stats, dsum, g, static_cast<float*>(dq),
+           static_cast<float*>(dk), static_cast<float*>(dv), dgate, B, Tq, Tk, Hq, Hkv,
+           sqb, sqt, sqh, skb, skt, skh, sgb, sgt, sgh, causal, clipped, zg, gamma, scale,
+           window, softcap};
+    if (Dh == 32) return (int)launch<32>(a, sq, sk, sv, part_k, part_v, s);
+    if (Dh == 64) return (int)launch<64>(a, sq, sk, sv, part_k, part_v, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  bf::Args a{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+             static_cast<const __nv_bfloat16*>(v), gate, u,
+             static_cast<const __nv_bfloat16*>(dout), stats, dsum,
+             static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
+             static_cast<__nv_bfloat16*>(dv), dgate, part_k, part_v, B, Tq, Tk, Hq, Hkv, Dh,
+             sqb, sqt, sqh, skb, skt, skh, sgb, sgt, sgh, causal, clipped, zg, gamma, scale,
+             window, softcap};
+  cudaError_t err = cudaErrorInvalidValue;
+  if (Dh == 32) err = bf::launch<32>(a, sv, s);
+  else if (Dh == 64) err = bf::launch<64>(a, sv, s);
+  else if (Dh == 80 || Dh == 96 || Dh == 128) err = bf::launch<128>(a, sv, s);
+  if (err != cudaSuccess || Hq == Hkv) return (int)err;
+  return (int)sum_heads(part_k, part_v, static_cast<uint2*>(dk), static_cast<uint2*>(dv),
+                        (long long)B * Tk * Hkv * Dh / 4, Hq / Hkv, Dh / 4, s);
 }

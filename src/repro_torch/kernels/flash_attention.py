@@ -28,23 +28,28 @@ kernel on the card. ``launches`` counts kernel launches, and nothing else.
 
 The gradient: ``FlashAttention`` (a ``torch.autograd.Function``) runs the
 forward kernel asking it for what the backward reads (``_launch_saved``:
-each row's (m, max(Z, 1e-30)) and, under a gate, the ungated output u
-beside out; without a gate u is out itself) and keeps those beside q, k,
-v and the gate; its backward is the hand-written kernel
-``csrc/flash_attention_bwd.cu`` (wrapper ``_launch_bwd``; its launches in
-``bwd_launches``, one per call), which recomputes S but nothing else of
-the forward. On CUDA, ``mha_flash`` and ``flash_attention`` send inputs
-that need a gradient through it. The backward kernel takes f32 at Dh 32
-and 64, causal or not, GQA, vanilla, clipped and gated, without window,
-softcap or query offset; for anything else the wrappers raise under a
+each row's (m, max(Z, 1e-30)) and the ungated output u in f32: beside
+out under a gate on the f32 route, always on the bf16 one, whose bf16 out
+is too coarse for D_i; on the f32 route without a gate u is out itself)
+and keeps those beside q, k, v and the gate; its backward is the
+hand-written kernel ``csrc/flash_attention_bwd.cu`` (wrapper
+``_launch_bwd``; its launches in ``bwd_launches``, one per call), which
+recomputes S but nothing else of the forward. On CUDA, ``mha_flash`` and
+``flash_attention`` send inputs that need a gradient through it. The
+backward kernel has two routes (``bwd_route``): bf16 at Dh 32, 64, 80,
+96 and 128 (bf16 wgmma, P~ and dS as hi/lo operand pairs) and f32 at Dh
+32 and 64 (3xTF32 wgmma); both causal or not, with or without a local
+window and a logit softcap, GQA, vanilla, clipped and gated. For bf16 at
+Dh 256, f32 at Dh 80 to 256 and a query offset the wrappers raise under a
 gradient (ROADMAP 1.3: the backward's missing routes); nothing switches
 to the plain version. On CPU tensors ``FlashAttention`` runs the same
 algorithm plainly: the forward ``mha_flash_ref`` with the row statistics
 of ``attention_stats_ref``, and backward ``attention_bwd_saved_ref``.
 ``attention_bwd_ref`` is the gradient written out as formulas from q, k,
-v alone, in f32, materializing (Tq, Tk): the yardstick ``chip_smoke.py``
-holds the kernel against. (The reference has no such kernel: it trains
-through its plain attention and lets XLA differentiate it.)
+v alone, in f32 (results in the inputs' dtypes), materializing (Tq, Tk):
+the yardstick ``chip_smoke.py`` holds the kernel against. (The reference
+has no such kernel: it trains through its plain attention and lets XLA
+differentiate it.)
 """
 from __future__ import annotations
 
@@ -64,7 +69,9 @@ bwd_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 80, 96, 128, 256)
-_BWD_HEAD_DIMS = (32, 64)
+# the backward kernel's routes: q/k/v dtype -> (route, head dims)
+_BWD_ROUTES = {torch.bfloat16: ("bf16", (32, 64, 80, 96, 128)),
+               torch.float32: ("3xtf32", (32, 64))}
 _lib: Optional[ctypes.CDLL] = None
 _bwd_lib: Optional[ctypes.CDLL] = None
 
@@ -90,7 +97,8 @@ def _bwd_kernel_lib() -> ctypes.CDLL:
         fn = lib.flash_attention_bwd_launch
         fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
-                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_int]
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _bwd_lib = lib
     return _bwd_lib
@@ -107,13 +115,27 @@ def route(dtype: torch.dtype, dh: int) -> str:
     return "tensor-core" if tc else "cuda-core"
 
 
+def bwd_route(dtype: torch.dtype, dh: int) -> Optional[str]:
+    """The backward kernel's route for q/k/v of ``dtype`` and head dim
+    ``dh``, fixed by the two alone: "bf16" (bf16 at Dh 32, 64, 80, 96 or
+    128: bf16 wgmma products, the f32 factors P~ and dS carried as hi/lo
+    pairs of bf16 operands; Dh 80 and 96 run the Dh-128 body over TMA boxes
+    zero-filled past Dh), "3xtf32" (f32 at Dh 32 or 64: each f32 operand
+    split into TF32 hi + lo), or None where it has none (bf16 at Dh 256,
+    f32 at Dh 80 to 256: ROADMAP 1.3)."""
+    name, dhs = _BWD_ROUTES.get(dtype, (None, ()))
+    return name if dh in dhs else None
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   gate_pi: Optional[torch.Tensor] = None, *, causal: bool = True,
                   window: Optional[int] = None, softcap: Optional[float] = None,
-                  gamma: float = 0.0, zeta: float = 1.0, q_offset=0) -> torch.Tensor:
+                  gamma: float = 0.0, zeta: float = 1.0, q_offset=0,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The plain version: (BH, Tq, Dh) x (BH, Tk, Dh) -> (BH, Tq, Dh),
     materializing the (Tq, Tk) scores in f32. ``q_offset`` is an int or a
-    per-row (BH,) tensor."""
+    per-row (BH,) tensor. The output has q's dtype, or ``out_dtype`` (the
+    f32 ungated output u a bf16 forward saves for the backward)."""
     bh, tq, dh = q.shape
     tk = k.shape[1]
     dev = q.device
@@ -138,35 +160,64 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("bqk,bkd->bqd", p, v.float())
     if gate_pi is not None:
         out = out * gate_pi.float()[..., None]
-    return out.to(q.dtype)
+    return out.to(out_dtype or q.dtype)
+
+
+def _scores(q, k, causal, window=None, softcap=None):
+    """(B, Hkv, G, Tq, Tk) f32 scores (q Dh^-0.5 rounded in q's dtype, as
+    the forward), softcapped and then masked (hidden entries at NEG_INF);
+    the (Tq, Tk) mask; and t = s_c / cap of the softcapped scores (None
+    without a softcap), whose 1 - t^2 is the softcap's derivative."""
+    b, tq, hq, dh = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    dev = q.device
+    qs = (q * dh ** -0.5).float().reshape(b, tq, hkv, hq // hkv, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qs, k.float())
+    t = None
+    if softcap is not None:
+        t = torch.tanh(s / torch.full((), softcap, device=dev))
+        s = softcap * t
+    q_pos = torch.arange(tq, device=dev)[:, None]
+    k_pos = torch.arange(tk, device=dev)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window is not None:
+        mask = mask & (k_pos > q_pos - window)
+    return torch.where(mask, s, NEG_INF), mask, t
+
+
+def _softcap_grad(ds, t):
+    """ds of the raw scores from ds of the softcapped ones: s_c = c tanh(s
+    / c) has the slope 1 - (s_c / c)^2 = 1 - t^2."""
+    return ds if t is None else ds * (1.0 - t * t)
 
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       gate_pi: Optional[torch.Tensor], dout: torch.Tensor, *,
-                      causal: bool = True, gamma: float = 0.0, zeta: float = 1.0):
-    """The plain backward of ``mha_flash`` (no window, softcap or query
-    offset), as formulas in f32, materializing (Tq, Tk): q (B, Tq, Hq, Dh),
-    k/v (B, Tk, Hkv, Dh), gate (B, Tq, Hq) or None, dout like q. Returns
-    (dq, dk, dv, dgate) in the inputs' dtypes (dgate None without a gate).
+                      causal: bool = True, window: Optional[int] = None,
+                      softcap: Optional[float] = None, gamma: float = 0.0,
+                      zeta: float = 1.0):
+    """The plain backward of ``mha_flash`` (no query offset), as formulas
+    in f32, materializing (Tq, Tk): q (B, Tq, Hq, Dh), k/v (B, Tk, Hkv,
+    Dh), gate (B, Tq, Hq) or None, dout like q. Returns (dq, dk, dv, dgate)
+    in the inputs' dtypes (dgate None without a gate).
 
-    With s = (q Dh^-0.5) k^T (q scaled in its dtype, as the forward), p the
-    masked softmax, P~ = p or, clipped, clip((zeta - gamma) p + gamma, 0,
-    1) masked, u = P~ v and g = gate dO: dgate = dO . u; dv = P~^T g;
-    dP~ = g v^T; dp = dP~, or (zeta - gamma) 1[unclipped] dP~; ds = p (dp -
-    D) with D = rowsum(p dp); dq = Dh^-0.5 ds k; dk = ds^T (q Dh^-0.5).
-    GQA sums dk and dv over each KV head's query heads."""
+    With s = (q Dh^-0.5) k^T (q scaled in its dtype, as the forward), s_c =
+    c tanh(s / c) under a softcap c (else s), p the softmax of s_c over the
+    causal and window mask (hidden entries p = 0), P~ = p or, clipped,
+    clip((zeta - gamma) p + gamma, 0, 1) masked, u = P~ v and g = gate dO:
+    dgate = dO . u; dv = P~^T g; dP~ = g v^T; dp = dP~, or (zeta - gamma)
+    1[unclipped] dP~; ds_c = p (dp - D) with D = rowsum(p dp); ds = ds_c (1
+    - (s_c / c)^2); dq = Dh^-0.5 ds k; dk = ds^T (q Dh^-0.5). GQA sums dk
+    and dv over each KV head's query heads."""
     b, tq, hq, dh = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     scale = dh ** -0.5
     qs = (q * scale).float().reshape(b, tq, hkv, g, dh)
     kf, vf = k.float(), v.float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qs, kf)
-    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = torch.arange(tk, device=q.device)[None, :] <= \
-            torch.arange(tq, device=q.device)[:, None]
-    s = torch.where(mask, s, NEG_INF)
+    s, mask, t = _scores(q, k, causal, window, softcap)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     p = torch.where(mask, p, 0.0)
     p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
@@ -181,7 +232,7 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         pt = torch.where(mask, torch.clamp(x, 0.0, 1.0), 0.0)
         dp = torch.where(mask & (x > 0) & (x < 1), (zeta - gamma) * dpt, 0.0)
     dsum = (p * dp).sum(-1, keepdim=True)
-    ds = p * (dp - dsum)
+    ds = _softcap_grad(p * (dp - dsum), t)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", pt, gd)
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qs)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
@@ -192,28 +243,15 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (dq.reshape(b, tq, hq, dh).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dgate)
 
 
-def _scores(q, k, causal):
-    """(B, Hkv, G, Tq, Tk) f32 scores (q Dh^-0.5 rounded in q's dtype, as
-    the forward) with hidden entries at NEG_INF, and the (Tq, Tk) mask."""
-    b, tq, hq, dh = q.shape
-    tk, hkv = k.shape[1], k.shape[2]
-    qs = (q * dh ** -0.5).float().reshape(b, tq, hkv, hq // hkv, dh)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qs, k.float())
-    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = torch.arange(tk, device=q.device)[None, :] <= \
-            torch.arange(tq, device=q.device)[:, None]
-    return torch.where(mask, s, NEG_INF), mask
-
-
-def attention_stats_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True
+def attention_stats_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None, softcap: Optional[float] = None
                         ) -> torch.Tensor:
     """The plain version of the row statistics the forward kernel saves for
-    the backward: (2, B, Hq, Tq) f32, m = the row's largest visible score
-    and max(Z, 1e-30), Z = sum over visible keys of exp(s - m); q (B, Tq,
-    Hq, Dh), k (B, Tk, Hkv, Dh), no window, softcap or query offset."""
+    the backward: (2, B, Hq, Tq) f32, m = the row's largest visible
+    (softcapped) score and max(Z, 1e-30), Z = sum over visible keys of
+    exp(s - m); q (B, Tq, Hq, Dh), k (B, Tk, Hkv, Dh), no query offset."""
     b, tq, hq, _ = q.shape
-    s, mask = _scores(q, k, causal)
+    s, mask, _ = _scores(q, k, causal, window, softcap)
     m = s.amax(-1, keepdim=True)
     z = torch.where(mask, torch.exp(s - m), 0.0).sum(-1)
     return torch.stack([m[..., 0], torch.clamp(z, min=1e-30)]).reshape(2, b, hq, tq)
@@ -222,21 +260,22 @@ def attention_stats_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True
 def attention_bwd_saved_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             gate_pi: Optional[torch.Tensor], u: torch.Tensor,
                             dout: torch.Tensor, stats: torch.Tensor, *, causal: bool = True,
+                            window: Optional[int] = None, softcap: Optional[float] = None,
                             gamma: float = 0.0, zeta: float = 1.0):
     """The backward kernel's algorithm, plainly, in f32, materializing (Tq,
     Tk): from the forward's row statistics ``stats`` ((2, B, Hq, Tq): m,
-    max(Z, 1e-30)) and its ungated output ``u`` (B, Tq, Hq, Dh) (out itself
-    without a gate) beside q, k, v, gate and dout as ``attention_bwd_ref``.
-    p = exp(s - m) / Z from the saved (m, Z); D = rowsum(p dp) is gate (dO
-    . u) (vanilla, gated), or, clipped, the sum over S and dP~ = g v^T, and
-    then dq = Dh^-0.5 (A - D B) with A = (p dp) k and B = p k, as the
-    kernel sums them in one walk; dgate = dO . u. Returns (dq, dk, dv,
-    dgate) as ``attention_bwd_ref``."""
+    max(Z, 1e-30)) and its ungated output ``u`` (B, Tq, Hq, Dh) beside q,
+    k, v, gate and dout as ``attention_bwd_ref``. p = exp(s_c - m) / Z from
+    the saved (m, Z); D = rowsum(p dp) is gate (dO . u) (vanilla, gated),
+    or, clipped, the sum over S and dP~ = g v^T, and then dq = Dh^-0.5 (A -
+    D B) with A = (p dp f) k and B = (p f) k, f = 1 - (s_c / c)^2 the
+    softcap's slope (1 without one), as the kernel sums them in one walk;
+    dgate = dO . u. Returns (dq, dk, dv, dgate) as ``attention_bwd_ref``."""
     b, tq, hq, dh = q.shape
     hkv = k.shape[2]
     g = hq // hkv
     scale = dh ** -0.5
-    s, mask = _scores(q, k, causal)
+    s, mask, t = _scores(q, k, causal, window, softcap)
     st = stats.float().reshape(2, b, hkv, g, tq)[..., None]
     p = torch.where(mask, torch.exp(s - st[0]) / st[1], 0.0)
     do = dout.float().reshape(b, tq, hkv, g, dh)
@@ -253,15 +292,15 @@ def attention_bwd_saved_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         pt = torch.where(mask, torch.clamp(x, 0.0, 1.0), 0.0)
         dp = torch.where(mask & (x > 0) & (x < 1), (zeta - gamma) * dpt, 0.0)
         dsum = (p * dp).sum(-1, keepdim=True)
-    ds = p * (dp - dsum)
+    ds = _softcap_grad(p * (dp - dsum), t)
     qs = (q * scale).float().reshape(b, tq, hkv, g, dh)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", pt, gd)
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qs)
     if gamma == 0.0 and zeta == 1.0:
         dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
     else:
-        a_ = torch.einsum("bhgqk,bkhd->bqhgd", p * dp, k.float())
-        b_ = torch.einsum("bhgqk,bkhd->bqhgd", p, k.float())
+        a_ = torch.einsum("bhgqk,bkhd->bqhgd", _softcap_grad(p * dp, t), k.float())
+        b_ = torch.einsum("bhgqk,bkhd->bqhgd", _softcap_grad(p, t), k.float())
         dq = (a_ - dsum[..., 0].permute(0, 3, 1, 2)[..., None] * b_) * scale
     dgate = None if gate_pi is None else du.reshape(b, tq, hq).to(gate_pi.dtype)
     return (dq.reshape(b, tq, hq, dh).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dgate)
@@ -271,63 +310,73 @@ def _needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
 
 
-def _check_bwd(q, k, window, softcap, q_offset) -> None:
+def _check_bwd(q, k, q_offset) -> None:
     """Raise for what the backward kernel does not take (ROADMAP 1.3)."""
+    dh = q.shape[-1]
     why = []
-    if q.dtype != torch.float32 or k.dtype != torch.float32:
-        why.append(f"dtype {q.dtype}")
-    if q.shape[-1] not in _BWD_HEAD_DIMS:
-        why.append(f"head dim {q.shape[-1]}")
-    if window is not None:
-        why.append("a window")
-    if softcap is not None:
-        why.append("a softcap")
+    if k.dtype != q.dtype:
+        why.append(f"q {q.dtype} with k {k.dtype}")
+    elif bwd_route(q.dtype, dh) is None:
+        why.append(f"{q.dtype} at Dh {dh}")
     if isinstance(q_offset, torch.Tensor) or q_offset != 0:
         why.append("a query offset")
     if why:
+        takes = "; ".join(f"{dt} at Dh {dhs}" for dt, (_, dhs) in _BWD_ROUTES.items())
         raise NotImplementedError(
-            f"the flash-attention backward kernel takes f32 at Dh {_BWD_HEAD_DIMS} "
-            f"without window, softcap or query offset, not {', '.join(why)} "
+            f"the flash-attention backward kernel takes {takes}, with or without "
+            f"window and softcap, and no query offset; not {', '.join(why)} "
             f"(ROADMAP 1.3: the backward's missing routes)")
 
 
-def _launch_saved(q, k, v, gate_pi, causal, gamma, zeta):
-    """The forward kernel (f32, CUDA-core route) writing what the backward
-    reads: returns (out, u, stats), stats the (2, B, Hq, Tq) rows' (m,
-    max(Z, 1e-30)), u the ungated output (out itself without a gate)."""
-    if q.dtype != torch.float32:
-        raise TypeError("the forward writes row statistics for float32 inputs only")
+def _launch_saved(q, k, v, gate_pi, causal, window, softcap, gamma, zeta):
+    """The forward kernel writing what the backward reads: returns (out, u,
+    stats), stats the (2, B, Hq, Tq) rows' (m, max(Z, 1e-30)), u the
+    ungated output in f32. f32 inputs (CUDA-core route): u is out itself
+    without a gate; bf16 inputs (tensor-core route): u is always an f32
+    buffer of its own, since the bf16 out is too coarse for D_i = gate_i
+    (dO_i . u_i), which enters every dS of the row."""
     b, tq, hq, dh = q.shape
-    stats = torch.empty((2, b, hq, tq), dtype=torch.float32, device=q.device)
-    u = None if gate_pi is None else torch.empty((b, tq, hq, dh), dtype=torch.float32,
-                                                 device=q.device)
-    out = _launch(q, k, v, gate_pi, 0, causal=causal, window=None, softcap=None, gamma=gamma,
-                  zeta=zeta, stats=stats, u=u)
+    if bwd_route(q.dtype, dh) is None:
+        raise TypeError(f"the forward saves statistics for the backward's routes only, "
+                        f"not {q.dtype} at Dh {dh}")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    stats = torch.empty((2, b, hq, tq), **f32)
+    u = None if gate_pi is None and q.dtype == torch.float32 else \
+        torch.empty((b, tq, hq, dh), **f32)
+    out = _launch(q, k, v, gate_pi, 0, causal=causal, window=window, softcap=softcap,
+                  gamma=gamma, zeta=zeta, stats=stats, u=u)
     return out, (out if u is None else u), stats
 
 
-def _launch_bwd(q, k, v, gate_pi, u, dout, stats, causal: bool, gamma: float,
-                zeta: float):
-    """Launch the backward kernel over model-layout f32 tensors (q, k, v
-    views with the forward's stride rules; u and stats from
-    ``_launch_saved``); returns (dq, dk, dv, dgate) as new contiguous
-    tensors (dgate None without a gate)."""
+def _launch_bwd(q, k, v, gate_pi, u, dout, stats, causal: bool, window: Optional[int],
+                softcap: Optional[float], gamma: float, zeta: float):
+    """Launch the backward kernel over model-layout tensors: q, k, v, dout
+    f32 or bf16 (views with the forward's stride rules), u (f32; out itself
+    on the f32 route without a gate) and stats from ``_launch_saved``;
+    returns (dq, dk, dv, dgate) as new contiguous tensors, dq, dk, dv in
+    the inputs' dtype and dgate in the gate's (None without a gate)."""
     b, tq, hq, dh = q.shape
     tk, hkv = k.shape[1], k.shape[2]
-    if any(t.dtype != torch.float32 for t in (q, k, v, u, dout, stats)):
-        raise TypeError("the backward kernel takes float32 q, k, v, u, dout and stats")
-    if dh not in _BWD_HEAD_DIMS or k.shape != (b, tk, hkv, dh) or v.shape != k.shape \
+    rt = bwd_route(q.dtype, dh)
+    if rt is None or any(t.dtype != q.dtype for t in (k, v, dout)):
+        raise TypeError(f"the backward kernel takes q, k, v, dout of one dtype with a route "
+                        f"({_BWD_ROUTES}), got {q.dtype}/{k.dtype}/{v.dtype}/{dout.dtype} "
+                        f"at Dh {dh}")
+    if u.dtype != torch.float32 or stats.dtype != torch.float32:
+        raise TypeError("the backward kernel takes float32 u and stats")
+    if k.shape != (b, tk, hkv, dh) or v.shape != k.shape \
             or hq % hkv or dout.shape != q.shape or u.shape != q.shape \
             or stats.shape != (2, b, hq, tq):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
                          f"u {tuple(u.shape)}, dout {tuple(dout.shape)}, stats "
-                         f"{tuple(stats.shape)}: (B, T, H, Dh) with Dh in {_BWD_HEAD_DIMS}, "
-                         f"H_q a multiple of H_kv, stats (2, B, H_q, T_q)")
+                         f"{tuple(stats.shape)}: (B, T, H, Dh), H_q a multiple of H_kv, "
+                         f"stats (2, B, H_q, T_q)")
     dout, u, stats = dout.contiguous(), u.contiguous(), stats.contiguous()
     for name, t in (("q", q), ("k", k), ("v", v), ("u", u), ("dout", dout), ("stats", stats)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if name != "stats" and (t.stride(-1) != 1 or any(st % 4 for st in t.stride()[:-1])
+        vec = 16 // t.element_size()
+        if name != "stats" and (t.stride(-1) != 1 or any(st % vec for st in t.stride()[:-1])
                                 or t.data_ptr() % 16):
             raise ValueError(f"{name} needs a unit last stride and 16-byte aligned rows")
     g = None
@@ -336,14 +385,15 @@ def _launch_bwd(q, k, v, gate_pi, u, dout, stats, causal: bool, gamma: float,
             raise ValueError(f"gate_pi must be {(b, tq, hq)}, got {tuple(gate_pi.shape)}")
         g = gate_pi.to(device=q.device, dtype=torch.float32)
     f32 = dict(dtype=torch.float32, device=q.device)
-    dq = torch.empty((b, tq, hq, dh), **f32)
-    dk = torch.empty((b, tk, hkv, dh), **f32)
-    dv = torch.empty((b, tk, hkv, dh), **f32)
+    out = dict(dtype=q.dtype, device=q.device)
+    dq = torch.empty((b, tq, hq, dh), **out)
+    dk = torch.empty((b, tk, hkv, dh), **out)
+    dv = torch.empty((b, tk, hkv, dh), **out)
     dg = None if g is None else torch.empty((b, tq, hq), **f32)
-    # scratch: D of every row; gate dO under a gate; per-query-head dk, dv
-    # partials under GQA
+    # scratch: D of every row; on the 3xTF32 route gate dO under a gate;
+    # per-query-head f32 dk, dv partials under GQA
     dsum = torch.empty((b, hq, tq), **f32)
-    gbuf = None if g is None else torch.empty((b, tq, hq, dh), **f32)
+    gbuf = None if g is None or rt != "3xtf32" else torch.empty((b, tq, hq, dh), **f32)
     parts = [None, None] if hq == hkv else [torch.empty((b, tk, hq, dh), **f32)
                                             for _ in range(2)]
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -357,12 +407,13 @@ def _launch_bwd(q, k, v, gate_pi, u, dout, stats, causal: bool, gamma: float,
             dv.data_ptr(), ptr(dg), ptr(parts[0]), ptr(parts[1]),
             b, tq, tk, hq, hkv, dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *gs,
             int(causal), int(clipped), float(zeta - gamma), float(gamma), float(dh ** -0.5),
-            stream)
+            -1 if window is None else int(window), 0.0 if softcap is None else float(softcap),
+            _DTYPE_CODE[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: cudaError {err}")
     global bwd_launches
     bwd_launches += 1
-    return dq, dk, dv, dg
+    return dq, dk, dv, None if dg is None else dg.to(gate_pi.dtype)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -370,24 +421,25 @@ class FlashAttention(torch.autograd.Function):
     on CUDA tensors the forward kernel with the row statistics and u
     (``_launch_saved``; out is bitwise the call ``mha_flash`` makes without
     a gradient), on CPU ones ``mha_flash_ref`` with ``attention_stats_ref``
-    (and, under a gate, ``mha_flash_ref`` without it for u). It keeps q, k,
-    v, the gate, u (out itself without a gate: the tensor the o-projection
-    keeps alive anyway; under a gate one more (B, Tq, Hq, Dh) buffer) and
-    the statistics. Backward: ``_launch_bwd`` on CUDA tensors,
+    (and u: ``mha_flash_ref`` without the gate, in f32). It keeps q, k, v,
+    the gate, u (on the f32 route without a gate out itself, the tensor the
+    o-projection keeps alive anyway; else one more (B, Tq, Hq, Dh) f32
+    buffer) and the statistics. Backward: ``_launch_bwd`` on CUDA tensors,
     ``attention_bwd_saved_ref`` on CPU ones; dout is made contiguous
     first. Raises for what the backward kernel does not take
     (``_check_bwd``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, gate_pi, causal, window, softcap, gamma, zeta, q_offset):
-        _check_bwd(q, k, window, softcap, q_offset)
-        kw = dict(causal=causal, gamma=gamma, zeta=zeta)
+        _check_bwd(q, k, q_offset)
+        kw = dict(causal=causal, window=window, softcap=softcap, gamma=gamma, zeta=zeta)
         if q.is_cuda:
             out, u, stats = _launch_saved(q, k, v, gate_pi, **kw)
         else:
             out = mha_flash_ref(q, k, v, gate_pi, **kw)
-            u = out if gate_pi is None else mha_flash_ref(q, k, v, None, **kw)
-            stats = attention_stats_ref(q, k, causal=causal)
+            u = out if gate_pi is None and q.dtype == torch.float32 else \
+                mha_flash_ref(q, k, v, None, out_dtype=torch.float32, **kw)
+            stats = attention_stats_ref(q, k, causal=causal, window=window, softcap=softcap)
         ctx.save_for_backward(q, k, v, gate_pi, u, stats)
         ctx.kw = kw
         return out
@@ -411,7 +463,8 @@ def _launch(q, k, v, gate_pi, q_offset, causal: bool, window: Optional[int],
     """Launch the kernel over model-layout (B, T, H, Dh) tensors (views of
     any strides with a unit last stride); returns a new (B, Tq, Hq, Dh).
     ``stats`` ((2, B, Hq, Tq) f32) and ``u`` ((B, Tq, Hq, Dh) f32, under a
-    gate), contiguous, receive what the backward reads (f32 only)."""
+    gate on the f32 route, always on the bf16 one), contiguous, receive
+    what the backward reads (the backward's routes only)."""
     if _needs_grad(q, k, v, gate_pi):
         raise RuntimeError("_launch records no gradient: inputs that need one go "
                            "through mha_flash / FlashAttention")
@@ -508,7 +561,8 @@ def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def mha_flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   gate_pi: Optional[torch.Tensor] = None, *, causal: bool = True,
                   window: Optional[int] = None, softcap: Optional[float] = None,
-                  gamma: float = 0.0, zeta: float = 1.0, q_offset=0) -> torch.Tensor:
+                  gamma: float = 0.0, zeta: float = 1.0, q_offset=0,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The plain version of ``mha_flash`` on any device: K/V repeated per
     query head and ``attention_ref`` over the flattened (B*H, T, Dh)
     layout, as the reference adapter does."""
@@ -524,5 +578,5 @@ def mha_flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if isinstance(q_offset, torch.Tensor):
         q_offset = torch.broadcast_to(q_offset.reshape(-1), (b,)).repeat_interleave(h)
     out = attention_ref(qf, kf, vf, gf, causal=causal, window=window, softcap=softcap,
-                        gamma=gamma, zeta=zeta, q_offset=q_offset)
+                        gamma=gamma, zeta=zeta, q_offset=q_offset, out_dtype=out_dtype)
     return out.reshape(b, h, t, d).transpose(1, 2)

@@ -11,7 +11,14 @@ inputs as they are. The f32 operations run in the reference's order
 (``1 - b ** step`` in f32, ``m / bc1``, ``sqrt(v / bc2) + eps``, ``+ wd *
 mask * p``, ``p - lr * delta``), and every division by a computed value
 divides by a tensor on the params' device (CUDA would turn a python-float
-divisor into a multiplication by its reciprocal).
+divisor into a multiplication by its reciprocal). A leaf of more than
+``UPDATE_SLICE`` elements is updated a slice at a time into its new
+tensors: the update is elementwise, so the result is bitwise the whole
+leaf's, while the expression's f32 temporaries stay one slice large (a
+bf16 embedding of 256000 x 4608 has f32 temporaries of 4.7 GB each, and
+training gemma2-27b's at two layers on one 80 GB card ran out of memory
+without this); meta tensors and DTensors update whole. The update norm
+is summed a leaf at a time for the same reason.
 """
 from __future__ import annotations
 
@@ -56,6 +63,30 @@ def _decay_mask(params: Params, cfg: AdamWConfig) -> Params:
 
 def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), x, dtype=torch.float32, device=like.device)
+
+
+# elements of the slices a large leaf is updated in
+UPDATE_SLICE = 1 << 26
+
+
+def _sliceable(t: torch.Tensor) -> bool:
+    """A leaf that holds memory and can be viewed flat: a plain, contiguous
+    tensor. The dry-run's meta tensors and DTensors hold none and update
+    whole, so that its counter sees the reference's ops."""
+    return type(t) is torch.Tensor and not t.is_meta and t.is_contiguous()
+
+
+def _leaf_update(p, g, m, v, b1, b2, bc1, bc2, eps, lr, wd):
+    """(new p, new m, new v) of one leaf (or slice of one)."""
+    g32 = g.float()
+    m_new = b1 * m + (1 - b1) * g32
+    v_new = b2 * v + (1 - b2) * torch.square(g32)
+    mh = m_new / bc1
+    vh = v_new / bc2
+    delta = mh / (torch.sqrt(vh) + eps)
+    delta = delta + wd * p.float()
+    p_new = p.float() - lr * delta
+    return p_new.to(p.dtype), m_new, v_new
 
 
 def global_norm(tree: Params) -> torch.Tensor:
@@ -105,20 +136,24 @@ def adamw_update(
     flat_g, flat_m, flat_v = (dict(flatten_params(t)) for t in (grads, state.mu, state.nu))
     new: Dict[str, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
     for path, p in flatten_params(params):
-        g32 = flat_g[path].float()
-        m_new = b1 * flat_m[path] + (1 - b1) * g32
-        v_new = b2 * flat_v[path] + (1 - b2) * torch.square(g32)
-        mh = m_new / bc1
-        vh = v_new / bc2
-        delta = mh / (torch.sqrt(vh) + eps)
-        delta = delta + cfg.weight_decay * mask[path] * p.float()
-        p_new = p.float() - lr * delta
-        new[path] = (p_new.to(p.dtype), m_new, v_new)
+        ins = (p, flat_g[path], flat_m[path], flat_v[path])
+        args = (b1, b2, bc1, bc2, eps, lr, cfg.weight_decay * mask[path])
+        if p.numel() <= UPDATE_SLICE or not all(_sliceable(t) for t in ins):
+            new[path] = _leaf_update(*ins, *args)
+            continue
+        out = (torch.empty_like(p), torch.empty_like(ins[2]), torch.empty_like(ins[3]))
+        flat_in, flat_out = [t.view(-1) for t in ins], [t.view(-1) for t in out]
+        for i in range(0, p.numel(), UPDATE_SLICE):
+            part = _leaf_update(*(t[i:i + UPDATE_SLICE] for t in flat_in), *args)
+            for o, r in zip(flat_out, part):
+                o[i:i + UPDATE_SLICE].copy_(r)
+        new[path] = out
 
     def pick(i):
         return tree_map_with_path(lambda path, _: new[path][i], params)
 
-    new_params = pick(0)
-    metrics["update_norm"] = global_norm(
-        tree_map(lambda a, b: a.float() - b.float(), new_params, params))
-    return new_params, AdamWState(step, pick(1), pick(2)), metrics
+    # global_norm of the update, one leaf's difference at a time
+    metrics["update_norm"] = torch.sqrt(sum(
+        torch.sum(torch.square(new[path][0].float() - p.float()))
+        for path, p in flatten_params(params)))
+    return pick(0), AdamWState(step, pick(1), pick(2)), metrics

@@ -221,6 +221,29 @@ def test_adamw_update_matches_reference(decay_norm_scales, clip):
             np.testing.assert_allclose(float(tm[name]), float(jm[name]), rtol=OPT_RTOL)
 
 
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+def test_adamw_sliced_update_is_the_whole_leafs(dtype, monkeypatch):
+    """A leaf above UPDATE_SLICE elements is updated a slice at a time:
+    bitwise the whole leaf's update (params, moments and metrics), here
+    with slices of 5, which divide no leaf."""
+    to = lambda t: jax.tree_util.tree_map(lambda a: torch.from_numpy(a).to(dtype), t)  # noqa: E731
+    cfg = topt.AdamWConfig(lr=1e-2, weight_decay=0.1)
+    runs = []
+    for slice_ in (topt.adamw.UPDATE_SLICE, 5):
+        monkeypatch.setattr(topt.adamw, "UPDATE_SLICE", slice_)
+        params, state = to(_rand_tree(0)), topt.adamw_init(to(_rand_tree(0)))
+        for step in range(2):
+            params, state, metrics = topt.adamw_update(to(_rand_tree(20 + step)), state,
+                                                       params, cfg)
+        runs.append((params, state, metrics))
+    (pa, sa, ma), (pb, sb, mb) = runs
+    for ta, tb in ((pa, pb), (sa.mu, sb.mu), (sa.nu, sb.nu)):
+        flat_b = dict(flatten_params(tb))
+        for path, x in flatten_params(ta):
+            assert torch.equal(x, flat_b[path]), path
+    assert all(torch.equal(ma[k], mb[k]) for k in ma)
+
+
 def test_global_norm_and_clip_match_reference():
     g = _rand_tree(3)
     jg = jax.tree_util.tree_map(jnp.asarray, g)
