@@ -12,10 +12,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      reports spill stores in an attention instantiation that bf16 data at
      Dh 128 runs (the flash one also runs bf16 Dh 80 and 96), in a Dh-32
      flash instantiation (both routes), in an f32 Dh-80/96 flash
-     instantiation, or in any int8_matmul instantiation, and prints ptxas's
-     notes that it serialized wgmma (C7515, C7520, ...) in int8_matmul;
-     it fails on any spill store in an rg_lru entry (both routes) or in
-     any of the 17 flash_attention_bwd entries (both routes).
+     instantiation, in a bf16 Dh-256 (tensor-core) flash instantiation, or
+     in any int8_matmul instantiation, and prints ptxas's notes that it
+     serialized wgmma (C7515, C7520, ...) in int8_matmul; it fails on any
+     spill store in the 6 rg_lru entries (both routes and the reverse scan)
+     or in any of the 20 flash_attention_bwd entries (both routes).
   3. Kernel against plain version, at qwen3-14b's attention shapes (Hkv 8,
      G 5, Dh 128, block 16; 8 rows at ragged positions up to 1024 with
      scrambled tables and -1 tails): decode Tq = 1 and a prefill chunk
@@ -93,7 +94,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      phase 8's: granite-moe bf16 (1, 2048, 16/8, 64) and f32 (2, 1024, 16/8,
      64), its training read, and qwen2-moe bf16 (1, 2048, 16/16, 128), all
      causal, each also timed (MOE_FLASH_TIMED); each
-     line names the route (bf16 Dh 32/64/80/96/128: tensor cores). Then device times at (1, 2048) bf16 of the kernel, its
+     line names the route (bf16 at every Dh: tensor cores). Then device
+     times at (1, 2048) bf16 of the kernel, its
      plain version and ``F.scaled_dot_product_attention(is_causal=True,
      enable_gqa=True)`` (vanilla only; a yardstick the port never calls),
      beside the bound (flops of the causally visible pairs / 989 TFLOP/s,
@@ -107,13 +109,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      route the f32 paper models run) and bf16, vanilla and clipped: the
      kernel, its plain version, SDPA (vanilla) and the bound; and, bf16,
      at hubert-xlarge's and phi-3-vision's reads (MODEL_FLASH_TIMED).
-     Then bf16 Dh 256 (``phase_flash_dh256``, the CUDA-core route
-     recurrentgemma-9b's evaluation takes): vanilla, clipped and gated,
-     causal with window 2048 at (1, 2048, 16/1, 256) and window 300 at a
-     ragged T 1000, against the plain version at the bf16 tolerance; the
-     kernel, its plain version and SDPA timed at (1, 2048, 16/1, 256)
-     beside the bound; the Dh-256 instantiations' ptxas spill stores
-     printed (not gated).
+     Then bf16 Dh 256 (``phase_flash_dh256``: the tensor-core route, a
+     CTA a half of the columns, which recurrentgemma-9b's evaluation and
+     training take): vanilla, clipped and gated, causal with window 2048 at
+     (1, 2048, 16/1, 256) and window 300 at a ragged T 1000, against the
+     plain version at the bf16 tolerance; the kernel, its plain version and
+     SDPA timed at (1, 2048, 16/1, 256) beside the bound and the CUDA-core
+     route's earlier time; the Dh-256 instantiations' ptxas registers and
+     spill stores printed.
   3d. The fake-quant kernel against its plain version, bitwise, at the
      evaluation's shapes (MLP activation (2048, 17408) bf16, residual
      (2048, 5120) f32, gate/up weight (5120, 17408) bf16) and ragged n
@@ -140,7 +143,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      7 equals T 16). Then device times at (8, 256, 4096), (1, 4096, 4096),
      (1, 2048, 4096) and (8, 32, 4096) of the kernel and its plain version
      beside the bound (12 B T D bytes / 3.35 TB/s); no single PyTorch call
-     computes a linear recurrence, so there is no library time.
+     computes a linear recurrence, so there is no library time. Then the
+     reverse scan (the gradient ``RGLRU`` takes on the card; no TPU
+     counterpart): the kernel bitwise against ``rglru_bwd_ref`` at every
+     shape above, with a zero state and with h0, and the gradients of a
+     state carried across two calls (T 9 then 7) bitwise those of one call
+     (T 16); device times at the same four shapes beside the bound (20 B T
+     D bytes / 3.35 TB/s).
   4. Serving: ``ContinuousBatcher(paged=True)`` at qwen3-14b's full width
      and QWEN_LAYERS (20 of its 40) layers in bfloat16 with random weights
      from a seed: 12 greedy requests (prompts of 32..512 tokens from a
@@ -245,8 +254,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      3000 (chunked past the window): 26 RG-LRU launches on every forward of
      T > 1, none at T 1, no flash or paged launch, and gate (a) with the
      decode one position early and the recurrent state h lost as faults.
-  4c. recurrentgemma-9b served in W8A8 at full width and all 38 layers
-     (``phase_rg_w8a8``): ``ContinuousBatcher(paged=True,
+  4c. recurrentgemma-9b served in W8A8 at full width and RG_CUT_LAYERS
+     (20) of its 38 layers (``phase_rg_w8a8``): ``ContinuousBatcher(paged=True,
      qconfig=QConfig())``, clipped softmax (alpha 4), batch 8, max_len
      4096, budget 256, phase 4b's 10 prompts (three past 2304 tokens), 16
      new tokens each, through ``phase_recurrent_serving`` (phase 9c's
@@ -286,12 +295,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the fp function unchanged): W8A8 against fp logits of one cache-free
      8 x 512 forward; the injected model must read above the clean one by
      OUTLIER_MARGIN.
-  5c. recurrentgemma-9b's evaluation (``rg_eval_cfg``: bf16, 38 layers,
-     unrolled) by phase 5's protocol for vanilla, clipped (alpha 4) and
-     gated: its 12 local_attn layers reach the flash kernel at bf16 Dh 256
-     with window 2048 (the CUDA-core route), each held per layer against
-     its plain version at FLASH_LAYER_REL_RMS; the RG-LRU kernel once per
-     Griffin layer (26) on every forward.
+  5c. recurrentgemma-9b's evaluation (``rg_eval_cfg``: bf16, RG_CUT_LAYERS
+     (20) of its 38 layers, unrolled) by phase 5's protocol for vanilla,
+     clipped (alpha 4) and gated: its 6 local_attn layers reach the flash
+     kernel at bf16 Dh 256 with window 2048 (the tensor-core route), each
+     held per layer against its plain version at FLASH_LAYER_REL_RMS; the
+     RG-LRU kernel once per Griffin layer (14) on every forward.
   6. Training, through the hand-written flash-attention backward kernel
      (``csrc/flash_attention_bwd.cu``; the reference differentiates its
      plain attention with XLA, so no TPU kernel corresponds). (a) The
@@ -308,7 +317,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      qwen3-14b's (1, 2048, 40/8, 128), gemma2-27b's local layer (1, 2048,
      32/16, 128, softcap 50, window 1000) and global layer, hubert-xlarge's
      Dh 80, phi-3-vision's Dh 96, OPT-125m's Dh 64 and Dh 32 at T 500; the f32
-     route with softcap 50 and window 128 at BERT-base's shape), vanilla,
+     route with softcap 50 and window 128 at BERT-base's shape; the bf16
+     route at Dh 256: recurrentgemma-9b's (1, 2048, 16/1, 256) with
+     window 2048 and (1, 1000, 16/1, 256) with window 300), vanilla,
      clipped (alpha 4) and gated: dq, dk, dv and dgate each within the
      route's bound (BWD_REL_RMS, BWD_REL_RMS_BF16), the plain version with
      P and dS rounded to bf16 above it, two calls bitwise equal, and every
@@ -343,14 +354,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      each f32 product three TF32 ones at 495 TFLOP/s, the f32 CUDA-core
      one at 67 TFLOP/s printed beside it; the bf16 route's at 989
      TFLOP/s), at every shape of (a); no time below its bound. (d)
-     qwen3-14b at 2 of its 40 layers and gemma2-27b at 2 of its 46 (one
-     local, one global; window 1000) trained in bf16 at published widths
-     from seed 0, 1 x 2048 tokens: step 1 against the plain attention
-     path (BF16_STEP_GRAD_REL_RMS; in bf16 the comparison saturates near
-     its control, so it catches gross faults only), then 8 steps through
-     ``run_training`` with every loss finite and falling and one flash
-     and one backward launch per attention layer and step; step time,
-     peak memory and the phase's wall printed.
+     qwen3-14b at 2 of its 40 layers, gemma2-27b at 2 of its 46 (one
+     local, one global; window 1000) and recurrentgemma-9b at 3 of its 38
+     (griffin, griffin, local_attn; window 1000) trained in bf16 at
+     published widths from seed 0, 1 x 2048 tokens: step 1 against the
+     plain attention path (and, recurrentgemma, the plain recurrence;
+     BF16_STEP_GRAD_REL_RMS; in bf16 the comparison saturates near its
+     control, so it catches gross faults only; recurrentgemma's step with
+     only the recurrence plain must equal the kernel step bitwise), then 8
+     steps through ``run_training`` with every loss finite and falling,
+     one flash and one backward launch per attention layer and step and
+     one RG-LRU scan and one reverse scan per Griffin layer and step; step
+     time, peak memory and the phase's wall printed.
   7. Embeds inputs and sandwich norms at published widths and depths,
      random weights from seed 0; each sub-phase prints its wall.
      (a) ViT-S/16 (f32, 12 layers) over ``SeededEmbeds`` batches (64 x
@@ -428,7 +443,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      control above its bound: the evaluation's logits every MoE layer at MOE_DROP_CF, the
      ticks every MoE layer at its least capacity ("MoE capacity 8"; the fp
      ticks also one position early). Peak memory is printed per engine.
-  9. xlstm-1.3b (``phase_xlstm``) at its published width, 24 of its 48
+  9. xlstm-1.3b (``phase_xlstm``) at its published width, 16 of its 48
      blocks (bf16, 7 mLSTM to 1 sLSTM, chunk 128; random weights from seed 0).
      (a) One mLSTM layer's cell (4 heads of 1024, T 512, f32): the
      chunkwise form against the recurrent oracle within MLSTM_REL_RMS (h
@@ -476,8 +491,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      unperturbed engine or a near-tie of a cache-free forward
      (CHAOS_MARGIN_REL), a control with rotated swap-ins failing that
      check.
-  10. The kernels line (six kernels and the backward's bf16 route, whose
-     launches are phase 6d's; the launch
+  10. The kernels line (six kernels, the backward's bf16 route, whose
+     launches are phase 6d's, and the RG-LRU's reverse scan, whose
+     launches are phase 6d's recurrentgemma-9b run; the launch
      counts include phase 8's and phase 9's evaluations, engines and
      training, phase 4c's engine, phase 5c's evaluations and phase 11's
      engines), then the device line. Each phase from 3 on prints its
@@ -572,7 +588,10 @@ REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:177",
             "rg_lru": "src/repro/kernels/rg_lru.py:38",
             # no TPU kernel: the reference trains through this dispatcher's
             # plain attention and lets XLA differentiate it
-            "flash_attention_bwd": "src/repro/core/attention.py:455"}
+            "flash_attention_bwd": "src/repro/core/attention.py:455",
+            # no TPU kernel: XLA differentiates the reference's associative
+            # scan
+            "rg_lru_bwd": "src/repro/nn/recurrent.py:69"}
 FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 # The evaluation forward's attention, held in two ways against the kernel's
 # own plain version (mha_flash_ref: q scaled in bf16, P in f32, as the
@@ -616,6 +635,10 @@ EVAL_SEQ, EVAL_BATCHES, CALIB_BATCHES = 2048, 2, 4
 # the attention heads of BERT-base and OPT-125m (12 of 64, no GQA)
 BERT_HEADS = dict(b=8, hq=12, hkv=12, dh=64)
 OPT_HEADS = dict(b=1, hq=12, hkv=12, dh=64)
+# recurrentgemma-9b's local_attn read in its cache-free forward (the
+# evaluation and the training): 16 query heads over one KV head of 256, window 2048
+RG_FLASH_HEADS = dict(b=1, hq=16, hkv=1, dh=256)
+RG_WINDOW = 2048
 # (B, T, D) of the RG-LRU checks: the serving prefill step and its
 # smallest chunk, a long one-shot, the evaluation's length, a T no tile
 # divides, decode-sized T 1 (all route 1, the TMA ring), and a ragged D
@@ -2674,6 +2697,101 @@ def phase_rg_checks(torch, rl):
     return max_err
 
 
+def rg_bwd_bound_ms(shape):
+    """Least time of the reverse scan on an H100: a, h and dh read once and
+    da and db written once (20 bytes per element; dh_last, h0 and dh0 are
+    1/T of that) against 3.35 TB/s; 3 flops per element are far below the
+    f32 rate."""
+    b, t, d = shape
+    return 20 * b * t * d / HBM_BYTES_PER_S * 1e3
+
+
+def rg_bwd_case(torch, rl, shape, seed, copies=1, states=(True,)):
+    """``copies`` sets of the reverse scan's inputs (a, h, dh, dh_last,
+    h0), one for each of ``states`` (True: rg_case's h0; False: a zero
+    state, h0 None) over the same a, b and cotangents: rg_case's a, h from
+    the kernel's forward over rg_case's b, the cotangents dh (B, T, D) and
+    dh_last (B, D) ~ N(0, 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    out = []
+    for a, b, h0 in rg_case(torch, shape, seed, copies):
+        dh = torch.randn(shape, generator=gen, device="cuda")
+        dl = torch.randn(shape[0], shape[2], generator=gen, device="cuda")
+        for with_h0 in states:
+            init = h0 if with_h0 else None
+            out.append((a, rl.rglru(a, b, init)[0], dh, dl, init))
+    return out
+
+
+def phase_rg_bwd_checks(torch, rl):
+    """Phase 3f's reverse scan: the kernel (``_launch_bwd``) bitwise
+    against ``rglru_bwd_ref`` at RG_SHAPES, with a zero state and with h0;
+    then the gradients of a state carried across two calls through
+    ``rglru`` under autograd (T 9 then 7) bitwise those of one call (T
+    16). Returns the largest max abs error."""
+    bad, max_err = [], 0.0
+    for n, shape in enumerate(RG_SHAPES):
+        for args in rg_bwd_case(torch, rl, shape, seed=150 + n, states=(False, True)):
+            zero = args[4] is None
+            got = rl._launch_bwd(*args)
+            torch.cuda.synchronize()
+            want = rl.rglru_bwd_ref(*args)
+            torch.cuda.synchronize()
+            same = all((x is None and y is None) or torch.equal(x, y)
+                       for x, y in zip(got, want))
+            err = max((x - y).abs().max().item() for x, y in zip(got, want) if x is not None)
+            max_err = max(max_err, err)
+            print(f"rg_lru bwd check {shape} {'zero state' if zero else 'h0'}: "
+                  f"max_abs_err={err:.3e} (bitwise) {'ok' if same else 'FAIL'}", flush=True)
+            if not same:
+                bad.append((shape, not zero, err))
+            del args, got, want
+        torch.cuda.empty_cache()
+    # a state carried across two calls: the gradients through T 9 then 7
+    # equal those through T 16, bitwise
+    a, b, h0 = (x.requires_grad_() for x in rg_case(torch, (2, 16, 4096), seed=160)[0])
+    gen = torch.Generator(device="cuda").manual_seed(161)
+    dh = torch.randn(a.shape, generator=gen, device="cuda")
+    dl = torch.randn(h0.shape, generator=gen, device="cuda")
+    launched = rl.bwd_launches
+    whole = torch.autograd.grad(rl.rglru(a, b, h0), (a, b, h0), (dh, dl))
+    h1, l1 = rl.rglru(a[:, :9], b[:, :9], h0)
+    h2, l2 = rl.rglru(a[:, 9:], b[:, 9:], l1)
+    chain = torch.autograd.grad((torch.cat([h1, h2], 1), l2), (a, b, h0), (dh, dl))
+    torch.cuda.synchronize()
+    launched = rl.bwd_launches - launched
+    carry = all(torch.equal(x, y) for x, y in zip(whole, chain))
+    print(f"rg_lru bwd check (2, 9 + 7, 4096) carried state: gradients == (2, 16, 4096) "
+          f"one call's, bitwise {'ok' if carry else 'FAIL'}; {launched} reverse-scan "
+          f"launches", flush=True)
+    check(carry and launched == 3,
+          "rg_lru reverse scan: a carried state's gradients differ from one call's")
+    check(not bad, f"rg_lru reverse-scan kernel disagrees with its plain version: {bad}")
+    torch.cuda.empty_cache()
+    return max_err
+
+
+def phase_rg_bwd_times(torch, rl):
+    """Device times of the reverse-scan kernel and its plain version at
+    RG_TIMED beside the byte bound; no PyTorch call computes it."""
+    times = {}
+    for shape in RG_TIMED:
+        reps, plain_reps = 20, max(1, 1024 // shape[1])
+        sets = rg_bwd_case(torch, rl, shape, seed=170,
+                           copies=2 if shape[0] * shape[1] >= 2048 else 8)
+        kern = device_ms(torch, [lambda s=s: rl._launch_bwd(*s) for s in sets], reps)
+        plain = device_ms(torch, [lambda s=s: rl.rglru_bwd_ref(*s) for s in sets], plain_reps)
+        bound = rg_bwd_bound_ms(shape)
+        times[shape] = dict(ms=kern, plain_ms=plain, library_ms=None, bound_ms=bound,
+                            bound_by="bytes")
+        print(f"rg_lru bwd time {shape} f32: kernel {kern:.4f} ms, plain {plain:.4f} ms, "
+              f"library n/a (no PyTorch call computes a reverse linear scan), bound "
+              f"{bound:.4f} ms (bytes)", flush=True)
+        del sets
+        torch.cuda.empty_cache()
+    return times
+
+
 def phase_rg_times(torch, rl):
     times = {}
     for shape in RG_TIMED:
@@ -3455,7 +3573,9 @@ BWD_SHAPES = [("dh32 causal", 8, 512, 4, 4, 32, True), ("dh32", 8, 512, 4, 4, 32
 # 2048, and no multiple of 64) and global layer (softcap 50), hubert-xlarge's
 # (Dh 80, not causal), phi-3-vision's (Dh 96), OPT-125m's (Dh 64) and Dh 32
 # at T 500 (a length no tile divides); then the f32 route with softcap and
-# window at BERT-base's shape
+# window at BERT-base's shape; then the bf16 route at Dh 256:
+# recurrentgemma-9b's local layer (16 query heads over one KV head, window
+# 2048) at T 2048 and with a window that binds (300) at a ragged T 1000
 BWD_ROUTE_SHAPES = [
     ("qwen3-14b", 1, 2048, 40, 8, 128, True, dict(dtype="bfloat16")),
     ("gemma2-27b local", 1, 2048, 32, 16, 128, True,
@@ -3466,6 +3586,10 @@ BWD_ROUTE_SHAPES = [
     ("opt-125m bf16", 2, 2048, 12, 12, 64, True, dict(dtype="bfloat16")),
     ("dh32 bf16", 8, 500, 4, 4, 32, True, dict(dtype="bfloat16")),
     ("bert-base softcap window", 8, 512, 12, 12, 64, False, dict(window=128, softcap=50.0)),
+    ("recurrentgemma-9b local", 1, 2048, 16, 1, 256, True,
+     dict(dtype="bfloat16", window=RG_WINDOW)),
+    ("recurrentgemma-9b window 300", 1, 1000, 16, 1, 256, True,
+     dict(dtype="bfloat16", window=300)),
 ]
 # Under a softcap q is drawn this many times wider (scores of RMS 5), so
 # that the cap bends them (tanh(s / 50) up to ~0.4 at T 2048) and a wrong
@@ -3789,7 +3913,10 @@ def phase_bwd_times(torch, fa):
         plain = device_ms(torch, [lambda c=c: fa.attention_bwd_ref(
             c["q"], c["k"], c["v"], c["gate"], c["dout"], **kw) for c in cs], 3)
         lib = None
-        if variant == "vanilla" and c0["window"] is None and c0["softcap"] is None:
+        # a window at least T long hides no causal key: is_causal computes
+        # the same function
+        if variant == "vanilla" and (c0["window"] is None or c0["window"] >= t) \
+                and c0["softcap"] is None:
             def sdpa(c):
                 q, k, v = (c[x].transpose(1, 2).detach().requires_grad_(True)
                            for x in ("q", "k", "v"))
@@ -3838,31 +3965,51 @@ def phase_train_step_vs_plain(torch, fa, task, params, batch, who, bound, leaf_b
                               min_live, share=STEP_ATTN_CONTROL_SHARE, loss_bound=STEP_LOSS_REL):
     """Phase 6b's first gate: step 1's loss and gradients through the
     kernels against the plain attention path (``mha_flash_ref`` under
-    autograd in the flash kernel's place) on the same weights and batch,
-    the whole gradient at ``bound`` and each attention leaf at
-    ``leaf_bound``; the same plain path with P rounded to bf16 is the
-    control. A MoE config's plain steps route as the kernel step routed
-    (``routing_taps``)."""
+    autograd in the flash kernel's place; in a Griffin config also the
+    plain recurrence ``rglru_ref`` under autograd in the RG-LRU kernel's)
+    on the same weights and batch, the whole gradient at ``bound`` and
+    each attention leaf at ``leaf_bound``; the same plain path with P
+    rounded to bf16 is the control. A Griffin config's step with only the
+    recurrence plain (the flash kernels kept) must equal the kernel step
+    bitwise, loss and every gradient: the RG-LRU kernels are bitwise their
+    plain loops both ways. A MoE config's plain steps route as the kernel
+    step routed (``routing_taps``)."""
+    from repro_torch.kernels import rg_lru as rl
     from repro_torch.nn.module import flatten_params
     from repro_torch.train.step import _grads
     moe = task.cfg.moe is not None
-    real = fa.mha_flash
-    fa.launches = fa.bwd_launches = 0
+    real, real_rg = fa.mha_flash, rl.rglru
+    fa.launches = fa.bwd_launches = rl.launches = rl.bwd_launches = 0
     with routing_taps() if moe else contextlib.nullcontext() as routes:
         loss_k, _, g_k = _grads(params, task, batch)
-    launched = (fa.launches, fa.bwd_launches)
+    launched = (fa.launches, fa.bwd_launches, rl.launches, rl.bwd_launches)
+    n_layers, n_attn, n_rg = task.cfg.n_layers, attn_layers(task.cfg), griffin_layers(task.cfg)
+    if n_rg:
+        try:
+            rl.rglru = rl.rglru_ref
+            loss_r, _, g_r = _grads(params, task, batch)
+        finally:
+            rl.rglru = real_rg
+        flat_r = dict(flatten_params(g_r))
+        same = torch.equal(loss_r, loss_k) and all(torch.equal(g, flat_r[p])
+                                                    for p, g in flatten_params(g_k))
+        print(f"train {who}: step 1 with the plain recurrence (rglru_ref under autograd) in "
+              f"the RG-LRU kernels' place, the flash kernels kept: loss and every gradient "
+              f"bitwise the kernel step's: {same}", flush=True)
+        check(same, f"{who}: the RG-LRU kernels change step 1's loss or gradients")
+        del g_r, flat_r
     try:
-        fa.mha_flash = fa.mha_flash_ref
+        fa.mha_flash, rl.rglru = fa.mha_flash_ref, rl.rglru_ref
         with routing_taps(routes) if moe else contextlib.nullcontext():
             loss_p, _, g_p = _grads(params, task, batch)
         with bf16_p(torch, matmuls=False), \
                 routing_taps(routes) if moe else contextlib.nullcontext():
             _, _, g_c = _grads(params, task, batch)
     finally:
-        fa.mha_flash = real
-    n_layers = task.cfg.n_layers
-    check(launched == (n_layers, n_layers),
-          f"{who}: step through the kernels launched (flash, bwd) {launched}")
+        fa.mha_flash, rl.rglru = real, real_rg
+    check(launched == (n_attn, n_attn, n_rg, n_rg),
+          f"{who}: step through the kernels launched (flash, bwd, rg_lru, rg_lru bwd) "
+          f"{launched}, expected {(n_attn, n_attn, n_rg, n_rg)}")
     # each gradient's difference RMS relative to its own RMS, except the
     # key bias's: its gradient is zero in exact arithmetic (a shift common
     # to a row's scores leaves the softmax unchanged), rounding noise on
@@ -3906,7 +4053,8 @@ def phase_train_step_vs_plain(torch, fa, task, params, batch, who, bound, leaf_b
           f"control min {min(ctrl[p] for p in attn):.3e}, least control / reading "
           f"{ratio[attn_near]:.1f} ({attn_near}; at least "
           f"{1 / share:.2f}); layers whose k weights "
-          f"receive a gradient: {live_k} of {n_layers} (at least {min_live})", flush=True)
+          f"receive a gradient: {live_k} of {n_attn} attention layers (at least {min_live}; "
+          f"{n_layers} layers)", flush=True)
     check(live_k >= min_live, f"{who}: the attention passes no gradient in some layer")
     check(loss_err <= loss_bound, f"{who}: step-1 loss differs from the plain path's")
     check(err_all <= bound < ctrl_all,
@@ -3926,8 +4074,11 @@ def phase_train_step_vs_plain(torch, fa, task, params, batch, who, bound, leaf_b
 # SyntheticLM chain over TRAIN_DATA_VOCAB ids, BF16_TRAIN_STEPS AdamW steps
 # from seed 0: qwen3-14b at 2 of its 40 layers; gemma2-27b at 2 of its 46
 # (one local, one global), its window cut from 4096 to 1000 so that it
-# masks at T 2048, as phase 6a's case.
-BF16_TRAIN = (("qwen3-14b", 2, {}), ("gemma2-27b", 2, {"window": 1000}))
+# masks at T 2048, as phase 6a's case; recurrentgemma-9b at 3 of its 38
+# (one group: griffin, griffin, local_attn; the RG-LRU's reverse scan and
+# the backward at Dh 256), its window cut from 2048 to 1000 likewise.
+BF16_TRAIN = (("qwen3-14b", 2, {}), ("gemma2-27b", 2, {"window": 1000}),
+              ("recurrentgemma-9b", 3, {"window": 1000}))
 BF16_TRAIN_SEQ = 2048
 BF16_TRAIN_STEPS = 8
 # Phase 6d's step-vs-plain gate (phase 6b's, on the unsharpened bf16
@@ -3942,11 +4093,16 @@ BF16_TRAIN_STEPS = 8
 # (PR 28), kernel / control: qwen3-14b 7.53e-3 / 9.64e-3 (loss 8.4e-6,
 # attention leaves up to 1.10e-2, each at most 0.83 of its control),
 # gemma2-27b 1.08e-2 / 1.46e-2 (loss 8.8e-6, the local and the global
-# block's leaves up to 1.20e-2, at most 0.76 of their controls). Each
+# block's leaves up to 1.20e-2, at most 0.76 of their controls);
+# recurrentgemma-9b 5.394e-3 / 5.897e-3 (loss 1.5e-6, the local
+# block's leaves up to 4.34e-3, at most 0.83 of their controls; its
+# recurrence is held bitwise apart, phase_train_step_vs_plain). Each
 # bound sits between its reading and its control (their geometric mean),
 # the leaves' at 1.4e-2 and 0.9 of their controls, the loss at 3e-5.
-BF16_STEP_GRAD_REL_RMS = {"qwen3-14b": 8.5e-3, "gemma2-27b": 1.26e-2}
-BF16_STEP_ATTN_LEAF_REL = {"qwen3-14b": 1.4e-2, "gemma2-27b": 1.4e-2}
+BF16_STEP_GRAD_REL_RMS = {"qwen3-14b": 8.5e-3, "gemma2-27b": 1.26e-2,
+                          "recurrentgemma-9b": 5.64e-3}
+BF16_STEP_ATTN_LEAF_REL = {"qwen3-14b": 1.4e-2, "gemma2-27b": 1.4e-2,
+                           "recurrentgemma-9b": 1.4e-2}
 BF16_STEP_CONTROL_SHARE = 0.9
 BF16_STEP_LOSS_REL = 3e-5
 
@@ -3955,25 +4111,29 @@ def bf16_train_cfg(arch, n_layers, over):
     """``arch`` at full width, ``n_layers`` deep and unrolled (per-layer
     parameter paths for the gate's attention leaves), with ``over``
     replaced; vanilla attention."""
-    from repro_torch.configs import gemma2_27b, qwen3_14b
+    from repro_torch.configs import gemma2_27b, qwen3_14b, recurrentgemma_9b
     from repro_torch.configs.base import apply_method
-    full = {"qwen3-14b": qwen3_14b.full, "gemma2-27b": gemma2_27b.full}[arch]
+    full = {"qwen3-14b": qwen3_14b.full, "gemma2-27b": gemma2_27b.full,
+            "recurrentgemma-9b": recurrentgemma_9b.full}[arch]
     return apply_method(dataclasses.replace(full(), n_layers=n_layers, scan_layers=False, **over),
                         "vanilla")
 
 
 def phase_train_bf16(torch, np, fa, arch, n_layers, over):
     """Phase 6d: one bf16 arch trained through the flash kernels (the
-    backward on its bf16 route): step 1 against the plain attention path
-    (phase 6b's gate at BF16_STEP_GRAD_REL_RMS, BF16_STEP_ATTN_LEAF_REL,
+    backward on its bf16 route) and, Griffin, the RG-LRU kernels: step 1
+    against the plain attention path (and the plain recurrence; phase 6b's
+    gate at BF16_STEP_GRAD_REL_RMS, BF16_STEP_ATTN_LEAF_REL,
     BF16_STEP_CONTROL_SHARE and BF16_STEP_LOSS_REL, the bf16-P control
-    above), then BF16_TRAIN_STEPS steps through
-    ``run_training``: every loss finite, the last four's mean below the
-    first four's, one flash and one backward launch per attention layer and
-    step; then one more step replayed under torch.profiler (device time of
-    the flash backward, the flash forward and the rest; idle share). Prints
-    the median step time, peak memory and the phase's wall."""
+    above), then BF16_TRAIN_STEPS steps through ``run_training``: every
+    loss finite, the last four's mean below the first four's, one flash
+    and one backward launch per attention layer and step, one RG-LRU scan
+    and one reverse scan per Griffin layer and step; then one more step
+    replayed under torch.profiler (device time of the flash backward, the
+    flash forward and the rest; idle share). Prints the median step time,
+    peak memory and the phase's wall."""
     from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    from repro_torch.kernels import rg_lru as rl
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import (LoopConfig, TrainTask, init_train_state, make_train_step,
                                    run_training)
@@ -3994,26 +4154,32 @@ def phase_train_bf16(torch, np, fa, arch, n_layers, over):
     del params0, batch0
     torch.cuda.empty_cache()
     steps = BF16_TRAIN_STEPS
+    n_rg = griffin_layers(cfg)
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = fa.bwd_launches = 0
+    fa.launches = fa.bwd_launches = rl.launches = rl.bwd_launches = 0
     run = run_training(task, data, LoopConfig(total_steps=steps, eval_every=0, log_every=0,
                                               seed=0),
                        batch_kind="clm", log=lambda _msg: None, device="cuda")
     launches = (fa.launches, fa.bwd_launches)
+    rg_launches = (rl.launches, rl.bwd_launches)
     peak = torch.cuda.max_memory_allocated() / 1e9
     losses = run["losses"]
     first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
     step_ms = run["median_step_s"] * 1e3
     wall = time.perf_counter() - t0
     print(f"train {who} (1 x {BF16_TRAIN_SEQ}, lr {TRAIN_LR}, {steps} steps, {n} attention "
-          f"layers): step {step_ms:.1f} ms (median), {BF16_TRAIN_SEQ / run['median_step_s']:.0f} "
-          f"trained tok/s, peak {peak:.2f} GB; launches (flash, bwd) {launches}; losses "
+          f"and {n_rg} Griffin layers): step {step_ms:.1f} ms (median), "
+          f"{BF16_TRAIN_SEQ / run['median_step_s']:.0f} trained tok/s, peak {peak:.2f} GB; "
+          f"launches (flash, bwd) {launches}, (rg_lru, rg_lru bwd) {rg_launches}; losses "
           f"{[round(v, 4) for v in losses]} (mean of the first 4 {first:.4f}, last 4 "
           f"{last:.4f}); phase wall {wall:.1f} s", flush=True)
     check(all(np.isfinite(losses)), f"{who}: a loss is not finite: {losses}")
     check(last < first, f"{who}: the loss did not fall: {losses}")
     check(launches == (steps * n, steps * n),
           f"{who}: launches (flash, bwd) {launches}, expected {(steps * n, steps * n)}")
+    check(rg_launches == (steps * n_rg, steps * n_rg),
+          f"{who}: launches (rg_lru, rg_lru bwd) {rg_launches}, expected "
+          f"{(steps * n_rg, steps * n_rg)}")
     # one more step from the final state under torch.profiler (outside the
     # counted run): device time by family and the idle share
     batch = {k: torch.as_tensor(v).cuda() for k, v in data.batch(steps, "clm").items()}
@@ -4023,13 +4189,16 @@ def phase_train_bf16(torch, np, fa, arch, n_layers, over):
     print(f"train {who}: one step traced: host wall {tr['wall_ms']:.2f} ms, device busy "
           f"{tr['device_ms']:.2f} ms, idle share {tr['idle_share']:.3f}; flash backward "
           f"{fam['flash backward']:.2f} ms ({tr['family_kernels']['flash backward']} "
-          f"kernels), flash forward {fam['flash forward']:.2f} ms, the rest "
-          f"{fam['rest']:.2f} ms ({tr['family_kernels']['rest']} kernels; largest: "
+          f"kernels), flash forward {fam['flash forward']:.2f} ms, RG-LRU scans "
+          f"{fam['RG-LRU scan']:.2f} ms ({tr['family_kernels']['RG-LRU scan']} kernels: "
+          f"forward and reverse), the rest {fam['rest']:.2f} ms "
+          f"({tr['family_kernels']['rest']} kernels; largest: "
           f"{'; '.join(f'{k[:40]} {ms:.2f}' for k, ms in tr['rest_top'])})", flush=True)
     del run, batch
     torch.cuda.empty_cache()
     return dict(step_ms=step_ms, peak_gb=peak, losses=losses, flash_launches=launches[0],
-                bwd_launches=launches[1], wall_s=wall, trace=tr, **gate)
+                bwd_launches=launches[1], rg_lru_launches=rg_launches[0],
+                rg_lru_bwd_launches=rg_launches[1], wall_s=wall, trace=tr, **gate)
 
 
 def phase_train(torch, np, fa, family, kind, seq, bsz, method, method_kw, trace=False,
@@ -4761,17 +4930,21 @@ def phase_launcher(torch, np, fa, task, data, plain, plain_losses):
 # phases 3c (bf16 Dh 256), 4c, 5c: recurrentgemma-9b's W8A8 serving and
 # evaluation; phase 9: xlstm-1.3b
 # ---------------------------------------------------------------------------
-# recurrentgemma-9b's local_attn read in its cache-free forward (the
-# evaluation): 16 query heads over one KV head of 256, window 2048
-RG_FLASH_HEADS = dict(b=1, hq=16, hkv=1, dh=256)
-RG_WINDOW = 2048
+# bf16 Dh 256's forward times on the CUDA-core route it ran before the
+# tensor-core one (PERF.md's kernel table; NVIDIA H100 80GB HBM3,
+# 700 W), printed beside phase 3c's readings
+DH256_CUDA_CORE_MS = {"vanilla": 1.8298, "clipped": 3.1326}
 # phase 4c's served last chunk against a cache-free W8A8 forward over the
 # row's prefix, at phase 4's W8A8 bound: the chunked and the one-shot
 # forwards quantize activations that differ by f32 roundings, so codes at
-# a rounding edge flip and 38 layers carry that on (on an H100 80GB HBM3
-# at 700 W: 0.114, argmax agreement 1.0; the row's state reset to a fresh
-# row's, the control: 1.31)
+# a rounding edge flip and the layers carry that on (on an H100 80GB HBM3
+# at 700 W, 38 layers: 0.114, argmax agreement 1.0; the row's state reset
+# to a fresh row's, the control: 1.31)
 RECURRENT_W8A8_ROW_REL_RMS = W8A8_LOGIT_REL_RMS
+# recurrentgemma-9b's depth in phases 4c and 5c: 20 of its 38 layers (six
+# groups and the two-block tail), to hold the run's wall with the training
+# phases' recurrentgemma-9b cases (4b serves all 38)
+RG_CUT_LAYERS = 20
 # xLSTM's row check: in bf16 the served chunks and the one-shot forward
 # round in other places (GEMMs of other M, the chunkwise form's other
 # chunks), and 48 random-weight xLSTM blocks grow that to the size of the
@@ -4787,21 +4960,25 @@ XLSTM_ROW_REL_RMS = 1e-3
 # between two halves
 MLSTM_REL_RMS = 1e-4
 XLSTM_EVAL_SEQ, XLSTM_EVAL_BATCH = 512, 2
-# xlstm-1.3b's depth on the card: 24 of its 48 blocks (three pattern
+# xlstm-1.3b's depth on the card: 16 of its 48 blocks (two pattern
 # groups), to hold the run's wall
-XLSTM_LAYERS = 24
+XLSTM_LAYERS = 16
 
 
 def phase_flash_dh256(torch, fa, build):
-    """bf16 Dh 256 (the CUDA-core route; recurrentgemma's evaluation):
-    vanilla, clipped and gated, causal with window 2048 at T 2048 and a
-    window that binds (300) at a ragged T 1000, against the plain version
-    at the bf16 tolerance; then the kernel, its plain version and SDPA
-    (vanilla; at T 2048 a 2048 window hides no causal key, so is_causal
-    computes the same function) timed at (1, 2048, 16/1, 256) beside the
-    bound; the ptxas spill stores of the Dh-256 instantiations printed
-    (not gated)."""
+    """bf16 Dh 256 (the tensor-core route, a CTA a half of the columns;
+    recurrentgemma's evaluation and training): vanilla, clipped and gated,
+    causal with window 2048 at T 2048 and a window that binds (300) at a
+    ragged T 1000, against the plain version at the bf16 tolerance; then
+    the kernel, its plain version and SDPA (vanilla; at T 2048 a 2048
+    window hides no causal key, so is_causal computes the same function)
+    timed at (1, 2048, 16/1, 256) beside the bound and the CUDA-core
+    route's time (DH256_CUDA_CORE_MS); the Dh-256 instantiations' ptxas
+    registers and spill stores printed (the tensor-core ones are gated with
+    phase 2's)."""
     import torch.nn.functional as F
+    check(fa.route(torch.bfloat16, 256) == "tensor-core",
+          "bf16 Dh 256 does not take the tensor-core route")
     bad = []
     for t, window in ((2048, RG_WINDOW), (1000, 300)):
         for variant in ("vanilla", "clipped", "gated"):
@@ -4834,16 +5011,20 @@ def phase_flash_dh256(torch, fa, build):
                 a[0], a[1], a[2], is_causal=True, enable_gqa=True) for a in ins], 10)
             del ins
         bound, by = flash_bound_ms(c)
+        was = DH256_CUDA_CORE_MS[variant]
         print(f"flash time recurrentgemma-9b local_attn {tuple(q.shape)} window {RG_WINDOW} "
-              f"{variant} bfloat16 route={fa.route(q.dtype, 256)}: kernel {kern:.4f} ms, plain "
-              f"{plain:.4f} ms, SDPA {'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
-              f"{bound:.4f} ms ({by})", flush=True)
+              f"{variant} bfloat16 route={fa.route(q.dtype, 256)}: kernel {kern:.4f} ms (the "
+              f"CUDA-core route's: {was:.4f} ms, {was / kern:.2f}x), plain {plain:.4f} ms, "
+              f"SDPA {'n/a' if lib is None else f'{lib:.4f} ms'}, bound {bound:.4f} ms ({by})",
+              flush=True)
+        check(kern >= bound, f"flash Dh 256 {variant}: {kern} ms below its bound {bound}")
         del c
-    spills = [("bf16" if "bfloat16" in fn else "f32", regs, sp)
+    spills = [("bf16 tensor-core" if "flash_kernel_tc" in fn else "f32 cuda-core",
+               "clipped" if "ILb1E" in fn else "vanilla", regs, sp)
               for fn, regs, sp in ptxas_report(build.BUILD_LOG.get("flash_attention", ""))
               if "flash_kernel_" in fn and "ELi256EE" in fn]
-    print(f"ptxas Dh-256 flash instantiations (reported, not gated): (data type, "
-          f"registers, spill-store bytes) {spills}", flush=True)
+    print(f"ptxas Dh-256 flash instantiations: (route, variant, registers, spill-store "
+          f"bytes) {spills}", flush=True)
     torch.cuda.empty_cache()
 
 
@@ -5090,12 +5271,13 @@ def rg_w8a8_requests(np, vocab):
 
 
 def phase_rg_w8a8(torch, np, rl, im, fa, pa):
-    """4c: recurrentgemma-9b (bf16, 38 layers) served by a clipped-softmax
-    (alpha 4) W8A8 engine: ``phase_recurrent_serving`` with its sub-steps
-    traced."""
+    """4c: recurrentgemma-9b (bf16, RG_CUT_LAYERS layers) served by a
+    clipped-softmax (alpha 4) W8A8 engine: ``phase_recurrent_serving`` with
+    its sub-steps traced."""
     from repro_torch.configs.base import apply_method
     from repro_torch.configs.recurrentgemma_9b import full
-    cfg = apply_method(full(), "clipped_softmax", alpha=4.0)
+    cfg = apply_method(dataclasses.replace(full(), n_layers=RG_CUT_LAYERS), "clipped_softmax",
+                       alpha=4.0)
     t0 = time.perf_counter()
     out = phase_recurrent_serving(torch, np, rl, im, fa, pa, "rg clipped-w8a8", cfg,
                                   rg_w8a8_requests(np, cfg.vocab_size), 4096, w8a8=True,
@@ -5106,11 +5288,12 @@ def phase_rg_w8a8(torch, np, rl, im, fa, pa):
 
 
 def rg_eval_cfg(method, **method_kw):
-    """recurrentgemma-9b at full width with ``method``, unrolled (as PTQ
-    needs)."""
+    """recurrentgemma-9b at full width and RG_CUT_LAYERS layers with
+    ``method``, unrolled (as PTQ needs)."""
     from repro_torch.configs.base import apply_method
     from repro_torch.configs.recurrentgemma_9b import full
-    return dataclasses.replace(apply_method(full(), method, **method_kw), scan_layers=False)
+    return dataclasses.replace(apply_method(full(), method, **method_kw), scan_layers=False,
+                               n_layers=RG_CUT_LAYERS)
 
 
 def xlstm_cfg():
@@ -5808,23 +5991,26 @@ def main() -> int:
     print(f"build phase {time.perf_counter() - t0:.1f} s", flush=True)
     # phase 11's CPU twins need no card: they run beside the card's phases
     start_twins()
-    # the instantiations bf16 data at Dh 128 runs, and flash's Dh-32 ones
-    # (both routes), must not spill
+    # the instantiations bf16 data at Dh 128 runs, flash's Dh-32 ones (both
+    # routes) and its tensor-core Dh-256 ones must not spill
+    tc256 = lambda fn: "flash_kernel_tc" in fn and flash_dh(fn, (256,))  # noqa: E731
     held = [(name, fn, regs, spills) for name in ("flash_attention", "paged_attention")
             for fn, regs, spills in ptxas_report(build.BUILD_LOG.get(name, ""))
-            if bf16_dh128(fn) or flash_dh(fn, (32, 80, 96))]
+            if bf16_dh128(fn) or flash_dh(fn, (32, 80, 96)) or tc256(fn)]
     n32 = sum(flash_dh(fn, (32,)) for _, fn, _, _ in held)
     n80 = sum(flash_dh(fn, (80, 96)) for _, fn, _, _ in held)
-    print(f"ptxas spill check: {len(held) - n32 - n80} bf16 Dh-128 instantiations of "
-          f"flash_attention and paged_attention (the flash ones also run bf16 Dh 80 and 96), "
-          f"{n32} Dh-32 and {n80} f32 Dh-80/96 flash instantiations; registers "
+    n256 = sum(tc256(fn) for _, fn, _, _ in held)
+    n128 = len(held) - n32 - n80 - n256
+    print(f"ptxas spill check: {n128} bf16 Dh-128 instantiations of flash_attention and "
+          f"paged_attention (the flash ones also run bf16 Dh 80 and 96), {n32} Dh-32, {n80} "
+          f"f32 Dh-80/96 and {n256} bf16 Dh-256 flash instantiations; registers "
           f"{sorted({r for _, _, r, _ in held})}; spill stores "
           f"{sorted({sp for _, _, _, sp in held})}", flush=True)
-    check(len(held) - n32 - n80 >= 8 and n32 == 4 and n80 == 4,
-          f"expected the bf16 Dh-128, the Dh-32 and the Dh-80/96 instantiations in the "
-          f"build log: {held}")
+    check(n128 >= 8 and n32 == 4 and n80 == 4 and n256 == 2,
+          f"expected the bf16 Dh-128, the Dh-32, the Dh-80/96 and the bf16 Dh-256 "
+          f"instantiations in the build log: {held}")
     check(all(sp == 0 for _, _, _, sp in held),
-          f"ptxas spills in bf16 Dh-128, Dh-32 or Dh-80/96 attention kernels: "
+          f"ptxas spills in bf16 Dh-128, Dh-32, Dh-80/96 or bf16 Dh-256 attention kernels: "
           f"{[(n, f) for n, f, _, sp in held if sp]}")
     # every int8 instantiation must not spill; ptxas's notes that it
     # serialized wgmma (C7515, C7520, ...) are printed
@@ -5840,19 +6026,19 @@ def main() -> int:
     check(all(sp == 0 for _, _, sp in int8_fns),
           f"ptxas spills in int8 kernels: {[f for f, _, sp in int8_fns if sp]}")
     # both rg_lru routes (the TMA ring at 1, 2, 4 and 8 warps, direct
-    # loads) must not spill
+    # loads) and the reverse scan must not spill
     rg_fns = ptxas_report(build.BUILD_LOG.get("rg_lru", ""))
     print(f"ptxas spill check: {len(rg_fns)} rg_lru entries; registers "
           f"{[(re.sub(r'^_Z[^a-z]*', '', f)[:40], r) for f, r, _ in rg_fns]}; spill stores "
           f"{sorted({sp for _, _, sp in rg_fns})}", flush=True)
-    check(len(rg_fns) >= 5, f"expected the rg_lru entries in the build log: {rg_fns}")
+    check(len(rg_fns) == 6, f"expected the 6 rg_lru entries in the build log: {rg_fns}")
     check(all(sp == 0 for _, _, sp in rg_fns),
           f"ptxas spills in rg_lru kernels: {[f for f, _, sp in rg_fns if sp]}")
 
     # the backward kernels must not spill: on the 3xTF32 route dq vanilla
     # and clipped and dk/dv at each of Dh 32 and 64 and the f32 GQA head
-    # sum; on the bf16 route the same at Dh 32, 64 and 128 and the bf16
-    # head sum; ptxas's wgmma serialization notes are printed
+    # sum; on the bf16 route the same at Dh 32, 64, 128 and 256 and the
+    # bf16 head sum; ptxas's wgmma serialization notes are printed
     bwd_log = build.BUILD_LOG.get("flash_attention_bwd", "")
     bwd_fns = ptxas_report(bwd_log)
     bwd_serial = sorted({line.split(":", 1)[-1].strip()[:120] for line in bwd_log.splitlines()
@@ -5861,7 +6047,7 @@ def main() -> int:
           f"{[(re.sub(r'^_Z[^a-z]*', '', f)[:32], r) for f, r, _ in bwd_fns]}; spill stores "
           f"{sorted({sp for _, _, sp in bwd_fns})}; wgmma serialization notes: "
           f"{bwd_serial or 'none'}", flush=True)
-    check(len(bwd_fns) == 17, f"expected the 17 backward entries in the build log: {bwd_fns}")
+    check(len(bwd_fns) == 20, f"expected the 20 backward entries in the build log: {bwd_fns}")
     check(all(sp == 0 for _, _, sp in bwd_fns),
           f"ptxas spills in flash_attention_bwd: {[f for f, _, sp in bwd_fns if sp]}")
 
@@ -5891,6 +6077,8 @@ def main() -> int:
     mark("3f")
     rg_err = phase_rg_checks(torch, rl)
     rg_times = phase_rg_times(torch, rl)
+    rg_bwd_err = phase_rg_bwd_checks(torch, rl)
+    rg_bwd_times = phase_rg_bwd_times(torch, rl)
 
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     mark("4")
@@ -5985,7 +6173,7 @@ def main() -> int:
                          + bf16_trains + [traffic, faults])
     rg_launches = sum(e["launches"] for e in rg_engines) + sum(
         g["rg_launches"] for e in rg_engines for g in e.get("generate", {}).values()) + sum(
-        e.get("rg_lru_launches", 0) for e in evals + recurrent)
+        e.get("rg_lru_launches", 0) for e in evals + recurrent + bf16_trains)
     kernels = [dict(name="paged_attention", route="cuda",
                     source=KERNEL_SOURCES["paged_attention"],
                     replaces=REPLACES["paged_attention"],
@@ -6030,7 +6218,14 @@ def main() -> int:
                     source=KERNEL_SOURCES["flash_attention_bwd"],
                     replaces=REPLACES["flash_attention_bwd"],
                     launches=sum(t["bwd_launches"] for t in bf16_trains),
-                    max_abs_err=bwd_err["bf16"], **bwd_times[("qwen3-14b", "vanilla")])]
+                    max_abs_err=bwd_err["bf16"], **bwd_times[("qwen3-14b", "vanilla")]),
+               dict(name="rg_lru_bwd", route="cuda",
+                    design="the RG-LRU's reverse scan: one thread a (row, channel) walking T "
+                           "backwards over direct coalesced loads, the next 16 steps' loads "
+                           "in flight; bitwise the plain reverse loop",
+                    source=KERNEL_SOURCES["rg_lru"], replaces=REPLACES["rg_lru_bwd"],
+                    launches=sum(t["rg_lru_bwd_launches"] for t in bf16_trains),
+                    max_abs_err=rg_bwd_err, **rg_bwd_times[(1, 2048, 4096)])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

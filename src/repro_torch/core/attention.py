@@ -233,8 +233,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     first, as the plain paths promote them before their products. Inputs
     that need a gradient (training) take the kernel's autograd Function:
     its backward is the flash backward kernel, which takes bf16 at Dh 32,
-    64, 80, 96 and 128 and f32 at Dh 32 and 64, with or without window and
-    softcap, and no query offset; anything else raises (``mha_flash``);
+    64, 80, 96, 128 and 256 and f32 at Dh 32 and 64, with or without window
+    and softcap, and no query offset; anything else raises (``mha_flash``);
     there is no plain path for CUDA tensors.
     ``meta`` tensors (the dry-run) take the card's route, whose wrapper
     runs its plain version on them. CPU tensors: the reference's routing,

@@ -34,23 +34,34 @@
 // Routes, chosen statically by dtype and head dim in the wrapper
 // (kernels/flash_attention.py : route), which passes its choice; this
 // file dispatches on it and refuses a route not built for the inputs:
-//   * bf16, Dh 32, 64 or 128 -> flash_kernel_tc, the tensor-core route;
-//     bf16 Dh 80 and 96 (hubert-xlarge, phi-3-vision) run its Dh-128 body:
-//     the TMA boxes of columns 64..127 are zero-filled past Dh (the tensor
-//     maps name the true head dim), so QK^T adds exact zeros and P.V
-//     writes zero columns that the store drops; q's scale Dh^-0.5 comes
+//   * bf16, Dh 32, 64, 128 or 256 -> flash_kernel_tc, the tensor-core
+//     route; bf16 Dh 80 and 96 (hubert-xlarge, phi-3-vision) run its Dh-128
+//     body: the TMA boxes of columns 64..127 are zero-filled past Dh (the
+//     tensor maps name the true head dim), so QK^T adds exact zeros and
+//     P.V writes zero columns that the store drops; q's scale Dh^-0.5 comes
 //     from the caller. 1.6x / 1.33x the products of a native width, for
 //     no new instantiation;
-//   * f32 (Dh 32, 64, 80, 96, 128, 256), bf16 Dh 256 -> flash_kernel_cc,
-//     the CUDA-core route.
+//   * f32 (Dh 32, 64, 80, 96, 128, 256) -> flash_kernel_cc, the CUDA-core
+//     route: the f32 tolerance (3e-5) rules out bf16 products.
 // Both routes write, when asked (the backward's FlashAttention asks), each
 // row's (m, max(Z, 1e-30)) (the clipped softmax's from its first pass) and
 // the ungated output u in f32 (the f32 route under a gate, the bf16 route
 // always: bf16 out is too coarse for the backward's D_i); out is the same,
 // bitwise, with or without them.
-// f32 inputs stay on CUDA cores because their tolerance (3e-5) rules out
-// bf16 products; bf16 Dh 256 (recurrentgemma's cache-free forward, off
-// the main path) would need a 64x256 f32 accumulator per warpgroup.
+//
+// bf16 Dh 256 (recurrentgemma-9b's local attention, window 2048): a
+// warpgroup's 64 x 256 f32 output is 128 registers a thread, and with S
+// (32) and P's hi/lo fragments (32) it would leave 40 of a consumer's 232
+// for m, Z, the walk's state and the addresses (the Dh-128 body leaves
+// 104); and Q for 128 queries (64 KB) with a K + V stage (64 KB) leaves
+// room for two ring slots, not three. So at Dh 256 a
+// CTA owns half of the output's columns (Smem<D>::DN = 128, two CTAs a
+// block of queries, side by side in the grid): it computes S = Q K^T over
+// all 256 columns and P.V over its 128 V columns, which keeps the Dh-128
+// body's registers and leaves room for three slots of K (32 KB) and half
+// a V tile (16 KB). The cost: each S is computed twice, 4/3 of the
+// products of one CTA owning all 256 columns. The two parts' (m, Z) are
+// the same bits (the same products in the same order); part 0 saves them.
 //
 // Tensor-core route. One CTA of 384 threads owns one (batch row, query
 // head, block of 128 queries): two consumer warpgroups of 64 query rows
@@ -129,55 +140,6 @@ struct Args {
   int dh;  // the head dim of the tensors (the tensor-core body's D may exceed it)
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// x rounded to T's precision (round to nearest even), as f32
-__device__ __forceinline__ float round_as(float x, const float*) { return x; }
-__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// 16 bytes of T as f32
-template <typename T>
-struct Vec;
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-};
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-};
-
-template <typename T>
-__device__ __forceinline__ void load16(const T* p, float* dst) {
-  constexpr int N = Vec<T>::N;
-  uint4 raw = *reinterpret_cast<const uint4*>(p);
-  T e[N];
-  memcpy(e, &raw, sizeof(raw));
-#pragma unroll
-  for (int x = 0; x < N; ++x) dst[x] = to_f(e[x]);
-}
-
-__device__ __forceinline__ void store4(float* p, const float* x) {
-  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* x) {
-  __nv_bfloat16 e[4] = {__float2bfloat16_rn(x[0]), __float2bfloat16_rn(x[1]),
-                        __float2bfloat16_rn(x[2]), __float2bfloat16_rn(x[3])};
-  uint2 raw;
-  memcpy(&raw, e, sizeof(raw));
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
-__device__ __forceinline__ void store2(float* p, const float* x) {
-  *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, const float* x) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x[0], x[1]);
-}
-
 // The CUDA-core route's output columns: each thread owns NCG groups of CW
 // consecutive columns, group c starting at column c * 16 * CW + tx * CW.
 // CW is the widest of 4, 2, 1 whose 16 threads' span divides D, so a row
@@ -189,11 +151,6 @@ struct Cols {
   static constexpr int CW = D % 64 == 0 ? 4 : D % 32 == 0 ? 2 : 1;
   static constexpr int NCG = D / (16 * CW);
 };
-
-__device__ __forceinline__ void store1(float* p, const float* x) { *p = x[0]; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, const float* x) {
-  *p = __float2bfloat16_rn(x[0]);
-}
 
 template <int CW>
 __device__ __forceinline__ void load_cols(const float* p, float* x) {
@@ -207,14 +164,14 @@ __device__ __forceinline__ void load_cols(const float* p, float* x) {
     x[0] = *p;
   }
 }
-template <int CW, typename T>
-__device__ __forceinline__ void store_cols(T* p, const float* x) {
+template <int CW>
+__device__ __forceinline__ void store_cols(float* p, const float* x) {
   if constexpr (CW == 4) {
-    store4(p, x);
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
   } else if constexpr (CW == 2) {
-    store2(p, x);
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
   } else {
-    store1(p, x);
+    *p = x[0];
   }
 }
 
@@ -227,29 +184,28 @@ __device__ __forceinline__ float sum16(float x) {
   return x;
 }
 
-// Stage ROWS token rows [t0, t0 + ROWS) of one head into shared memory as
-// f32, transposed (dst[d * ROWS + row]); rows outside [0, limit) are
-// zeros. With mul > 0 each value is first multiplied by mul and rounded
-// back to T. Consecutive threads take consecutive rows, so the transposed
-// stores hit consecutive banks.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void stage_t(const T* base, long long sb_t, int t0, int limit,
+// Stage ROWS token rows [t0, t0 + ROWS) of one head into shared memory,
+// transposed (dst[d * ROWS + row]); rows outside [0, limit) are zeros.
+// With mul > 0 each value is first multiplied by mul. Consecutive threads
+// take consecutive rows, so the transposed stores hit consecutive banks.
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_t(const float* base, long long sb_t, int t0, int limit,
                                         float* dst, float mul = 0.f) {
-  constexpr int N = Vec<T>::N;
+  constexpr int N = 4;
   constexpr int NV = ROWS * D / N;
   for (int i = threadIdx.x; i < NV; i += NT) {
     const int row = i % ROWS, c = i / ROWS;
     float e[N];
     const int t = t0 + row;
     if (t >= 0 && t < limit) {
-      load16(base + (long long)t * sb_t + c * N, e);
+      load_cols<4>(base + (long long)t * sb_t + c * N, e);
     } else {
 #pragma unroll
       for (int x = 0; x < N; ++x) e[x] = 0.f;
     }
     if (mul > 0.f) {
 #pragma unroll
-      for (int x = 0; x < N; ++x) e[x] = round_as(e[x] * mul, base);
+      for (int x = 0; x < N; ++x) e[x] *= mul;
     }
 #pragma unroll
     for (int x = 0; x < N; ++x) dst[(c * N + x) * ROWS + row] = e[x];
@@ -257,23 +213,22 @@ __device__ __forceinline__ void stage_t(const T* base, long long sb_t, int t0, i
 }
 
 // Stage BK value rows row-major (dst[row * D + d]); coalesced reads.
-template <typename T, int D>
-__device__ __forceinline__ void stage_v(const T* base, long long sb_t, int t0, int limit,
+template <int D>
+__device__ __forceinline__ void stage_v(const float* base, long long sb_t, int t0, int limit,
                                         float* dst) {
-  constexpr int N = Vec<T>::N;
+  constexpr int N = 4;
   constexpr int VR = D / N;
   for (int i = threadIdx.x; i < BK * VR; i += NT) {
     const int row = i / VR, c = i % VR;
     float e[N];
     const int t = t0 + row;
     if (t < limit) {
-      load16(base + (long long)t * sb_t + c * N, e);
+      load_cols<4>(base + (long long)t * sb_t + c * N, e);
     } else {
 #pragma unroll
       for (int x = 0; x < N; ++x) e[x] = 0.f;
     }
-#pragma unroll
-    for (int x = 0; x < N; x += 4) store4(dst + row * D + c * N + x, e + x);
+    store_cols<4>(dst + row * D + c * N, e);
   }
 }
 
@@ -282,7 +237,7 @@ constexpr size_t smem_floats() {
   return (size_t)D * BQ + (size_t)D * BK + (size_t)BK * D + (size_t)BK * BQ;
 }
 
-template <typename T, bool CLIPPED, int D>
+template <bool CLIPPED, int D>
 __global__ void __launch_bounds__(NT, 2) flash_kernel_cc(Args a) {
   constexpr int CW = Cols<D>::CW, NCG = Cols<D>::NCG;
   extern __shared__ float4 smem4[];
@@ -301,9 +256,9 @@ __global__ void __launch_bounds__(NT, 2) flash_kernel_cc(Args a) {
   const int q0 = qb * BQ;
   const int qoff = a.q_offs != nullptr ? a.q_offs[b] : a.q_offset;
 
-  const T* qg = static_cast<const T*>(a.q) + b * a.sqb + h * a.sqh;
-  const T* kg = static_cast<const T*>(a.k) + b * a.skb + hk * a.skh;
-  const T* vg = static_cast<const T*>(a.v) + b * a.svb + hk * a.svh;
+  const float* qg = static_cast<const float*>(a.q) + b * a.sqb + h * a.sqh;
+  const float* kg = static_cast<const float*>(a.k) + b * a.skb + hk * a.skh;
+  const float* vg = static_cast<const float*>(a.v) + b * a.svb + hk * a.svh;
 
   // keys this block can see: cut at the causal edge of its last query and
   // at the window's start for its first
@@ -315,8 +270,8 @@ __global__ void __launch_bounds__(NT, 2) flash_kernel_cc(Args a) {
   if (a.window >= 0) k_lo = max(0, q_first - a.window + 1);
   k_lo = (k_lo / BK) * BK;
 
-  // q * scale rounded to q's dtype before the products
-  stage_t<T, D, BQ>(qg, a.sqt, q0, a.Tq, qT, a.scale);
+  // q * scale before the products
+  stage_t<D, BQ>(qg, a.sqt, q0, a.Tq, qT, a.scale);
 
   float m[4], z[4], acc[4][NCG][CW];
 #pragma unroll
@@ -342,8 +297,8 @@ __global__ void __launch_bounds__(NT, 2) flash_kernel_cc(Args a) {
 #pragma unroll 1
     for (int t0 = k_lo; t0 < k_hi; t0 += BK) {
       __syncthreads();  // the previous tile's readers are done
-      stage_t<T, D, BK>(kg, a.skt, t0, a.Tk, kT);
-      if (need_v) stage_v<T, D>(vg, a.svt, t0, a.Tk, vs);
+      stage_t<D, BK>(kg, a.skt, t0, a.Tk, kT);
+      if (need_v) stage_v<D>(vg, a.svt, t0, a.Tk, vs);
       __syncthreads();
 
       float s[4][4];
@@ -407,7 +362,7 @@ __global__ void __launch_bounds__(NT, 2) flash_kernel_cc(Args a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float col[4] = {s[0][j], s[1][j], s[2][j], s[3][j]};
-        store4(pT + (tx * 4 + j) * BQ + ty * 4, col);
+        store_cols<4>(pT + (tx * 4 + j) * BQ + ty * 4, col);
       }
       __syncthreads();
 #pragma unroll
@@ -433,7 +388,7 @@ __global__ void __launch_bounds__(NT, 2) flash_kernel_cc(Args a) {
     }
   }
 
-  T* out = static_cast<T*>(a.out) + b * a.sob + h * a.soh;
+  float* out = static_cast<float*>(a.out) + b * a.sob + h * a.soh;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int t = q0 + ty * 4 + i;
@@ -473,18 +428,26 @@ constexpr int THREADS = 384;  // two consumer warpgroups, one producer warpgroup
 
 // Shared-memory tiles of head dim D: attn::Bf16Tile's boxes (64 rows x 64
 // bf16 columns under the 128-byte swizzle, or x 32 under the 64-byte one
-// at Dh 32).
+// at Dh 32). A CTA owns DN of the output's D columns (all of them up to Dh
+// 128; at Dh 256 one half, NSPLIT CTAs a block of queries): Q and K
+// tiles hold all D columns (S = Q K^T is over the whole head dim), V
+// tiles the CTA's DN.
 template <int D>
 struct Smem {
   using T = attn::Bf16Tile<D>;
   static constexpr int BOX = T::BOX, ROW = T::ROW, CHUNK = T::CHUNK, SBO = T::SBO;
   static constexpr int LAYOUT = T::LAYOUT, NCH = T::NCH;
-  static constexpr int Q_BYTES = 2 * NCH * CHUNK;    // both warpgroups' Q
-  static constexpr int KV_BYTES = NCH * CHUNK;       // one K or V tile
-  static constexpr int STAGE_BYTES = 2 * KV_BYTES;   // K then V
+  static constexpr int DN = D > 128 ? 128 : D;      // output columns of a CTA
+  static constexpr int NSPLIT = D / DN;             // CTAs a block of queries
+  static constexpr int NVCH = DN / BOX;             // boxes of a V tile row
+  static constexpr int Q_BYTES = 2 * NCH * CHUNK;   // both warpgroups' Q
+  static constexpr int K_BYTES = NCH * CHUNK;       // one K tile
+  static constexpr int V_BYTES = NVCH * CHUNK;      // one V tile (the CTA's columns)
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;  // K then V
   static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
   // barriers: q_full, full[STAGES], empty[STAGES]; slack to align to 1024
   static constexpr int BYTES = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;
+  static_assert(BYTES <= 227 * 1024, "the tensor-core route's shared memory exceeds a CTA's");
 };
 
 using attn::desc;
@@ -501,18 +464,18 @@ using attn::wg_wait;
 using attn::wgmma_ss_n64;
 
 // O += P V over one 64-key tile: P as hi and lo A fragments of four k16
-// steps, V (64 keys x D) at vs, read through the MN-major descriptor (16
-// keys a step; LBO: the next box along D)
+// steps, V (64 keys x the CTA's DN columns) at vs, read through the
+// MN-major descriptor (16 keys a step; LBO: the next box along the columns)
 template <int D>
 __device__ __forceinline__ void pv(float* o, const uint32_t (*hi)[4], const uint32_t (*lo)[4],
                                    uint32_t vs) {
   using S = Smem<D>;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    attn::wgmma_rs<D>(o, hi[kk], desc(vs + kk * 16 * S::ROW, S::CHUNK, S::SBO, S::LAYOUT));
+    attn::wgmma_rs<S::DN>(o, hi[kk], desc(vs + kk * 16 * S::ROW, S::CHUNK, S::SBO, S::LAYOUT));
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    attn::wgmma_rs<D>(o, lo[kk], desc(vs + kk * 16 * S::ROW, S::CHUNK, S::SBO, S::LAYOUT));
+    attn::wgmma_rs<S::DN>(o, lo[kk], desc(vs + kk * 16 * S::ROW, S::CHUNK, S::SBO, S::LAYOUT));
 }
 
 // The scores of one tile (s[4j + 2i + c]: the thread's row i, key
@@ -583,7 +546,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, Args a) {
   using S = Smem<D>;
-  constexpr int NCH = S::NCH, CHUNK = S::CHUNK;
+  constexpr int NCH = S::NCH, CHUNK = S::CHUNK, DN = S::DN, NVCH = S::NVCH;
   constexpr int NPASS = CLIPPED ? 2 : 1;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
@@ -594,7 +557,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t q_full = base + S::BAR_OFF;
   const uint32_t full0 = q_full + 8, empty0 = q_full + 8 * (1 + STAGES);
 
-  const int qb = gridDim.x - 1 - blockIdx.x;  // longest causal walks first
+  // longest causal walks first; the NSPLIT CTAs of a block of queries (its
+  // column parts) side by side, so that they read the same K tiles about
+  // together
+  const int qb = gridDim.x / S::NSPLIT - 1 - blockIdx.x / S::NSPLIT;
+  const int part = blockIdx.x % S::NSPLIT, c0 = part * DN;  // columns c0 .. c0 + DN - 1
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.Hq / a.Hkv);
   const int q0 = qb * BQ;
@@ -639,12 +606,12 @@ __global__ void __launch_bounds__(THREADS, 1)
           mbar_wait(empty0 + 8 * stage, phase ^ 1);
           const uint32_t ks = kv_s + stage * S::STAGE_BYTES;
           const uint32_t fb = full0 + 8 * stage;
-          mbar_expect_tx(fb, need_v ? 2 * S::KV_BYTES : S::KV_BYTES);
+          mbar_expect_tx(fb, need_v ? S::STAGE_BYTES : S::K_BYTES);
           for (int c = 0; c < NCH; ++c)
             tma_load(ks + c * CHUNK, &tm_k, fb, c * S::BOX, hk, t0, b);
           if (need_v) {
-            for (int c = 0; c < NCH; ++c)
-              tma_load(ks + S::KV_BYTES + c * CHUNK, &tm_v, fb, c * S::BOX, hk, t0, b);
+            for (int c = 0; c < NVCH; ++c)
+              tma_load(ks + S::K_BYTES + c * CHUNK, &tm_v, fb, c0 + c * S::BOX, hk, t0, b);
           }
           if (++stage == STAGES) {
             stage = 0;
@@ -680,9 +647,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
     }
 
-    float o[D / 2], s[32];
+    float o[DN / 2], s[32];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DN / 2; ++i) o[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
     float m[2] = {attn::NEG_INF, attn::NEG_INF}, z[2] = {0.f, 0.f}, zc[2] = {1.f, 1.f};
@@ -751,7 +718,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     // first step's (arrived, finite) V, which adds exact zeros; ptxas
     // tracks real groups only, and an empty one made it serialize
     wg_fence();
-    pv<D>(o, hi, lo, kv_s + (first % STAGES) * S::STAGE_BYTES + S::KV_BYTES);
+    pv<D>(o, hi, lo, kv_s + (first % STAGES) * S::STAGE_BYTES + S::K_BYTES);
     wg_commit();
 #pragma unroll 1
     for (; n < n_steps; ++n) {
@@ -760,10 +727,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       float corr[2] = {1.f, 1.f};
       probs(n, !CLIPPED, corr);
       wg_wait<0>();
-      reg_fence<D / 2>(o);
+      reg_fence<DN / 2>(o);
       if (n > first) mbar_arrive(empty0 + 8 * ((n - 1) % STAGES));
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DN / 8; ++j) {
         o[4 * j] *= corr[0];
         o[4 * j + 1] *= corr[0];
         o[4 * j + 2] *= corr[1];
@@ -778,11 +745,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       wg_fence();
       issue_s(n + 1);
       wg_commit();
-      pv<D>(o, hi, lo, kv_s + (n % STAGES) * S::STAGE_BYTES + S::KV_BYTES);
+      pv<D>(o, hi, lo, kv_s + (n % STAGES) * S::STAGE_BYTES + S::K_BYTES);
       wg_commit();
     }
     wg_wait<0>();
-    reg_fence<D / 2>(o);
+    reg_fence<DN / 2>(o);
     mbar_arrive(empty0 + 8 * ((n_steps - 1) % STAGES));
 
     __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) + b * a.sob + h * a.soh;
@@ -794,16 +761,19 @@ __global__ void __launch_bounds__(THREADS, 1)
       const float gt = a.gate != nullptr ? a.gate[b * a.sgb + t * a.sgt + h * a.sgh] : 1.f;
       __nv_bfloat16* orow = out + (long long)t * a.sot;
       // what the backward reads: the row's (m, max(Z, 1e-30)) (the clipped
-      // softmax's from its first pass) and the ungated output u in f32
-      if (a.stats != nullptr && qd == 0) {
+      // softmax's from its first pass; every column part has the same, part
+      // 0 writes it) and the ungated output u in f32
+      if (a.stats != nullptr && qd == 0 && part == 0) {
         const long long si = ((long long)b * a.Hq + h) * a.Tq + t;
         a.stats[si] = m[i];
         a.stats[(long long)a.B * a.Hq * a.Tq + si] = zci;
       }
-      float* urow = a.u != nullptr ? a.u + (((long long)b * a.Tq + t) * a.Hq + h) * a.dh : nullptr;
+      float* urow =
+          a.u != nullptr ? a.u + (((long long)b * a.Tq + t) * a.Hq + h) * a.dh + c0 : nullptr;
+      orow += c0;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        if (8 * j >= a.dh) break;  // the Dh-128 body at Dh 80 / 96: columns past Dh are zeros
+      for (int j = 0; j < DN / 8; ++j) {
+        if (c0 + 8 * j >= a.dh) break;  // the Dh-128 body at Dh 80 / 96: columns past Dh are zeros
         float v0 = o[4 * j + 2 * i], v1 = o[4 * j + 2 * i + 1];
         if (!CLIPPED) {
           v0 = v0 / zci;
@@ -825,9 +795,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
-template <typename T, bool CLIPPED, int D>
+template <bool CLIPPED, int D>
 cudaError_t launch_cc(const Args& a, cudaStream_t stream) {
-  auto kern = flash_kernel_cc<T, CLIPPED, D>;
+  auto kern = flash_kernel_cc<CLIPPED, D>;
   const size_t smem = smem_floats<D>() * sizeof(float);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -850,14 +820,14 @@ cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
   const int smem = tc::Smem<D>::BYTES;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.Tq + tc::BQ - 1) / tc::BQ, a.Hq, a.B);
+  dim3 grid((a.Tq + tc::BQ - 1) / tc::BQ * tc::Smem<D>::NSPLIT, a.Hq, a.B);
   kern<<<grid, tc::THREADS, smem, stream>>>(mq, mk, mv, a);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t dispatch_cc(const Args& a, bool clipped, cudaStream_t s) {
-  return clipped ? launch_cc<T, true, D>(a, s) : launch_cc<T, false, D>(a, s);
+  return clipped ? launch_cc<true, D>(a, s) : launch_cc<false, D>(a, s);
 }
 
 template <int D>
@@ -865,26 +835,23 @@ cudaError_t dispatch_tc(const Args& a, bool clipped, cudaStream_t s) {
   return clipped ? launch_tc<true, D>(a, s) : launch_tc<false, D>(a, s);
 }
 
-// route 1: the tensor-core kernels (bf16, Dh 32/64/128, and Dh 80/96
+// route 1: the tensor-core kernels (bf16, Dh 32/64/128/256, and Dh 80/96
 // through the Dh-128 body); route 0: the CUDA-core kernels (f32 at Dh
-// 32/64/80/96/128/256, bf16 at Dh 256)
+// 32/64/80/96/128/256)
 cudaError_t dispatch(const Args& a, int dtype, int dh, int route, bool clipped,
                      cudaStream_t s) {
-  if (route == 1) {
-    if (dtype == 1 && dh == 32) return dispatch_tc<32>(a, clipped, s);
-    if (dtype == 1 && dh == 64) return dispatch_tc<64>(a, clipped, s);
-    if (dtype == 1 && (dh == 80 || dh == 96 || dh == 128)) return dispatch_tc<128>(a, clipped, s);
-  } else if (route != 0) {
-    return cudaErrorInvalidValue;
-  } else if (dtype == 1) {
-    if (dh == 256) return dispatch_cc<__nv_bfloat16, 256>(a, clipped, s);
-  } else if (dtype == 0) {
-    if (dh == 32) return dispatch_cc<float, 32>(a, clipped, s);
-    if (dh == 64) return dispatch_cc<float, 64>(a, clipped, s);
-    if (dh == 80) return dispatch_cc<float, 80>(a, clipped, s);
-    if (dh == 96) return dispatch_cc<float, 96>(a, clipped, s);
-    if (dh == 128) return dispatch_cc<float, 128>(a, clipped, s);
-    if (dh == 256) return dispatch_cc<float, 256>(a, clipped, s);
+  if (route == 1 && dtype == 1) {
+    if (dh == 32) return dispatch_tc<32>(a, clipped, s);
+    if (dh == 64) return dispatch_tc<64>(a, clipped, s);
+    if (dh == 80 || dh == 96 || dh == 128) return dispatch_tc<128>(a, clipped, s);
+    if (dh == 256) return dispatch_tc<256>(a, clipped, s);
+  } else if (route == 0 && dtype == 0) {
+    if (dh == 32) return dispatch_cc<32>(a, clipped, s);
+    if (dh == 64) return dispatch_cc<64>(a, clipped, s);
+    if (dh == 80) return dispatch_cc<80>(a, clipped, s);
+    if (dh == 96) return dispatch_cc<96>(a, clipped, s);
+    if (dh == 128) return dispatch_cc<128>(a, clipped, s);
+    if (dh == 256) return dispatch_cc<256>(a, clipped, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -10,11 +10,11 @@
 // is the flash kernel, so its gradient is this kernel.
 //
 // Scope: f32 q/k/v (the paper models' dtype) at Dh 32 and 64, and bf16
-// q/k/v (every other registry arch's) at Dh 32, 64, 80, 96 and 128; causal
-// or not, a local window or not, a logit softcap or not, G = Hq / Hkv >= 1,
-// model layout (B, T, H, Dh) with the forward's stride rules, vanilla,
-// clipped (gamma, zeta) and gated; no query offset (the wrapper refuses
-// it, and bf16 at Dh 256 and f32 above Dh 64: ROADMAP 1.3).
+// q/k/v (every other registry arch's) at Dh 32, 64, 80, 96, 128 and 256;
+// causal or not, a local window or not, a logit softcap or not, G = Hq /
+// Hkv >= 1, model layout (B, T, H, Dh) with the forward's stride rules,
+// vanilla, clipped (gamma, zeta) and gated; no query offset (the wrapper
+// refuses it, and f32 above Dh 64: ROADMAP 1.3).
 //
 // For query row i, s_ij = (q_i Dh^-0.5) . k_j (q scaled in its dtype first,
 // as the forward), capped s_ij <- c tanh(s_ij / c) under a softcap c,
@@ -146,6 +146,17 @@
 //     name the true head dim) and store Dh columns. The dk/dv launch at Dh
 //     128 holds dK and dV (64 f32 registers each a thread) beside S and dP
 //     (32 each): 246-249 registers, no spill (ptxas, PR 28).
+//   * Dh 256 (recurrentgemma-9b's local attention, MQA: G 16) splits the
+//     head dim (Split<D>): a CTA owns one (block of 64 tokens, half of the
+//     256 columns), computes S and dP over all 256 columns and its products
+//     over tokens over its 128 (dq or dk and dv; clipped, A and B). Whole,
+//     dK and dV would be 128 registers each a thread and the clipped dq's A
+//     and B as much, beside S and dP; split, every accumulator is the
+//     Dh-128 body's. S and dP are then computed twice in each launch: 28
+//     flops issued per visible pair and column where one CTA owning all
+//     256 columns would issue 20, 1.4x. Shared memory: the fixed tiles (Q
+//     and dO, or K and V) take 64 KB and a ring slot 64 KB, so the ring has
+//     two slots, one per warpgroup (192 KB with the row data).
 // What bounds it: operations, 10 flops per visible pair and column at 989
 // TFLOP/s (0.109 ms at qwen3-14b's (1, 2048, 40/8, 128) causal); it
 // issues 20 flops per pair and column (24 clipped): S and dP in both
@@ -1090,8 +1101,20 @@ cudaError_t launch(const Args& a, long long sq[3], long long sk[3], long long sv
 // ---------------------------------------------------------------------------
 namespace bf {
 
-constexpr int STAGES = 4;  // even: a slot is read by one warpgroup only (tiles n, n + 4, ...)
-constexpr int BT = 64;     // tokens a tile: queries of dq's block and of dk/dv's walk, keys likewise
+constexpr int BT = 64;  // tokens a tile: queries of dq's block and of dk/dv's walk, keys likewise
+
+// A CTA's share of the head dim D: all of it up to Dh 128; at Dh 256 one
+// half of 128 columns (N = 2 CTAs a block of tokens), whose CTA computes S
+// and dP over all 256 columns and its products over tokens (dq, dv, dk)
+// over its half. The ring's slots: an even number, so that a slot is only
+// ever read by one warpgroup (tiles n, n + STAGES, ...); four up to Dh
+// 128, two at Dh 256, where a slot (K and V, or Q and dO) is 64 KB.
+template <int D>
+struct Split {
+  static constexpr int DN = D > 128 ? 128 : D;  // output columns a CTA owns
+  static constexpr int N = D / DN;              // CTAs a block of tokens
+  static constexpr int STAGES = D > 128 ? 2 : 4;
+};
 
 using attn::Bf16Tile;
 
@@ -1211,6 +1234,7 @@ __device__ __forceinline__ void zero(float* x) {
 // ---------------------------------------------------------------------------
 template <int D>
 struct QLayout {
+  static constexpr int STAGES = Split<D>::STAGES;
   static constexpr int TILE = Bf16Tile<D>::BYTES;
   static constexpr int Q = 0, DO = TILE, RING = 2 * TILE;  // slot s: K, then V
   static constexpr int CS = RING + STAGES * 2 * TILE;       // float4 [64]: c2, D, m, Z
@@ -1226,13 +1250,18 @@ __global__ void __launch_bounds__(THREADS, 1)
               Args a) {
   using L = QLayout<D>;
   using T = Bf16Tile<D>;
+  constexpr int STAGES = L::STAGES, DN = Split<D>::DN, NS = Split<D>::N;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* sm = smem_raw + (base - raw);
   const uint32_t qd_full = base + L::BAR, full0 = qd_full + 8;
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BT;  // longest causal walks first
+  // longest causal walks first; the NS CTAs of a block (its column parts)
+  // side by side, so that they read the same K and V tiles about together
+  const int q0 = (gridDim.x / NS - 1 - blockIdx.x / NS) * BT;
+  const int part = blockIdx.x % NS, c0 = part * DN;  // the CTA's columns c0 .. c0 + DN - 1
+  const uint32_t col_off = part * (DN / T::BOX) * T::CHUNK;  // their boxes in a tile
   const int h = blockIdx.y, b = blockIdx.z, hk = h / (a.Hq / a.Hkv);
   const int k_hi = a.causal ? min(a.Tk, min(q0 + BT, a.Tq)) : a.Tk;
   const int k_lo = a.window >= 0 ? max(0, q0 - a.window + 1) / BT * BT : 0;
@@ -1290,7 +1319,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const float m = a.stats[si], zc = a.stats[bht + si];
       cs[row] = make_float4(row_c2(m, zc), dsum, m, zc);
       gs[row] = gt;
-      if (q0 + row < a.Tq) {
+      if (q0 + row < a.Tq && part == 0) {
         if (!CLIPPED) a.dsum[si] = dsum;
         if (gated) a.dgate[((long long)b * a.Tq + t) * a.Hq + h] = dot;
       }
@@ -1303,9 +1332,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   // dq, or clipped A = sum_j (p dp fac) k_j; clipped, B = sum_j (p fac) k_j
   // and D's partial sums, then dq = A - D B
-  float acc[D / 2], bacc[CLIPPED ? D / 2 : 1], s[32], dp[32], part[2] = {0.f, 0.f};
-  zero<D / 2>(acc);
-  if constexpr (CLIPPED) zero<D / 2>(bacc);
+  float acc[DN / 2], bacc[CLIPPED ? DN / 2 : 1], s[32], dp[32], dpart[2] = {0.f, 0.f};
+  zero<DN / 2>(acc);
+  if constexpr (CLIPPED) zero<DN / 2>(bacc);
   uint32_t hi[4][4], lo[4][4];
   const float icap = inv_cap(a);
   const int r0 = warp * 16 + g;  // the thread's rows r0, r0 + 8 of the block
@@ -1346,7 +1375,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           const Entry e = entry(a, valid, s[x], icap, c2[i], mr[i], zr[i], gr[i] * dp[x],
                                 [&] { return exact_score(a, b, h, hk, qp, kp); });
           if constexpr (CLIPPED) {  // p dp fac into dp, p fac into s; p dp into D's sums
-            part[i] += e.p * e.dp;
+            dpart[i] += e.p * e.dp;
             dp[x] = e.p * e.dp * e.fac;
             s[x] = e.p * e.fac;
           } else {
@@ -1354,21 +1383,21 @@ __global__ void __launch_bounds__(THREADS, 1)
           }
         }
     // dq += dS K (clipped: A += (p dp fac) K, B += (p fac) K): M queries,
-    // N = Dh, K keys
+    // N = the CTA's DN columns, K keys
     to_frags(CLIPPED ? dp : s, hi, lo);
     attn::wg_fence();
-    product_rs<D>(acc, hi, lo, kt);
+    product_rs<DN>(acc, hi, lo, kt + col_off);
     attn::wg_commit();
     if constexpr (CLIPPED) {
       attn::wg_wait<0>();
       to_frags(s, hi, lo);
       attn::wg_fence();
-      product_rs<D>(bacc, hi, lo, kt);
+      product_rs<DN>(bacc, hi, lo, kt + col_off);
       attn::wg_commit();
     }
     attn::wg_wait<0>();
-    attn::reg_fence<D / 2>(acc);
-    if constexpr (CLIPPED) attn::reg_fence<D / 2>(bacc);
+    attn::reg_fence<DN / 2>(acc);
+    if constexpr (CLIPPED) attn::reg_fence<DN / 2>(bacc);
     wg_sync(wg);  // every warp of the warpgroup is done with the slot
     if (tw == 0 && n + STAGES < n_tiles) {
       async_fence();
@@ -1377,36 +1406,37 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 
   // warpgroup 1 hands its sums to warpgroup 0, which adds them and stores
-  constexpr int XN = CLIPPED ? D + 2 : D / 2;
+  constexpr int XN = CLIPPED ? DN + 2 : DN / 2;
   cta_sync();  // both warpgroups are done with the ring
   float* xch = reinterpret_cast<float*>(sm + L::RING) + tw * XN;
   if (wg == 1) {
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) xch[i] = acc[i];
+    for (int i = 0; i < DN / 2; ++i) xch[i] = acc[i];
     if constexpr (CLIPPED) {
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) xch[D / 2 + i] = bacc[i];
-      xch[D] = part[0];
-      xch[D + 1] = part[1];
+      for (int i = 0; i < DN / 2; ++i) xch[DN / 2 + i] = bacc[i];
+      xch[DN] = dpart[0];
+      xch[DN + 1] = dpart[1];
     }
   }
   cta_sync();
   if (wg == 1) return;
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] += xch[i];
+  for (int i = 0; i < DN / 2; ++i) acc[i] += xch[i];
   if constexpr (CLIPPED) {
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) bacc[i] += xch[D / 2 + i];
+    for (int i = 0; i < DN / 2; ++i) bacc[i] += xch[DN / 2 + i];
     // D of each row: the two warpgroups' partial sums, then the row's quad
+    // (every column part sums the same D; part 0 writes it)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      float d = part[i] + xch[D + i];
+      float d = dpart[i] + xch[DN + i];
       d += __shfl_xor_sync(0xffffffffu, d, 1);
       d += __shfl_xor_sync(0xffffffffu, d, 2);
       const int t = q0 + r0 + 8 * i;
-      if (qd == 0 && t < a.Tq) a.dsum[stat_index(a, b, h, t)] = d;
+      if (qd == 0 && t < a.Tq && part == 0) a.dsum[stat_index(a, b, h, t)] = d;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DN / 8; ++j) {
         acc[4 * j + 2 * i] = fmaf(-d, bacc[4 * j + 2 * i], acc[4 * j + 2 * i]);
         acc[4 * j + 2 * i + 1] = fmaf(-d, bacc[4 * j + 2 * i + 1], acc[4 * j + 2 * i + 1]);
       }
@@ -1416,10 +1446,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int i = 0; i < 2; ++i) {
     const int t = q0 + r0 + 8 * i;
     if (t >= a.Tq) continue;
-    __nv_bfloat16* row = a.dq + (((long long)b * a.Tq + t) * a.Hq + h) * a.dh;
+    __nv_bfloat16* row = a.dq + (((long long)b * a.Tq + t) * a.Hq + h) * a.dh + c0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      if (8 * j >= a.dh) break;  // the Dh-128 body at Dh 80 / 96: columns past Dh are zeros
+    for (int j = 0; j < DN / 8; ++j) {
+      if (c0 + 8 * j >= a.dh) break;  // the Dh-128 body at Dh 80 / 96: columns past Dh are zeros
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * qd) =
           __floats2bfloat162_rn(acc[4 * j + 2 * i] * a.scale, acc[4 * j + 2 * i + 1] * a.scale);
     }
@@ -1433,6 +1463,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 // ---------------------------------------------------------------------------
 template <int D>
 struct KvLayout {
+  static constexpr int STAGES = Split<D>::STAGES;
   static constexpr int TILE = Bf16Tile<D>::BYTES;
   static constexpr int K = 0, V = TILE, RING = 2 * TILE;  // slot s: Q, then dO
   static constexpr int CS = RING + STAGES * 2 * TILE;      // per warpgroup float4 [64]: c2, D, gate, m
@@ -1448,13 +1479,17 @@ __global__ void __launch_bounds__(THREADS, 1)
                 Args a) {
   using L = KvLayout<D>;
   using T = Bf16Tile<D>;
+  constexpr int STAGES = L::STAGES, DN = Split<D>::DN, NS = Split<D>::N;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* sm = smem_raw + (base - raw);
   const uint32_t kv_full = base + L::BAR, full0 = kv_full + 8;
 
-  const int k0 = blockIdx.x * BT;
+  // the NS CTAs of a key block (its column parts) side by side
+  const int k0 = (blockIdx.x / NS) * BT;
+  const int part = blockIdx.x % NS, c0 = part * DN;  // the CTA's columns c0 .. c0 + DN - 1
+  const uint32_t col_off = part * (DN / T::BOX) * T::CHUNK;  // their boxes in a tile
   const int h = blockIdx.y, b = blockIdx.z, G = a.Hq / a.Hkv, hk = h / G;
   const int q_lo = a.causal ? k0 : 0;
   const int q_hi = a.window >= 0 ? min(a.Tq, k0 + BT + a.window - 1) : a.Tq;
@@ -1490,9 +1525,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const long long bht = (long long)a.B * a.Hq * a.Tq;
   attn::mbar_wait(kv_full, 0);
 
-  float dk[D / 2], dv[D / 2], s[32], dp[32];
-  zero<D / 2>(dk);
-  zero<D / 2>(dv);
+  float dk[DN / 2], dv[DN / 2], s[32], dp[32];
+  zero<DN / 2>(dk);
+  zero<DN / 2>(dv);
   uint32_t hi[4][4], lo[4][4];
   const float icap = inv_cap(a);
   const int r0 = warp * 16 + g;  // the thread's keys k0 + r0, k0 + r0 + 8
@@ -1543,20 +1578,20 @@ __global__ void __launch_bounds__(THREADS, 1)
           dp[x] = e.p * (e.dp - cst.y) * e.fac;
         }
       }
-    // dV += (P~ gate)^T dO, then dK += dS^T (Q Dh^-0.5): M keys, N = Dh,
-    // K queries
+    // dV += (P~ gate)^T dO, then dK += dS^T (Q Dh^-0.5): M keys, N = the
+    // CTA's DN columns, K queries
     to_frags(s, hi, lo);
     attn::wg_fence();
-    product_rs<D>(dv, hi, lo, dot_s);
+    product_rs<DN>(dv, hi, lo, dot_s + col_off);
     attn::wg_commit();
     attn::wg_wait<0>();
     to_frags(dp, hi, lo);
     attn::wg_fence();
-    product_rs<D>(dk, hi, lo, qt_s);
+    product_rs<DN>(dk, hi, lo, qt_s + col_off);
     attn::wg_commit();
     attn::wg_wait<0>();
-    attn::reg_fence<D / 2>(dv);
-    attn::reg_fence<D / 2>(dk);
+    attn::reg_fence<DN / 2>(dv);
+    attn::reg_fence<DN / 2>(dk);
     wg_sync(wg);  // every warp of the warpgroup is done with the slot
     if (tw == 0 && n + STAGES < n_tiles) {
       async_fence();
@@ -1567,29 +1602,29 @@ __global__ void __launch_bounds__(THREADS, 1)
   // warpgroup 1 hands its dk, dv to warpgroup 0, which adds them and stores:
   // bf16 at the KV head, or with G > 1 an f32 partial of the query head
   cta_sync();
-  float* xch = reinterpret_cast<float*>(sm + L::RING) + tw * D;
+  float* xch = reinterpret_cast<float*>(sm + L::RING) + tw * DN;
   if (wg == 1) {
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) {
+    for (int i = 0; i < DN / 2; ++i) {
       xch[i] = dk[i];
-      xch[D / 2 + i] = dv[i];
+      xch[DN / 2 + i] = dv[i];
     }
   }
   cta_sync();
   if (wg == 1) return;
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) {
+  for (int i = 0; i < DN / 2; ++i) {
     dk[i] += xch[i];
-    dv[i] += xch[D / 2 + i];
+    dv[i] += xch[DN / 2 + i];
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int t = k0 + r0 + 8 * i;
     if (t >= a.Tk) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      if (8 * j >= a.dh) break;
-      const int x = 4 * j + 2 * i, d = 8 * j + 2 * qd;
+    for (int j = 0; j < DN / 8; ++j) {
+      if (c0 + 8 * j >= a.dh) break;
+      const int x = 4 * j + 2 * i, d = c0 + 8 * j + 2 * qd;
       if (G > 1) {
         const long long row = (((long long)b * a.Tk + t) * a.Hq + h) * a.dh;
         *reinterpret_cast<float2*>(a.part_k + row + d) = make_float2(dk[x], dk[x + 1]);
@@ -1615,11 +1650,13 @@ cudaError_t launch(const Args& a, long long sv[3], cudaStream_t s) {
   if (err == cudaSuccess)
     err = attn::make_bf16_map<D>(&mv, a.v, a.B, a.Tk, a.Hkv, a.dh, sv[0], sv[1], sv[2]);
   if (err != cudaSuccess) return err;
+  constexpr int NS = Split<D>::N;
   err = launch_one(a.clipped ? bwd_dq_kernel<D, true> : bwd_dq_kernel<D, false>,
-                   dim3((a.Tq + BT - 1) / BT, a.Hq, a.B), QLayout<D>::BYTES, s, mq, mdo, mk, mv, a);
+                   dim3((a.Tq + BT - 1) / BT * NS, a.Hq, a.B), QLayout<D>::BYTES, s, mq, mdo, mk,
+                   mv, a);
   if (err != cudaSuccess) return err;
-  return launch_one(bwd_dkdv_kernel<D>, dim3((a.Tk + BT - 1) / BT, a.Hq, a.B), KvLayout<D>::BYTES, s,
-                    mq, mdo, mk, mv, a);
+  return launch_one(bwd_dkdv_kernel<D>, dim3((a.Tk + BT - 1) / BT * NS, a.Hq, a.B),
+                    KvLayout<D>::BYTES, s, mq, mdo, mk, mv, a);
 }
 
 }  // namespace bf
@@ -1673,6 +1710,7 @@ extern "C" int flash_attention_bwd_launch(
   if (Dh == 32) err = bf::launch<32>(a, sv, s);
   else if (Dh == 64) err = bf::launch<64>(a, sv, s);
   else if (Dh == 80 || Dh == 96 || Dh == 128) err = bf::launch<128>(a, sv, s);
+  else if (Dh == 256) err = bf::launch<256>(a, sv, s);
   if (err != cudaSuccess || Hq == Hkv) return (int)err;
   return (int)sum_heads(part_k, part_v, static_cast<uint2*>(dk), static_cast<uint2*>(dv),
                         (long long)B * Tk * Hkv * Dh / 4, Hq / Hkv, Dh / 4, s);

@@ -44,6 +44,18 @@
 // loads and stores are coalesced 128-byte lines. The walk goes U steps
 // at a time, and the loads of the next U steps are issued before the
 // current U steps' chain, so they are in flight while it runs.
+//
+// The reverse scan (rglru_bwd_launch): the gradient of (h, h_last) with
+// respect to (a, b, h0), which the TPU kernel lacks (the reference
+// differentiates its scan with XLA). With g_T = dh_T + dh_last and g_t =
+// dh_t + a_{t+1} g_{t+1}: db_t = g_t, da_t = g_t h_{t-1} (h_0 = h0 or 0)
+// and dh0 = a_1 g_1. One thread per (row, channel) walks T backwards,
+// carrying c = a_{t+1} g_{t+1}: per step g = dh_t + c, da_t = g h_{t-1},
+// c = a_t g, each product and sum rounded on its own (__fmul_rn,
+// __fadd_rn), so it is bitwise the plain reverse loop (rglru_bwd_ref). It
+// reads a, h and dh and writes da and db: 20 bytes per element against 3
+// flops, bound by bytes. Route 0's shape serves it: direct coalesced
+// loads, the next U steps' loads in flight during the current chain.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -102,6 +114,60 @@ __global__ void __launch_bounds__(NT) rglru_direct_kernel(const float* __restric
     }
   }
   h_last[row * D + d] = hv;
+}
+
+// The reverse scan: the loads of steps t1, t1 - 1, .., t1 - U + 1 (those
+// at or after 0) of one channel: a_t, dh_t and h_{t-1} (h_init at t = 0)
+__device__ __forceinline__ void load_group_bwd(float (&av)[U], float (&dv)[U], float (&hv)[U],
+                                               const float* a, const float* dh, const float* h,
+                                               float h_init, long long base, int t1, int D) {
+#pragma unroll
+  for (int k = 0; k < U; ++k) {
+    const int t = t1 - k;
+    if (t >= 0) {
+      const long long off = base + (long long)t * D;
+      av[k] = __ldg(a + off);
+      dv[k] = __ldg(dh + off);
+      hv[k] = t > 0 ? __ldg(h + off - D) : h_init;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NT) rglru_bwd_kernel(
+    const float* __restrict__ a, const float* __restrict__ h, const float* __restrict__ dh,
+    const float* __restrict__ dh_last, const float* __restrict__ h0, float* __restrict__ da,
+    float* __restrict__ db, float* __restrict__ dh0, int T, int D, int strips) {
+  const long long row = blockIdx.x / strips;
+  const int d = (blockIdx.x % strips) * NT + threadIdx.x;
+  if (d >= D) return;
+  const long long base = row * (long long)T * D + d;
+  const float h_init = h0 != nullptr ? h0[row * D + d] : 0.f;
+  float c = dh_last != nullptr ? dh_last[row * D + d] : 0.f;  // a_{t+1} g_{t+1}
+  float an[U] = {}, dn[U] = {}, hn[U] = {};
+  load_group_bwd(an, dn, hn, a, dh, h, h_init, base, T - 1, D);
+  for (int t1 = T - 1; t1 >= 0; t1 -= U) {
+    float ac[U], dc[U], hc[U];
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      ac[k] = an[k];
+      dc[k] = dn[k];
+      hc[k] = hn[k];
+    }
+    // the next group's loads, in flight during this group's chain
+    if (t1 - U >= 0) load_group_bwd(an, dn, hn, a, dh, h, h_init, base, t1 - U, D);
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const int t = t1 - k;
+      if (t >= 0) {
+        const float g = __fadd_rn(dc[k], c);
+        const long long off = base + (long long)t * D;
+        db[off] = g;
+        da[off] = __fmul_rn(g, hc[k]);
+        c = __fmul_rn(ac[k], g);
+      }
+    }
+  }
+  if (dh0 != nullptr) dh0[row * D + d] = c;
 }
 
 // ---------------------------------------------------------------------------
@@ -404,4 +470,21 @@ extern "C" int rglru_launch(const float* a, const float* b, const float* h0, flo
     case 8: return (int)launch_tma<8>(a, b, h0, h, h_last, B, T, D, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The reverse scan. a, h, dh, da, db: (B, T, D) f32 contiguous (h the
+// forward's output); dh_last (B, D) f32 or null (zero); h0 (B, D) f32 or
+// null (zero state; then dh0 must be null); dh0 (B, D) f32 or null (not
+// written). Returns the cudaError_t of the launch (0 = success).
+extern "C" int rglru_bwd_launch(const float* a, const float* h, const float* dh,
+                                const float* dh_last, const float* h0, float* da, float* db,
+                                float* dh0, int B, int T, int D, void* stream) {
+  if (B < 1 || T < 1 || D < 1 || (h0 == nullptr && dh0 != nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int strips = (D + NT - 1) / NT;
+  if ((long long)strips * B > INT_MAX) return (int)cudaErrorInvalidValue;
+  rglru_bwd_kernel<<<strips * B, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, h, dh, dh_last, h0, da, db, dh0, T, D, strips);
+  return (int)cudaGetLastError();
 }

@@ -37,12 +37,12 @@ hand-written kernel ``csrc/flash_attention_bwd.cu`` (wrapper
 recomputes S but nothing else of the forward. On CUDA, ``mha_flash`` and
 ``flash_attention`` send inputs that need a gradient through it. The
 backward kernel has two routes (``bwd_route``): bf16 at Dh 32, 64, 80,
-96 and 128 (bf16 wgmma, P~ and dS as hi/lo operand pairs) and f32 at Dh
-32 and 64 (3xTF32 wgmma); both causal or not, with or without a local
-window and a logit softcap, GQA, vanilla, clipped and gated. For bf16 at
-Dh 256, f32 at Dh 80 to 256 and a query offset the wrappers raise under a
-gradient (ROADMAP 1.3: the backward's missing routes); nothing switches
-to the plain version. On CPU tensors ``FlashAttention`` runs the same
+96, 128 and 256 (bf16 wgmma, P~ and dS as hi/lo operand pairs; at Dh 256
+each CTA owns half the head dim's columns) and f32 at Dh 32 and 64
+(3xTF32 wgmma); both causal or not, with or without a local window and a
+logit softcap, GQA, vanilla, clipped and gated. For f32 at Dh 80 to 256
+and a query offset the wrappers raise under a gradient (ROADMAP 1.3: the
+backward's missing routes); nothing switches to the plain version. On CPU tensors ``FlashAttention`` runs the same
 algorithm plainly: the forward ``mha_flash_ref`` with the row statistics
 of ``attention_stats_ref``, and backward ``attention_bwd_saved_ref``.
 ``attention_bwd_ref`` is the gradient written out as formulas from q, k,
@@ -70,7 +70,7 @@ bwd_launches = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 # the backward kernel's routes: q/k/v dtype -> (route, head dims)
-_BWD_ROUTES = {torch.bfloat16: ("bf16", (32, 64, 80, 96, 128)),
+_BWD_ROUTES = {torch.bfloat16: ("bf16", (32, 64, 80, 96, 128, 256)),
                torch.float32: ("3xtf32", (32, 64))}
 _lib: Optional[ctypes.CDLL] = None
 _bwd_lib: Optional[ctypes.CDLL] = None
@@ -106,23 +106,24 @@ def _bwd_kernel_lib() -> ctypes.CDLL:
 
 def route(dtype: torch.dtype, dh: int) -> str:
     """The kernel's route for q/k/v of ``dtype`` and head dim ``dh``, fixed
-    by the two alone: "tensor-core" (bf16 at Dh 32, 64, 80, 96 or 128:
-    wgmma products over a TMA-fed K/V ring, P carried as a hi/lo pair of
-    bf16 operands; Dh 80 and 96 run the Dh-128 body over TMA boxes
-    zero-filled past Dh) or "cuda-core" (f32, whose tolerance rules out
-    bf16 products, and bf16 at Dh 256)."""
-    tc = dtype == torch.bfloat16 and dh in (32, 64, 80, 96, 128)
-    return "tensor-core" if tc else "cuda-core"
+    by the two alone: "tensor-core" (bf16 at every head dim the kernel
+    takes: wgmma products over a TMA-fed K/V ring, P carried as a hi/lo
+    pair of bf16 operands; Dh 80 and 96 run the Dh-128 body over TMA boxes
+    zero-filled past Dh, and at Dh 256 a CTA owns half of the output's
+    columns) or "cuda-core" (f32, whose tolerance rules out bf16
+    products)."""
+    return "tensor-core" if dtype == torch.bfloat16 else "cuda-core"
 
 
 def bwd_route(dtype: torch.dtype, dh: int) -> Optional[str]:
     """The backward kernel's route for q/k/v of ``dtype`` and head dim
-    ``dh``, fixed by the two alone: "bf16" (bf16 at Dh 32, 64, 80, 96 or
-    128: bf16 wgmma products, the f32 factors P~ and dS carried as hi/lo
+    ``dh``, fixed by the two alone: "bf16" (bf16 at Dh 32, 64, 80, 96, 128
+    or 256: bf16 wgmma products, the f32 factors P~ and dS carried as hi/lo
     pairs of bf16 operands; Dh 80 and 96 run the Dh-128 body over TMA boxes
-    zero-filled past Dh), "3xtf32" (f32 at Dh 32 or 64: each f32 operand
-    split into TF32 hi + lo), or None where it has none (bf16 at Dh 256,
-    f32 at Dh 80 to 256: ROADMAP 1.3)."""
+    zero-filled past Dh, and at Dh 256 a CTA owns half of the gradients'
+    columns), "3xtf32" (f32 at Dh 32 or 64: each f32 operand split into
+    TF32 hi + lo), or None where it has none (f32 at Dh 80 to 256: ROADMAP
+    1.3)."""
     name, dhs = _BWD_ROUTES.get(dtype, (None, ()))
     return name if dh in dhs else None
 

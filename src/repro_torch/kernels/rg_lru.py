@@ -18,9 +18,20 @@ memory (D % 4 == 0 and 16-byte aligned tensors, which the tensor maps
 need), or route 0, direct loads (any D). Both round the product and the
 sum of every step separately, in time order, as the plain loop does, so
 both are bitwise equal to it. A route that cannot launch raises; it never
-gives way to the other. The kernel has no backward: the wrapper refuses
-inputs that need a gradient. ``launches`` counts kernel launches, and
-nothing else.
+gives way to the other. ``launches`` counts kernel launches, and nothing
+else.
+
+The gradient: inputs that need one go through ``RGLRU`` (a
+``torch.autograd.Function``) on every device. Its forward is the call
+above; it keeps a, h and h0. Its backward is the reverse scan, the
+kernel's second entry point ``rglru_bwd_launch`` on CUDA tensors
+(``bwd_launches`` counts its launches) and the plain reverse loop
+``rglru_bwd_ref`` on CPU tensors: with g_T = dh_T + dh_last and g_t = dh_t
++ a_{t+1} g_{t+1}, db_t = g_t, da_t = g_t h_{t-1} (h_0 = h0 or 0) and dh0
+= a_1 g_1, each product and sum rounded on its own, so the kernel is
+bitwise the loop, and the loop bitwise torch autograd through
+``rglru_ref``. (The reference has no such kernel: XLA differentiates its
+scan.)
 """
 from __future__ import annotations
 
@@ -34,6 +45,8 @@ from repro_torch.kernels.build import load
 
 # kernel launches made by ``rglru`` (plain integer)
 launches = 0
+# reverse-scan kernel launches made by ``RGLRU.backward`` on the card
+bwd_launches = 0
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -90,6 +103,9 @@ def _kernel_lib() -> ctypes.CDLL:
         fn = lib.rglru_launch
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        bwd = lib.rglru_bwd_launch
+        bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        bwd.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -108,31 +124,57 @@ def rglru_ref(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = Non
     return torch.stack(outs, dim=1), h
 
 
-def rglru(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = None
-          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The recurrence: the CUDA kernel on CUDA tensors, the plain version
-    on CPU tensors. a, b (B, T, D) f32; h0 (B, D) f32 or None."""
-    if a.device.type == "meta":  # shapes only (the dry-run): the plain math
-        return rglru_ref(a, b, h0)
-    if torch.is_grad_enabled() and any(
-            x is not None and x.requires_grad for x in (a, b, h0)):
-        raise RuntimeError("the RG-LRU kernel has no backward yet: call it under "
-                           "torch.no_grad(). Its reverse scan comes with training "
-                           "Griffin configs (ROADMAP 1.4)")
+def rglru_bwd_ref(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
+                  dh_last: Optional[torch.Tensor] = None, h0: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The plain reverse scan: a loop over T backwards carrying c = a_{t+1}
+    g_{t+1} (dh_last at first): g = dh_t + c, db_t = g, da_t = g h_{t-1}
+    (h0 or 0 at t = 0), c = a_t g, in f32. a, h (the forward's output), dh
+    (B, T, D); dh_last, h0 (B, D) or None. Returns (da, db, dh0), dh0 None
+    without h0."""
+    a, h, dh = a.float(), h.float(), dh.float()
+    bsz, t, d = a.shape
+    c = torch.zeros((bsz, d), dtype=torch.float32, device=a.device) \
+        if dh_last is None else dh_last.float()
+    h_init = torch.zeros_like(c) if h0 is None else h0.float()
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    for i in range(t - 1, -1, -1):
+        g = dh[:, i] + c
+        db[:, i] = g
+        da[:, i] = g * (h[:, i - 1] if i > 0 else h_init)
+        c = a[:, i] * g
+    return da, db, (None if h0 is None else c)
+
+
+def _check(seqs, states):
+    """Raise unless the named (B, T, D) tensors of ``seqs`` (T >= 1) and
+    (B, D) tensors of ``states`` (None allowed) are f32 on the first one's
+    device."""
+    first = next(iter(seqs.values()))
+    if first.ndim != 3 or first.shape[1] < 1 or any(x.shape != first.shape
+                                                     for x in seqs.values()):
+        raise ValueError(f"{', '.join(f'{n} {tuple(x.shape)}' for n, x in seqs.items())} "
+                         f"must all be (B, T, D) with T >= 1")
+    bsz, _, d = first.shape
+    for name, x in states.items():
+        if x is not None and tuple(x.shape) != (bsz, d):
+            raise ValueError(f"{name} must be {(bsz, d)}, got {tuple(x.shape)}")
+    for name, x in (*seqs.items(), *states.items()):
+        if x is not None and (x.dtype != torch.float32 or x.device != first.device):
+            raise TypeError(f"{name} must be float32 on {first.device}, got {x.dtype} "
+                            f"on {x.device}")
+
+
+def _forward(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence without a gradient: the kernel on CUDA tensors, the
+    plain version on CPU tensors."""
     if not a.is_cuda:
         if a.device.type != "cpu":
             raise ValueError(f"rglru: unsupported device {a.device}")
         return rglru_ref(a, b, h0)
-    if a.ndim != 3 or b.shape != a.shape or a.shape[1] < 1:
-        raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must both be "
-                         f"(B, T, D) with T >= 1")
+    _check(dict(a=a, b=b), dict(h0=h0))
     bsz, t, d = a.shape
-    if h0 is not None and tuple(h0.shape) != (bsz, d):
-        raise ValueError(f"h0 must be {(bsz, d)}, got {tuple(h0.shape)}")
-    for name, x in (("a", a), ("b", b), ("h0", h0)):
-        if x is not None and (x.dtype != torch.float32 or x.device != a.device):
-            raise TypeError(f"{name} must be float32 on {a.device}, got {x.dtype} "
-                            f"on {x.device}")
     a, b = a.contiguous(), b.contiguous()
     h0 = None if h0 is None else h0.contiguous()
     h = torch.empty_like(a)
@@ -149,3 +191,63 @@ def rglru(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = None
     global launches
     launches += 1
     return h, h_last
+
+
+def _launch_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor, dh_last: torch.Tensor,
+                h0: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The reverse-scan kernel over CUDA tensors: a, h, dh (B, T, D),
+    dh_last (B, D), h0 (B, D) or None, all f32 on one device. Returns (da,
+    db, dh0) as new contiguous tensors (dh0 None without h0)."""
+    _check(dict(a=a, h=h, dh=dh), dict(dh_last=dh_last, h0=h0))
+    bsz, t, d = a.shape
+    a, h, dh, dh_last = (x.contiguous() for x in (a, h, dh, dh_last))
+    h0 = None if h0 is None else h0.contiguous()
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = _kernel_lib().rglru_bwd_launch(
+            a.data_ptr(), h.data_ptr(), dh.data_ptr(), dh_last.data_ptr(), ptr(h0),
+            da.data_ptr(), db.data_ptr(), ptr(dh0), bsz, t, d, stream)
+    if err != 0:
+        raise RuntimeError(f"rglru reverse-scan kernel launch failed: cudaError {err}")
+    global bwd_launches
+    bwd_launches += 1
+    return da, db, dh0
+
+
+class RGLRU(torch.autograd.Function):
+    """The recurrence with its gradient. Forward: ``_forward`` (the kernel
+    on CUDA tensors, ``rglru_ref`` on CPU ones); it keeps a, h and h0.
+    Backward: the reverse-scan kernel on CUDA tensors (``_launch_bwd``),
+    ``rglru_bwd_ref`` on CPU ones; returns (da, db, dh0)."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h, h_last = _forward(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        a, h, h0 = ctx.saved_tensors
+        if a.is_cuda:
+            da, db, dh0 = _launch_bwd(a, h, dh, dh_last, h0)
+        else:
+            da, db, dh0 = rglru_bwd_ref(a, h, dh, dh_last, h0)
+        return da, db, dh0
+
+
+def rglru(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence: the CUDA kernel on CUDA tensors, the plain version
+    on CPU tensors; inputs that need a gradient go through ``RGLRU``. a, b
+    (B, T, D) f32; h0 (B, D) f32 or None."""
+    if a.device.type == "meta":  # shapes only (the dry-run): the plain math
+        return rglru_ref(a, b, h0)
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (a, b, h0)):
+        return RGLRU.apply(a, b, h0)
+    return _forward(a, b, h0)

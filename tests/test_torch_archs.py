@@ -13,9 +13,9 @@ package, on the CPU, in float32.
     clipped and gated attention: cache-free logits against
     ``repro.models.model_apply`` (atol 1e-4) and one train step's loss
     (rtol 1e-6) and gradients (relative L2 1e-2 per tensor) against
-    ``jax.value_and_grad`` of the reference's loss; the Griffin config
-    refuses a gradient (ROADMAP 1.4, the RG-LRU reverse scan); the MoE
-    archs' loss terms (``moe_aux``, ``moe_lb``/``moe_z``) among them (their
+    ``jax.value_and_grad`` of the reference's loss (the Griffin config's
+    through the RG-LRU's reverse scan against XLA's gradient of the
+    reference's associative scan); the MoE archs' loss terms (``moe_aux``, ``moe_lb``/``moe_z``) among them (their
     dispatch mode with drops: ``tests/test_torch_moe.py``, through
     ``_check_logits`` / ``_check_train_step``);
   * ``convert.from_jax_params`` on the new leaves (``frontend_proj``,
@@ -325,10 +325,6 @@ def _check_train_step(jc, jp, tc, tp, batch):
     kind = "clm" if tc.causal else "frames"
     jt = jstep.TrainTask(cfg=jc, loss_kind=kind)
     tt = tstep.TrainTask(cfg=tc, loss_kind=kind)
-    if "griffin" in tc.pattern:
-        with pytest.raises(RuntimeError, match=r"ROADMAP 1\.4"):
-            tstep._grads(tp, tt, _tb(batch))
-        return
     (jl, jm), jg = jax.value_and_grad(
         lambda p: jstep._loss_and_metrics(p, jt, _jb(batch)), has_aux=True)(jp)
     tl, tm, tg = tstep._grads(tp, tt, _tb(batch))

@@ -14,7 +14,8 @@
     version against the Pallas kernel in interpret mode at a ragged T,
     causal and not, vanilla, clipped, gated, softcap and window (f32 at
     3e-5, bf16 against the oracle at 2e-2), and, without a card, the
-    route each dtype takes and the arguments ``_launch`` hands the kernel.
+    route each dtype takes and the arguments ``_launch`` hands the kernel
+    (and the same at Dh 256, whose bf16 route is the tensor cores' too).
 
 The kernel itself runs only on the card; ``chip_smoke.py`` holds it
 against ``attention_ref`` there."""
@@ -285,12 +286,13 @@ def fake_launch(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("dh", NEW_DH)
+@pytest.mark.parametrize("dh", (*NEW_DH, 256))
 @pytest.mark.parametrize("dtype,want_route", [(torch.bfloat16, 1), (torch.float32, 0)])
 def test_new_head_dims_route_and_launch_arguments(dh, dtype, want_route, fake_launch):
     """bf16 at Dh 80 / 96 takes the tensor-core route (the Dh-128 body over
-    zero-filled boxes), f32 the CUDA-core one; the kernel is handed the
-    true head dim and q's scale Dh^-0.5."""
+    zero-filled boxes), and so does bf16 at Dh 256 (a CTA a half of the
+    columns); f32 takes the CUDA-core one; the kernel is handed the true
+    head dim and q's scale Dh^-0.5."""
     assert dh in tfa._HEAD_DIMS
     assert tfa.route(dtype, dh) == ("tensor-core" if want_route else "cuda-core")
     q = torch.zeros(2, 8, 4, dh, dtype=dtype)

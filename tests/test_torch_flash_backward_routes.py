@@ -1,6 +1,6 @@
 """The flash-attention backward's routes beyond f32 at Dh 32/64 without
 window or softcap, on the CPU: the logit softcap, the local window, bf16
-inputs and Dh 80, 96 and 128.
+inputs and Dh 80, 96, 128 and 256.
 
   * ``attention_bwd_ref``, ``attention_stats_ref`` and
     ``attention_bwd_saved_ref`` (the backward kernel's formulas, its saved
@@ -13,8 +13,8 @@ inputs and Dh 80, 96 and 128.
   * the same plain versions on bf16 inputs against the f32 ones on the
     same (bf16-valued) numbers, at the bf16 tolerance 2e-2: they compute
     in f32 and round q Dh^-0.5 and the results to bf16;
-  * ``FlashAttention.apply`` on CPU tensors (bf16 at Dh 80, 96 and 128,
-    with softcap, window or both) against torch autograd through
+  * ``FlashAttention.apply`` on CPU tensors (bf16 at Dh 80, 96, 128 and
+    256, with softcap, window or both) against torch autograd through
     ``mha_flash_ref``;
   * every clipped case above keeps a share of its visible entries
     strictly inside the clip (asserted), where the clip passes a gradient.
@@ -209,7 +209,7 @@ def _close_bf16(got, want):
 
 @pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("mode", ("plain", "softcap_window"))
-@pytest.mark.parametrize("dh", (32, 80, 128))
+@pytest.mark.parametrize("dh", (32, 80, 128, 256))
 def test_bf16_plain_versions_match_f32(dh, mode, variant):
     """The plain versions on bf16 inputs: the statistics, the formulas and
     the saved-statistics algorithm against the f32 ones on the same
@@ -238,7 +238,7 @@ def test_bf16_plain_versions_match_f32(dh, mode, variant):
 
 @pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("mode", tuple(MODES))
-@pytest.mark.parametrize("dh", (80, 96, 128))
+@pytest.mark.parametrize("dh", (80, 96, 128, 256))
 def test_function_bf16_matches_autograd_of_plain(dh, mode, variant):
     """FlashAttention.apply on bf16 CPU tensors (the bf16 route's Dh and
     the softcap and window): the forward is mha_flash_ref's, the gradients
@@ -269,6 +269,6 @@ def test_routes():
     """bwd_route names one route per (dtype, Dh) the kernel takes, None
     for the rest (which FlashAttention refuses, naming ROADMAP 1.3)."""
     assert [tfa.bwd_route(torch.bfloat16, d) for d in (32, 64, 80, 96, 128, 256)] == \
-        ["bf16"] * 5 + [None]
+        ["bf16"] * 6
     assert [tfa.bwd_route(torch.float32, d) for d in (32, 64, 80, 96, 128, 256)] == \
         ["3xtf32"] * 2 + [None] * 4

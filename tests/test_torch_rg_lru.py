@@ -77,23 +77,66 @@ def test_state_carry_matches_one_call():
                                atol=ATOL, rtol=0)
 
 
-def test_wrapper_refuses_inputs_that_need_a_gradient():
-    """No backward kernel yet: CPU tensors and CUDA tensors alike (the
-    latter checked with a stand-in whose ``is_cuda`` is true, since this
-    machine has no card) are refused before anything runs."""
+def test_wrapper_refuses_inputs_that_need_a_gradient(monkeypatch):
+    """What the wrapper does with inputs that need a gradient (it refuses
+    none of them): CPU tensors go through ``RGLRU``'s plain versions
+    (whose gradients ``test_torch_rg_lru_backward.py`` holds) and launch
+    nothing; CUDA tensors (a stand-in whose ``is_cuda`` is true, with the
+    library, the SM count, the device guard and the stream stood in, since
+    this machine has no card) launch the scan kernel in the forward and the
+    reverse-scan kernel in the backward, once each, and run nothing
+    plainly; under ``torch.no_grad()`` no graph is recorded."""
     class Cuda(torch.Tensor):
         @property
         def is_cuda(self):
             return True
 
-    a, b, _ = _inputs((1, 4, 8), seed=0)
-    for wrap in (lambda x: x, lambda x: x.as_subclass(Cuda)):
-        ta = wrap(torch.from_numpy(a).requires_grad_())
-        with pytest.raises(RuntimeError, match="no backward"):
-            trl.rglru(ta, torch.from_numpy(b))
+    a, b, h0 = _inputs((1, 4, 8), seed=0)
+    ta, tb, th0 = (torch.from_numpy(x).requires_grad_() for x in (a, b, h0))
+    launches, bwd = trl.launches, trl.bwd_launches
+    h, last = trl.rglru(ta, tb, th0)
+    assert h.grad_fn is not None and last.grad_fn is not None
+    grads = torch.autograd.grad((h.sum() + last.sum()), (ta, tb, th0))
+    assert all(g is not None and g.shape == x.shape for g, x in zip(grads, (ta, tb, th0)))
+    assert (trl.launches, trl.bwd_launches) == (launches, bwd)
     with torch.no_grad():
-        h, _ = trl.rglru(torch.from_numpy(a).requires_grad_(), torch.from_numpy(b))
-    assert h.shape == (1, 4, 8)
+        h, _ = trl.rglru(ta, tb)
+    assert h.shape == (1, 4, 8) and h.grad_fn is None
+
+    calls = []
+
+    class Lib:
+        def rglru_launch(self, *args):
+            calls.append(("forward", args))
+            return 0
+
+        def rglru_bwd_launch(self, *args):
+            calls.append(("reverse", args))
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    class Guard:
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(trl, "_kernel_lib", lambda: Lib())
+    monkeypatch.setattr(trl, "sm_count", lambda dev: SMS)
+    monkeypatch.setattr(trl, "rglru_ref", None)           # no plain forward on the card
+    monkeypatch.setattr(trl, "rglru_bwd_ref", None)       # nor a plain reverse scan
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: Stream())
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: Guard())
+    ca, cb = (torch.from_numpy(x).as_subclass(Cuda).requires_grad_() for x in (a, b))
+    h, last = trl.rglru(ca, cb)
+    torch.autograd.grad((h.sum() + last.sum()), (ca, cb))
+    assert [kind for kind, _ in calls] == ["forward", "reverse"]
+    assert calls[0][1][5:8] == (1, 4, 8) and calls[1][1][8:11] == (1, 4, 8)  # B, T, D
+    assert calls[1][1][4] is None and calls[1][1][7] is None        # no h0, no dh0
+    assert (trl.launches, trl.bwd_launches) == (launches + 1, bwd + 1)
 
 
 SMS = 132                       # an H100 SXM's SMs
