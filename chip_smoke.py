@@ -348,8 +348,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      flash backward, the flash forward and the rest; idle share). (c) Device times
      of the backward kernel, its plain version and torch autograd
      through ``F.scaled_dot_product_attention`` in the inputs' dtype
-     (vanilla without window or softcap; a yardstick the port never
-     calls) beside the first design's time (f32) and the bound (10 flops
+     (vanilla without a softcap, a window shorter than T as a boolean
+     mask; a yardstick the port never calls) beside the first design's
+     time (f32: CUDA_CORE_BWD_MS; bf16: FIRST_BF16_BWD_MS, with the ratio)
+     and the bound (10 flops
      per visible pair and column in every variant; the 3xTF32 route's:
      each f32 product three TF32 ones at 495 TFLOP/s, the f32 CUDA-core
      one at 67 TFLOP/s printed beside it; the bf16 route's at 989
@@ -3645,6 +3647,23 @@ CUDA_CORE_BWD_MS = {("bert-base", "vanilla"): 1.5407, ("bert-base", "clipped"): 
                ("opt-125m", "vanilla"): 3.4911, ("opt-125m", "clipped"): 4.3544,
                ("dh32 causal", "vanilla"): 0.2506, ("dh32", "vanilla"): 0.2536,
                ("gqa", "vanilla"): 0.5792}
+# The bf16 route's times in its first design (each product waiting for the
+# last, no producer warpgroup), as PERF.md's kernel table records them
+# (NVIDIA H100 80GB HBM3, 700 W), printed beside phase 6c's readings of the
+# redesign
+FIRST_BF16_BWD_MS = {("qwen3-14b", "vanilla"): 1.3487, ("qwen3-14b", "clipped"): 1.7590,
+                     ("gemma2-27b local", "vanilla"): 1.1249,
+                     ("gemma2-27b local", "clipped"): 1.3203,
+                     ("gemma2-27b global", "vanilla"): 1.4184,
+                     ("gemma2-27b global", "clipped"): 1.6924,
+                     ("hubert-xlarge", "vanilla"): 0.8956, ("hubert-xlarge", "clipped"): 1.1707,
+                     ("phi-3-vision", "vanilla"): 1.0801, ("phi-3-vision", "clipped"): 1.4274,
+                     ("opt-125m bf16", "vanilla"): 0.7103, ("opt-125m bf16", "clipped"): 0.9874,
+                     ("dh32 bf16", "vanilla"): 0.0814, ("dh32 bf16", "clipped"): 0.1210,
+                     ("recurrentgemma-9b local", "vanilla"): 1.2224,
+                     ("recurrentgemma-9b local", "clipped"): 1.6567,
+                     ("recurrentgemma-9b window 300", "vanilla"): 0.2961,
+                     ("recurrentgemma-9b window 300", "clipped"): 0.3988}
 # Phase 6b: the paper models trained at full width, f32, from seed 0
 TRAIN_RUNS = (("bert", "mlm", 512, 8), ("opt", "clm", 2048, 2))
 TRAIN_LR = 3e-4
@@ -3892,10 +3911,11 @@ def phase_bwd_times(torch, fa):
     """Phase 6c: device times of the backward kernel (on what the forward
     saved), its plain version and torch autograd through
     F.scaled_dot_product_attention in the inputs' dtype (a yardstick the
-    port never calls; where it computes the same function: no window or
-    softcap) beside the route's bound (and, f32, the first design's time
-    and the f32 CUDA-core bound), at bwd_shapes(). Returns {(name,
-    variant): times}."""
+    port never calls; where it computes the same function: no softcap; a
+    window shorter than T as a boolean mask of the visible pairs) beside
+    the route's bound and the first design's time (f32: CUDA_CORE_BWD_MS,
+    and the f32 CUDA-core bound; bf16: FIRST_BF16_BWD_MS), at bwd_shapes(). Returns
+    {(name, variant): times}."""
     import torch.nn.functional as F
     out = {}
     for (name, b, t, hq, hkv, dh, causal, opt), variant in (
@@ -3914,13 +3934,21 @@ def phase_bwd_times(torch, fa):
             c["q"], c["k"], c["v"], c["gate"], c["dout"], **kw) for c in cs], 3)
         lib = None
         # a window at least T long hides no causal key: is_causal computes
-        # the same function
-        if variant == "vanilla" and (c0["window"] is None or c0["window"] >= t) \
-                and c0["softcap"] is None:
+        # the same function; a shorter one is a boolean mask of the visible
+        # (query, key) pairs, as attn::visible reads them
+        win = c0["window"]
+        mask = None
+        if win is not None and win < t:
+            i = torch.arange(t, device="cuda")
+            mask = i[None, :] > i[:, None] - win
+            if causal:
+                mask &= i[None, :] <= i[:, None]
+        if variant == "vanilla" and c0["softcap"] is None:
             def sdpa(c):
                 q, k, v = (c[x].transpose(1, 2).detach().requires_grad_(True)
                            for x in ("q", "k", "v"))
-                o = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                   is_causal=causal and mask is None,
                                                    enable_gqa=hq != hkv)
                 return o, (q, k, v), c["dout"].transpose(1, 2)
             graphs = [sdpa(c) for c in cs]
@@ -3934,7 +3962,10 @@ def phase_bwd_times(torch, fa):
         rt = fa.bwd_route(c0["q"].dtype, dh)
         extra = "".join(f", {k} {c0[k]}" for k in ("window", "softcap") if c0[k] is not None)
         if rt == "bf16":
-            note = f"bound {bound:.4f} ms ({by}; bf16 at 989 TFLOP/s)"
+            was = FIRST_BF16_BWD_MS.get((name, variant))
+            note = (f"the first design's: "
+                    f"{'not recorded' if was is None else f'{was:.4f} ms, {was / ms:.2f}x'}; "
+                    f"bound {bound:.4f} ms ({by}; bf16 at 989 TFLOP/s)")
         else:
             was = CUDA_CORE_BWD_MS.get((name, variant))
             note = (f"the first design's: "
@@ -6037,8 +6068,9 @@ def main() -> int:
 
     # the backward kernels must not spill: on the 3xTF32 route dq vanilla
     # and clipped and dk/dv at each of Dh 32 and 64 and the f32 GQA head
-    # sum; on the bf16 route the same at Dh 32, 64, 128 and 256 and the
-    # bf16 head sum; ptxas's wgmma serialization notes are printed
+    # sum; on the bf16 route dq and dk/dv, each built for vanilla and for
+    # clipped, at Dh 32, 64, 128 and 256 and the bf16 head sum; ptxas's
+    # wgmma serialization notes are printed
     bwd_log = build.BUILD_LOG.get("flash_attention_bwd", "")
     bwd_fns = ptxas_report(bwd_log)
     bwd_serial = sorted({line.split(":", 1)[-1].strip()[:120] for line in bwd_log.splitlines()
@@ -6047,7 +6079,7 @@ def main() -> int:
           f"{[(re.sub(r'^_Z[^a-z]*', '', f)[:32], r) for f, r, _ in bwd_fns]}; spill stores "
           f"{sorted({sp for _, _, sp in bwd_fns})}; wgmma serialization notes: "
           f"{bwd_serial or 'none'}", flush=True)
-    check(len(bwd_fns) == 20, f"expected the 20 backward entries in the build log: {bwd_fns}")
+    check(len(bwd_fns) == 24, f"expected the 24 backward entries in the build log: {bwd_fns}")
     check(all(sp == 0 for _, _, sp in bwd_fns),
           f"ptxas spills in flash_attention_bwd: {[f for f, _, sp in bwd_fns if sp]}")
 

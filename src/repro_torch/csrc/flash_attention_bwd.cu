@@ -48,14 +48,15 @@
 // out without u's digits, and 0 / 0 where the gate is 0; with u, D_i and
 // dgate_i take one rounding each whatever the gate.
 //
-// Two launches (three for GQA). Each CTA has two warpgroups taking
-// alternate tiles of the CTA's walk (one's softmax runs while the other's
-// products do), warpgroup 0 adding warpgroup 1's sums at the end; tiles of
-// 64 queries x 64 keys stream through a ring of STAGES TMA slots (one
-// mbarrier each), the first filled at the start, each refilled by one
-// thread of the warpgroup that read it last, STAGES tiles on. (A producer
-// warp would cap the registers at 168 a thread: ptxas sizes 288 threads
-// as 384; at 256 threads a thread may hold 255.)
+// Two launches (three for GQA). On the f32 route each CTA has two
+// warpgroups taking alternate tiles of the CTA's walk (one's softmax runs
+// while the other's products do), warpgroup 0 adding warpgroup 1's sums at
+// the end; tiles of 64 queries x 64 keys stream through a ring of STAGES
+// TMA slots (one mbarrier each), the first filled at the start, each
+// refilled by one thread of the warpgroup that read it last, STAGES tiles
+// on. (It has no producer warp: 288 threads cap the registers at 168 a
+// thread without setmaxnreg; the bf16 route's producer warpgroup, below,
+// hands its registers to the consumers.)
 //   1. dq (B, Hq, query block, longest causal walk first): D_i and dgate_i
 //      from dO and u (vanilla, gated); g = gate dO to a (B, Tq, Hq, Dh)
 //      scratch under a gate. Then per key tile S^T = K Q^T and dP~^T = V
@@ -137,31 +138,90 @@
 //   * The accumulator's layout is the A fragment's, so the factors go from
 //     the S / dP accumulators to the next product without shared memory:
 //     dq's CTA owns 64 queries (M = queries), dk/dv's 64 keys (M = keys,
-//     S^T = K Q^T); two warpgroups take alternate tiles of the walk, each
-//     with the whole block's accumulators, warpgroup 0 adding warpgroup
-//     1's at the end. A ring of four slots (even, so a slot is only ever
-//     read by one warpgroup) refilled by the warpgroup that read it.
+//     S^T = K Q^T).
+//   * Roles (384 threads, __launch_bounds__(384, 1): 168 registers a
+//     thread at launch). Warpgroup 0 is the producer and gives registers
+//     back (setmaxnreg.dec to 24); warpgroups 1 and 2 are the consumers and
+//     take them (setmaxnreg.inc to 240). The pool an .inc draws on is what
+//     the .dec released, 4 warps x (168 - 24) = 8 warps x (240 - 168)
+//     registers: 24 / 240 is the only split with 240 (a 32-register
+//     producer left the consumers waiting for registers that never came).
+//     The roles split in one branch whose paths never reconverge. One
+//     producer thread issues every TMA load. In dq the producer warpgroup
+//     also scales Q by Dh^-0.5 in bf16 in place, once (the forward's
+//     rounding), while the consumers compute the block's row data (c2, m,
+//     Z, the gate; D and dgate from dO and u) and write each row's c2 and
+//     gate beside D for dk/dv. In dk/dv the producer's other three warps
+//     ready each query tile of the ring: they stage its rows' (c2, D,
+//     gate, m, Z) beside the slot (five loads of one index: c2, D and the
+//     gate from dq's scratch) and, once the tile lands, scale its Q in
+//     place; at Dh 64, where Dh^-0.5 = 1/8 is a power of two, Q stays as
+//     it landed and the consumers scale S^T and dK instead (the same bits).
+//     Producer values are recomputed where used: held across its loops,
+//     they outgrew 24 registers.
+//   * The ring: STAGES slots (four up to Dh 128, two at Dh 256, where a
+//     slot of K and V, or Q and dO, is 64 KB), each with a full mbarrier
+//     (the TMA load's bytes), in dk/dv a ready one (one arrival per
+//     readying warp) and an empty one (one arrival per warp of the
+//     consumer that read it, once its products are done: 128 lanes
+//     arriving one by one serialize). A refill waits on its slot's empty
+//     barrier only, never on a warpgroup sync; the producer's waits carry
+//     a suspend-time hint.
+//   * The consumers take alternate tiles of the walk (consumer w the tiles
+//     w, w + 2, ...), each with the whole block's accumulators, consumer 0
+//     adding consumer 1's sums at the end. Each runs a section a tile (the
+//     products over tokens of its previous tile, then S and dP of this one)
+//     and a last one, then the tile's scalar work.
+//   * What overlaps with what. LATE, where the registers hold two sets of
+//     products' operands beside the next S and dP (the sums' accumulators
+//     at most 64 registers a thread: dq vanilla up to Dh 128, dq clipped
+//     and dk/dv up to Dh 64) and the ring has more than two slots: a
+//     section issues the products and then the next S and dP back to back
+//     and waits with wgmma.wait_group 1, so S and dP run while the products
+//     finish; the two consumers' sections then alternate on two named
+//     barriers (ping-pong), so one's scalar work runs while the other's
+//     products and S / dP run. SERIAL otherwise (dk/dv and the clipped dq
+//     at Dh 128, everything at Dh 256): a section splits one factor into
+//     hi / lo fragments, issues its product, waits, then the other, as the
+//     first design did, and the consumers run free (a turn held across
+//     those waits chained their latencies: measured slower, PERF.md).
+//   * The scalar work. The kernels ran instruction-bound on it, not on
+//     the tensor cores: every kernel is built for vanilla or clipped
+//     (dq<D, CLIPPED>, dk/dv<D, CLIPPED>), and the clipped re-check (the
+//     f32 score, tanh, expf and a division) runs out of the unrolled
+//     32-entry loop: the loop marks the entries within 1e-4 of a clip edge
+//     in a mask and a second loop redoes those (entry_fast, entry_exact;
+//     the vanilla dk/dv loop defers its NaN entries the same way, which
+//     keeps ptxas's schedule of it within 240 registers at Dh 128 and 256).
+//     The gate's product g dP is rounded before D is subtracted
+//     (__fmul_rn), as the first design's code rounded it.
+//   * Summation order, unchanged from the first design, so every output is
+//     bitwise the first design's (measured: PERF.md): each
+//     consumer sums its own tiles in walk order, a tile's hi product before
+//     its lo product, into one f32 accumulator (dq; clipped, A and B; dv,
+//     dk); consumer 0 then adds consumer 1's sums; D's clipped partial sums
+//     likewise (entries in loop order, the re-checked ones after), then the
+//     row's four lanes; GQA's partials in head order.
 //   * Head dims: 32 (64-byte swizzle), 64 and 128 native; 80 and 96 run
 //     the Dh-128 body over TMA boxes zero-filled past Dh (the tensor maps
-//     name the true head dim) and store Dh columns. The dk/dv launch at Dh
-//     128 holds dK and dV (64 f32 registers each a thread) beside S and dP
-//     (32 each): 246-249 registers, no spill (ptxas, PR 28).
+//     name the true head dim) and store Dh columns. The dk/dv consumers at
+//     Dh 128 hold dK and dV (64 f32 registers each a thread) beside S and
+//     dP (32 each) or one factor's hi/lo fragments. ptxas: no spill in any
+//     instantiation.
 //   * Dh 256 (recurrentgemma-9b's local attention, MQA: G 16) splits the
 //     head dim (Split<D>): a CTA owns one (block of 64 tokens, half of the
 //     256 columns), computes S and dP over all 256 columns and its products
 //     over tokens over its 128 (dq or dk and dv; clipped, A and B). Whole,
 //     dK and dV would be 128 registers each a thread and the clipped dq's A
 //     and B as much, beside S and dP; split, every accumulator is the
-//     Dh-128 body's. S and dP are then computed twice in each launch: 28
-//     flops issued per visible pair and column where one CTA owning all
-//     256 columns would issue 20, 1.4x. Shared memory: the fixed tiles (Q
-//     and dO, or K and V) take 64 KB and a ring slot 64 KB, so the ring has
-//     two slots, one per warpgroup (192 KB with the row data).
+//     Dh-128 body's. Shared memory: the fixed tiles (Q and dO, or K and V)
+//     take 64 KB and a ring slot 64 KB, so the ring has two slots (197 KB
+//     with the row data).
 // What bounds it: operations, 10 flops per visible pair and column at 989
-// TFLOP/s (0.109 ms at qwen3-14b's (1, 2048, 40/8, 128) causal); it
-// issues 20 flops per pair and column (24 clipped): S and dP in both
-// launches, and dq, dv, dk each twice (hi and lo), and each product waits
-// for the last: a simple kernel, right first (PERF.md has its times).
+// TFLOP/s (0.109 ms at qwen3-14b's (1, 2048, 40/8, 128) causal). It
+// issues 20 flops per pair and column (24 clipped; 28 at Dh 256, where
+// each column half recomputes S and dP): S and dP in both launches, and
+// dq, dv, dk each twice (hi and lo). PERF.md has its times.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1052,10 +1112,10 @@ cudaError_t make_map(CUtensorMap* map, const float* ptr, int B, int T, int H, in
 template <typename K, typename A>
 cudaError_t launch_one(K kern, dim3 grid, int smem, cudaStream_t s, const CUtensorMap& m0,
                        const CUtensorMap& m1, const CUtensorMap& m2, const CUtensorMap& m3,
-                       const A& a) {
+                       const A& a, int threads = THREADS) {
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kern<<<grid, THREADS, smem, s>>>(m0, m1, m2, m3, a);
+  kern<<<grid, threads, smem, s>>>(m0, m1, m2, m3, a);
   return cudaGetLastError();
 }
 
@@ -1106,9 +1166,8 @@ constexpr int BT = 64;  // tokens a tile: queries of dq's block and of dk/dv's w
 // A CTA's share of the head dim D: all of it up to Dh 128; at Dh 256 one
 // half of 128 columns (N = 2 CTAs a block of tokens), whose CTA computes S
 // and dP over all 256 columns and its products over tokens (dq, dv, dk)
-// over its half. The ring's slots: an even number, so that a slot is only
-// ever read by one warpgroup (tiles n, n + STAGES, ...); four up to Dh
-// 128, two at Dh 256, where a slot (K and V, or Q and dO) is 64 KB.
+// over its half. The ring's slots: four up to Dh 128, two at Dh 256, where
+// a slot (K and V, or Q and dO) is 64 KB.
 template <int D>
 struct Split {
   static constexpr int DN = D > 128 ? 128 : D;  // output columns a CTA owns
@@ -1126,7 +1185,7 @@ struct Args {
   const float* u;             // (B, Tq, Hq, dh) f32 contiguous: the forward's ungated output
   const __nv_bfloat16* dout;  // (B, Tq, Hq, dh) contiguous
   const float* stats;         // 2 x (B, Hq, Tq): m, max(Z, 1e-30), from the forward
-  float* dsum;                // (B, Hq, Tq): D, written by dq, read by dk/dv
+  float* dsum;                // 3 x (B, Hq, Tq): D, c2, gate, written by dq, read by dk/dv
   __nv_bfloat16* dq;          // (B, Tq, Hq, dh) contiguous
   __nv_bfloat16* dk;          // (B, Tk, Hkv, dh) contiguous
   __nv_bfloat16* dv;
@@ -1160,6 +1219,99 @@ __device__ __forceinline__ float exact_score(const Args& a, int b, int h, int hk
     acc = fmaf(round_bf16(x.y * a.scale), y.y, acc);
   }
   return acc;
+}
+
+// Shared-memory stores and loads by 32-bit address (the producer's 24
+// registers hold no 64-bit generic pointers)
+__device__ __forceinline__ void st_shared(uint32_t addr, float x) {
+  asm volatile("st.shared.f32 [%0], %1;" ::"r"(addr), "f"(x) : "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t addr, float x, float y, float z, float w) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "f"(x), "f"(y), "f"(z),
+               "f"(w)
+               : "memory");
+}
+
+// Row t's c2, D and gate (written by dq into the scratch planes 1, 0 and
+// 2), m and Z into slot i of the rows at shared address rows (KvLayout):
+// five loads at offsets k B Hq Tq of one index, no strided gate address
+__device__ __forceinline__ void stage_row(const Args& a, int b, int h, int t, uint32_t rows,
+                                          int i) {
+  const long long si = stat_index(a, b, h, t), bht = (long long)a.B * a.Hq * a.Tq;
+  const float* d = a.dsum + si;
+  st_shared(rows + 16 * i, d[bht], d[0], a.gate != nullptr ? d[2 * bht] : 1.f, a.stats[si]);
+  st_shared(rows + 64 * 16 + 4 * i, a.stats[bht + si]);
+}
+
+// scale_tile by 32-bit shared address, 16 bytes at a time
+__device__ __forceinline__ void scale_words(uint32_t t, int bytes, float scale, int i, int n) {
+#pragma unroll 1
+  for (int x = 16 * i; x < bytes; x += 16 * n) {
+    uint32_t w[4];
+    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+                 : "r"(t + x)
+                 : "memory");
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      __nv_bfloat162 e;
+      memcpy(&e, &w[y], sizeof(e));
+      const float2 f = __bfloat1622float2(e);
+      e = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+      memcpy(&w[y], &e, sizeof(e));
+    }
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(t + x), "r"(w[0]), "r"(w[1]),
+                 "r"(w[2]), "r"(w[3])
+                 : "memory");
+  }
+}
+
+// entry() of the bf16 kernels, split in two so that the unrolled tile
+// loop carries the clipped re-check's code once, not 32 times (it ran
+// instruction-bound). entry_fast: p, P~, dp and the slope from the
+// product's score; near: clipped and within 1e-4 (relative to zg p) of a
+// clip edge, an entry the caller finishes with entry_exact instead.
+// CLIPPED: 1 or 0, or -1 to read a.clipped (as entry()'s).
+template <int CLIPPED>
+__device__ __forceinline__ Entry entry_fast(const Args& a, bool valid, float sc, float icap,
+                                            float c2, float dpt, bool& near) {
+  const float p = valid ? exp2f(fmaf(sc, LOG2E, -c2)) : 0.f;
+  Entry e{p, p, dpt, 1.f};
+  near = false;
+  if (CLIPPED > 0 || (CLIPPED < 0 && a.clipped)) {
+    const float x = a.zg * p + a.gamma;
+    const float nr = 1e-4f * a.zg * p;
+    near = valid && (fabsf(x) <= nr || fabsf(x - 1.f) <= nr);
+    e.pt = valid ? fminf(fmaxf(x, 0.f), 1.f) : 0.f;
+    e.dp = (valid && x > 0.f && x < 1.f) ? a.zg * dpt : 0.f;
+  }
+  e.fac = attn::softcap_slope(sc, icap);
+  return e;
+}
+
+// A near entry (visible, clipped) of query qp and key kp: its score
+// recomputed in f32 (exact_score) and capped, p = expf(s_c - m) / Z as the
+// forward's CUDA-core route computes it (entry()'s re-check)
+__device__ __forceinline__ Entry entry_exact(const Args& a, int b, int h, int hk, int qp, int kp,
+                                             float icap, float m, float zc, float dpt) {
+  const float sc = attn::softcap(exact_score(a, b, h, hk, qp, kp), a.softcap);
+  const float p = expf(sc - m) / zc;
+  const float x = a.zg * p + a.gamma;
+  return Entry{p, fminf(fmaxf(x, 0.f), 1.f), (x > 0.f && x < 1.f) ? a.zg * dpt : 0.f,
+               attn::softcap_slope(sc, icap)};
+}
+
+// v[sel] for a runtime sel, by selects (an indexed register array would
+// live in local memory)
+__device__ __forceinline__ float pick(const float* v, int sel) {
+  float r = 0.f;
+#pragma unroll
+  for (int x = 0; x < 32; ++x) r = x == sel ? v[x] : r;
+  return r;
+}
+__device__ __forceinline__ void put(float* v, int sel, float y) {
+#pragma unroll
+  for (int x = 0; x < 32; ++x) v[x] = x == sel ? y : v[x];
 }
 
 // q Dh^-0.5 rounded to bf16 in place, over a tile of `bytes` at t, by
@@ -1227,10 +1379,146 @@ __device__ __forceinline__ void zero(float* x) {
 }
 
 // ---------------------------------------------------------------------------
-// 1. dq of one (b, h, block of 64 queries); D and dgate of its rows first
-// (vanilla, gated), or D summed over the walk (clipped). The warpgroups
-// take alternate key tiles, both over all 64 rows; warpgroup 0 adds
-// warpgroup 1's sums at the end.
+// The roles of a CTA (both launches): warpgroup 0 the producer, warpgroups
+// 1 and 2 the consumers, which take alternate tiles of the walk (consumer
+// w the tiles w, w + 2, ...), each with the whole block's accumulators,
+// consumer 0 adding consumer 1's sums at the end.
+// ---------------------------------------------------------------------------
+constexpr int THREADS = 384;
+// setmaxnreg's budgets: 128 x 32 + 256 x 240 = 65,536, the SM's registers
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// Named barriers: 1 + w, consumer w's turn at the tensor cores; 3, both
+// consumers (barrier 0 is __syncthreads)
+__device__ __forceinline__ void turn_sync(int w) {
+  asm volatile("bar.sync %0, 256;" ::"r"(1 + w) : "memory");
+}
+__device__ __forceinline__ void turn_arrive(int w) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(1 + w) : "memory");
+}
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 3, 256;" ::: "memory"); }
+
+// attn::mbar_wait with a suspend-time hint: a thread whose phase has not
+// completed is suspended (woken when it completes, or after ~10 ms at
+// most) instead of polling, so waiting producer warps take no issue slots
+// from the consumer warps beside them; a 32-bit clock (the producer's 24
+// registers) and a trap after 2^31 cycles (~1 s; mbar_wait: 2^35).
+__device__ __forceinline__ void mbar_sleep(uint32_t bar, uint32_t parity) {
+  uint32_t t0 = 0;
+  for (bool first = true;; first = false) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity), "r"(10000000)
+        : "memory");
+    if (done) return;
+    if (first) {
+      t0 = (uint32_t)clock();
+    } else if ((uint32_t)clock() - t0 > (1u << 31)) {
+      __trap();
+    }
+  }
+}
+
+// One arrival a warp on an mbarrier, once every lane of the warp is past
+// this point (128 lanes arriving one by one on one barrier serialize)
+__device__ __forceinline__ void warp_arrive(uint32_t bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) attn::mbar_arrive(bar);
+}
+
+// A shared address the compiler cannot see through, once a tile: the wgmma
+// descriptors of the fixed tiles are then computed where they are used,
+// not hoisted out of the tile loop into registers the accumulators need
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// The consumers' turns at the tensor cores (ping-pong). Consumer w runs
+// one section for each of its `mine` tiles (the products over tokens of
+// its previous tile, then S and dP of this one) and a last one (its last
+// tile's products): mine + 1 sections. Its section i is the (2i + w)-th
+// of both consumers' sections, which alternate, consumer 0 first: a
+// section waits for the other consumer to have issued its previous one,
+// and passes the turn on when it has issued its own; the scalar work
+// (softmax, ds, the hi/lo split) runs between a consumer's sections,
+// while the other's products run. With one tile in all there is no turn.
+// Only issue-only sections take turns (a LATE walk, below): a section that
+// waits inside it for its products (SERIAL) would chain the two consumers'
+// latencies, and those run free (measured: PERF.md).
+struct Turns {
+  int w, last;  // last: the index of the last section of both, -1: no turns
+  __device__ __forceinline__ Turns(int w_, int n_tiles, bool on) : w(w_) {
+    const int na = (n_tiles + 1) / 2, nb = n_tiles / 2;
+    last = on && nb > 0 ? na + nb + 1 : -1;
+  }
+  __device__ __forceinline__ void begin(int i) const {
+    if (last >= 0 && 2 * i + w > 0) turn_sync(w);
+  }
+  __device__ __forceinline__ void end(int i) const {
+    if (last >= 0 && 2 * i + w < last) turn_arrive(1 - w);
+  }
+};
+
+// A consumer's walk: sections 0 .. mine (see Turns), each tile's scalar
+// work after the section that issued its S and dP. issue(n) issues the
+// products over tokens of tile n, retire<N>(n) waits until N wgmma groups
+// at most are in flight (its products done) and releases its slot; sdp(n)
+// issues S and dP of tile n; scalar(n) waits for them and turns them into
+// the products' operands. LATE: a section issues the next S and dP behind
+// the products and retires them after (wgmma.wait_group 1), where the
+// registers hold both and the next tile's slot is not the last one's;
+// else it retires the products before S and dP.
+template <bool LATE, typename I, typename R, typename S, typename X>
+__device__ __forceinline__ void walk(const Turns& turns, int mine, I&& issue, R&& retire, S&& sdp,
+                                     X&& scalar) {
+  if (mine <= 0) return;
+  const int w = turns.w;
+  turns.begin(0);
+  sdp(w);
+  turns.end(0);
+  scalar(w);
+#pragma unroll 1
+  for (int i = 1; i < mine; ++i) {
+    const int n = w + 2 * i;
+    turns.begin(i);
+    issue(n - 2);
+    if constexpr (!LATE) retire(n - 2, 0);
+    sdp(n);
+    turns.end(i);
+    if constexpr (LATE) retire(n - 2, 1);
+    scalar(n);
+  }
+  turns.begin(mine);
+  issue(w + 2 * mine - 2);
+  turns.end(mine);
+  retire(w + 2 * mine - 2, 0);
+}
+
+// wgmma.wait_group with a count known at the call: 0 or 1
+__device__ __forceinline__ void wg_wait_upto(int n) {
+  if (n == 0) attn::wg_wait<0>();
+  else attn::wg_wait<1>();
+}
+
+// ---------------------------------------------------------------------------
+// 1. dq of one (b, h, block of 64 queries, the CTA's columns); D and dgate
+// of its rows first (vanilla, gated), or D summed over the walk (clipped).
+// The producer loads Q, dO and the ring's K, V tiles and scales Q; the
+// consumers compute the rows' statistics, then take alternate key tiles.
 // ---------------------------------------------------------------------------
 template <int D>
 struct QLayout {
@@ -1239,8 +1527,10 @@ struct QLayout {
   static constexpr int Q = 0, DO = TILE, RING = 2 * TILE;  // slot s: K, then V
   static constexpr int CS = RING + STAGES * 2 * TILE;       // float4 [64]: c2, D, m, Z
   static constexpr int GT = CS + 64 * 16;                   // float [64]: the gate
+  // barriers: Q and dO landed, then Q scaled; per slot full (landed) and
+  // empty (released by its reader)
   static constexpr int BAR = GT + 64 * 4;
-  static constexpr int BYTES = BAR + (1 + STAGES) * 8 + 1024;
+  static constexpr int BYTES = BAR + (2 + 2 * STAGES) * 8 + 1024;
 };
 
 template <int D, bool CLIPPED>
@@ -1255,7 +1545,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* sm = smem_raw + (base - raw);
-  const uint32_t qd_full = base + L::BAR, full0 = qd_full + 8;
+  const uint32_t qd_full = base + L::BAR, q_ready = qd_full + 8, full0 = q_ready + 8,
+                 empty0 = full0 + 8 * STAGES;
 
   // longest causal walks first; the NS CTAs of a block (its column parts)
   // side by side, so that they read the same K and V tiles about together
@@ -1268,29 +1559,51 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int n_tiles = max(0, (k_hi - k_lo + BT - 1) / BT);
   if (threadIdx.x == 0) {
     attn::mbar_init(qd_full, 1);
-    for (int s = 0; s < STAGES; ++s) attn::mbar_init(full0 + 8 * s, 1);
+    attn::mbar_init(q_ready, 4);
+    for (int s = 0; s < STAGES; ++s) {
+      attn::mbar_init(full0 + 8 * s, 1);
+      attn::mbar_init(empty0 + 8 * s, 4);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  auto load = [&](int n) {  // K and V of key tile n into its slot
-    const int st = n % STAGES;
-    const uint32_t slot = base + L::RING + st * 2 * L::TILE, fb = full0 + 8 * st;
-    attn::mbar_expect_tx(fb, 2 * L::TILE);
-    for (int c = 0; c < T::NCH; ++c) {
-      attn::tma_load(slot + c * T::CHUNK, &tm_k, fb, c * T::BOX, hk, k_lo + n * BT, b);
-      attn::tma_load(slot + L::TILE + c * T::CHUNK, &tm_v, fb, c * T::BOX, hk, k_lo + n * BT, b);
+
+  if (uniform(threadIdx.x / 128) == 0) {
+    // ---- the producer: loads, and Q Dh^-0.5 in bf16 in place ----
+    regs_dec<PRODUCER_REGS>();
+    const int tp = threadIdx.x;
+    auto load = [&](int n) {  // K and V of key tile n into its slot
+      const int st = n % STAGES;
+      const uint32_t slot = base + L::RING + st * 2 * L::TILE, fb = full0 + 8 * st;
+      attn::mbar_expect_tx(fb, 2 * L::TILE);
+      for (int c = 0; c < T::NCH; ++c) {
+        attn::tma_load(slot + c * T::CHUNK, &tm_k, fb, c * T::BOX, hk, k_lo + n * BT, b);
+        attn::tma_load(slot + L::TILE + c * T::CHUNK, &tm_v, fb, c * T::BOX, hk, k_lo + n * BT, b);
+      }
+    };
+    if (tp == 0) {  // Q and dO once, and the ring's first tiles
+      attn::mbar_expect_tx(qd_full, 2 * L::TILE);
+      for (int c = 0; c < T::NCH; ++c) {
+        attn::tma_load(base + L::Q + c * T::CHUNK, &tm_q, qd_full, c * T::BOX, h, q0, b);
+        attn::tma_load(base + L::DO + c * T::CHUNK, &tm_do, qd_full, c * T::BOX, h, q0, b);
+      }
+      for (int n = 0; n < min(STAGES, n_tiles); ++n) load(n);
     }
-  };
-  if (threadIdx.x == 0) {  // Q and dO once, and the ring's first tiles
-    attn::mbar_expect_tx(qd_full, 2 * L::TILE);
-    for (int c = 0; c < T::NCH; ++c) {
-      attn::tma_load(base + L::Q + c * T::CHUNK, &tm_q, qd_full, c * T::BOX, h, q0, b);
-      attn::tma_load(base + L::DO + c * T::CHUNK, &tm_do, qd_full, c * T::BOX, h, q0, b);
+    mbar_sleep(qd_full, 0);
+    scale_tile(sm + L::Q, L::TILE, a.scale, tp, 128);
+    async_fence();
+    warp_arrive(q_ready);
+    if (tp == 0) {  // the ring: key tile n once its slot's last reader released it
+      for (int n = STAGES; n < n_tiles; ++n) {
+        mbar_sleep(empty0 + 8 * (n % STAGES), (n / STAGES - 1) & 1);
+        load(n);
+      }
     }
-    for (int n = 0; n < min(STAGES, n_tiles); ++n) load(n);
+    return;
   }
-  const int wg = uniform(threadIdx.x / 128);
-  const int ct = threadIdx.x, tw = ct % 128;
+  // ---- the consumers ----
+  regs_inc<CONSUMER_REGS>();
+  const int ct = threadIdx.x - 128, w = uniform(ct / 128), tw = ct % 128;
   const int warp = uniform(tw / 32), g = (tw % 32) / 4, qd = tw % 4;
   float4* cs = reinterpret_cast<float4*>(sm + L::CS);
   float* gs = reinterpret_cast<float*>(sm + L::GT);
@@ -1316,26 +1629,37 @@ __global__ void __launch_bounds__(THREADS, 1)
       const float gt = gated ? a.gate[b * a.sgb + (long long)t * a.sgt + h * a.sgh] : 1.f;
       const float dsum = CLIPPED ? 0.f : gt * dot;
       const long long bht = (long long)a.B * a.Hq * a.Tq;
-      const float m = a.stats[si], zc = a.stats[bht + si];
-      cs[row] = make_float4(row_c2(m, zc), dsum, m, zc);
+      const float m = a.stats[si], zc = a.stats[bht + si], c2 = row_c2(m, zc);
+      cs[row] = make_float4(c2, dsum, m, zc);
       gs[row] = gt;
       if (q0 + row < a.Tq && part == 0) {
+        a.dsum[bht + si] = c2;  // for dk/dv's producer, with the gate
+        if (gated) a.dsum[2 * bht + si] = gt;
         if (!CLIPPED) a.dsum[si] = dsum;
         if (gated) a.dgate[((long long)b * a.Tq + t) * a.Hq + h] = dot;
       }
     }
   }
-  attn::mbar_wait(qd_full, 0);
-  scale_tile(sm + L::Q, L::TILE, a.scale, ct, THREADS);
-  async_fence();
-  cta_sync();
+  consumers_sync();  // every row's statistics are written
+  attn::mbar_wait(q_ready, 0);
 
   // dq, or clipped A = sum_j (p dp fac) k_j; clipped, B = sum_j (p fac) k_j
   // and D's partial sums, then dq = A - D B
   float acc[DN / 2], bacc[CLIPPED ? DN / 2 : 1], s[32], dp[32], dpart[2] = {0.f, 0.f};
   zero<DN / 2>(acc);
   if constexpr (CLIPPED) zero<DN / 2>(bacc);
-  uint32_t hi[4][4], lo[4][4];
+  // SERIAL where the sums' accumulators take over 64 registers a thread
+  // (the clipped dq at Dh 128 and 256): a section splits each factor into
+  // hi and lo fragments just before its product and waits for that product
+  // before the next split, so one set of fragments is live beside the
+  // accumulators, as in the first design. Else the scalar work leaves
+  // every factor split and a section issues the products back to back.
+  constexpr bool SERIAL = (CLIPPED ? DN : DN / 2) > 64;
+  constexpr bool LATE = !SERIAL && STAGES > 2;
+  // the A operands of a tile's products: dS (clipped: p dp fac) and,
+  // clipped, p fac, as hi and lo bf16 fragments
+  constexpr int F2 = CLIPPED && !SERIAL ? 4 : 1;
+  uint32_t hi[4][4], lo[4][4], hi2[F2][4], lo2[F2][4];
   const float icap = inv_cap(a);
   const int r0 = warp * 16 + g;  // the thread's rows r0, r0 + 8 of the block
   float c2[2], dsr[2], mr[2], zr[2], gr[2];
@@ -1345,71 +1669,108 @@ __global__ void __launch_bounds__(THREADS, 1)
     c2[i] = x.x, dsr[i] = x.y, mr[i] = x.z, zr[i] = x.w;
     gr[i] = gs[r0 + 8 * i];
   }
-#pragma unroll 1
-  for (int n = wg; n < n_tiles; n += 2) {
-    const int t0 = k_lo + n * BT, st = n % STAGES;
-    attn::mbar_wait(full0 + 8 * st, (n / STAGES) & 1);
-    const uint32_t kt = base + L::RING + st * 2 * L::TILE, vt = kt + L::TILE;
-    // S = (Q Dh^-0.5) K^T, dP = dO V^T: M queries, N keys, K = Dh. The
-    // accumulators are zeroed first: their values came out of the clipped
-    // entries' lane-dependent branch (see clear())
-    zero<32>(s);
-    zero<32>(dp);
-    attn::wg_fence();
-    product_ss<D>(s, base + L::Q, kt);
-    product_ss<D>(dp, base + L::DO, vt);
-    attn::wg_commit();
-    attn::wg_wait<0>();
-    attn::reg_fence<32>(s);
-    attn::reg_fence<32>(dp);
-    cap_scores(s, a.softcap);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int x = 4 * j + 2 * i + c;
-          const int qp = q0 + r0 + 8 * i, kp = t0 + 8 * j + 2 * qd + c;
-          const bool valid = kp < a.Tk && qp < a.Tq && attn::visible(kp, qp, a.causal, a.window);
-          const Entry e = entry(a, valid, s[x], icap, c2[i], mr[i], zr[i], gr[i] * dp[x],
-                                [&] { return exact_score(a, b, h, hk, qp, kp); });
-          if constexpr (CLIPPED) {  // p dp fac into dp, p fac into s; p dp into D's sums
-            dpart[i] += e.p * e.dp;
-            dp[x] = e.p * e.dp * e.fac;
-            s[x] = e.p * e.fac;
-          } else {
-            s[x] = e.p * (e.dp - dsr[i]) * e.fac;  // dS
-          }
-        }
-    // dq += dS K (clipped: A += (p dp fac) K, B += (p fac) K): M queries,
-    // N = the CTA's DN columns, K keys
-    to_frags(CLIPPED ? dp : s, hi, lo);
-    attn::wg_fence();
-    product_rs<DN>(acc, hi, lo, kt + col_off);
-    attn::wg_commit();
-    if constexpr (CLIPPED) {
+  auto kslot = [&](int n) { return base + L::RING + (n % STAGES) * 2 * L::TILE; };
+  // dq += dS K (clipped: A += (p dp fac) K, B += (p fac) K) of tile n: M
+  // queries, N = the CTA's DN columns, K keys
+  auto issue = [&](int n) {
+    if constexpr (SERIAL) {  // clipped: A, then B
+      to_frags(dp, hi, lo);
+      attn::wg_fence();
+      product_rs<DN>(acc, hi, lo, kslot(n) + col_off);
+      attn::wg_commit();
       attn::wg_wait<0>();
       to_frags(s, hi, lo);
       attn::wg_fence();
-      product_rs<DN>(bacc, hi, lo, kt + col_off);
+      product_rs<DN>(bacc, hi, lo, kslot(n) + col_off);
+      attn::wg_commit();
+    } else {
+      attn::wg_fence();
+      product_rs<DN>(acc, hi, lo, kslot(n) + col_off);
+      if constexpr (CLIPPED) product_rs<DN>(bacc, hi2, lo2, kslot(n) + col_off);
       attn::wg_commit();
     }
+  };
+  auto retire = [&](int n, int groups) {
+    wg_wait_upto(groups);
+    warp_arrive(empty0 + 8 * (n % STAGES));
+  };
+  // S = (Q Dh^-0.5) K^T, dP = dO V^T of tile n: M queries, N keys, K = Dh.
+  // The accumulators are zeroed first: their values came out of the
+  // clipped entries' lane-dependent branch (see clear())
+  auto sdp = [&](int n) {
+    attn::mbar_wait(full0 + 8 * (n % STAGES), (n / STAGES) & 1);
+    const uint32_t qt = opaque(base + L::Q);
+    zero<32>(s);
+    zero<32>(dp);
+    attn::wg_fence();
+    product_ss<D>(s, qt, kslot(n));
+    product_ss<D>(dp, qt + (L::DO - L::Q), kslot(n) + L::TILE);
+    attn::wg_commit();
+  };
+  auto scalar = [&](int n) {
     attn::wg_wait<0>();
-    attn::reg_fence<DN / 2>(acc);
-    if constexpr (CLIPPED) attn::reg_fence<DN / 2>(bacc);
-    wg_sync(wg);  // every warp of the warpgroup is done with the slot
-    if (tw == 0 && n + STAGES < n_tiles) {
-      async_fence();
-      load(n + STAGES);
+    attn::reg_fence<32>(s);
+    attn::reg_fence<32>(dp);
+    const int t0 = k_lo + n * BT;
+    cap_scores(s, a.softcap);
+    uint32_t near = 0;  // clipped: the entries to re-check, bit x
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int x = 4 * j + 2 * r + c;
+          const int qp = q0 + r0 + 8 * r, kp = t0 + 8 * j + 2 * qd + c;
+          const bool valid = kp < a.Tk && qp < a.Tq && attn::visible(kp, qp, a.causal, a.window);
+          bool nr;
+          const Entry e = entry_fast<CLIPPED>(a, valid, s[x], icap, c2[r],
+                                                    __fmul_rn(gr[r], dp[x]), nr);
+          if constexpr (CLIPPED) {  // p dp fac into dp, p fac into s; p dp into D's sums
+            if (nr) {
+              near |= 1u << x;
+              continue;
+            }
+            dpart[r] += e.p * e.dp;
+            dp[x] = e.p * e.dp * e.fac;
+            s[x] = e.p * e.fac;
+          } else {
+            s[x] = e.p * (e.dp - dsr[r]) * e.fac;  // dS
+          }
+        }
+    if constexpr (CLIPPED) {
+      while (near != 0) {  // rare: the entries near a clip edge, s and dp raw
+        const int x = __ffs(near) - 1, r = (x >> 1) & 1;
+        near &= near - 1;
+        // (the row's values by selects, not a runtime index into registers)
+        const Entry e = entry_exact(a, b, h, hk, q0 + r0 + 8 * r, t0 + 8 * (x >> 2) + 2 * qd + (x & 1),
+                                    icap, r ? mr[1] : mr[0], r ? zr[1] : zr[0],
+                                    __fmul_rn(r ? gr[1] : gr[0], pick(dp, x)));
+        if (r) {
+          dpart[1] += e.p * e.dp;
+        } else {
+          dpart[0] += e.p * e.dp;
+        }
+        put(dp, x, e.p * e.dp * e.fac);
+        put(s, x, e.p * e.fac);
+      }
+      if constexpr (!SERIAL) {
+        to_frags(dp, hi, lo);
+        to_frags(s, hi2, lo2);
+      }
+    } else {
+      to_frags(s, hi, lo);
     }
-  }
+  };
+  walk<LATE>(Turns(w, n_tiles, LATE), (n_tiles - w + 1) / 2, issue, retire, sdp, scalar);
+  attn::reg_fence<DN / 2>(acc);
+  if constexpr (CLIPPED) attn::reg_fence<DN / 2>(bacc);
 
-  // warpgroup 1 hands its sums to warpgroup 0, which adds them and stores
+  // consumer 1 hands its sums to consumer 0, which adds them and stores
   constexpr int XN = CLIPPED ? DN + 2 : DN / 2;
-  cta_sync();  // both warpgroups are done with the ring
+  consumers_sync();  // both consumers are done with the ring
   float* xch = reinterpret_cast<float*>(sm + L::RING) + tw * XN;
-  if (wg == 1) {
+  if (w == 1) {
 #pragma unroll
     for (int i = 0; i < DN / 2; ++i) xch[i] = acc[i];
     if constexpr (CLIPPED) {
@@ -1419,14 +1780,14 @@ __global__ void __launch_bounds__(THREADS, 1)
       xch[DN + 1] = dpart[1];
     }
   }
-  cta_sync();
-  if (wg == 1) return;
+  consumers_sync();
+  if (w == 1) return;
 #pragma unroll
   for (int i = 0; i < DN / 2; ++i) acc[i] += xch[i];
   if constexpr (CLIPPED) {
 #pragma unroll
     for (int i = 0; i < DN / 2; ++i) bacc[i] += xch[DN / 2 + i];
-    // D of each row: the two warpgroups' partial sums, then the row's quad
+    // D of each row: the two consumers' partial sums, then the row's quad
     // (every column part sums the same D; part 0 writes it)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -1457,22 +1818,30 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// 2. dk and dv of one (b, query head, block of 64 keys). The warpgroups
-// take alternate query tiles, both over all 64 keys; warpgroup 0 adds
-// warpgroup 1's sums at the end.
+// 2. dk and dv of one (b, query head, block of 64 keys, the CTA's columns).
+// The producer loads K, V and the ring's Q, dO tiles, then readies each
+// tile (its rows' statistics beside it, Q scaled); the consumers take
+// alternate query tiles.
 // ---------------------------------------------------------------------------
 template <int D>
 struct KvLayout {
   static constexpr int STAGES = Split<D>::STAGES;
   static constexpr int TILE = Bf16Tile<D>::BYTES;
   static constexpr int K = 0, V = TILE, RING = 2 * TILE;  // slot s: Q, then dO
-  static constexpr int CS = RING + STAGES * 2 * TILE;      // per warpgroup float4 [64]: c2, D, gate, m
-  static constexpr int ZS = CS + 2 * 64 * 16;               // per warpgroup float [64]: Z
-  static constexpr int BAR = ZS + 2 * 64 * 4;
-  static constexpr int BYTES = BAR + (1 + STAGES) * 8 + 1024;
+  // per slot the tile's rows: float4 [64] (c2, D, gate, m), then float
+  // [64] (Z)
+  static constexpr int ROWS = RING + STAGES * 2 * TILE, ROW_BYTES = 64 * 20;
+  // barriers: K and V landed; per slot full (landed), ready (Q scaled, the
+  // statistics written) and empty (released by its reader)
+  static constexpr int BAR = ROWS + STAGES * ROW_BYTES;
+  static constexpr int BYTES = BAR + (1 + 3 * STAGES) * 8 + 1024;
 };
 
-template <int D>
+// the producer threads that ready the ring's tiles (warps 1-3; warp 0's
+// first thread issues the loads)
+constexpr int READIERS = 96;
+
+template <int D, bool CLIPPED>
 __global__ void __launch_bounds__(THREADS, 1)
     bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
                 const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
@@ -1480,11 +1849,20 @@ __global__ void __launch_bounds__(THREADS, 1)
   using L = KvLayout<D>;
   using T = Bf16Tile<D>;
   constexpr int STAGES = L::STAGES, DN = Split<D>::DN, NS = Split<D>::N;
+  constexpr int CL = CLIPPED ? 1 : 0;
+  // POW2: at Dh 64 Dh^-0.5 = 1/8, a power of two, so q Dh^-0.5 in bf16 is
+  // q scaled exactly (bar subnormals), and scaling S^T and dK by it instead
+  // gives the same bits: the readiers leave Q as it landed and the
+  // consumers wait for the tile themselves. (Dh 256's 1/16 would allow the
+  // same, and it ran its clipped rows faster, but its vanilla dk/dv then
+  // spilled 8 bytes.)
+  constexpr bool POW2 = D == 64;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* sm = smem_raw + (base - raw);
-  const uint32_t kv_full = base + L::BAR, full0 = kv_full + 8;
+  const uint32_t kv_full = base + L::BAR, full0 = kv_full + 8, ready0 = full0 + 8 * STAGES,
+                 empty0 = ready0 + 8 * STAGES;
 
   // the NS CTAs of a key block (its column parts) side by side
   const int k0 = (blockIdx.x / NS) * BT;
@@ -1496,141 +1874,237 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int n_tiles = q_lo < q_hi ? (q_hi - q_lo + BT - 1) / BT : 0;
   if (threadIdx.x == 0) {
     attn::mbar_init(kv_full, 1);
-    for (int s = 0; s < STAGES; ++s) attn::mbar_init(full0 + 8 * s, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      attn::mbar_init(full0 + 8 * s, 1);
+      attn::mbar_init(ready0 + 8 * s, READIERS / 32);
+      attn::mbar_init(empty0 + 8 * s, 4);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  auto load = [&](int n) {  // Q and dO of query tile n into its slot
-    const int st = n % STAGES;
-    const uint32_t slot = base + L::RING + st * 2 * L::TILE, fb = full0 + 8 * st;
-    attn::mbar_expect_tx(fb, 2 * L::TILE);
-    for (int c = 0; c < T::NCH; ++c) {
-      attn::tma_load(slot + c * T::CHUNK, &tm_q, fb, c * T::BOX, h, q_lo + n * BT, b);
-      attn::tma_load(slot + L::TILE + c * T::CHUNK, &tm_do, fb, c * T::BOX, h, q_lo + n * BT, b);
+
+  if (uniform(threadIdx.x / 128) == 0) {
+    // ---- the producer ----
+    regs_dec<PRODUCER_REGS>();
+    const int tp = threadIdx.x;
+    if (tp == 0) {  // K and V once; query tile n once its slot's last reader released it
+      attn::mbar_expect_tx(kv_full, 2 * L::TILE);
+      for (int c = 0; c < T::NCH; ++c) {
+        attn::tma_load(base + L::K + c * T::CHUNK, &tm_k, kv_full, c * T::BOX, hk, k0, b);
+        attn::tma_load(base + L::V + c * T::CHUNK, &tm_v, kv_full, c * T::BOX, hk, k0, b);
+      }
+      for (int n = 0; n < n_tiles; ++n) {
+        const int st = n % STAGES;
+        const uint32_t slot = base + L::RING + st * 2 * L::TILE, fb = full0 + 8 * st;
+        if (n >= STAGES) mbar_sleep(empty0 + 8 * st, (n / STAGES - 1) & 1);
+        attn::mbar_expect_tx(fb, 2 * L::TILE);
+        for (int c = 0; c < T::NCH; ++c) {
+          attn::tma_load(slot + c * T::CHUNK, &tm_q, fb, c * T::BOX, h, q_lo + n * BT, b);
+          attn::tma_load(slot + L::TILE + c * T::CHUNK, &tm_do, fb, c * T::BOX, h, q_lo + n * BT, b);
+        }
+      }
+    } else if (tp >= 32) {  // ready each tile: its rows' c2 (from dq), D, gate, m, Z, then Q Dh^-0.5
+      const int tr = tp - 32;
+      for (int n = 0; n < n_tiles; ++n) {
+        // addresses and bounds recomputed each tile (held across the loop
+        // they outgrew the producer's 24 registers)
+        const uint32_t bs = opaque(base), bar = bs + L::BAR;
+        const int st = n % STAGES;
+        if (n >= STAGES) mbar_sleep(bar + 8 * (1 + 2 * STAGES + st), (n / STAGES - 1) & 1);
+        if (tr < 64) {
+          const int bx = (int)opaque(blockIdx.x), t0 = a.causal ? (bx / NS) * BT : 0;
+          stage_row(a, (int)opaque(blockIdx.z), (int)opaque(blockIdx.y),
+                    min(t0 + n * BT + tr, (int)opaque(a.Tq) - 1), bs + L::ROWS + st * L::ROW_BYTES,
+                    tr);
+        }
+        if constexpr (!POW2) {
+          mbar_sleep(bar + 8 * (1 + st), (n / STAGES) & 1);
+          scale_words(bs + L::RING + st * 2 * L::TILE, L::TILE, a.scale, tr, READIERS);
+          async_fence();
+        }
+        warp_arrive(bar + 8 * (1 + STAGES + st));
+      }
     }
-  };
-  if (threadIdx.x == 0) {  // K and V once, and the ring's first tiles
-    attn::mbar_expect_tx(kv_full, 2 * L::TILE);
-    for (int c = 0; c < T::NCH; ++c) {
-      attn::tma_load(base + L::K + c * T::CHUNK, &tm_k, kv_full, c * T::BOX, hk, k0, b);
-      attn::tma_load(base + L::V + c * T::CHUNK, &tm_v, kv_full, c * T::BOX, hk, k0, b);
-    }
-    for (int n = 0; n < min(STAGES, n_tiles); ++n) load(n);
+    return;
   }
-  const int wg = uniform(threadIdx.x / 128);
-  const int ct = threadIdx.x, tw = ct % 128;
-  const int warp = uniform(tw / 32), g = (tw % 32) / 4, qd = tw % 4;
-  float4* cs = reinterpret_cast<float4*>(sm + L::CS) + wg * 64;
-  float* zs = reinterpret_cast<float*>(sm + L::ZS) + wg * 64;
-  const long long bht = (long long)a.B * a.Hq * a.Tq;
+  // ---- the consumers ----
+  regs_inc<CONSUMER_REGS>();
+  const int w = uniform((threadIdx.x - 128) / 128);
   attn::mbar_wait(kv_full, 0);
 
   float dk[DN / 2], dv[DN / 2], s[32], dp[32];
   zero<DN / 2>(dk);
   zero<DN / 2>(dv);
-  uint32_t hi[4][4], lo[4][4];
+  // SERIAL where dK and dV take over 64 registers a thread (Dh 128 and
+  // 256), as in dq
+  constexpr bool SERIAL = DN > 64;
+  constexpr bool LATE = !SERIAL && STAGES > 2;
+  // the A operands of a tile's products, hi and lo bf16 fragments: P~ gate
+  // (dV's) and dS (dK's; SERIAL, dV's arrays take both in turn)
+  constexpr int FK = SERIAL ? 1 : 4;
+  uint32_t vhi[4][4], vlo[4][4], khi[FK][4], klo[FK][4];
   const float icap = inv_cap(a);
-  const int r0 = warp * 16 + g;  // the thread's keys k0 + r0, k0 + r0 + 8
-#pragma unroll 1
-  for (int n = wg; n < n_tiles; n += 2) {
-    const int q0 = q_lo + n * BT, st = n % STAGES;
-    wg_sync(wg);  // every warp of the warpgroup is done with the last tile's rows
-    if (tw < 64) {  // the tile's query rows: c2, D, gate, m, Z
-      const int t = min(q0 + tw, a.Tq - 1);
-      const long long si = stat_index(a, b, h, t);
-      const float m = a.stats[si], zc = a.stats[bht + si];
-      const float gt = a.gate != nullptr ? a.gate[b * a.sgb + (long long)t * a.sgt + h * a.sgh] : 1.f;
-      cs[tw] = make_float4(row_c2(m, zc), a.dsum[si], gt, m);
-      zs[tw] = zc;
+  // The thread's place in its warpgroup (warp, lane group g, lane quad
+  // qd): its keys are kr and kr + 8, kr = k0 + 16 warp + g. Recomputed
+  // where used (held across the walk, such values took registers the
+  // accumulators need at Dh 128 and 256).
+  auto place = [&](int& qd, int& kr) {
+    const int tl = (int)(opaque(threadIdx.x) % 128);
+    qd = tl % 4;
+    kr = (int)(opaque(blockIdx.x) / NS) * BT + (tl / 32) * 16 + (tl % 32) / 4;
+  };
+  auto qslot = [&](int n) { return base + L::RING + (n % STAGES) * 2 * L::TILE; };
+  // dV += (P~ gate)^T dO and dK += dS^T (Q Dh^-0.5) of tile n: M keys, N =
+  // the CTA's DN columns, K queries
+  auto issue = [&](int n) {
+    if constexpr (SERIAL) {
+      to_frags(s, vhi, vlo);
+      attn::wg_fence();
+      product_rs<DN>(dv, vhi, vlo, qslot(n) + L::TILE + col_off);
+      attn::wg_commit();
+      attn::wg_wait<0>();
+      to_frags(dp, vhi, vlo);
+      attn::wg_fence();
+      product_rs<DN>(dk, vhi, vlo, qslot(n) + col_off);
+      attn::wg_commit();
+    } else {
+      attn::wg_fence();
+      product_rs<DN>(dv, vhi, vlo, qslot(n) + L::TILE + col_off);
+      product_rs<DN>(dk, khi, klo, qslot(n) + col_off);
+      attn::wg_commit();
     }
-    attn::mbar_wait(full0 + 8 * st, (n / STAGES) & 1);
-    uint8_t* qt = sm + L::RING + st * 2 * L::TILE;
-    const uint32_t qt_s = base + L::RING + st * 2 * L::TILE, dot_s = qt_s + L::TILE;
-    scale_tile(qt, L::TILE, a.scale, tw, 128);
-    async_fence();
-    wg_sync(wg);
-    // S^T = K (Q Dh^-0.5)^T, dP^T = V dO^T: M keys, N queries, K = Dh
-    zero<32>(s);
+  };
+  auto retire = [&](int n, int groups) {
+    wg_wait_upto(groups);
+    warp_arrive(empty0 + 8 * (n % STAGES));
+  };
+  // S^T = K (Q Dh^-0.5)^T, dP^T = V dO^T of tile n: M keys, N queries, K = Dh
+  auto sdp = [&](int n) {
+    attn::mbar_wait(ready0 + 8 * (n % STAGES), (n / STAGES) & 1);
+    if constexpr (POW2) attn::mbar_wait(full0 + 8 * (n % STAGES), (n / STAGES) & 1);
+    const uint32_t kt = opaque(base + L::K);
+    zero<32>(s);  // (see clear(); and the last tile's values die here)
     zero<32>(dp);
     attn::wg_fence();
-    product_ss<D>(s, base + L::K, qt_s);
-    product_ss<D>(dp, base + L::V, dot_s);
+    product_ss<D>(s, kt, qslot(n));
+    product_ss<D>(dp, kt + (L::V - L::K), qslot(n) + L::TILE);
     attn::wg_commit();
+  };
+  // P~ gate into s (dV's factor), dS into dp, in place, then their fragments
+  auto scalar = [&](int n) {
     attn::wg_wait<0>();
     attn::reg_fence<32>(s);
     attn::reg_fence<32>(dp);
+    const int q0 = q_lo + n * BT;
+    int qd, kr;
+    place(qd, kr);
+    const uint8_t* rows = sm + L::ROWS + (n % STAGES) * L::ROW_BYTES;
+    const float4* cst_t = reinterpret_cast<const float4*>(rows);  // c2, D, gate, m
+    const float* zs_t = reinterpret_cast<const float*>(rows + 64 * 16);  // Z
+    if constexpr (POW2) {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) s[x] *= a.scale;
+    }
     cap_scores(s, a.softcap);
-    // P~ gate into s (dV's factor), dS into dp, in place
+    uint32_t near = 0;  // clipped: the entries to re-check, bit x
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int col = 8 * j + 2 * qd + c;
-        const float4 cst = cs[col];
+        const float4 cst = cst_t[col];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int x = 4 * j + 2 * i + c;
-          const int kp = k0 + r0 + 8 * i, qp = q0 + col;
+        for (int r = 0; r < 2; ++r) {
+          const int x = 4 * j + 2 * r + c;
+          const int kp = kr + 8 * r, qp = q0 + col;
           const bool valid = kp < a.Tk && qp < a.Tq && attn::visible(kp, qp, a.causal, a.window);
-          const Entry e = entry(a, valid, s[x], icap, cst.x, cst.w, zs[col], cst.z * dp[x],
-                                [&] { return exact_score(a, b, h, hk, qp, kp); });
+          bool nr;
+          const Entry e = entry_fast<CL>(a, valid, s[x], icap, cst.x,
+                                         __fmul_rn(cst.z, dp[x]), nr);
+          // deferred to the loop below: clipped, an entry near a clip edge;
+          // vanilla, one whose p is NaN (only NaN inputs give one; the loop
+          // computes it as here). Without a branch in the vanilla loop
+          // ptxas scheduled it past the consumers' 240 registers at Dh 128
+          // and 256 (spills); with it, as the clipped loop, it fits.
+          if (CL != 0 ? nr : e.p != e.p) {
+            near |= 1u << x;
+            continue;
+          }
           s[x] = e.pt * cst.z;
           dp[x] = e.p * (e.dp - cst.y) * e.fac;
         }
       }
-    // dV += (P~ gate)^T dO, then dK += dS^T (Q Dh^-0.5): M keys, N = the
-    // CTA's DN columns, K queries
-    to_frags(s, hi, lo);
-    attn::wg_fence();
-    product_rs<DN>(dv, hi, lo, dot_s + col_off);
-    attn::wg_commit();
-    attn::wg_wait<0>();
-    to_frags(dp, hi, lo);
-    attn::wg_fence();
-    product_rs<DN>(dk, hi, lo, qt_s + col_off);
-    attn::wg_commit();
-    attn::wg_wait<0>();
-    attn::reg_fence<DN / 2>(dv);
-    attn::reg_fence<DN / 2>(dk);
-    wg_sync(wg);  // every warp of the warpgroup is done with the slot
-    if (tw == 0 && n + STAGES < n_tiles) {
-      async_fence();
-      load(n + STAGES);
+    if constexpr (CL == 0) {
+      while (near != 0) {  // the NaN entries, s and dp raw
+        const int x = __ffs(near) - 1, col = 8 * (x >> 2) + 2 * qd + (x & 1);
+        near &= near - 1;
+        const float4 cst = cst_t[col];
+        const int kp = kr + 8 * ((x >> 1) & 1), qp = q0 + col;
+        const bool valid = kp < a.Tk && qp < a.Tq && attn::visible(kp, qp, a.causal, a.window);
+        bool nr;
+        const Entry e = entry_fast<0>(a, valid, pick(s, x), icap, cst.x,
+                                      __fmul_rn(cst.z, pick(dp, x)), nr);
+        put(s, x, e.pt * cst.z);
+        put(dp, x, e.p * (e.dp - cst.y) * e.fac);
+      }
+    } else {
+      while (near != 0) {  // rare: the entries near a clip edge, s and dp raw
+        const int x = __ffs(near) - 1, col = 8 * (x >> 2) + 2 * qd + (x & 1);
+        near &= near - 1;
+        const float4 cst = cst_t[col];
+        const Entry e = entry_exact(a, blockIdx.z, blockIdx.y, blockIdx.y / G, q0 + col,
+                                    kr + 8 * ((x >> 1) & 1), icap,
+                                    cst.w, zs_t[col], __fmul_rn(cst.z, pick(dp, x)));
+        put(s, x, e.pt * cst.z);
+        put(dp, x, e.p * (e.dp - cst.y) * e.fac);
+      }
     }
-  }
+    if constexpr (!SERIAL) {
+      to_frags(s, vhi, vlo);
+      to_frags(dp, khi, klo);
+    }
+  };
+  walk<LATE>(Turns(w, n_tiles, LATE), (n_tiles - w + 1) / 2, issue, retire, sdp, scalar);
+  attn::reg_fence<DN / 2>(dv);
+  attn::reg_fence<DN / 2>(dk);
 
-  // warpgroup 1 hands its dk, dv to warpgroup 0, which adds them and stores:
+  // consumer 1 hands its dk, dv to consumer 0, which adds them and stores:
   // bf16 at the KV head, or with G > 1 an f32 partial of the query head
-  cta_sync();
+  // (the thread's and the CTA's indices recomputed here, see place())
+  consumers_sync();
+  const int tw = (int)(opaque(threadIdx.x) % 128), qd = tw % 4;
+  const int cb = (int)opaque(blockIdx.x), ch = (int)opaque(blockIdx.y), cz = (int)blockIdx.z;
   float* xch = reinterpret_cast<float*>(sm + L::RING) + tw * DN;
-  if (wg == 1) {
+  if (w == 1) {
 #pragma unroll
     for (int i = 0; i < DN / 2; ++i) {
       xch[i] = dk[i];
       xch[DN / 2 + i] = dv[i];
     }
   }
-  cta_sync();
-  if (wg == 1) return;
+  consumers_sync();
+  if (w == 1) return;
 #pragma unroll
   for (int i = 0; i < DN / 2; ++i) {
     dk[i] += xch[i];
     dv[i] += xch[DN / 2 + i];
+    if constexpr (POW2) dk[i] *= a.scale;
   }
+  const int e0 = (cb % NS) * DN;  // the CTA's columns
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int t = k0 + r0 + 8 * i;
+    const int t = (cb / NS) * BT + (tw / 32) * 16 + (tw % 32) / 4 + 8 * i;
     if (t >= a.Tk) continue;
 #pragma unroll
     for (int j = 0; j < DN / 8; ++j) {
-      if (c0 + 8 * j >= a.dh) break;
-      const int x = 4 * j + 2 * i, d = c0 + 8 * j + 2 * qd;
+      if (e0 + 8 * j >= a.dh) break;
+      const int x = 4 * j + 2 * i, d = e0 + 8 * j + 2 * qd;
       if (G > 1) {
-        const long long row = (((long long)b * a.Tk + t) * a.Hq + h) * a.dh;
+        const long long row = (((long long)cz * a.Tk + t) * a.Hq + ch) * a.dh;
         *reinterpret_cast<float2*>(a.part_k + row + d) = make_float2(dk[x], dk[x + 1]);
         *reinterpret_cast<float2*>(a.part_v + row + d) = make_float2(dv[x], dv[x + 1]);
       } else {
-        const long long row = (((long long)b * a.Tk + t) * a.Hkv + hk) * a.dh;
+        const long long row = (((long long)cz * a.Tk + t) * a.Hkv + ch / G) * a.dh;
         *reinterpret_cast<__nv_bfloat162*>(a.dk + row + d) = __floats2bfloat162_rn(dk[x], dk[x + 1]);
         *reinterpret_cast<__nv_bfloat162*>(a.dv + row + d) = __floats2bfloat162_rn(dv[x], dv[x + 1]);
       }
@@ -1653,10 +2127,11 @@ cudaError_t launch(const Args& a, long long sv[3], cudaStream_t s) {
   constexpr int NS = Split<D>::N;
   err = launch_one(a.clipped ? bwd_dq_kernel<D, true> : bwd_dq_kernel<D, false>,
                    dim3((a.Tq + BT - 1) / BT * NS, a.Hq, a.B), QLayout<D>::BYTES, s, mq, mdo, mk,
-                   mv, a);
+                   mv, a, THREADS);
   if (err != cudaSuccess) return err;
-  return launch_one(bwd_dkdv_kernel<D>, dim3((a.Tk + BT - 1) / BT * NS, a.Hq, a.B),
-                    KvLayout<D>::BYTES, s, mq, mdo, mk, mv, a);
+  return launch_one(a.clipped ? bwd_dkdv_kernel<D, true> : bwd_dkdv_kernel<D, false>,
+                    dim3((a.Tk + BT - 1) / BT * NS, a.Hq, a.B), KvLayout<D>::BYTES, s, mq, mdo,
+                    mk, mv, a, THREADS);
 }
 
 }  // namespace bf
@@ -1667,7 +2142,9 @@ cudaError_t launch(const Args& a, long long sv[3], cudaStream_t s) {
 // 32, 64, 80, 96 or 128. q, k, v, gate: element strides (16-byte aligned
 // rows and strides); u, dout, dq, dk, dv, dgate contiguous; q, k, v, dout,
 // dq, dk, dv of the dtype, u, gate and dgate f32; stats: the forward's 2 x
-// (B, Hq, Tq) (m, max(Z, 1e-30)); dsum: B * Hq * Tq floats of scratch; g:
+// (B, Hq, Tq) (m, max(Z, 1e-30)); dsum: B * Hq * Tq floats of scratch (D),
+// on the bf16 route three times that (D, each row's c2 and gate, which dq
+// writes for dk/dv's producer); g:
 // B * Tq * Hq * Dh floats of scratch on the f32 route under a gate, else
 // null; part_k, part_v: B * Tk * Hq * Dh floats each of scratch when Hq >
 // Hkv, else null. window < 0: none; softcap <= 0: none. Returns the

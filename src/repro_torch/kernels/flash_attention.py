@@ -391,9 +391,11 @@ def _launch_bwd(q, k, v, gate_pi, u, dout, stats, causal: bool, window: Optional
     dk = torch.empty((b, tk, hkv, dh), **out)
     dv = torch.empty((b, tk, hkv, dh), **out)
     dg = None if g is None else torch.empty((b, tq, hq), **f32)
-    # scratch: D of every row; on the 3xTF32 route gate dO under a gate;
-    # per-query-head f32 dk, dv partials under GQA
-    dsum = torch.empty((b, hq, tq), **f32)
+    # scratch: D of every row (on the bf16 route also each row's c2 = m
+    # log2(e) + log2(Z) and gate, which the dq launch writes for dk/dv's
+    # producer); on the 3xTF32 route gate dO under a gate; per-query-head
+    # f32 dk, dv partials under GQA
+    dsum = torch.empty((3, b, hq, tq) if rt == "bf16" else (b, hq, tq), **f32)
     gbuf = None if g is None or rt != "3xtf32" else torch.empty((b, tq, hq, dh), **f32)
     parts = [None, None] if hq == hkv else [torch.empty((b, tk, hq, dh), **f32)
                                             for _ in range(2)]

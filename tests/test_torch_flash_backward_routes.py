@@ -272,3 +272,53 @@ def test_routes():
         ["bf16"] * 6
     assert [tfa.bwd_route(torch.float32, d) for d in (32, 64, 80, 96, 128, 256)] == \
         ["3xtf32"] * 2 + [None] * 4
+
+
+@pytest.mark.parametrize("dtype,dh,planes", [(torch.bfloat16, 128, 3), (torch.bfloat16, 32, 3),
+                                             (torch.float32, 64, 1)])
+def test_bwd_row_scratch(dtype, dh, planes, monkeypatch):
+    """The backward's row scratch, with the library, the device guard and
+    the stream stood in (this machine has no card): on the bf16 route three
+    (B, Hq, Tq) f32 planes, D, each row's c2 = m log2(e) + log2(Z) and its
+    gate (the dq launch writes c2 and the gate for the dk/dv launch's
+    producer), on the 3xTF32 route one (D); the launch is handed that
+    buffer."""
+    calls, made = [], []
+
+    class Lib:
+        def flash_attention_bwd_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    class Guard:
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    empty = torch.empty
+
+    def recorded(*shape, **kw):
+        t = empty(*shape, **kw)
+        made.append(t)
+        return t
+
+    monkeypatch.setattr(tfa, "_bwd_kernel_lib", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: Stream())
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: Guard())
+    monkeypatch.setattr(torch, "empty", recorded)
+    b, t, hq, hkv = 1, 8, 4, 2
+    q = torch.zeros(b, t, hq, dh, dtype=dtype)
+    kv = torch.zeros(b, t, hkv, dh, dtype=dtype)
+    u, stats = torch.zeros(b, t, hq, dh), torch.ones(2, b, hq, t)
+    tfa._launch_bwd(q, kv, kv, None, u, q, stats, True, None, None, 0.0, 1.0)
+    args = calls[-1]
+    assert args[-2] == tfa._DTYPE_CODE[dtype]
+    dsum = [x for x in made if x.data_ptr() == args[7]]
+    assert len(dsum) == 1 and dsum[0].dtype == torch.float32
+    assert dsum[0].shape == ((planes,) if planes > 1 else ()) + (b, hq, t)
+    assert dsum[0].is_contiguous()
