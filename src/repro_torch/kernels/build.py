@@ -24,7 +24,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -67,11 +67,15 @@ def sources(name: str) -> list:
     return [top] + sorted(seen - {top})
 
 
-def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+def library_path(name: str, defines: Sequence[str] = ()) -> Path:
+    h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS + _define_flags(defines)).encode())
     for path in sources(name):
         h.update(path.relative_to(CSRC).as_posix().encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _define_flags(defines: Sequence[str]) -> list:
+    return [f"-D{d}" for d in defines]
 
 
 def log_path(library: Path) -> Path:
@@ -79,14 +83,18 @@ def log_path(library: Path) -> Path:
     return library.with_suffix(".ptxas.txt")
 
 
-def build(name: str) -> Tuple[Path, float]:
+def build(name: str, defines: Sequence[str] = ()) -> Tuple[Path, float]:
     """Compile ``csrc/<name>.cu`` unless the hashed library and its
     compiler log exist. Returns (library path, seconds spent compiling; 0
-    if cached) and leaves the compiler log in ``BUILD_LOG[name]``."""
-    out = library_path(name)
+    if cached) and leaves the compiler log in ``BUILD_LOG[name]``.
+    ``defines`` (``"NAME=value"``, each passed to ``nvcc`` as ``-D``)
+    build a variant of the source under a hash of its own, its log kept
+    under ``BUILD_LOG["<name> NAME=value ..."]``, never under ``name``."""
+    out = library_path(name, defines)
     log = log_path(out)
+    key = " ".join((name, *defines))
     if out.exists() and log.exists():
-        BUILD_LOG[name] = log.read_text()
+        BUILD_LOG[key] = log.read_text()
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # compile to private names, then rename, the log before the library:
@@ -94,7 +102,7 @@ def build(name: str) -> Tuple[Path, float]:
     # found built has its log
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp,
+    cmd = [find_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, *_define_flags(defines), "-o", tmp,
            str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -102,10 +110,10 @@ def build(name: str) -> Tuple[Path, float]:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
     secs = time.perf_counter() - t0
-    BUILD_LOG[name] = proc.stderr + proc.stdout
+    BUILD_LOG[key] = proc.stderr + proc.stdout
     fd, tmp_log = tempfile.mkstemp(suffix=".txt", dir=BUILD_DIR)
     with os.fdopen(fd, "w") as f:
-        f.write(BUILD_LOG[name])
+        f.write(BUILD_LOG[key])
     os.replace(tmp_log, log)
     os.replace(tmp, out)
     return out, secs

@@ -30,7 +30,10 @@ kernel's second entry point ``rglru_bwd_launch`` on CUDA tensors
 + a_{t+1} g_{t+1}, db_t = g_t, da_t = g_t h_{t-1} (h_0 = h0 or 0) and dh0
 = a_1 g_1, each product and sum rounded on its own, so the kernel is
 bitwise the loop, and the loop bitwise torch autograd through
-``rglru_ref``. (The reference has no such kernel: XLA differentiates its
+``rglru_ref``. ``plan_bwd`` picks the reverse scan's route as ``plan``
+does: route 1, the TMA ring walked backwards (D % 4 == 0 and a, h, dh, da
+and db 16-byte aligned), or route 0, direct loads; neither gives way to
+the other. (The reference has no such kernel: XLA differentiates its
 scan.)
 """
 from __future__ import annotations
@@ -63,6 +66,18 @@ TMA_SMEM_BYTES = TMA_STAGES * 2 * TMA_TILE_STEPS * 32 * 4 + 2 * TMA_TILE_STEPS *
     + 2 * TMA_STAGES * 8 + 128
 # route 0: 128 threads a CTA along D, loads issued 16 steps at a time
 DIRECT_THREADS, DIRECT_STEPS = 128, 16
+# the reverse scan's route 1: a CTA owns 32 channels of one row (one
+# consumer warp) and walks T backwards in tiles of 32 steps (12 KB of a, dh
+# and h a ring slot) through a ring of BWD_STAGES slots
+# (``csrc/rg_lru.cu:BWD_WARPS``, ``BWD_TILE``, ``BWD_STAGES``)
+BWD_WARPS = 1
+BWD_TILE_STEPS = 32
+BWD_STAGES = 3
+# its dynamic shared memory a CTA (``csrc/rg_lru.cu:BWD_SMEM``): the ring,
+# two da and two db tiles of the consumer warp (16 KB), the full and empty
+# barriers, 128 bytes of alignment slack
+BWD_SMEM_BYTES = BWD_STAGES * 3 * BWD_TILE_STEPS * 32 * 4 + 4 * BWD_TILE_STEPS * 32 * 4 \
+    + 2 * BWD_STAGES * 8 + 128
 
 
 class Plan(NamedTuple):
@@ -80,6 +95,12 @@ class Plan(NamedTuple):
     smem: int
 
 
+def _direct_plan(b: int, d: int) -> Plan:
+    """Route 0: direct loads, 128 channels a CTA."""
+    return Plan(0, DIRECT_THREADS // 32, DIRECT_THREADS, DIRECT_STEPS,
+                b * -(-d // DIRECT_THREADS), DIRECT_THREADS, 0)
+
+
 def plan(b: int, t: int, d: int, sms: int, aligned: bool = True) -> Plan:
     """The static plan of a call on a card of ``sms`` SMs; ``aligned``:
     a, b and h start on 16-byte boundaries. Route 1 needs D % 4 == 0 (the
@@ -89,11 +110,24 @@ def plan(b: int, t: int, d: int, sms: int, aligned: bool = True) -> Plan:
     and a batch of rows fewer, wider ones. T does not enter: any T runs
     on either route (the chain stops at T)."""
     if d % 4 or not aligned:
-        return Plan(0, DIRECT_THREADS // 32, DIRECT_THREADS, DIRECT_STEPS,
-                    b * -(-d // DIRECT_THREADS), DIRECT_THREADS, 0)
+        return _direct_plan(b, d)
     w = next((w for w in TMA_WARPS if b * -(-d // (32 * w)) >= sms), 1)
     return Plan(1, w, 32 * w, TMA_TILE_STEPS // w, b * -(-d // (32 * w)), 32 * w + 32,
                 TMA_SMEM_BYTES)
+
+
+def plan_bwd(b: int, t: int, d: int, aligned: bool = True) -> Plan:
+    """The reverse scan's static plan; ``aligned``: a, h, dh, da and db
+    start on 16-byte boundaries. Route 1, the ring walked backwards, for D
+    % 4 == 0 and aligned tensors, one warp a CTA at every B (the reverse
+    scan runs in training, at B 1, so the card's size does not enter);
+    route 0, direct loads, for the rest. T does not enter (the chain
+    starts at T - 1)."""
+    if d % 4 or not aligned:
+        return _direct_plan(b, d)
+    ch = 32 * BWD_WARPS
+    return Plan(1, BWD_WARPS, ch, BWD_TILE_STEPS // BWD_WARPS, b * -(-d // ch), ch + 32,
+                BWD_SMEM_BYTES)
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -104,7 +138,7 @@ def _kernel_lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         bwd = lib.rglru_bwd_launch
-        bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         bwd.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -206,13 +240,15 @@ def _launch_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor, dh_last: tor
     da, db = torch.empty_like(a), torch.empty_like(a)
     dh0 = None if h0 is None else torch.empty_like(h0)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    p = plan_bwd(bsz, t, d, aligned=all(x.data_ptr() % 16 == 0 for x in (a, h, dh, da, db)))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = _kernel_lib().rglru_bwd_launch(
             a.data_ptr(), h.data_ptr(), dh.data_ptr(), dh_last.data_ptr(), ptr(h0),
-            da.data_ptr(), db.data_ptr(), ptr(dh0), bsz, t, d, stream)
+            da.data_ptr(), db.data_ptr(), ptr(dh0), bsz, t, d, p.route, stream)
     if err != 0:
-        raise RuntimeError(f"rglru reverse-scan kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"rglru reverse-scan kernel launch failed: cudaError {err} "
+                           f"(plan {p})")
     global bwd_launches
     bwd_launches += 1
     return da, db, dh0

@@ -23,8 +23,8 @@ local shard is the whole tensor, and the step runs on the local shards,
 which is the plain loop's computation, bitwise. A mesh that splits a
 tensor raises ``NotImplementedError``: multi-card training (ROADMAP 5.5)
 cannot be measured on one H100. Nothing routes around the kernels: a
-config the flash backward does not take (bf16 at Dh 256, f32 at Dh 80 to
-256, a query offset) raises there (ROADMAP 1.3).
+config the flash backward does not take (f32 at Dh 80 to 256, a query
+offset) raises there (ROADMAP 1.3).
 """
 from __future__ import annotations
 

@@ -97,3 +97,17 @@ def test_a_cached_library_without_its_log_is_rebuilt(fake_nvcc):
     assert len(fake_nvcc) == 1 and build.BUILD_LOG["k"] == PTXAS
     assert sorted(p.name for p in path.parent.iterdir()) == \
         sorted([path.name, build.log_path(path).name])
+
+
+def test_defines_build_a_variant_of_their_own(fake_nvcc):
+    """``-D`` values (how a sizing run builds a variant of a kernel) name a
+    library and a log of their own and reach ``nvcc``; the source's own
+    build is left as it was."""
+    plain, _ = build.build("k")
+    variant, _ = build.build("k", ("A_SIZE=4", "B_SIZE=2"))
+    assert variant == build.library_path("k", ("A_SIZE=4", "B_SIZE=2")) != plain
+    assert build.library_path("k", ("A_SIZE=4",)) not in (plain, variant)
+    assert "-DA_SIZE=4" in fake_nvcc[1] and "-DB_SIZE=2" in fake_nvcc[1]
+    assert not any(flag.startswith("-D") for flag in fake_nvcc[0])
+    assert set(build.BUILD_LOG) == {"k", "k A_SIZE=4 B_SIZE=2"}
+    assert build.library_path("k") == plain and len(fake_nvcc) == 2
