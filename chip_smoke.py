@@ -108,7 +108,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      at (8, 512) with and without the causal mask), f32 (the CUDA-core
      route the f32 paper models run) and bf16, vanilla and clipped: the
      kernel, its plain version, SDPA (vanilla) and the bound; and, bf16,
-     at hubert-xlarge's and phi-3-vision's reads (MODEL_FLASH_TIMED).
+     at hubert-xlarge's and phi-3-vision's reads (MODEL_FLASH_TIMED); and,
+     both dtypes, at the smoke configs' Dh 8 and 16 (SMOKE_FLASH_TIMED;
+     checked at (2, 256, 8/2) causal and not, windowed and under a
+     per-row offset with Tk 384).
      Then bf16 Dh 256 (``phase_flash_dh256``: the tensor-core route, a
      CTA a half of the columns, which recurrentgemma-9b's evaluation and
      training take): vanilla, clipped and gated, causal with window 2048 at
@@ -261,7 +264,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      T > 1, none at T 1, no flash or paged launch, and gate (a) with the
      decode one position early and the recurrent state h lost as faults.
   4c. recurrentgemma-9b served in W8A8 at full width and RG_CUT_LAYERS
-     (20) of its 38 layers (``phase_rg_w8a8``): ``ContinuousBatcher(paged=True,
+     (14) of its 38 layers (``phase_rg_w8a8``): ``ContinuousBatcher(paged=True,
      qconfig=QConfig())``, clipped softmax (alpha 4), batch 8, max_len
      4096, budget 256, phase 4b's 10 prompts (three past 2304 tokens), 16
      new tokens each, through ``phase_recurrent_serving`` (phase 9c's
@@ -302,11 +305,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      8 x 512 forward; the injected model must read above the clean one by
      OUTLIER_MARGIN.
   5c. recurrentgemma-9b's evaluation (``rg_eval_cfg``: bf16, RG_CUT_LAYERS
-     (20) of its 38 layers, unrolled) by phase 5's protocol for vanilla,
-     clipped (alpha 4) and gated: its 6 local_attn layers reach the flash
+     (14) of its 38 layers, unrolled) by phase 5's protocol for vanilla,
+     clipped (alpha 4) and gated: its 4 local_attn layers reach the flash
      kernel at bf16 Dh 256 with window 2048 (the tensor-core route), each
      held per layer against its plain version at FLASH_LAYER_REL_RMS; the
-     RG-LRU kernel once per Griffin layer (14) on every forward.
+     RG-LRU kernel once per Griffin layer (10) on every forward.
   6. Training, through the hand-written flash-attention backward kernel
      (``csrc/flash_attention_bwd.cu``; the reference differentiates its
      plain attention with XLA, so no TPU kernel corresponds). (a) The
@@ -329,7 +332,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      clipped (alpha 4) and gated: dq, dk, dv and dgate each within the
      route's bound (BWD_REL_RMS, BWD_REL_RMS_BF16), the plain version with
      P and dS rounded to bf16 above it, two calls bitwise equal, and every
-     clipped case with a share of unclipped entries. (b) BERT-base (masked LM, 8 x
+     clipped case with a share of unclipped entries; and at BWD_F32_SHAPES
+     (the f32 CUDA-core route at hubert-xlarge's, phi-3-vision's,
+     qwen3-14b's and recurrentgemma-9b's shapes, T 1024), BWD_SMOKE_SHAPES
+     (Dh 8 and 16, both dtypes) and BWD_OFFSET_SHAPES (an int and a
+     per-row query offset with Tk 1024 over Tq 512, causal and windowed,
+     on all three routes: the keys no query sees get dk = dv = 0 and the
+     queries that see no key dq = dgate = 0, exactly). A clipped case's
+     reference decides each entry within EDGE_EPS of a clip edge as the
+     kernel's dq row shows it (``edge_decided_ref``). (b) BERT-base (masked LM, 8 x
      512) and OPT-125m (causal LM, 2 x 2048) trained at full width in f32
      from seed 0 through ``train.run_training`` for vanilla, clipped
      (alpha 4) and gated attention: step 1's loss and the whole gradient
@@ -376,7 +387,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      time, peak memory and the phase's wall printed; recurrentgemma-9b's
      reverse scans then held bitwise against ``rglru_bwd_ref`` on the
      inputs captured from one more step (``rl._launch_bwd`` wrapped here
-     only), the recurrence's part of a per-layer check of the step.
+     only), the recurrence's part of a per-layer check of the step; and
+     qwen3-14b's flash backward held on one more step's captured inputs
+     against ``attention_bwd_saved_ref`` (``phase_bwd_captured``, the
+     bf16-P/dS control above). Then qwen3-14b in f32 (``phase_train_f32``:
+     2 layers, 1 x 1024, the backward's CUDA-core route at Dh 128): step 1
+     against the plain attention path at F32_STEP_GRAD_REL_RMS, one AdamW
+     step, and its backward calls held on their captured inputs. (e) Every
+     registered arch's smoke config as registered (``phase_smoke_archs``:
+     f32, Dh 8 or 16): step 1 on the card against the same step on the
+     CPU (loss, the whole gradient, the attention leaves against the CPU
+     with P in bf16), two steps through ``launch.train.train_on_mesh`` on
+     the (1, 1) cuda mesh, then the README's launcher command on the
+     card, and a Dh-48 input raising there.
   7. Embeds inputs and sandwich norms at published widths and depths,
      random weights from seed 0; each sub-phase prints its wall.
      (a) ViT-S/16 (f32, 12 layers) over ``SeededEmbeds`` batches (64 x
@@ -392,7 +415,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      plain version (the bf16-P control above); then
      ``ContinuousBatcher(paged=True)`` on 8 text prompts (batch 8, max_len
      2048) through phase 4's ``phase_serving``: its first mixed tick
-     within LOGIT_REL_RMS of the plain path. (d) gemma2-27b (bf16, 16 of
+     within LOGIT_REL_RMS of the plain path. (d) gemma2-27b (bf16, 12 of
      its 46 layers, local window 4096 and global layers alternating, softcaps
      50 / 30, sandwich norms): one cache-free forward at (1, 4608) held
      per layer as (c); then ``ContinuousBatcher(paged=True)`` (batch 4,
@@ -437,6 +460,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      flash and one backward launch per layer and step, every leaf's
      placements those of ``tree_param_specs`` under the three profiles; no
      checkpoint (the CPU tests hold resume); the phase's wall printed.
+     (The smoke configs train through the launcher in phase 6e.)
      (c) qwen2-moe-a2.7b (bf16, 24 layers, 60 routed experts
      top-4 and 4 shared; 28.6 GB of weights): the evaluation, vanilla, with
      (a); an fp and a W8A8 engine (its shared experts through the int8
@@ -503,7 +527,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (CHAOS_MARGIN_REL), a control with rotated swap-ins failing that
      check.
   10. The kernels line (six kernels, the backward's bf16 route, whose
-     launches are phase 6d's, and the RG-LRU's reverse scan, whose
+     launches are phase 6d's bf16 runs, its f32 CUDA-core route, whose
+     launches are phase 6d's f32 run, and the RG-LRU's reverse scan, whose
      launches are phase 6d's recurrentgemma-9b run; the launch
      counts include phase 8's and phase 9's evaluations, engines and
      training, phase 4c's engine, phase 5c's evaluations and phase 11's
@@ -769,7 +794,8 @@ def bf16_dh128(name: str) -> bool:
 
 def flash_dh(name: str, dhs) -> bool:
     """Is this (mangled) kernel a flash instantiation at one of the head
-    dims ``dhs`` (Dh 32: the tensor-core kernel for bf16, the CUDA-core one
+    dims ``dhs`` (Dh 16: the CUDA-core one, f32 Dh 8 and 16; Dh 32: the
+    tensor-core kernel for bf16 (also bf16 Dh 8 and 16), the CUDA-core one
     for f32; Dh 80 and 96: the CUDA-core one, f32; bf16 at those runs the
     Dh-128 tensor-core kernel)?"""
     return "flash_kernel_" in name and any(f"ELi{dh}EE" in name for dh in dhs)
@@ -1313,6 +1339,14 @@ def phase_flash_checks(torch, fa):
               for dh in (80, 96) for dtype in (torch.float32, torch.bfloat16)
               for variant, extra in (("clipped+gated", dict(window=300)),
                                      ("vanilla", dict(softcap=30.0)))]
+    # Dh 8 and 16 (every arch's smoke config): f32 on the CUDA-core route
+    # (Dh 8 through the Dh-16 body), bf16 through the Dh-32 tensor-core
+    # body; causal and not, a window, a per-row offset with Tq < Tk
+    cases += [(256, dtype, variant, dict(small, dh=dh, **extra))
+              for dh in (8, 16) for dtype in (torch.float32, torch.bfloat16)
+              for variant, extra in (("vanilla", {}), ("clipped", dict(causal=False)),
+                                     ("gated", dict(window=100)),
+                                     ("clipped+gated", dict(tk=384, q_offset="rows")))]
     # the reads of this slice's models at their shapes (MODEL_FLASH_SHAPES)
     cases += [(t, dtype, variant, dict(shape, **extra))
               for _, t, dtype, shape, extra in model_flash_shapes(torch)
@@ -1426,6 +1460,10 @@ MODEL_FLASH_TIMED = [("hubert-xlarge", 4096, dict(b=2, hq=16, hkv=16, dh=80), Fa
 MOE_FLASH_TIMED = [("granite-moe", 2048, dict(b=1, hq=16, hkv=8, dh=64), True),
                    ("qwen2-moe", 2048, dict(b=1, hq=16, hkv=16, dh=128), True)]
 MOE_FLASH_TIMED_F32 = [("granite-moe training", 1024, dict(b=2, hq=16, hkv=8, dh=64), True)]
+# ... and the smoke configs' head dims (Dh 8: qwen3-14b's 8 heads over 2;
+# Dh 16: gemma2-27b's 4 over 2), at phase 6a's smoke shapes, both dtypes
+SMOKE_FLASH_TIMED = [("smoke dh8", 500, dict(b=4, hq=8, hkv=2, dh=8), True),
+                     ("smoke dh16", 500, dict(b=4, hq=4, hkv=2, dh=16), True)]
 
 
 def phase_flash_paper_times(torch, fa, timed=PAPER_FLASH_TIMED, dtypes=("float32", "bfloat16")):
@@ -3660,6 +3698,40 @@ BWD_ROUTE_SHAPES = [
     ("recurrentgemma-9b window 300", 1, 1000, 16, 1, 256, True,
      dict(dtype="bfloat16", window=300)),
 ]
+# and this slice's (name, B, T, Hq, Hkv, Dh, causal, settings): the f32
+# CUDA-core route at hubert-xlarge's, phi-3-vision's, qwen3-14b's and
+# recurrentgemma-9b's shapes (T cut to 1024 for the wall; recurrentgemma's
+# window cut from 2048 to 300, so that it masks there); Dh 8 and 16 (every
+# arch's smoke config: qwen3-14b's 8 heads over 2, gemma2-27b's 4 over 2)
+# in both dtypes, at a ragged T 500, the Dh-16 ones windowed; and query
+# offsets with more keys than queries (Tk 1024 over Tq 512): an int offset
+# 300 (keys 812.. seen by no query), and per-row offsets (0, 900) under a
+# window of 256 (row 0's keys 512.. unseen; row 1's queries from 379 on,
+# at positions 1279.., see no key), on all three routes
+BWD_F32_SHAPES = [
+    ("hubert-xlarge f32", 1, 1024, 16, 16, 80, False, {}),
+    ("phi-3-vision f32", 1, 1024, 32, 32, 96, True, {}),
+    ("qwen3-14b f32", 1, 1024, 40, 8, 128, True, {}),
+    ("recurrentgemma-9b f32 window 300", 1, 1024, 16, 1, 256, True, dict(window=300)),
+]
+BWD_SMOKE_SHAPES = [
+    ("smoke dh8 f32", 4, 500, 8, 2, 8, True, {}),
+    ("smoke dh16 f32 window", 4, 500, 4, 2, 16, True, dict(window=100)),
+    ("smoke dh8 bf16", 4, 500, 8, 2, 8, True, dict(dtype="bfloat16")),
+    ("smoke dh16 bf16 window", 4, 500, 4, 2, 16, True, dict(dtype="bfloat16", window=100)),
+]
+BWD_OFFSET_ROWS = (0, 900)
+BWD_OFFSET_SHAPES = [
+    ("offset 300 f32 dh128", 2, 512, 8, 2, 128, True, dict(tk=1024, q_offset=300)),
+    ("offset rows window f32 dh128", 2, 512, 8, 2, 128, True,
+     dict(tk=1024, q_offset=BWD_OFFSET_ROWS, window=256)),
+    ("offset rows window f32 dh64", 2, 512, 8, 2, 64, True,
+     dict(tk=1024, q_offset=BWD_OFFSET_ROWS, window=256)),
+    ("offset 300 bf16 dh128", 2, 512, 8, 2, 128, True,
+     dict(dtype="bfloat16", tk=1024, q_offset=300)),
+    ("offset rows window bf16 dh16", 2, 512, 8, 2, 16, True,
+     dict(dtype="bfloat16", tk=1024, q_offset=BWD_OFFSET_ROWS, window=256)),
+]
 # Under a softcap q is drawn this many times wider (scores of RMS 5), so
 # that the cap bends them (tanh(s / 50) up to ~0.4 at T 2048) and a wrong
 # slope 1 - (s_c / c)^2 moves the gradients by far more than any bound
@@ -3814,21 +3886,26 @@ STEP_QK_SCALE = {"bert": 2.5, "opt": 7.0, "vit": 2.5}
 
 
 def bwd_case(torch, b, t, hq, hkv, dh, causal, variant, seed, dtype="float32", window=None,
-             softcap=None):
-    """Inputs of one backward call at (B, T, Hq/Hkv, Dh): q, k, v ~ N(0, 1)
-    (s ~ N(0, 1), so a few percent of a clipped row's entries stay
-    unclipped at alpha 4; under a softcap q BWD_SOFTCAP_QSCALE times
-    wider), gate sigmoid(N(0, 1)) in f32, dO ~ N(0, 1); q, k, v and dO in
-    ``dtype``."""
+             softcap=None, tk=None, q_offset=0):
+    """Inputs of one backward call at (B, T, Hq/Hkv, Dh) (Tk keys, T by
+    default): q, k, v ~ N(0, 1) (s ~ N(0, 1), so a few percent of a
+    clipped row's entries stay unclipped at alpha 4; under a softcap q
+    BWD_SOFTCAP_QSCALE times wider), gate sigmoid(N(0, 1)) in f32, dO ~
+    N(0, 1); q, k, v and dO in ``dtype``; ``q_offset`` an int or per-row
+    offsets (an int32 (B,) tensor on the card)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
-    gamma = -BWD_ALPHA / t if variant == "clipped" else 0.0
+    tk = tk or t
+    gamma = -BWD_ALPHA / tk if variant == "clipped" else 0.0
     dt = getattr(torch, dtype)
     q = rnd(b, t, hq, dh) * (BWD_SOFTCAP_QSCALE if softcap is not None else 1.0)
-    k, v = rnd(b, t, hkv, dh), rnd(b, t, hkv, dh)
+    k, v = rnd(b, tk, hkv, dh), rnd(b, tk, hkv, dh)
     gate = torch.sigmoid(rnd(b, t, hq)) if variant == "gated" else None
+    if not isinstance(q_offset, int):
+        q_offset = torch.tensor(q_offset, dtype=torch.int32, device="cuda")
     return dict(q=q.to(dt), k=k.to(dt), v=v.to(dt), gate=gate, dout=rnd(b, t, hq, dh).to(dt),
-                causal=causal, window=window, softcap=softcap, gamma=gamma, zeta=1.0)
+                causal=causal, window=window, softcap=softcap, gamma=gamma, zeta=1.0,
+                q_offset=q_offset)
 
 
 def bf16_ds(torch):
@@ -3849,67 +3926,146 @@ def bf16_ds(torch):
 def unclipped_share(torch, c, fa):
     """Share of the visible (query, key) pairs whose clipped probability
     lies strictly inside (0, 1), where the clip passes a gradient (with the
-    case's window and softcap)."""
-    b, _, hq, _ = c["q"].shape
-    s, mask, _ = fa._scores(c["q"], c["k"], c["causal"], c.get("window"), c.get("softcap"))
-    p = torch.softmax(s, dim=-1)
+    case's window, softcap and query offset)."""
+    s, mask, _ = fa._scores(c["q"], c["k"], c["causal"], c.get("window"), c.get("softcap"),
+                            c["q_offset"])
+    mask = mask.expand_as(s)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
     x = (1.0 - c["gamma"]) * p + c["gamma"]
-    return (((x > 0) & (x < 1) & mask).sum() / (mask.sum() * b * hq)).item()
+    return (((x > 0) & (x < 1) & mask).sum() / mask.sum()).item()
 
 
-def visible_pairs(t, causal, window):
-    """(query, key) pairs of a T x T attention that the mask lets through."""
-    return sum(max(0, (q + 1 if causal else t) - (max(0, q - window + 1) if window else 0))
-               for q in range(t))
+def visible_pairs(tq, causal, window, tk=None, offsets=(0,)):
+    """(query, key) pairs of a Tq x Tk attention (Tk = Tq by default) that
+    the mask lets through, summed over the rows' query offsets (query i at
+    position i + off)."""
+    tk = tq if tk is None else tk
+    return sum(max(0, (min(tk, q + o + 1) if causal else tk)
+                   - (max(0, q + o - window + 1) if window else 0))
+               for o in offsets for q in range(tq))
 
 
 def bwd_bound_ms(c):
-    """Least time of one backward call on an H100, for the kernel's route
-    and for f32 CUDA cores: 10 flops per visible (query, key) pair and head
-    column (S, dP~ = gV^T, dv, dq, dk; every variant: D_i = sum_j p_ij
-    dp_ij is a scalar per pair, and u and (m, Z) come saved from the
-    forward); on the 3xTF32 route each f32 product three TF32 ones at 495
-    TFLOP/s (an effective 165 TFLOP/s), on the bf16 route bf16 products at
-    989 TFLOP/s, or the same at 67 TFLOP/s f32; against the bytes of q, k,
-    v, dO, u (f32), the statistics and gate in and dq, dk, dv, dgate out at
-    3.35 TB/s. Returns (route bound ms, bound_by, f32 CUDA-core bound ms)."""
+    """Least time of one backward call on an H100: 10 flops per visible
+    (query, key) pair and head column (S, dP~ = gV^T, dv, dq, dk; every
+    variant: D_i = sum_j p_ij dp_ij is a scalar per pair, and u and (m, Z)
+    come saved from the forward) on the kernel's route's units: bf16
+    products at 989 TFLOP/s (the bf16 route), f32 fmaf at 67 TFLOP/s (the
+    CUDA-core route), each f32 product three TF32 ones at 495 TFLOP/s
+    (the 3xTF32 route, an effective 165 TFLOP/s); against the bytes of q,
+    k, v, dO, u (f32), the statistics and gate in and dq, dk, dv, dgate
+    out at 3.35 TB/s. Returns (route bound ms, bound_by, f32 CUDA-core
+    bound ms, 3xTF32 bound ms)."""
     b, t, hq, dh = c["q"].shape
-    hkv = c["k"].shape[2]
+    tk, hkv = c["k"].shape[1], c["k"].shape[2]
     e = c["q"].element_size()
-    pairs = b * hq * visible_pairs(t, c["causal"], c.get("window"))
+    off = c["q_offset"]
+    offs = off.tolist() if not isinstance(off, int) else [off] * b
+    pairs = hq * visible_pairs(t, c["causal"], c.get("window"), tk, offs)
     flops = 10 * pairs * dh
-    nbytes = (3 * e + 4) * b * t * hq * dh + 4 * e * b * t * hkv * dh + 4 * 2 * b * t * hq \
+    nbytes = (3 * e + 4) * b * t * hq * dh + 4 * e * b * tk * hkv * dh + 4 * 2 * b * t * hq \
         + (4 * 2 * b * t * hq if c["gate"] is not None else 0)
-    t_ops = (flops / BF16_FLOPS if e == 2 else 3 * flops / TF32_FLOPS)
     t_bytes = nbytes / HBM_BYTES_PER_S
+    t_f32, t_tf32 = flops / F32_FLOPS, 3 * flops / TF32_FLOPS
+    t_ops = {"bf16": flops / BF16_FLOPS, "cuda-core": t_f32, "3xtf32": t_tf32}[
+        "bf16" if e == 2 else ("3xtf32" if dh <= 64 else "cuda-core")]
     return (max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"),
-            max(flops / F32_FLOPS, t_bytes) * 1e3)
+            max(t_f32, t_bytes) * 1e3, max(t_tf32, t_bytes) * 1e3)
 
 
-def stats_of_bf16_scores(torch, fa, q, k, causal, window, softcap):
+def stats_of_bf16_scores(torch, fa, q, k, causal, window, softcap, q_offset=0):
     """attention_stats_ref's (m, max(Z, 1e-30)) of the scores rounded to
     bf16: the bf16 route's statistics control."""
     b, tq, hq, _ = q.shape
-    s, mask, _ = fa._scores(q, k, causal, window, softcap)
+    s, mask, _ = fa._scores(q, k, causal, window, softcap, q_offset)
     s = torch.where(mask, s.bfloat16().float(), fa.NEG_INF)
     m = s.amax(-1, keepdim=True)
     z = torch.where(mask, torch.exp(s - m), 0.0).sum(-1)
     return torch.stack([m[..., 0], torch.clamp(z, min=1e-30)]).reshape(2, b, hq, tq)
 
 
-def bwd_shapes():
+def bwd_shapes(timed=False):
     """Phase 6a's cases: (name, B, T, Hq, Hkv, Dh, causal, settings) of
-    BWD_SHAPES (f32, no window or softcap) and BWD_ROUTE_SHAPES."""
-    return [(*x, {}) for x in BWD_SHAPES] + BWD_ROUTE_SHAPES
+    BWD_SHAPES (f32, no window or softcap), BWD_ROUTE_SHAPES,
+    BWD_F32_SHAPES, BWD_SMOKE_SHAPES and BWD_OFFSET_SHAPES; phase 6c's
+    (``timed``) leave the offsets out."""
+    return [(*x, {}) for x in BWD_SHAPES] + BWD_ROUTE_SHAPES + BWD_F32_SHAPES \
+        + BWD_SMOKE_SHAPES + ([] if timed else BWD_OFFSET_SHAPES)
+
+
+def unseen_keys_and_blind_rows(torch, fa, c):
+    """(keys no query sees: a (B, Tk) bool, queries that see no key: a (B,
+    Tq) bool) of a case, from its mask."""
+    b, tq = c["q"].shape[:2]
+    tk = c["k"].shape[1]
+    _, mask, _ = fa._scores(c["q"][:, :, :1], c["k"][:, :, :1], c["causal"], c.get("window"),
+                            None, c["q_offset"])
+    mask = mask.reshape(-1, tq, tk).expand(b, tq, tk)
+    return ~mask.any(1), ~mask.any(2)
+
+
+# The clipped softmax's indicator 1[0 < (zeta - gamma) p + gamma < 1] has
+# no slope: an entry whose p lies within f32 rounding of a clip edge falls
+# on either side in two f32 computations of p. The kernels decide it as the
+# forward did (their re-check recomputes the forward's p); the reference
+# computes p its own way. Measured on an NVIDIA H100 80GB HBM3 at 700 W:
+# at hubert-xlarge's, qwen3-14b's and recurrentgemma-9b's f32 shapes one
+# entry each, within 1e-7 of the edge, put the reference on the
+# other side and read 3.5e-4 / 1.4e-4 / 2.5e-5 against the CUDA-core route;
+# with that one entry's indicator taken the other way the readings are
+# 2.9e-7..1.4e-6. So each visible entry within EDGE_EPS (relative to zg p)
+# of an edge is decided in the reference as the kernel's dq row shows it
+# (the closer of the two), one entry at a time, and the check then holds
+# every gradient at the route's bound against that reference. EDGE_EPS is
+# 10x the measured culprits' distance; entries the kernel decided as the
+# reference did stay as they are.
+EDGE_EPS = 1e-6
+
+
+def edge_decided_ref(torch, fa, args, kw, kern_dq):
+    """attention_bwd_ref of a clipped case with each visible entry within
+    EDGE_EPS of a clip edge decided as the kernel decided it: the entry's
+    indicator flipped where that moves the reference's dq row of the entry
+    closer to the kernel's. Returns (gradients, candidates, flipped)."""
+    q, k = args[0], args[1]
+    b, tq, hq, dh = q.shape
+    g = hq // k.shape[2]
+    zg, gamma = kw["zeta"] - kw["gamma"], kw["gamma"]
+    s, mask, _ = fa._scores(q, k, kw["causal"], kw["window"], kw["softcap"], kw["q_offset"])
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    x = zg * p + gamma
+    near = mask & (((x.abs() <= EDGE_EPS * zg * p) | ((x - 1).abs() <= EDGE_EPS * zg * p)))
+    cand = near.nonzero().tolist()
+    base = fa.attention_bwd_ref(*args, **kw)
+    if not cand:
+        return base, 0, 0
+    flip = torch.zeros_like(mask.expand_as(s))
+    for bi, hk, gi, i, j in cand:
+        one = torch.zeros_like(flip)
+        one[bi, hk, gi, i, j] = True
+        other = fa.attention_bwd_ref(*args, **kw, flip=one)
+        h = hk * g + gi
+        row = kern_dq[bi, i, h].float()
+        if (row - other[0][bi, i, h].float()).norm() < (row - base[0][bi, i, h].float()).norm():
+            flip[bi, hk, gi, i, j] = True
+        del other
+    if not bool(flip.any()):
+        return base, len(cand), 0
+    return fa.attention_bwd_ref(*args, **kw, flip=flip), len(cand), int(flip.sum())
 
 
 def phase_bwd_checks(torch, fa):
     """Phase 6a: at bwd_shapes() x BWD_VARIANTS the forward kernel with the
     row statistics (out bitwise the plain forward call's; the statistics
-    against attention_stats_ref), then the backward kernel on what it
-    saved, against attention_bwd_ref; bitwise repeatable; clipped cases
-    with unclipped entries. Returns the largest max abs error of each
-    route."""
+    against attention_stats_ref over the rows that see a key, the rows
+    that see none exactly (NEG_INF, 1e-30)), then the backward kernel on
+    what it saved, against attention_bwd_ref; bitwise repeatable; clipped
+    cases with unclipped entries; under a query offset, dk = dv = 0
+    exactly for the keys no query sees and dq = dgate = 0 for the queries
+    that see no key (both present in the offset cases). Returns the
+    largest max abs error of each route."""
     worst = {}
     for (name, b, t, hq, hkv, dh, causal, opt), variant in (
             (s, v) for s in bwd_shapes() for v in BWD_VARIANTS):
@@ -3920,30 +4076,42 @@ def phase_bwd_checks(torch, fa):
         bound, st_bound = (BWD_REL_RMS_BF16, STATS_REL_RMS_BF16) if bf16 else \
             (BWD_REL_RMS, STATS_REL_RMS)
         args = (c["q"], c["k"], c["v"], c["gate"], c["dout"])
+        off = c["q_offset"]
         kw = dict(causal=causal, window=c["window"], softcap=c["softcap"], gamma=c["gamma"],
                   zeta=1.0)
-        sk = dict(causal=causal, window=c["window"], softcap=c["softcap"])
-        out, u, stats = fa._launch_saved(*args[:4], **kw)
-        plain_call = fa._launch(*args[:4], 0, **kw)
+        sk = dict(causal=causal, window=c["window"], softcap=c["softcap"], q_offset=off)
+        out, u, stats = fa._launch_saved(*args[:4], **kw, q_offset=off)
+        plain_call = fa._launch(*args[:4], off, **kw)
         st_ref = fa.attention_stats_ref(c["q"], c["k"], **sk)
         # the control: q rounded to bf16 (f32 inputs), or the scores rounded
         # to bf16 (bf16 inputs)
         st_ctrl = stats_of_bf16_scores(torch, fa, c["q"], c["k"], **sk) if bf16 else \
             fa.attention_stats_ref(c["q"].bfloat16().float(), c["k"], **sk)
-        st_err = [rel_rms(stats[i], st_ref[i]) for i in range(2)]
-        st_ctl = [rel_rms(st_ctrl[i], st_ref[i]) for i in range(2)]
+        unseen, blind = unseen_keys_and_blind_rows(torch, fa, c)
+        seen = ~blind[:, None, :].expand(b, hq, t)
+        st_err = [rel_rms(stats[i][seen], st_ref[i][seen]) for i in range(2)]
+        st_ctl = [rel_rms(st_ctrl[i][seen], st_ref[i][seen]) for i in range(2)]
         who = f"bwd {name} {variant}"
         check(torch.equal(out, plain_call), f"{who}: the forward with statistics "
                                             f"differs from the plain forward call")
         check(max(st_err) <= st_bound < min(st_ctl),
               f"{who}: statistics (m, Z) relative RMS {st_err} (control "
               f"{st_ctl}) against the bound {st_bound}")
-        kern = fa._launch_bwd(*args[:4], u, c["dout"], stats, **kw)
-        again = fa._launch_bwd(*args[:4], u, c["dout"], stats, **kw)
+        check(bool((stats[0][~seen] == fa.NEG_INF).all() and (stats[1][~seen] == 1e-30).all()),
+              f"{who}: the statistics of rows that see no key are not (NEG_INF, 1e-30)")
+        kern = fa._launch_bwd(*args[:4], u, c["dout"], stats, **kw, q_offset=off)
+        again = fa._launch_bwd(*args[:4], u, c["dout"], stats, **kw, q_offset=off)
         torch.cuda.synchronize()
-        ref = fa.attention_bwd_ref(*args, **kw)
+        edge = ""
+        if variant == "clipped":
+            ref, n_cand, n_flip = edge_decided_ref(torch, fa, args, dict(kw, q_offset=off),
+                                                   kern[0])
+            edge = (f"; {n_cand} entries within {EDGE_EPS:.0e} of a clip edge, {n_flip} "
+                    f"decided in the reference as the kernel's dq shows")
+        else:
+            ref = fa.attention_bwd_ref(*args, **kw, q_offset=off)
         with bf16_ds(torch):
-            ctrl = fa.attention_bwd_ref(*args, **kw)
+            ctrl = fa.attention_bwd_ref(*args, **kw, q_offset=off)
         names = ("dq", "dk", "dv", "dgate")
         rows = []
         for gname, kg, ag, rg, cg in zip(names, kern, again, ref, ctrl):
@@ -3958,17 +4126,31 @@ def phase_bwd_checks(torch, fa):
                   f"{who}: {gname} relative RMS {err:.3e} (control "
                   f"{control:.3e}) against the bound {bound}")
             rows.append(f"{gname} {err:.3e} (control {control:.3e})")
+        edges = ""
+        if "q_offset" in opt:
+            n_unseen, n_blind = int(unseen.sum()), int(blind.sum())
+            zero_kv = all(int(torch.count_nonzero(g[unseen])) == 0 for g in kern[1:3])
+            zero_q = int(torch.count_nonzero(kern[0][blind])) == 0 and (
+                kern[3] is None or int(torch.count_nonzero(kern[3][blind])) == 0)
+            check(n_unseen > 0 and zero_kv,
+                  f"{who}: {n_unseen} keys no query sees, their dk, dv exactly 0: {zero_kv}")
+            check(n_blind == 0 or zero_q,
+                  f"{who}: {n_blind} queries that see no key, their dq, dgate 0: {zero_q}")
+            edges = (f"; {n_unseen} keys no query sees: dk = dv = 0 exactly; {n_blind} "
+                     f"queries that see no key: dq = dgate = 0")
         share = ""
         if variant == "clipped":
             frac = unclipped_share(torch, c, fa)
             check(frac > 0, f"{who}: every probability clips (vacuous)")
             share = f"; unclipped share {frac:.4f}"
         extra = "".join(f", {k} {c[k]}" for k in ("window", "softcap") if c[k] is not None)
+        if "q_offset" in opt:
+            extra += f", Tk {c['k'].shape[1]}, q_offset {opt['q_offset']}"
         print(f"flash bwd {name} ({b}, {t}, {hq}/{hkv}, {dh}) {str(dt)[6:]} "
               f"{'causal' if causal else 'non-causal'}{extra} {variant} ({rt} route): saved m "
               f"{st_err[0]:.2e}, Z {st_err[1]:.2e} (control {st_ctl[0]:.2e}, {st_ctl[1]:.2e}; "
               f"bound {st_bound}), the forward bitwise unchanged; {'; '.join(rows)} (bound "
-              f"{bound}); bitwise repeatable{share}", flush=True)
+              f"{bound}); bitwise repeatable{edges}{share}{edge}", flush=True)
         del kern, again, ref, ctrl, c, out, u, stats, plain_call, st_ref, st_ctrl
     torch.cuda.empty_cache()
     return worst
@@ -3980,13 +4162,14 @@ def phase_bwd_times(torch, fa):
     F.scaled_dot_product_attention in the inputs' dtype (a yardstick the
     port never calls; where it computes the same function: no softcap; a
     window shorter than T as a boolean mask of the visible pairs) beside
-    the route's bound and the first design's time (f32: CUDA_CORE_BWD_MS,
-    and the f32 CUDA-core bound; bf16: FIRST_BF16_BWD_MS), at bwd_shapes(). Returns
-    {(name, variant): times}."""
+    the route's bound and the first design's time (3xTF32: CUDA_CORE_BWD_MS,
+    and the f32 CUDA-core bound; bf16: FIRST_BF16_BWD_MS; the CUDA-core
+    route: the 3xTF32 bound a tensor-core design would have), at
+    bwd_shapes(timed=True). Returns {(name, variant): times}."""
     import torch.nn.functional as F
     out = {}
     for (name, b, t, hq, hkv, dh, causal, opt), variant in (
-            (s, v) for s in bwd_shapes() for v in ("vanilla", "clipped")):
+            (s, v) for s in bwd_shapes(timed=True) for v in ("vanilla", "clipped")):
         cs = [bwd_case(torch, b, t, hq, hkv, dh, causal, variant, seed=90 + i, **opt)
               for i in range(2)]
         c0 = cs[0]
@@ -4023,12 +4206,15 @@ def phase_bwd_times(torch, fa):
                                                                    retain_graph=True)
                                     for g in graphs], 10)
             del graphs
-        bound, by, f32_bound = bwd_bound_ms(c0)
+        bound, by, f32_bound, tf32_bound = bwd_bound_ms(c0)
         out[(name, variant)] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                                     library_ms=lib)
         rt = fa.bwd_route(c0["q"].dtype, dh)
         extra = "".join(f", {k} {c0[k]}" for k in ("window", "softcap") if c0[k] is not None)
-        if rt == "bf16":
+        if rt == "cuda-core":
+            note = (f"bound {bound:.4f} ms ({by}; f32 CUDA cores at 67 TFLOP/s), 3xTF32 bound "
+                    f"{tf32_bound:.4f} ms")
+        elif rt == "bf16":
             was = FIRST_BF16_BWD_MS.get((name, variant))
             note = (f"the first design's: "
                     f"{'not recorded' if was is None else f'{was:.4f} ms, {was / ms:.2f}x'}; "
@@ -4298,6 +4484,11 @@ def phase_train_bf16(torch, np, fa, arch, n_layers, over):
     if n_rg:
         phase_rg_bwd_captured(torch, rl, lambda: make_train_step(task)(run["state"], batch),
                               n_rg, who)
+    if arch == "qwen3-14b":  # the flash backward per layer on one more step's inputs
+        with captured_bwd(fa) as calls:
+            make_train_step(task)(run["state"], batch)
+        phase_bwd_captured(torch, fa, calls, n, who)
+        del calls
     del run, batch
     torch.cuda.empty_cache()
     return dict(step_ms=step_ms, peak_gb=peak, losses=losses, flash_launches=launches[0],
@@ -4335,6 +4526,299 @@ def phase_rg_bwd_captured(torch, rl, step, n_rg, who):
           f"{who}: the reverse scan on a training step's captured inputs: {len(captured)} "
           f"calls for {n_rg} Griffin layers, bitwise {same}")
     del captured
+
+
+@contextlib.contextmanager
+def captured_bwd(fa):
+    """``fa._launch_bwd`` wrapped to keep a copy of each call's inputs (q,
+    k, v, gate, u, dout, stats and the forward's settings) before it
+    launches; yields the list of (args, kwargs)."""
+    launch, calls = fa._launch_bwd, []
+
+    def copy(x):
+        return x.detach().clone() if hasattr(x, "detach") else x
+
+    def capture(*args, **kw):
+        calls.append((tuple(copy(x) for x in args), {k: copy(v) for k, v in kw.items()}))
+        return launch(*args, **kw)
+
+    fa._launch_bwd = capture
+    try:
+        yield calls
+    finally:
+        fa._launch_bwd = launch
+
+
+def phase_bwd_captured(torch, fa, calls, n, who):
+    """The flash backward on a training step's own inputs (ROADMAP 3's
+    per-layer check): each of the ``n`` captured calls (``captured_bwd``)
+    through the kernel again, twice (bitwise), against
+    ``attention_bwd_saved_ref`` (the kernel's algorithm, plainly, from the
+    same saved statistics and u) at the route's bound (BWD_REL_RMS_BF16 on
+    the bf16 route, BWD_REL_RMS on the f32 ones); the same plain version
+    with P~ and dS rounded to bf16 before their products (``bf16_ds``) is
+    the control and must land above the bound."""
+    names = ("dq", "dk", "dv", "dgate")
+    for i, (args, kw) in enumerate(calls):
+        q = args[0]
+        rt = fa.bwd_route(q.dtype, q.shape[-1])
+        bound = BWD_REL_RMS_BF16 if rt == "bf16" else BWD_REL_RMS
+        kern = fa._launch_bwd(*args, **kw)
+        again = fa._launch_bwd(*args, **kw)
+        torch.cuda.synchronize()
+        ref = fa.attention_bwd_saved_ref(*args, **kw)
+        with bf16_ds(torch):
+            ctrl = fa.attention_bwd_saved_ref(*args, **kw)
+        rows = []
+        for gname, kg, ag, rg, cg in zip(names, kern, again, ref, ctrl):
+            if rg is None:
+                continue
+            err, control = rel_rms(kg, rg), rel_rms(cg, rg)
+            check(torch.equal(kg, ag), f"{who}: captured call {i}: {gname} differs between calls")
+            check(err <= bound < control,
+                  f"{who}: captured call {i}: {gname} relative RMS {err:.3e} (control "
+                  f"{control:.3e}) against the bound {bound}")
+            rows.append(f"{gname} {err:.3e} (control {control:.3e})")
+        print(f"train {who}: flash backward {i} on the step's captured inputs q "
+              f"{tuple(q.shape)} {str(q.dtype)[6:]} ({rt} route) vs attention_bwd_saved_ref: "
+              f"{'; '.join(rows)} (bound {bound}); bitwise repeatable", flush=True)
+        del kern, again, ref, ctrl
+    check(len(calls) == n, f"{who}: {len(calls)} captured backward calls for {n} attention "
+                           f"layers")
+    torch.cuda.empty_cache()
+
+
+# Phase 6d's f32 run: qwen3-14b at full width and 2 of its 40 layers with
+# params and compute in f32 (the reference's default compute dtype), 1 x
+# F32_TRAIN_SEQ tokens of the SyntheticLM chain, vanilla, from seed 0: the
+# flash backward's CUDA-core route at Dh 128. Its AdamW state is ~36 GB.
+F32_TRAIN_SEQ = 1024
+# Its step-vs-plain gate (phase 6b's): the loss, the whole gradient and
+# each attention leaf through the kernels against the plain attention path
+# (mha_flash_ref under autograd), the plain path with P in bf16 above.
+# Measured on an H100 80GB HBM3 at 700 W: the whole
+# gradient 2.39e-6 (control 2.30e-3), the attention leaves up to 3.86e-6
+# (their controls from 1.32e-3), the loss bitwise. Bounded at 2e-5: 5x
+# above the largest reading, 66x below the least control.
+F32_STEP_GRAD_REL_RMS = 2e-5
+F32_STEP_ATTN_LEAF_REL = 2e-5
+F32_STEP_LOSS_REL = 1e-6
+
+
+def phase_train_f32(torch, np, fa):
+    """Phase 6d, f32: qwen3-14b (2 layers, f32) step 1 through the kernels
+    against the plain attention path (phase 6b's gate at
+    F32_STEP_GRAD_REL_RMS, F32_STEP_ATTN_LEAF_REL, F32_STEP_LOSS_REL, the
+    bf16-P control above), then one AdamW step through the kernels (its
+    loss finite; one flash and one backward launch per layer; peak memory
+    printed) with each backward call's inputs captured and held by
+    ``phase_bwd_captured``."""
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    from repro_torch.models.transformer import model_init
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainTask, init_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(bf16_train_cfg("qwen3-14b", 2, {}), param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    who = "qwen3-14b (2 layers, f32) vanilla"
+    task = TrainTask(cfg=cfg, loss_kind="clm", optimizer=AdamWConfig(lr=TRAIN_LR))
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=TRAIN_DATA_VOCAB, seq_len=F32_TRAIN_SEQ,
+                                         batch_size=1, seed=0))
+    torch.cuda.reset_peak_memory_stats()
+    batch = {k: torch.as_tensor(v).cuda() for k, v in data.batch(0, "clm").items()}
+    n = attn_layers(cfg)
+    # the gate on the weights alone (its three gradient trees beside the
+    # AdamW moments took the card to 77.9 GB), then the state from the
+    # same seed
+    params = model_init(0, cfg, device="cuda")
+    gate = phase_train_step_vs_plain(torch, fa, task, params, batch, who,
+                                     F32_STEP_GRAD_REL_RMS, F32_STEP_ATTN_LEAF_REL, n,
+                                     loss_bound=F32_STEP_LOSS_REL)
+    del params
+    torch.cuda.empty_cache()
+    state = init_train_state(0, task, device="cuda")
+    fa.launches = fa.bwd_launches = 0
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    with captured_bwd(fa) as calls:
+        state, metrics = make_train_step(task)(state, batch)
+        loss = float(metrics["loss"])
+    step_ms = (time.perf_counter() - ts) * 1e3
+    launches = (fa.launches, fa.bwd_launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del state, batch
+    torch.cuda.empty_cache()
+    print(f"train {who} (1 x {F32_TRAIN_SEQ}): one AdamW step through the kernels (the "
+          f"backward's {fa.bwd_route(torch.float32, cfg.head_dim)} route at Dh "
+          f"{cfg.head_dim}): loss {loss:.4f}, {step_ms:.1f} ms with the captures, peak "
+          f"{peak:.2f} GB over the phase; launches (flash, bwd) {launches}", flush=True)
+    check(np.isfinite(loss), f"{who}: the loss is not finite")
+    check(launches == (n, n), f"{who}: launches (flash, bwd) {launches}, expected {(n, n)}")
+    phase_bwd_captured(torch, fa, calls, n, who)
+    del calls
+    wall = time.perf_counter() - t0
+    print(f"train {who}: phase wall {wall:.1f} s", flush=True)
+    return dict(loss=loss, peak_gb=peak, flash_launches=n + launches[0],
+                bwd_launches=n + launches[1], wall_s=wall, **gate)
+
+
+# Phase 6e: every registered arch's smoke config as registered (f32; Dh 8
+# or 16 wherever it has attention) trained SMOKE_STEPS steps of SMOKE_BATCH
+# x SMOKE_SEQ tokens through the launcher's train_on_mesh on the (1, 1)
+# cuda mesh
+SMOKE_STEPS = 2
+SMOKE_SEQ = 100
+SMOKE_BATCH = 4
+# Its first step against the same step on the CPU (the port's plain
+# attention there, which the CPU tests hold against JAX), from the same
+# weights (made on the card, copied to the host) and batch: the loss, the
+# whole gradient and the attention leaves' gradient (STEP_ATTN_LEAF, all
+# at once; relative RMS), the CPU step with P in bf16 the control of the
+# latter (archs with attention: at random init a smoke model's other
+# gradients barely feel P, so the whole gradient's control reads ~1e-5 on
+# hubert-xlarge and recurrentgemma-9b). MoE archs route the CPU step as
+# the card's did (routing_taps). T 100: no multiple of a tile, and uniform
+# probabilities 1/T that bf16 does not hold exactly. Measured on an H100
+# 80GB HBM3 at 700 W: the loss within 1e-7; the whole
+# gradient 4.3e-7..1.0e-6 with attention, 1.0e-5 (recurrentgemma-9b) and
+# 3.6e-5 (xlstm-1.3b: no attention; the recurrent cells' sums in other
+# orders), bounded at 1e-4; the attention leaves 2.7e-7..6.4e-6 against
+# controls from 2.3e-4 (hubert-xlarge), bounded at 2e-5.
+SMOKE_STEP_GRAD_REL_RMS = 1e-4
+SMOKE_STEP_ATTN_REL = 2e-5
+SMOKE_STEP_LOSS_REL = 1e-6
+# the README's launcher command, without --device: on the card
+README_TRAIN_ARGS = ("--arch", "qwen3-14b", "--smoke", "--steps", "20", "--seq-len", "64",
+                     "--batch-size", "4", "--profile", "tp_fsdp")
+
+
+def phase_smoke_archs(torch, np, fa):
+    """Phase 6e: for every arch of ``list_archs()``, its smoke config's
+    step 1 on the card against the CPU's (SMOKE_STEP_GRAD_REL_RMS,
+    SMOKE_STEP_LOSS_REL, the bf16-P control above), then SMOKE_STEPS steps
+    through ``train_on_mesh`` (every loss finite; one flash forward and
+    one backward launch per attention layer and step); then the README's
+    launcher command (``launch.train.main``) without ``--device``; then
+    the no-fallback check: a Dh-48 input raises on the card. Returns the
+    launch counts and the wall."""
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.mesh import close_mesh, make_host_mesh
+    from repro_torch.nn.module import flatten_params, tree_map
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainTask, init_train_state
+    from repro_torch.train.step import _grads
+
+    t0 = time.perf_counter()
+    flash = bwd = 0
+    rows = []
+    mesh = make_host_mesh("cuda")
+    try:
+        for arch in list_archs():
+            cfg = get_arch(arch).smoke()
+            kind = "clm" if cfg.causal else "frames"
+            task = TrainTask(cfg=cfg, loss_kind=kind, optimizer=AdamWConfig(lr=1e-3))
+            data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=SMOKE_SEQ,
+                                                 batch_size=SMOKE_BATCH, seed=0))
+            n = attn_layers(cfg)
+            moe = cfg.moe is not None
+            params = init_train_state(0, task, device="cuda").params
+            host = tree_map(lambda x: x.cpu(), params)
+            b0 = {k: torch.as_tensor(np.asarray(v)) for k, v in data.batch(0, kind).items()}
+            fa.launches = fa.bwd_launches = 0
+            with routing_taps() if moe else contextlib.nullcontext() as routes:
+                loss_k, _, g_k = _grads(params, task, {k: v.cuda() for k, v in b0.items()})
+            launched = (fa.launches, fa.bwd_launches)
+            force = None if not moe else [
+                dict(top_i=r["top_i"].cpu(), live=None if r["live"] is None else r["live"].cpu())
+                for r in routes]
+            with routing_taps(force) if moe else contextlib.nullcontext():
+                loss_h, _, g_h = _grads(host, task, b0)
+            with bf16_p(torch, matmuls=False), \
+                    routing_taps(force) if moe else contextlib.nullcontext():
+                _, _, g_c = _grads(host, task, b0)
+            flat_k = {p: g.cpu() for p, g in flatten_params(g_k)}
+            flat_h, flat_c = dict(flatten_params(g_h)), dict(flatten_params(g_c))
+
+            def rel(flat, paths):
+                # the relative RMS of the leaves ``paths`` all at once
+                num = sum((flat[p] - flat_h[p]).square().sum() for p in paths)
+                den = sum(flat_h[p].square().sum() for p in paths)
+                return (num / den).sqrt().item() if paths else 0.0
+
+            attn = [p for p in flat_h if STEP_ATTN_LEAF.match(p)]
+            err, ctrl = rel(flat_k, list(flat_h)), rel(flat_c, list(flat_h))
+            err_a, ctrl_a = rel(flat_k, attn), rel(flat_c, attn)
+            loss_err = abs(loss_k.item() - loss_h.item()) / abs(loss_h.item())
+            del params, host, g_k, g_h, g_c, flat_k, flat_h, flat_c
+            fa.launches = fa.bwd_launches = 0
+            run = launcher.train_on_mesh(task, data, mesh, "tp_fsdp", steps=SMOKE_STEPS,
+                                         batch_kind=kind, device="cuda", log=lambda _m: None)
+            steps = (fa.launches, fa.bwd_launches)
+            del run["state"], run["local"]
+            flash += launched[0] + steps[0]
+            bwd += launched[1] + steps[1]
+            dh = cfg.head_dim
+            print(f"smoke {arch} (f32, {cfg.n_layers} layers, Dh {dh}, {n} attention layers, "
+                  f"{SMOKE_BATCH} x {SMOKE_SEQ}{', MoE routed as on the card' if moe else ''}): "
+                  f"step 1 on the card vs the CPU: loss {loss_k.item():.6f} vs "
+                  f"{loss_h.item():.6f} (rel {loss_err:.2e}, bound {SMOKE_STEP_LOSS_REL}); the "
+                  f"whole gradient's relative RMS {err:.3e} (bound {SMOKE_STEP_GRAD_REL_RMS}; "
+                  f"the CPU with P in bf16 {ctrl:.3e}), the {len(attn)} attention leaves' "
+                  f"{err_a:.3e} (bound {SMOKE_STEP_ATTN_REL}; control, the CPU with P in bf16, "
+                  f"{ctrl_a:.3e}); step 1 launches (flash, bwd) "
+                  f"{launched} (bwd route {fa.bwd_route(torch.float32, dh) if n else 'n/a'}); "
+                  f"train_on_mesh {SMOKE_STEPS} steps: losses "
+                  f"{[round(v, 4) for v in run['losses']]}, launches {steps}", flush=True)
+            check(loss_err <= SMOKE_STEP_LOSS_REL, f"smoke {arch}: step-1 loss differs from "
+                                                   f"the CPU's")
+            check(err <= SMOKE_STEP_GRAD_REL_RMS,
+                  f"smoke {arch}: gradient {err:.3e} vs bound {SMOKE_STEP_GRAD_REL_RMS}")
+            check(n == 0 or err_a <= SMOKE_STEP_ATTN_REL < ctrl_a,
+                  f"smoke {arch}: attention leaves' gradient {err_a:.3e} vs bound "
+                  f"{SMOKE_STEP_ATTN_REL} (control {ctrl_a:.3e})")
+            check(launched == (n, n) and steps == (SMOKE_STEPS * n, SMOKE_STEPS * n),
+                  f"smoke {arch}: launches (flash, bwd) {launched} and {steps}, expected "
+                  f"{(n, n)} and {(SMOKE_STEPS * n, SMOKE_STEPS * n)}")
+            check(all(np.isfinite(run["losses"])), f"smoke {arch}: a loss is not finite")
+            rows.append(dict(arch=arch, loss_rel=loss_err, grad_rel_rms=err,
+                             attn_rel_rms=err_a, attn_control=ctrl_a))
+        # the README's launcher command as written, less --device: on the card
+        fa.launches = fa.bwd_launches = 0
+        argv = sys.argv
+        try:
+            sys.argv = ["repro_torch.launch.train", *README_TRAIN_ARGS]
+            launcher.main()
+        finally:
+            sys.argv = argv
+        readme = (fa.launches, fa.bwd_launches)
+        flash += readme[0]
+        bwd += readme[1]
+        print(f"smoke: the README's launcher command ({' '.join(README_TRAIN_ARGS)}) on the "
+              f"card: launches (flash, bwd) {readme}", flush=True)
+        check(readme[0] > 0 and readme[0] == readme[1],
+              f"the README's launcher command launched (flash, bwd) {readme}")
+    finally:
+        close_mesh()
+    # no hidden fallback: a head dim the flash kernels do not take raises
+    # on the card, with or without a gradient
+    x = torch.zeros(1, 64, 2, 48, device="cuda", requires_grad=True)
+    refused = []
+    for grad in (False, True):
+        try:
+            with torch.set_grad_enabled(grad):
+                fa.mha_flash(x, x, x)
+            refused.append("computed")
+        except ValueError as e:
+            refused.append(str(e))
+    print(f"smoke: a Dh-48 input on the card, without and with a gradient: "
+          f"{[r[:60] for r in refused]}", flush=True)
+    check(all("head dim 48" in r for r in refused), f"a Dh-48 input did not raise: {refused}")
+    wall = time.perf_counter() - t0
+    print(f"phase 6e wall {wall:.1f} s", flush=True)
+    return dict(flash_launches=flash, bwd_launches=bwd, archs=rows, wall_s=wall)
 
 
 def phase_train(torch, np, fa, family, kind, seq, bsz, method, method_kw, trace=False,
@@ -4476,10 +4960,11 @@ PHI_PATCHES, PHI_TOKENS = 576, 1472
 # at once: 271 for the long prompt, 34 for each of three others), five
 # prompts of 32..512 tokens and one of 4300, which crosses the 4096 window
 GEMMA_BATCH, GEMMA_MAX_LEN, GEMMA_BLOCKS, GEMMA_LONG = 4, 4608, 400, 4300
-# gemma2-27b's depth on the card: 16 of its 46 layers (8 local, 8
-# global; 24 before), to hold the run's wall; its checks are per layer,
-# per tick at a bound the 46 layers held, and the first local ring's
-GEMMA_LAYERS = 16
+# gemma2-27b's depth on the card: 12 of its 46 layers (6 local, 6
+# global; 24 and then 16 before), to hold the run's wall; its
+# checks are per layer, per tick at a bound the 46 layers held, and the
+# first local ring's keys
+GEMMA_LAYERS = 12
 
 
 def phase_wall(name, t0):
@@ -4983,11 +5468,9 @@ def phase_launcher(torch, np, fa, task, data, plain, plain_losses):
     forward and one backward launch per layer and step. Each leaf's
     placements must be ``tree_param_specs``'s under all three profiles
     (the trained state's DTensors under ``tp_fsdp``). No checkpoint is
-    written (the f32 state is ~16 GB; the CPU tests hold resume). The
-    smoke config (Dh 16) must raise from the flash backward (ROADMAP 1.3),
-    not train on a plain path. Prints the phase's wall."""
-    from repro_torch.configs import get_arch
-    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    written (the f32 state is ~16 GB; the CPU tests hold resume). (Every
+    arch's smoke config trains through the launcher in phase 6e.) Prints
+    the phase's wall."""
     from repro_torch.distributed.sharding import (PROFILES, placement_leaves, placements_for,
                                                   spec_leaves, tree_param_specs,
                                                   tree_placements)
@@ -5022,19 +5505,6 @@ def phase_launcher(torch, np, fa, task, data, plain, plain_losses):
                        for p, x in flatten_params(run["state"]))
         n_sharded = sum(any(a is not None for a in s) for s in specs.values())
         del run["state"], run["local"]
-        # no hidden fallback: a head dim the flash backward does not take
-        # (the smoke config's) raises on the card
-        smoke = dataclasses.replace(task, cfg=dataclasses.replace(
-            get_arch(GRANITE_MOE).smoke(), param_dtype=torch.float32,
-            compute_dtype=torch.float32))
-        smoke_data = SyntheticLM(SyntheticLMConfig(vocab_size=smoke.cfg.vocab_size,
-                                                   seq_len=64, batch_size=2, seed=0))
-        try:
-            train_on_mesh(smoke, smoke_data, mesh, "tp_fsdp", steps=1, device="cuda",
-                          log=lambda _m: None)
-            refused = "trained"
-        except NotImplementedError as e:
-            refused = str(e)
     finally:
         close_mesh()
     losses, n, steps = run["losses"], task.cfg.n_layers, MOE_TRAIN_STEPS
@@ -5045,8 +5515,7 @@ def phase_launcher(torch, np, fa, task, data, plain, plain_losses):
           f"losses {[round(v, 4) for v in losses]}; losses bitwise the plain loop's: "
           f"{losses == plain_losses}, final state bitwise: {same_state} ({len(local)} leaves); "
           f"placements = tree_param_specs' per profile {placed}, the trained DTensors' "
-          f"{dtensors} ({n_sharded} leaves sharded under tp_fsdp); the smoke config "
-          f"(Dh {smoke.cfg.head_dim}): {refused[:120]!r}; phase 8d wall {wall:.1f} s "
+          f"{dtensors} ({n_sharded} leaves sharded under tp_fsdp); phase 8d wall {wall:.1f} s "
           f"(the mesh {t_mesh:.1f} s, train_on_mesh {t_run:.1f} s)", flush=True)
     check(losses == plain_losses, f"{who}: losses {losses} differ from the plain loop's "
           f"{plain_losses}")
@@ -5055,8 +5524,6 @@ def phase_launcher(torch, np, fa, task, data, plain, plain_losses):
           f"{who}: launches (flash, bwd) {launches}, expected {(steps * n, steps * n)}")
     check(all(placed.values()) and dtensors and n_sharded > 0,
           f"{who}: placements differ from tree_param_specs': {placed}, DTensors {dtensors}")
-    check("ROADMAP 1.3" in refused,
-          f"{who}: a Dh-{smoke.cfg.head_dim} config did not raise from the flash backward")
     del run, local, plain
     torch.cuda.empty_cache()
     return dict(step_ms=step_ms, peak_gb=peak, losses=losses, flash_launches=launches[0],
@@ -5078,10 +5545,10 @@ DH256_CUDA_CORE_MS = {"vanilla": 1.8298, "clipped": 3.1326}
 # at 700 W, 38 layers: 0.114, argmax agreement 1.0; the row's state reset
 # to a fresh row's, the control: 1.31)
 RECURRENT_W8A8_ROW_REL_RMS = W8A8_LOGIT_REL_RMS
-# recurrentgemma-9b's depth in phases 4c and 5c: 20 of its 38 layers (six
-# groups and the two-block tail), to hold the run's wall with the training
-# phases' recurrentgemma-9b cases (4b serves all 38)
-RG_CUT_LAYERS = 20
+# recurrentgemma-9b's depth in phases 4c and 5c: 14 of its 38 layers (four
+# groups and the two-block tail; 20 before), to hold the run's wall
+# with the training phases' recurrentgemma-9b cases (4b serves all 38)
+RG_CUT_LAYERS = 14
 # xLSTM's row check: in bf16 the served chunks and the one-shot forward
 # round in other places (GEMMs of other M, the chunkwise form's other
 # chunks), and 48 random-weight xLSTM blocks grow that to the size of the
@@ -6130,26 +6597,28 @@ def main() -> int:
     # phase 11's CPU twins need no card: they run beside the card's phases
     start_twins()
     # the instantiations bf16 data at Dh 128 runs, flash's Dh-32 ones (both
-    # routes) and its tensor-core Dh-256 ones must not spill
+    # routes; bf16 Dh 8 and 16 run the tensor-core one), its f32 Dh-16 ones
+    # (f32 Dh 8 and 16) and its tensor-core Dh-256 ones must not spill
     tc256 = lambda fn: "flash_kernel_tc" in fn and flash_dh(fn, (256,))  # noqa: E731
     held = [(name, fn, regs, spills) for name in ("flash_attention", "paged_attention")
             for fn, regs, spills in ptxas_report(build.BUILD_LOG.get(name, ""))
-            if bf16_dh128(fn) or flash_dh(fn, (32, 80, 96)) or tc256(fn)]
+            if bf16_dh128(fn) or flash_dh(fn, (16, 32, 80, 96)) or tc256(fn)]
+    n16 = sum(flash_dh(fn, (16,)) for _, fn, _, _ in held)
     n32 = sum(flash_dh(fn, (32,)) for _, fn, _, _ in held)
     n80 = sum(flash_dh(fn, (80, 96)) for _, fn, _, _ in held)
     n256 = sum(tc256(fn) for _, fn, _, _ in held)
-    n128 = len(held) - n32 - n80 - n256
+    n128 = len(held) - n16 - n32 - n80 - n256
     print(f"ptxas spill check: {n128} bf16 Dh-128 instantiations of flash_attention and "
-          f"paged_attention (the flash ones also run bf16 Dh 80 and 96), {n32} Dh-32, {n80} "
-          f"f32 Dh-80/96 and {n256} bf16 Dh-256 flash instantiations; registers "
-          f"{sorted({r for _, _, r, _ in held})}; spill stores "
+          f"paged_attention (the flash ones also run bf16 Dh 80 and 96), {n16} f32 Dh-16, "
+          f"{n32} Dh-32, {n80} f32 Dh-80/96 and {n256} bf16 Dh-256 flash instantiations; "
+          f"registers {sorted({r for _, _, r, _ in held})}; spill stores "
           f"{sorted({sp for _, _, _, sp in held})}", flush=True)
-    check(n128 >= 8 and n32 == 4 and n80 == 4 and n256 == 2,
-          f"expected the bf16 Dh-128, the Dh-32, the Dh-80/96 and the bf16 Dh-256 "
-          f"instantiations in the build log: {held}")
+    check(n128 >= 8 and n16 == 2 and n32 == 4 and n80 == 4 and n256 == 2,
+          f"expected the bf16 Dh-128, the f32 Dh-16, the Dh-32, the Dh-80/96 and the bf16 "
+          f"Dh-256 instantiations in the build log: {held}")
     check(all(sp == 0 for _, _, _, sp in held),
-          f"ptxas spills in bf16 Dh-128, Dh-32, Dh-80/96 or bf16 Dh-256 attention kernels: "
-          f"{[(n, f) for n, f, _, sp in held if sp]}")
+          f"ptxas spills in bf16 Dh-128, Dh-16, Dh-32, Dh-80/96 or bf16 Dh-256 attention "
+          f"kernels: {[(n, f) for n, f, _, sp in held if sp]}")
     # every int8 instantiation must not spill; ptxas's notes that it
     # serialized wgmma (C7515, C7520, ...) are printed
     int8_log = build.BUILD_LOG.get("int8_matmul", "")
@@ -6176,8 +6645,9 @@ def main() -> int:
     # the backward kernels must not spill: on the 3xTF32 route dq vanilla
     # and clipped and dk/dv at each of Dh 32 and 64 and the f32 GQA head
     # sum; on the bf16 route dq and dk/dv, each built for vanilla and for
-    # clipped, at Dh 32, 64, 128 and 256 and the bf16 head sum; ptxas's
-    # wgmma serialization notes are printed
+    # clipped, at Dh 32, 64, 128 and 256 and the bf16 head sum; on the f32
+    # CUDA-core route dq vanilla and clipped and dk/dv at Dh 128 and 256;
+    # ptxas's wgmma serialization notes are printed
     bwd_log = build.BUILD_LOG.get("flash_attention_bwd", "")
     bwd_fns = ptxas_report(bwd_log)
     bwd_serial = sorted({line.split(":", 1)[-1].strip()[:120] for line in bwd_log.splitlines()
@@ -6186,7 +6656,7 @@ def main() -> int:
           f"{[(re.sub(r'^_Z[^a-z]*', '', f)[:32], r) for f, r, _ in bwd_fns]}; spill stores "
           f"{sorted({sp for _, _, sp in bwd_fns})}; wgmma serialization notes: "
           f"{bwd_serial or 'none'}", flush=True)
-    check(len(bwd_fns) == 24, f"expected the 24 backward entries in the build log: {bwd_fns}")
+    check(len(bwd_fns) == 30, f"expected the 30 backward entries in the build log: {bwd_fns}")
     check(all(sp == 0 for _, _, sp in bwd_fns),
           f"ptxas spills in flash_attention_bwd: {[f for f, _, sp in bwd_fns if sp]}")
 
@@ -6205,6 +6675,7 @@ def main() -> int:
     phase_flash_decode_times(torch, fa, pa)
     phase_flash_paper_times(torch, fa, MOE_FLASH_TIMED, ("bfloat16",))
     phase_flash_paper_times(torch, fa, MOE_FLASH_TIMED_F32, ("float32",))
+    phase_flash_paper_times(torch, fa, SMOKE_FLASH_TIMED)
     for moe_name, heads in MOE_PAGED.items():
         phase_kernel_times(torch, pa, heads, ("vanilla",), f"{moe_name} ")
     phase_int8_times(torch, im, MOE_INT8_SHAPES, None)
@@ -6275,6 +6746,9 @@ def main() -> int:
               for family, kind, seq, bsz in TRAIN_RUNS for _, method, kw in METHODS]
     mark("6d")
     bf16_trains = [phase_train_bf16(torch, np, fa, arch, n, over) for arch, n, over in BF16_TRAIN]
+    f32_train = phase_train_f32(torch, np, fa)
+    mark("6e")
+    smoke = phase_smoke_archs(torch, np, fa)
     mark("7")
     vit = phase_vit(torch, np, fa, fq, pa, im)
     hubert = phase_hubert(torch, np, fa, fq, pa, im)
@@ -6309,7 +6783,7 @@ def main() -> int:
                         + [traffic, faults])
     flash_launches = sum(e["flash_launches"] + e.get("gen_launches", 0)
                          for e in engines + evals + dense + opt_engines + trains + forwards
-                         + bf16_trains + [traffic, faults])
+                         + bf16_trains + [f32_train, smoke, traffic, faults])
     rg_launches = sum(e["launches"] for e in rg_engines) + sum(
         g["rg_launches"] for e in rg_engines for g in e.get("generate", {}).values()) + sum(
         e.get("rg_lru_launches", 0) for e in evals + recurrent + bf16_trains)
@@ -6345,15 +6819,26 @@ def main() -> int:
                     max_abs_err=rg_err, **rg_times[(8, 256, 4096)]),
                dict(name="flash_attention_bwd", route="cuda",
                     design="3xTF32 wgmma over a TMA ring on the forward's saved row "
-                           "statistics: dq, then dk/dv (GQA: per query head, then a head sum)",
+                           "statistics: dq, then dk/dv (GQA: per query head, then a head sum); "
+                           "f32 at Dh 8 to 64, Dh 8 and 16 through the Dh-32 body",
                     source=KERNEL_SOURCES["flash_attention_bwd"],
                     replaces=REPLACES["flash_attention_bwd"],
-                    launches=sum(t["bwd_launches"] for t in trains),
+                    launches=sum(t["bwd_launches"] for t in trains) + smoke["bwd_launches"],
                     max_abs_err=bwd_err["3xtf32"], **bwd_times[("bert-base", "vanilla")]),
+               dict(name="flash_attention_bwd (f32 CUDA-core route)", route="cuda",
+                    design="fmaf chains on CUDA cores for f32 at Dh 80 to 256, where the "
+                           "3xTF32 route's hi/lo tiles do not fit in shared memory, on the "
+                           "forward's saved row statistics and u: dq, then dk/dv (GQA: per "
+                           "query head, then a head sum); Dh 80 and 96 through the Dh-128 body",
+                    source=KERNEL_SOURCES["flash_attention_bwd"],
+                    replaces=REPLACES["flash_attention_bwd"],
+                    launches=f32_train["bwd_launches"],
+                    max_abs_err=bwd_err["cuda-core"], **bwd_times[("qwen3-14b f32", "vanilla")]),
                dict(name="flash_attention_bwd (bf16 route)", route="cuda",
                     design="bf16 wgmma over a TMA ring, P~ and dS as hi/lo bf16 operand "
                            "pairs, on the forward's saved row statistics and f32 u: dq, then "
-                           "dk/dv (GQA: per query head in f32, then a head sum)",
+                           "dk/dv (GQA: per query head in f32, then a head sum); Dh 8 and 16 "
+                           "through the Dh-32 body",
                     source=KERNEL_SOURCES["flash_attention_bwd"],
                     replaces=REPLACES["flash_attention_bwd"],
                     launches=sum(t["bwd_launches"] for t in bf16_trains),

@@ -232,10 +232,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     W8A8 tick's f32 queries over a bf16 dense cache) are promoted to one
     first, as the plain paths promote them before their products. Inputs
     that need a gradient (training) take the kernel's autograd Function:
-    its backward is the flash backward kernel, which takes bf16 at Dh 32,
-    64, 80, 96, 128 and 256 and f32 at Dh 32 and 64, with or without window
-    and softcap, and no query offset; anything else raises (``mha_flash``);
-    there is no plain path for CUDA tensors.
+    its backward is the flash backward kernel, which takes every (dtype,
+    head dim) the forward takes (f32 and bf16 at Dh 8, 16, 32, 64, 80, 96,
+    128 and 256), with or without window and softcap, and a scalar or
+    per-row query offset; another head dim raises (``mha_flash``); there is
+    no plain path for CUDA tensors.
     ``meta`` tensors (the dry-run) take the card's route, whose wrapper
     runs its plain version on them. CPU tensors: the reference's routing,
     dense when forced, when decoding (tq == 1) with tk <= 8192, or when

@@ -94,3 +94,16 @@ def gate_probs(params: Params, cfg: GateConfig, x_heads: torch.Tensor,
     if cfg.output_scale != 1.0:
         pi = cfg.output_scale * pi
     return pi
+
+
+def gate_param_count(cfg: GateConfig, n_heads: int, d_head: int, d_model: int) -> int:
+    """Parameters the gate adds (the memory overhead of paper Table 4)."""
+    if not cfg.enabled:
+        return 0
+    if cfg.kind == "linear":
+        return n_heads * (d_head + 1)
+    if cfg.kind == "mlp":
+        return n_heads * (cfg.n_hid * (d_head + 2) + 1)
+    if cfg.kind == "all_heads_linear":
+        return n_heads * (d_model + 1)
+    raise ValueError(cfg.kind)

@@ -63,6 +63,18 @@ def clipped_softmax(logits: torch.Tensor, gamma: float, zeta: float = 1.0,
     return stretch_and_clip(softmax(logits, dim=dim, where=where), gamma, zeta)
 
 
+def clipped_softmax_from_config(logits: torch.Tensor, cfg: ClippedSoftmaxConfig,
+                                dim: int = -1, where: Optional[torch.Tensor] = None,
+                                seq_len: Optional[int] = None) -> torch.Tensor:
+    """The softmax ``cfg`` selects: vanilla, or clipped with gamma resolved
+    from ``seq_len`` (default: the logits' length along ``dim``)."""
+    if cfg.is_vanilla:
+        return softmax(logits, dim=dim, where=where)
+    t = seq_len if seq_len is not None else logits.shape[dim]
+    return clipped_softmax(logits, gamma=cfg.resolve_gamma(t), zeta=cfg.zeta, dim=dim,
+                           where=where)
+
+
 def softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     """Gemma-2 style logit soft-capping: cap * tanh(x / cap). The divisor
     is a tensor on the logits' device, so CUDA divides as the reference

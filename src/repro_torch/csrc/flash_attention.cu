@@ -40,9 +40,13 @@
 //     tensor maps name the true head dim), so QK^T adds exact zeros and
 //     P.V writes zero columns that the store drops; q's scale Dh^-0.5 comes
 //     from the caller. 1.6x / 1.33x the products of a native width, for
-//     no new instantiation;
-//   * f32 (Dh 32, 64, 80, 96, 128, 256) -> flash_kernel_cc, the CUDA-core
-//     route: the f32 tolerance (3e-5) rules out bf16 products.
+//     no new instantiation. Dh 8 and 16 (the registry's smoke configs) run
+//     the Dh-32 body the same way (4x / 2x the products);
+//   * f32 (Dh 16, 32, 64, 80, 96, 128, 256) -> flash_kernel_cc, the
+//     CUDA-core route: the f32 tolerance (3e-5) rules out bf16 products.
+//     It reads q, k and v by direct loads, so a wider body would read the
+//     next head's columns: Dh 8 runs the Dh-16 body with the columns at or
+//     past Dh staged as zeros (exact zeros in QK^T) and not stored.
 // Both routes write, when asked (the backward's FlashAttention asks), each
 // row's (m, max(Z, 1e-30)) (the clipped softmax's from its first pass) and
 // the ungated output u in f32 (the f32 route under a gate, the bf16 route
@@ -103,7 +107,8 @@
 // (m, Z, acc) in registers for the whole walk; products in f32, each
 // thread a 4x4 tile of scores; Q and K staged transposed in shared memory.
 // Each thread accumulates 4 query rows x NCG groups of CW consecutive
-// output columns (CW 4, NCG Dh/64; at Dh 32 and 96, CW 2; at Dh 80, CW 1).
+// output columns (CW 4, NCG Dh/64; at Dh 32 and 96, CW 2; at Dh 16 and 80,
+// CW 1).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -185,19 +190,20 @@ __device__ __forceinline__ float sum16(float x) {
 }
 
 // Stage ROWS token rows [t0, t0 + ROWS) of one head into shared memory,
-// transposed (dst[d * ROWS + row]); rows outside [0, limit) are zeros.
-// With mul > 0 each value is first multiplied by mul. Consecutive threads
-// take consecutive rows, so the transposed stores hit consecutive banks.
+// transposed (dst[d * ROWS + row]); rows outside [0, limit) and columns
+// at or past dh (the Dh-16 body at Dh 8) are zeros. With mul > 0 each
+// value is first multiplied by mul. Consecutive threads take consecutive
+// rows, so the transposed stores hit consecutive banks.
 template <int D, int ROWS>
 __device__ __forceinline__ void stage_t(const float* base, long long sb_t, int t0, int limit,
-                                        float* dst, float mul = 0.f) {
+                                        int dh, float* dst, float mul = 0.f) {
   constexpr int N = 4;
   constexpr int NV = ROWS * D / N;
   for (int i = threadIdx.x; i < NV; i += NT) {
     const int row = i % ROWS, c = i / ROWS;
     float e[N];
     const int t = t0 + row;
-    if (t >= 0 && t < limit) {
+    if (t >= 0 && t < limit && c * N < dh) {
       load_cols<4>(base + (long long)t * sb_t + c * N, e);
     } else {
 #pragma unroll
@@ -212,17 +218,18 @@ __device__ __forceinline__ void stage_t(const float* base, long long sb_t, int t
   }
 }
 
-// Stage BK value rows row-major (dst[row * D + d]); coalesced reads.
+// Stage BK value rows row-major (dst[row * D + d]); coalesced reads;
+// columns at or past dh are zeros.
 template <int D>
 __device__ __forceinline__ void stage_v(const float* base, long long sb_t, int t0, int limit,
-                                        float* dst) {
+                                        int dh, float* dst) {
   constexpr int N = 4;
   constexpr int VR = D / N;
   for (int i = threadIdx.x; i < BK * VR; i += NT) {
     const int row = i / VR, c = i % VR;
     float e[N];
     const int t = t0 + row;
-    if (t < limit) {
+    if (t < limit && c * N < dh) {
       load_cols<4>(base + (long long)t * sb_t + c * N, e);
     } else {
 #pragma unroll
@@ -271,7 +278,7 @@ __global__ void __launch_bounds__(NT, 2) flash_kernel_cc(Args a) {
   k_lo = (k_lo / BK) * BK;
 
   // q * scale before the products
-  stage_t<D, BQ>(qg, a.sqt, q0, a.Tq, qT, a.scale);
+  stage_t<D, BQ>(qg, a.sqt, q0, a.Tq, a.dh, qT, a.scale);
 
   float m[4], z[4], acc[4][NCG][CW];
 #pragma unroll
@@ -297,8 +304,8 @@ __global__ void __launch_bounds__(NT, 2) flash_kernel_cc(Args a) {
 #pragma unroll 1
     for (int t0 = k_lo; t0 < k_hi; t0 += BK) {
       __syncthreads();  // the previous tile's readers are done
-      stage_t<D, BK>(kg, a.skt, t0, a.Tk, kT);
-      if (need_v) stage_v<D>(vg, a.svt, t0, a.Tk, vs);
+      stage_t<D, BK>(kg, a.skt, t0, a.Tk, a.dh, kT);
+      if (need_v) stage_v<D>(vg, a.svt, t0, a.Tk, a.dh, vs);
       __syncthreads();
 
       float s[4][4];
@@ -402,22 +409,24 @@ __global__ void __launch_bounds__(NT, 2) flash_kernel_cc(Args a) {
     }
 #pragma unroll
     for (int c = 0; c < NCG; ++c) {
+      const int col = c * 16 * CW + tx * CW;
+      if (col >= a.dh) continue;  // the Dh-16 body at Dh 8: columns past Dh are zeros
       float o[CW];
 #pragma unroll
       for (int e = 0; e < CW; ++e) o[e] = CLIPPED ? acc[i][c][e] : acc[i][c][e] / zc;
       if (a.u != nullptr)
-        store_cols<CW>(a.u + (((long long)b * a.Tq + t) * a.Hq + h) * D + c * 16 * CW + tx * CW, o);
+        store_cols<CW>(a.u + (((long long)b * a.Tq + t) * a.Hq + h) * a.dh + col, o);
       if (a.gate != nullptr) {
 #pragma unroll
         for (int e = 0; e < CW; ++e) o[e] *= g;
       }
-      store_cols<CW>(out + (long long)t * a.sot + c * 16 * CW + tx * CW, o);
+      store_cols<CW>(out + (long long)t * a.sot + col, o);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core route (bf16, Dh 32 / 64 / 128)
+// Tensor-core route (bf16, Dh 32 / 64 / 128 / 256 bodies)
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -835,17 +844,19 @@ cudaError_t dispatch_tc(const Args& a, bool clipped, cudaStream_t s) {
   return clipped ? launch_tc<true, D>(a, s) : launch_tc<false, D>(a, s);
 }
 
-// route 1: the tensor-core kernels (bf16, Dh 32/64/128/256, and Dh 80/96
-// through the Dh-128 body); route 0: the CUDA-core kernels (f32 at Dh
-// 32/64/80/96/128/256)
+// route 1: the tensor-core kernels (bf16, Dh 32/64/128/256, Dh 8/16
+// through the Dh-32 body and Dh 80/96 through the Dh-128 body); route 0:
+// the CUDA-core kernels (f32 at Dh 16/32/64/80/96/128/256, Dh 8 through
+// the Dh-16 body)
 cudaError_t dispatch(const Args& a, int dtype, int dh, int route, bool clipped,
                      cudaStream_t s) {
   if (route == 1 && dtype == 1) {
-    if (dh == 32) return dispatch_tc<32>(a, clipped, s);
+    if (dh == 8 || dh == 16 || dh == 32) return dispatch_tc<32>(a, clipped, s);
     if (dh == 64) return dispatch_tc<64>(a, clipped, s);
     if (dh == 80 || dh == 96 || dh == 128) return dispatch_tc<128>(a, clipped, s);
     if (dh == 256) return dispatch_tc<256>(a, clipped, s);
   } else if (route == 0 && dtype == 0) {
+    if (dh == 8 || dh == 16) return dispatch_cc<16>(a, clipped, s);
     if (dh == 32) return dispatch_cc<32>(a, clipped, s);
     if (dh == 64) return dispatch_cc<64>(a, clipped, s);
     if (dh == 80) return dispatch_cc<80>(a, clipped, s);

@@ -1,6 +1,7 @@
-// Flash-attention backward for NVIDIA Hopper (sm_90a): gradients from
-// products on the tensor cores, fed by a TMA ring. Two routes: f32 (3xTF32
-// wgmma) and bf16 (bf16 wgmma, f32 accumulation), below.
+// Flash-attention backward for NVIDIA Hopper (sm_90a). Three routes: f32
+// 3xTF32 wgmma and bf16 wgmma (f32 accumulation), both fed by a TMA ring,
+// and, for f32 at Dh 80 to 256, fmaf chains on CUDA cores (namespace cc),
+// below.
 //
 // The gradient of csrc/flash_attention.cu's forward. It has no TPU
 // counterpart: the JAX package trains through its plain attention
@@ -9,12 +10,19 @@
 // kernels has a custom_vjp. The port's cache-free attention on the card
 // is the flash kernel, so its gradient is this kernel.
 //
-// Scope: f32 q/k/v (the paper models' dtype) at Dh 32 and 64, and bf16
-// q/k/v (every other registry arch's) at Dh 32, 64, 80, 96, 128 and 256;
-// causal or not, a local window or not, a logit softcap or not, G = Hq /
-// Hkv >= 1, model layout (B, T, H, Dh) with the forward's stride rules,
-// vanilla, clipped (gamma, zeta) and gated; no query offset (the wrapper
-// refuses it, and f32 above Dh 64: ROADMAP 1.3).
+// Scope: every (dtype, head dim) the forward takes: f32 and bf16 q/k/v at
+// Dh 8, 16, 32, 64, 80, 96, 128 and 256 (f32: 3xTF32 up to Dh 64, CUDA
+// cores above; bf16: bf16 wgmma); causal or not, a local window or not, a
+// logit softcap or not, a scalar or per-row query offset (query i of row b
+// at position i + off, as the forward; Tk may exceed Tq), G = Hq / Hkv >=
+// 1, model layout (B, T, H, Dh) with the forward's stride rules, vanilla,
+// clipped (gamma, zeta) and gated. Dh 8 and 16 (the registry's smoke
+// configs) run the Dh-32 bodies and Dh 80 and 96 the Dh-128 ones: the
+// tensor maps (or, on CUDA cores, the staging loads) name the true head
+// dim, so columns past Dh arrive as zeros, add exact zeros to S and dP and
+// are not stored; q's scale is the true Dh's. A key no query sees (Tk >
+// Tq + off, or behind every window) gets dk = dv = 0 written; a query that
+// sees no key gets dq = 0 and dgate = dO . u (u = 0 there).
 //
 // For query row i, s_ij = (q_i Dh^-0.5) . k_j (q scaled in its dtype first,
 // as the forward), capped s_ij <- c tanh(s_ij / c) under a softcap c,
@@ -29,8 +37,11 @@
 //             without one)
 //   dq_i    = Dh^-0.5 sum_j ds_ij k_j,   dk_j = sum_i ds_ij (q_i Dh^-0.5)
 // A window cuts both walks at its edge: dq walks keys from the block's
-// first query - window + 1, dk/dv queries up to the key block's last key +
-// window - 1; the tiles across the edge are masked per entry.
+// first query's position - window + 1, dk/dv queries up to the key block's
+// last key + window - 1 - off; a query offset shifts the causal edge the
+// same way (dq walks keys up to the block's last query + off, dk/dv
+// queries from its first key - off); the tiles across an edge are masked
+// per entry.
 //
 // What it saves from the forward: the f32 CUDA-core forward writes each
 // row's (m_i, max(Z_i, 1e-30)) when asked (FlashAttention.forward asks),
@@ -259,7 +270,17 @@ struct Args {
   float zg, gamma, scale;  // zeta - gamma, gamma, Dh^-0.5
   int window;              // < 0: none
   float softcap;           // <= 0: none
+  int dh;                  // the tensors' head dim (the body's D may exceed it: Dh 8, 16 in D 32)
+  int q_offset;            // query i sits at position i + offset ...
+  const int* q_offs;       // ... or i + q_offs[b] per batch row (null: q_offset)
+  long long svb, svt, svh;  // v strides (the CUDA-core route; the 3xTF32 one reads v by TMA)
 };
+
+// the query offset of batch row b: query i sits at position i + offset
+template <typename A>
+__device__ __forceinline__ int qoff_of(const A& a, int b) {
+  return a.q_offs != nullptr ? a.q_offs[b] : a.q_offset;
+}
 
 // byte offset of element (r, c) of a swizzled tile: boxes of 32 columns,
 // rows of 128 bytes whose 16-byte chunks are XORed with r % 8 (TMA's
@@ -518,15 +539,15 @@ __device__ __forceinline__ Entry entry(const A& a, bool valid, float sc, float i
   return e;
 }
 
-// the f32 score of query qp of head h and key kp of KV head hk, as the
+// the f32 score of query row qp of head h and key kp of KV head hk, as the
 // forward's CUDA-core route computes it: (q Dh^-0.5) . k, an fmaf chain
-template <int D>
+// over the true head dim
 __device__ __forceinline__ float exact_score(const Args& a, int b, int h, int hk, int qp, int kp) {
   const float* qr = a.q + b * a.sqb + (long long)qp * a.sqt + h * a.sqh;
   const float* kr = a.k + b * a.skb + (long long)kp * a.skt + hk * a.skh;
   float acc = 0.f;
 #pragma unroll 1
-  for (int d = 0; d < D; d += 4) {
+  for (int d = 0; d < a.dh; d += 4) {
     const float4 x = *reinterpret_cast<const float4*>(qr + d);
     const float4 y = *reinterpret_cast<const float4*>(kr + d);
     acc = fmaf(x.x * a.scale, y.x, acc);
@@ -613,10 +634,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest causal walks first
   const int h = blockIdx.y, b = blockIdx.z, hk = h / (a.Hq / a.Hkv);
+  const int qoff = qoff_of(a, b);
   // keys the block can see: cut at the causal edge of its last query and
-  // the window's start for its first
-  const int k_hi = a.causal ? min(a.Tk, min(q0 + BQ, a.Tq)) : a.Tk;
-  const int k_lo = a.window >= 0 ? max(0, q0 - a.window + 1) / BK * BK : 0;
+  // the window's start for its first (query i at position i + qoff)
+  const int k_hi = a.causal ? min(a.Tk, qoff + min(q0 + BQ, a.Tq)) : a.Tk;
+  const int k_lo = a.window >= 0 ? max(0, qoff + q0 - a.window + 1) / BK * BK : 0;
   const int n_tiles = max(0, (k_hi - k_lo + BK - 1) / BK);
   init_barriers(qg_full);
   // K and V of key tile n into its slot
@@ -652,15 +674,13 @@ __global__ void __launch_bounds__(THREADS, 1)
     const long long si = stat_index(a, b, h, t);
     float dot = 0.f;
     if (gated || !CLIPPED) {
-      const long long off = (((long long)b * a.Tq + t) * a.Hq + h) * D + (ct & 3) * (D / 4);
-#pragma unroll
-      for (int c = 0; c < D / 4; c += 4) {
-        const float4 o = *reinterpret_cast<const float4*>(a.dout + off + c);
-        const float4 x = *reinterpret_cast<const float4*>(a.u + off + c);
+      const int per = a.dh / 4;  // the thread's columns, summed in order
+      const long long off = (((long long)b * a.Tq + t) * a.Hq + h) * a.dh + (ct & 3) * per;
+      for (int c = 0; c < per; c += 2) {
+        const float2 o = *reinterpret_cast<const float2*>(a.dout + off + c);
+        const float2 x = *reinterpret_cast<const float2*>(a.u + off + c);
         dot = fmaf(o.x, x.x, dot);
         dot = fmaf(o.y, x.y, dot);
-        dot = fmaf(o.z, x.z, dot);
-        dot = fmaf(o.w, x.w, dot);
       }
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
@@ -688,8 +708,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int t = q0 + row;
       const float gt = t < a.Tq ? a.gate[b * a.sgb + (long long)t * a.sgt + h * a.sgh] : 0.f;
       x = make_float4(gt * x.x, gt * x.y, gt * x.z, gt * x.w);
-      if (t < a.Tq)
-        *reinterpret_cast<float4*>(a.g + (((long long)b * a.Tq + t) * a.Hq + h) * D + col) = x;
+      if (t < a.Tq && col < a.dh)
+        *reinterpret_cast<float4*>(a.g + (((long long)b * a.Tq + t) * a.Hq + h) * a.dh + col) = x;
     }
     return x;
   });
@@ -725,14 +745,15 @@ __global__ void __launch_bounds__(THREADS, 1)
     wg_sync(wg);  // every warp's products of the last tile are done: the buffer is free
     // entry (key row, query col) is visible iff lo[i] <= col - 2 qd <
     // hi[i], col - 2 qd = 8 j + c a constant: a row past Tk sees nothing,
-    // causal rows see the queries at or after their key, windowed rows those
-    // before key + window, every row none past Tq
+    // causal rows see the queries at or after their key (query i at
+    // position i + qoff), windowed rows those before key + window, every
+    // row none past Tq
     int lo[2], hi[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int kp = t0 + 16 * l.w + l.g + 8 * i;
-      lo[i] = (kp < a.Tk ? (a.causal ? kp - q0 : -BQ) : BQ) - 2 * l.qd;
-      hi[i] = min(a.Tq, a.window >= 0 ? kp + a.window : FAR) - q0 - 2 * l.qd;
+      lo[i] = (kp < a.Tk ? (a.causal ? kp - qoff - q0 : -BQ) : BQ) - 2 * l.qd;
+      hi[i] = min(a.Tq, a.window >= 0 ? kp - qoff + a.window : FAR) - q0 - 2 * l.qd;
     }
     if constexpr (CLIPPED) {
 #pragma unroll
@@ -749,7 +770,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           const int row = 16 * l.w + l.g + 8 * i, x = 4 * j + 2 * i + c;
           const bool valid = lo[i] <= 8 * j + c && 8 * j + c < hi[i];
           const Entry e = entry(a, valid, s[x], icap, cst.x, cst.z, cst.w, dp[x],
-                                [&] { return exact_score<D>(a, b, h, hk, q0 + col, t0 + row); });
+                                [&] { return exact_score(a, b, h, hk, q0 + col, t0 + row); });
           if constexpr (CLIPPED) {  // p dp fac into dp, p fac into s, in place; p dp into D's sums
             v[2 * j + c] += e.p * e.dp;
             dp[x] = e.p * e.dp * e.fac;
@@ -855,10 +876,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int c = 0; c < 2; ++c) {
       const int t = q0 + 8 * j + 2 * lane.qd + c;
       if (t >= a.Tq) continue;
-      float* row = a.dq + (((long long)b * a.Tq + t) * a.Hq + h) * D;
+      float* row = a.dq + (((long long)b * a.Tq + t) * a.Hq + h) * a.dh;
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        row[16 * lane.w + lane.g + 8 * i] = dq[4 * j + 2 * i + c] * a.scale;
+      for (int i = 0; i < 2; ++i) {
+        const int d = 16 * lane.w + lane.g + 8 * i;
+        if (d < a.dh) row[d] = dq[4 * j + 2 * i + c] * a.scale;  // past Dh: the Dh-32 body's zeros
+      }
     }
 }
 
@@ -893,10 +916,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   const int k0 = blockIdx.x * BK;
   const int h = blockIdx.y, b = blockIdx.z, G = a.Hq / a.Hkv, hk = h / G;
-  const int q_lo = a.causal ? k0 : 0;  // BQ == BK: the tile holding query k0
-  // queries that can see the block's keys: none past the window's end for
-  // its last key
-  const int q_hi = a.window >= 0 ? min(a.Tq, k0 + BK + a.window - 1) : a.Tq;
+  const int qoff = qoff_of(a, b);
+  // queries that can see the block's keys (query i at position i + qoff):
+  // causal, none before key k0's; windowed, none past the window's end for
+  // its last key. None (keys no query sees): dk = dv = 0 are written.
+  const int q_lo = a.causal ? max(0, k0 - qoff) : 0;
+  const int q_hi = a.window >= 0 ? min(a.Tq, k0 + BK + a.window - 1 - qoff) : a.Tq;
   const int n_tiles = q_lo < q_hi ? (q_hi - q_lo + BQ - 1) / BQ : 0;
   init_barriers(kv_full);
   // Q and G of query tile n into its slot
@@ -964,14 +989,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     cap_scores(s, a.softcap);
     // P~ into s, dS into dp, in place. Entry (query row, key col) is
     // visible iff from[i] <= 8 j + c < lim[i] (col - 2 qd = 8 j + c): the
-    // keys before Tk and, causal, at or before the row's query, windowed
-    // after its query - window; none past Tq
+    // keys before Tk and, causal, at or before the row's query's position
+    // (row + qoff), windowed after that position - window; none past Tq
     int lim[2], from[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int qp = q0 + 16 * l.w + l.g + 8 * i;
-      lim[i] = (qp < a.Tq ? min(a.Tk, a.causal ? qp + 1 : a.Tk) - k0 : 0) - 2 * l.qd;
-      from[i] = (a.window >= 0 ? qp - a.window + 1 : -FAR) - k0 - 2 * l.qd;
+      lim[i] = (qp < a.Tq ? min(a.Tk, a.causal ? qp + qoff + 1 : a.Tk) - k0 : 0) - 2 * l.qd;
+      from[i] = (a.window >= 0 ? qp + qoff - a.window + 1 : -FAR) - k0 - 2 * l.qd;
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -982,7 +1007,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           const int x = 4 * j + 2 * i + c;
           const bool valid = from[i] <= 8 * j + c && 8 * j + c < lim[i];
           const Entry e = entry(a, valid, s[x], icap, c2[i], m[i], zc[i], dp[x], [&] {
-            return exact_score<D>(a, b, h, hk, q0 + 16 * l.w + l.g + 8 * i, k0 + 8 * j + 2 * l.qd + c);
+            return exact_score(a, b, h, hk, q0 + 16 * l.w + l.g + 8 * i, k0 + 8 * j + 2 * l.qd + c);
           });
           s[x] = e.pt;
           dp[x] = e.p * (e.dp - dsum[i]) * e.fac;
@@ -1050,10 +1075,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int c = 0; c < 2; ++c) {
       const int t = k0 + 8 * j + 2 * lane.qd + c;
       if (t >= a.Tk) continue;
-      const long long row = (((long long)b * a.Tk + t) * hn + hs) * D;
+      const long long row = (((long long)b * a.Tk + t) * hn + hs) * a.dh;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int d = 16 * lane.w + lane.g + 8 * i;
+        if (d >= a.dh) continue;  // the Dh-32 body at Dh 8, 16: columns past Dh are zeros
         a.dk[row + d] = dk[4 * j + 2 * i + c];
         a.dv[row + d] = dv[4 * j + 2 * i + c];
       }
@@ -1132,14 +1158,17 @@ cudaError_t sum_heads(const float* part_k, const float* part_v, TO* dk, TO* dv, 
 template <int D>
 cudaError_t launch(const Args& a, long long sq[3], long long sk[3], long long sv[3], float* part_k,
                    float* part_v, cudaStream_t s) {
-  const long long so[3] = {(long long)a.Tq * a.Hq * D, (long long)a.Hq * D, D};
+  // the maps name the true head dim: a Dh-8 or 16 row's box of 32
+  // columns arrives zero-filled past Dh
+  const long long so[3] = {(long long)a.Tq * a.Hq * a.dh, (long long)a.Hq * a.dh, a.dh};
   CUtensorMap mq, mdo, mg, mk, mv;
-  cudaError_t err = make_map(&mq, a.q, a.B, a.Tq, a.Hq, D, sq[0], sq[1], sq[2]);
-  if (err == cudaSuccess) err = make_map(&mdo, a.dout, a.B, a.Tq, a.Hq, D, so[0], so[1], so[2]);
+  cudaError_t err = make_map(&mq, a.q, a.B, a.Tq, a.Hq, a.dh, sq[0], sq[1], sq[2]);
   if (err == cudaSuccess)
-    err = make_map(&mg, a.g != nullptr ? a.g : a.dout, a.B, a.Tq, a.Hq, D, so[0], so[1], so[2]);
-  if (err == cudaSuccess) err = make_map(&mk, a.k, a.B, a.Tk, a.Hkv, D, sk[0], sk[1], sk[2]);
-  if (err == cudaSuccess) err = make_map(&mv, a.v, a.B, a.Tk, a.Hkv, D, sv[0], sv[1], sv[2]);
+    err = make_map(&mdo, a.dout, a.B, a.Tq, a.Hq, a.dh, so[0], so[1], so[2]);
+  if (err == cudaSuccess)
+    err = make_map(&mg, a.g != nullptr ? a.g : a.dout, a.B, a.Tq, a.Hq, a.dh, so[0], so[1], so[2]);
+  if (err == cudaSuccess) err = make_map(&mk, a.k, a.B, a.Tk, a.Hkv, a.dh, sk[0], sk[1], sk[2]);
+  if (err == cudaSuccess) err = make_map(&mv, a.v, a.B, a.Tk, a.Hkv, a.dh, sv[0], sv[1], sv[2]);
   if (err != cudaSuccess) return err;
   err = launch_one(a.clipped ? bwd_dq_kernel<D, true> : bwd_dq_kernel<D, false>,
                    dim3((a.Tq + BQ - 1) / BQ, a.Hq, a.B), QLayout<D>::BYTES, s, mq, mdo, mk, mv, a);
@@ -1151,8 +1180,8 @@ cudaError_t launch(const Args& a, long long sq[3], long long sk[3], long long sv
                    s, mq, mg, mk, mv, kv);
   if (err != cudaSuccess || G == 1) return err;
   return sum_heads(part_k, part_v, reinterpret_cast<float4*>(a.dk),
-                   reinterpret_cast<float4*>(a.dv), (long long)a.B * a.Tk * a.Hkv * D / 4, G,
-                   D / 4, s);
+                   reinterpret_cast<float4*>(a.dv), (long long)a.B * a.Tk * a.Hkv * a.dh / 4, G,
+                   a.dh / 4, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -1198,6 +1227,8 @@ struct Args {
   float zg, gamma, scale;
   int window;
   float softcap;
+  int q_offset;       // query i sits at position i + offset ...
+  const int* q_offs;  // ... or i + q_offs[b] per batch row (null: q_offset)
 };
 
 __device__ __forceinline__ float round_bf16(float x) {
@@ -1222,7 +1253,13 @@ __device__ __forceinline__ float exact_score(const Args& a, int b, int h, int hk
 }
 
 // Shared-memory stores and loads by 32-bit address (the producer's 24
-// registers hold no 64-bit generic pointers)
+// registers hold no 64-bit generic pointers; a load in asm volatile is
+// also never hoisted out of a loop into a register held across it)
+__device__ __forceinline__ int ld_shared_int(uint32_t addr) {
+  int x;
+  asm volatile("ld.shared.s32 %0, [%1];" : "=r"(x) : "r"(addr) : "memory");
+  return x;
+}
 __device__ __forceinline__ void st_shared(uint32_t addr, float x) {
   asm volatile("st.shared.f32 [%0], %1;" ::"r"(addr), "f"(x) : "memory");
 }
@@ -1527,9 +1564,10 @@ struct QLayout {
   static constexpr int Q = 0, DO = TILE, RING = 2 * TILE;  // slot s: K, then V
   static constexpr int CS = RING + STAGES * 2 * TILE;       // float4 [64]: c2, D, m, Z
   static constexpr int GT = CS + 64 * 16;                   // float [64]: the gate
+  static constexpr int OFF = GT + 64 * 4;                   // int: the row's query offset
   // barriers: Q and dO landed, then Q scaled; per slot full (landed) and
   // empty (released by its reader)
-  static constexpr int BAR = GT + 64 * 4;
+  static constexpr int BAR = OFF + 16;
   static constexpr int BYTES = BAR + (2 + 2 * STAGES) * 8 + 1024;
 };
 
@@ -1554,10 +1592,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int part = blockIdx.x % NS, c0 = part * DN;  // the CTA's columns c0 .. c0 + DN - 1
   const uint32_t col_off = part * (DN / T::BOX) * T::CHUNK;  // their boxes in a tile
   const int h = blockIdx.y, b = blockIdx.z, hk = h / (a.Hq / a.Hkv);
-  const int k_hi = a.causal ? min(a.Tk, min(q0 + BT, a.Tq)) : a.Tk;
-  const int k_lo = a.window >= 0 ? max(0, q0 - a.window + 1) / BT * BT : 0;
+  // keys the block can see (query i at position i + qoff; the consumers
+  // read qoff back from shared memory where they need it)
+  const int qoff = qoff_of(a, b);
+  const int k_hi = a.causal ? min(a.Tk, qoff + min(q0 + BT, a.Tq)) : a.Tk;
+  const int k_lo = a.window >= 0 ? max(0, qoff + q0 - a.window + 1) / BT * BT : 0;
   const int n_tiles = max(0, (k_hi - k_lo + BT - 1) / BT);
   if (threadIdx.x == 0) {
+    *reinterpret_cast<int*>(sm + L::OFF) = qoff;
     attn::mbar_init(qd_full, 1);
     attn::mbar_init(q_ready, 4);
     for (int s = 0; s < STAGES; ++s) {
@@ -1711,7 +1753,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     attn::wg_wait<0>();
     attn::reg_fence<32>(s);
     attn::reg_fence<32>(dp);
-    const int t0 = k_lo + n * BT;
+    const int t0 = k_lo + n * BT, qoff = ld_shared_int(base + L::OFF);
     cap_scores(s, a.softcap);
     uint32_t near = 0;  // clipped: the entries to re-check, bit x
 #pragma unroll
@@ -1722,7 +1764,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int c = 0; c < 2; ++c) {
           const int x = 4 * j + 2 * r + c;
           const int qp = q0 + r0 + 8 * r, kp = t0 + 8 * j + 2 * qd + c;
-          const bool valid = kp < a.Tk && qp < a.Tq && attn::visible(kp, qp, a.causal, a.window);
+          const bool valid =
+              kp < a.Tk && qp < a.Tq && attn::visible(kp, qp + qoff, a.causal, a.window);
           bool nr;
           const Entry e = entry_fast<CLIPPED>(a, valid, s[x], icap, c2[r],
                                                     __fmul_rn(gr[r], dp[x]), nr);
@@ -1831,9 +1874,11 @@ struct KvLayout {
   // per slot the tile's rows: float4 [64] (c2, D, gate, m), then float
   // [64] (Z)
   static constexpr int ROWS = RING + STAGES * 2 * TILE, ROW_BYTES = 64 * 20;
+  // int [2]: the walk's first query q_lo and the row's query offset
+  static constexpr int OFF = ROWS + STAGES * ROW_BYTES;
   // barriers: K and V landed; per slot full (landed), ready (Q scaled, the
   // statistics written) and empty (released by its reader)
-  static constexpr int BAR = ROWS + STAGES * ROW_BYTES;
+  static constexpr int BAR = OFF + 16;
   static constexpr int BYTES = BAR + (1 + 3 * STAGES) * 8 + 1024;
 };
 
@@ -1869,10 +1914,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int part = blockIdx.x % NS, c0 = part * DN;  // the CTA's columns c0 .. c0 + DN - 1
   const uint32_t col_off = part * (DN / T::BOX) * T::CHUNK;  // their boxes in a tile
   const int h = blockIdx.y, b = blockIdx.z, G = a.Hq / a.Hkv, hk = h / G;
-  const int q_lo = a.causal ? k0 : 0;
-  const int q_hi = a.window >= 0 ? min(a.Tq, k0 + BT + a.window - 1) : a.Tq;
+  // queries that can see the block's keys (query i at position i + qoff);
+  // none: the walk is empty and dk = dv = 0 are written. The readiers and
+  // consumers read q_lo and qoff back from shared memory.
+  const int qoff = qoff_of(a, b);
+  const int q_lo = a.causal ? max(0, k0 - qoff) : 0;
+  const int q_hi = a.window >= 0 ? min(a.Tq, k0 + BT + a.window - 1 - qoff) : a.Tq;
   const int n_tiles = q_lo < q_hi ? (q_hi - q_lo + BT - 1) / BT : 0;
   if (threadIdx.x == 0) {
+    reinterpret_cast<int*>(sm + L::OFF)[0] = q_lo;
+    reinterpret_cast<int*>(sm + L::OFF)[1] = qoff;
     attn::mbar_init(kv_full, 1);
     for (int s = 0; s < STAGES; ++s) {
       attn::mbar_init(full0 + 8 * s, 1);
@@ -1912,7 +1963,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int st = n % STAGES;
         if (n >= STAGES) mbar_sleep(bar + 8 * (1 + 2 * STAGES + st), (n / STAGES - 1) & 1);
         if (tr < 64) {
-          const int bx = (int)opaque(blockIdx.x), t0 = a.causal ? (bx / NS) * BT : 0;
+          const int t0 = ld_shared_int(bs + L::OFF);  // q_lo
           stage_row(a, (int)opaque(blockIdx.z), (int)opaque(blockIdx.y),
                     min(t0 + n * BT + tr, (int)opaque(a.Tq) - 1), bs + L::ROWS + st * L::ROW_BYTES,
                     tr);
@@ -1995,7 +2046,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     attn::wg_wait<0>();
     attn::reg_fence<32>(s);
     attn::reg_fence<32>(dp);
-    const int q0 = q_lo + n * BT;
+    const int q0 = q_lo + n * BT, qoff = ld_shared_int(base + L::OFF + 4);
     int qd, kr;
     place(qd, kr);
     const uint8_t* rows = sm + L::ROWS + (n % STAGES) * L::ROW_BYTES;
@@ -2017,7 +2068,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int r = 0; r < 2; ++r) {
           const int x = 4 * j + 2 * r + c;
           const int kp = kr + 8 * r, qp = q0 + col;
-          const bool valid = kp < a.Tk && qp < a.Tq && attn::visible(kp, qp, a.causal, a.window);
+          const bool valid =
+              kp < a.Tk && qp < a.Tq && attn::visible(kp, qp + qoff, a.causal, a.window);
           bool nr;
           const Entry e = entry_fast<CL>(a, valid, s[x], icap, cst.x,
                                          __fmul_rn(cst.z, dp[x]), nr);
@@ -2040,7 +2092,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         near &= near - 1;
         const float4 cst = cst_t[col];
         const int kp = kr + 8 * ((x >> 1) & 1), qp = q0 + col;
-        const bool valid = kp < a.Tk && qp < a.Tq && attn::visible(kp, qp, a.causal, a.window);
+        const bool valid =
+            kp < a.Tk && qp < a.Tq && attn::visible(kp, qp + qoff, a.causal, a.window);
         bool nr;
         const Entry e = entry_fast<0>(a, valid, pick(s, x), icap, cst.x,
                                       __fmul_rn(cst.z, pick(dp, x)), nr);
@@ -2136,18 +2189,420 @@ cudaError_t launch(const Args& a, long long sv[3], cudaStream_t s) {
 
 }  // namespace bf
 
+// ---------------------------------------------------------------------------
+// The CUDA-core route (namespace cc): f32 at Dh 80, 96, 128 and 256, where
+// the 3xTF32 route's layout does not fit (its hi/lo copies of the fixed
+// tiles and the ring take 384 KB of shared memory at Dh 128). Products as
+// fmaf chains on CUDA cores, as the f32 forward's; the same two launches
+// (dq with D and dgate, then dk/dv), the same GQA head sum, the same D_i
+// from the saved u (vanilla, gated) or the A - D B walk (clipped). The
+// scores are the forward's own bits (q Dh^-0.5 rounded in f32, then an
+// fmaf chain over the head dim in order), so the clipped re-check near an
+// edge (entry()) reads the score the forward read. Deterministic as the
+// other routes: every output has one owner summing in a fixed order (dq
+// its query block over key tiles, dk/dv its key block over query tiles,
+// D's clipped sums over a row's 16 threads by xor halving, GQA's partials
+// in head order); no atomics.
+// What bounds it: operations, 10 flops per visible pair and column at 67
+// TFLOP/s f32 (1.60 ms at qwen3-14b's (1, 2048, 40/8, 128) causal; 3xTF32
+// at 495 would be 0.65). It issues 14 (16 clipped): S and dP in both
+// launches, dq (clipped: A and B), dv, dk. A simple design, right first:
+// one CTA of 256 threads a block (its tiles take 177-225 KB of shared
+// memory), each thread an R x R block of the scores, no overlap of loads
+// and products; a 3xTF32 design at these widths is later work.
+// ---------------------------------------------------------------------------
+namespace cc {
+
+constexpr int THREADS = 256;  // 16 x 16: thread (ty, tx)
+
+// A head-dim-D body: tiles of BT tokens (dq's block of queries and its key
+// tiles; dk/dv's block of keys and its query tiles), each thread an R x R
+// block of scores (rows ty R .., columns tx R ..) and, of the products
+// over tokens, R rows x NC columns (columns c 16 + tx: consecutive threads
+// on consecutive columns). Dh 80 and 96 run the Dh-128 body: columns at or
+// past Dh are staged as zeros and not stored. At Dh 256 the tiles are 32
+// tokens, so that the five or six D x BT tiles fit in shared memory.
+template <int D>
+struct Tile {
+  static constexpr int BT = D > 128 ? 32 : 64;
+  static constexpr int R = BT / 16;
+  static constexpr int NC = D / 16;
+};
+
+template <int R>
+__device__ __forceinline__ void load_r(const float* p, float* x) {
+  if constexpr (R == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x, x[1] = v.y;
+  }
+}
+
+// Rows [t0, t0 + BT) of one head (row t at base + t st) into shared memory
+// transposed (tr[d BT + row]) and, if rm is not null, row-major (rm[row D
+// + d]); each value times mul (mul != 0: q Dh^-0.5, one f32 rounding, as
+// the forward scales it) and, under a gate (g not null), times the row's
+// gate g[t sg] (gate dO, one rounding, as the 3xTF32 route's G). Rows
+// outside [0, limit) and columns at or past dh are zeros.
+template <int D>
+__device__ __forceinline__ void stage(const float* base, long long st, int t0, int limit, int dh,
+                                      float mul, const float* g, long long sg, float* tr,
+                                      float* rm) {
+  constexpr int BT = Tile<D>::BT;
+  for (int i = threadIdx.x; i < BT * D / 4; i += THREADS) {
+    const int row = i % BT, c = (i / BT) * 4, t = t0 + row;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (t >= 0 && t < limit && c < dh) {
+      x = *reinterpret_cast<const float4*>(base + t * st + c);
+      if (mul != 0.f) x = make_float4(x.x * mul, x.y * mul, x.z * mul, x.w * mul);
+      if (g != nullptr) {
+        const float gt = g[t * sg];
+        x = make_float4(gt * x.x, gt * x.y, gt * x.z, gt * x.w);
+      }
+    }
+    tr[(c + 0) * BT + row] = x.x;
+    tr[(c + 1) * BT + row] = x.y;
+    tr[(c + 2) * BT + row] = x.z;
+    tr[(c + 3) * BT + row] = x.w;
+    if (rm != nullptr) *reinterpret_cast<float4*>(rm + row * D + c) = x;
+  }
+}
+
+// s[i][j] = sum_d a[d][ra + i] b[d][rb + j] over d < dh in order (fmaf
+// chains), a and b transposed tiles of BT rows
+template <int D>
+__device__ __forceinline__ void scores(const float* a, const float* b, int ra, int rb, int dh,
+                                       float (*s)[Tile<D>::R]) {
+  constexpr int BT = Tile<D>::BT, R = Tile<D>::R;
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < R; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < dh; ++d) {
+    float x[R], y[R];
+    load_r<R>(a + d * BT + ra, x);
+    load_r<R>(b + d * BT + rb, y);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) s[i][j] = fmaf(x[i], y[j], s[i][j]);
+  }
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes(bool clipped) {
+  using T = Tile<D>;
+  return 4 * ((size_t)5 * D * T::BT + (clipped ? 2 : 1) * T::BT * T::BT + 4 * T::BT);
+}
+
+// 1. dq of one (b, h, block of BT queries); D and dgate of its rows first
+// (vanilla, gated), or D summed over the walk (clipped), then dq = A - D B.
+template <int D, bool CLIPPED>
+__global__ void __launch_bounds__(THREADS, 1) bwd_dq_cc(Args a) {
+  using T = Tile<D>;
+  constexpr int BT = T::BT, R = T::R, NC = T::NC;
+  extern __shared__ float4 smem4[];
+  float* qt = reinterpret_cast<float*>(smem4);  // [D][BT] q Dh^-0.5
+  float* gtt = qt + D * BT;                     // [D][BT] gate dO
+  float* kt = gtt + D * BT;                     // [D][BT] the key tile
+  float* vt = kt + D * BT;                      // [D][BT] the value tile
+  float* kr = vt + D * BT;                      // [BT][D] the key tile, row-major
+  float* dst = kr + BT * D;                     // [BT keys][BT queries]: dS (clipped: p dp f)
+  float* pst = dst + BT * BT;                   // clipped: [BT][BT] p f
+  float4* rows = reinterpret_cast<float4*>(pst + (CLIPPED ? BT * BT : 0));  // c2, D, m, Z
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BT;  // longest causal walks first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (a.Hq / a.Hkv);
+  const int qoff = qoff_of(a, b);
+  const int k_hi = a.causal ? min(a.Tk, qoff + min(q0 + BT, a.Tq)) : a.Tk;
+  const int k_lo = a.window >= 0 ? max(0, qoff + q0 - a.window + 1) / BT * BT : 0;
+  const int n_tiles = max(0, (k_hi - k_lo + BT - 1) / BT);
+  const bool gated = a.gate != nullptr;
+  const long long srow = (long long)a.Hq * a.dh;  // a row of dout, u, dq
+  const float* dog = a.dout + (long long)b * a.Tq * srow + (long long)h * a.dh;
+  const float* gg = gated ? a.gate + b * a.sgb + h * a.sgh : nullptr;
+  stage<D>(a.q + b * a.sqb + h * a.sqh, a.sqt, q0, a.Tq, a.dh, a.scale, nullptr, 0, qt, nullptr);
+  stage<D>(dog, srow, q0, a.Tq, a.dh, 0.f, gg, a.sgt, gtt, nullptr);
+  {  // the block's rows, P threads a row: c2, m, Z and, vanilla or gated,
+     // D = gate (dO . u); dgate = dO . u
+    constexpr int P = THREADS / BT;
+    const int row = tid / P, part = tid % P, t = min(q0 + row, a.Tq - 1);
+    const long long si = stat_index(a, b, h, t);
+    float dot = 0.f;
+    if (gated || !CLIPPED) {
+      const int per = a.dh / P;  // the thread's columns, summed in order
+      const long long off = (long long)t * srow + part * per;
+      for (int c = 0; c < per; c += 2) {
+        const float2 o = *reinterpret_cast<const float2*>(dog + off + c);
+        const float2 x = *reinterpret_cast<const float2*>(a.u + (dog - a.dout) + off + c);
+        dot = fmaf(o.x, x.x, dot);
+        dot = fmaf(o.y, x.y, dot);
+      }
+#pragma unroll
+      for (int o = P / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    }
+    if (part == 0) {
+      const float gt = gated ? gg[(long long)t * a.sgt] : 1.f;
+      const float dsum = CLIPPED ? 0.f : (gated ? gt * dot : dot);
+      const long long bht = (long long)a.B * a.Hq * a.Tq;
+      const float m = a.stats[si], zc = a.stats[bht + si];
+      rows[row] = make_float4(row_c2(m, zc), dsum, m, zc);
+      if (q0 + row < a.Tq) {
+        if (!CLIPPED) a.dsum[si] = dsum;
+        if (gated) a.dgate[((long long)b * a.Tq + t) * a.Hq + h] = dot;
+      }
+    }
+  }
+
+  float acc[R][NC], bacc[CLIPPED ? R : 1][CLIPPED ? NC : 1], dpart[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    dpart[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      acc[i][c] = 0.f;
+      if constexpr (CLIPPED) bacc[i][c] = 0.f;
+    }
+  }
+  const float icap = inv_cap(a);
+  const float* kg = a.k + b * a.skb + hk * a.skh;
+  const float* vg = a.v + b * a.svb + hk * a.svh;
+#pragma unroll 1
+  for (int n = 0; n < n_tiles; ++n) {
+    const int t0 = k_lo + n * BT;
+    __syncthreads();  // the previous tile's readers are done (and the rows written)
+    stage<D>(kg, a.skt, t0, a.Tk, a.dh, 0.f, nullptr, 0, kt, kr);
+    stage<D>(vg, a.svt, t0, a.Tk, a.dh, 0.f, nullptr, 0, vt, nullptr);
+    __syncthreads();
+    // S = (Q Dh^-0.5) K^T, dP~ = G V^T: rows queries, columns keys
+    float s[R][R], dp[R][R];
+    scores<D>(qt, kt, ty * R, tx * R, a.dh, s);
+    scores<D>(gtt, vt, ty * R, tx * R, a.dh, dp);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int qi = q0 + ty * R + i;
+      const float4 rw = rows[ty * R + i];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int kp = t0 + tx * R + j;
+        const bool valid =
+            qi < a.Tq && kp < a.Tk && attn::visible(kp, qi + qoff, a.causal, a.window);
+        const float raw = s[i][j];
+        const Entry e = entry(a, valid, attn::softcap(raw, a.softcap), icap, rw.x, rw.z, rw.w,
+                              dp[i][j], [&] { return raw; });
+        if constexpr (CLIPPED) {  // p dp f, p f; p dp into D's sums
+          dpart[i] += e.p * e.dp;
+          dst[(tx * R + j) * BT + ty * R + i] = e.p * e.dp * e.fac;
+          pst[(tx * R + j) * BT + ty * R + i] = e.p * e.fac;
+        } else {
+          dst[(tx * R + j) * BT + ty * R + i] = e.p * (e.dp - rw.y) * e.fac;
+        }
+      }
+    }
+    __syncthreads();
+    // dq += dS K (clipped: A += (p dp f) K, B += (p f) K) over the tile's keys
+#pragma unroll 2
+    for (int j = 0; j < BT; ++j) {
+      float x[R], y[R];
+      load_r<R>(dst + j * BT + ty * R, x);
+      if constexpr (CLIPPED) load_r<R>(pst + j * BT + ty * R, y);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float kv = kr[j * D + c * 16 + tx];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          acc[i][c] = fmaf(x[i], kv, acc[i][c]);
+          if constexpr (CLIPPED) bacc[i][c] = fmaf(y[i], kv, bacc[i][c]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qi = q0 + ty * R + i;
+    float d = 0.f;
+    if constexpr (CLIPPED) {
+      // D of the row: the 16 threads' sums over their keys (xor halving,
+      // the same sum in every lane), then dq = A - D B
+      d = dpart[i];
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+      if (tx == 0 && qi < a.Tq) a.dsum[stat_index(a, b, h, qi)] = d;
+    }
+    if (qi >= a.Tq) continue;
+    float* row = a.dq + (long long)b * a.Tq * srow + (long long)qi * srow + (long long)h * a.dh;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = c * 16 + tx;
+      if (col >= a.dh) continue;  // the Dh-128 body at Dh 80 / 96: columns past Dh are zeros
+      float x = acc[i][c];
+      if constexpr (CLIPPED) x = fmaf(-d, bacc[i][c], x);
+      row[col] = x * a.scale;
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dkdv_smem_bytes() {
+  using T = Tile<D>;
+  return 4 * ((size_t)6 * D * T::BT + 2 * T::BT * T::BT + 4 * T::BT);
+}
+
+// 2. dk and dv of one (b, query head, block of BT keys): per query tile S^T
+// = K (Q Dh^-0.5)^T and dP~^T = V G^T (rows keys, columns queries), then
+// dV += P~^T G and dK += dS^T (Q Dh^-0.5) over the tile's queries. With G >
+// 1 each query head writes its own f32 partial, summed in head order after.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1) bwd_dkdv_cc(Args a) {
+  using T = Tile<D>;
+  constexpr int BT = T::BT, R = T::R, NC = T::NC;
+  extern __shared__ float4 smem4[];
+  float* kt = reinterpret_cast<float*>(smem4);  // [D][BT] the block's keys
+  float* vt = kt + D * BT;                      // [D][BT] its values
+  float* qt = vt + D * BT;                      // [D][BT] the query tile, q Dh^-0.5
+  float* gtt = qt + D * BT;                     // [D][BT] gate dO
+  float* qr = gtt + D * BT;                     // [BT][D] the query tile, row-major
+  float* gr = qr + BT * D;                      // [BT][D] gate dO, row-major
+  float* ptt = gr + BT * D;                     // [BT queries][BT keys]: P~
+  float* dst = ptt + BT * BT;                   // [BT queries][BT keys]: dS
+  float4* rows = reinterpret_cast<float4*>(dst + BT * BT);  // c2, D, m, Z
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int k0 = blockIdx.x * BT;
+  const int h = blockIdx.y, b = blockIdx.z, G = a.Hq / a.Hkv, hk = h / G;
+  const int qoff = qoff_of(a, b);
+  // the queries that can see the block's keys; none: dk = dv = 0 written
+  const int q_lo = a.causal ? max(0, k0 - qoff) : 0;
+  const int q_hi = a.window >= 0 ? min(a.Tq, k0 + BT + a.window - 1 - qoff) : a.Tq;
+  const int n_tiles = q_lo < q_hi ? (q_hi - q_lo + BT - 1) / BT : 0;
+  const bool gated = a.gate != nullptr;
+  const long long srow = (long long)a.Hq * a.dh;
+  const float* dog = a.dout + (long long)b * a.Tq * srow + (long long)h * a.dh;
+  const float* gg = gated ? a.gate + b * a.sgb + h * a.sgh : nullptr;
+  const float* qg = a.q + b * a.sqb + h * a.sqh;
+  stage<D>(a.k + b * a.skb + hk * a.skh, a.skt, k0, a.Tk, a.dh, 0.f, nullptr, 0, kt, nullptr);
+  stage<D>(a.v + b * a.svb + hk * a.svh, a.svt, k0, a.Tk, a.dh, 0.f, nullptr, 0, vt, nullptr);
+
+  float dk[R][NC], dv[R][NC];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dk[i][c] = dv[i][c] = 0.f;
+  const float icap = inv_cap(a);
+  const long long bht = (long long)a.B * a.Hq * a.Tq;
+#pragma unroll 1
+  for (int n = 0; n < n_tiles; ++n) {
+    const int q0 = q_lo + n * BT;
+    __syncthreads();  // the previous tile's readers are done
+    stage<D>(qg, a.sqt, q0, a.Tq, a.dh, a.scale, nullptr, 0, qt, qr);
+    stage<D>(dog, srow, q0, a.Tq, a.dh, 0.f, gg, a.sgt, gtt, gr);
+    if (tid < BT) {
+      const long long si = stat_index(a, b, h, min(q0 + tid, a.Tq - 1));
+      const float m = a.stats[si], zc = a.stats[bht + si];
+      rows[tid] = make_float4(row_c2(m, zc), a.dsum[si], m, zc);
+    }
+    __syncthreads();
+    float s[R][R], dp[R][R];
+    scores<D>(kt, qt, ty * R, tx * R, a.dh, s);
+    scores<D>(vt, gtt, ty * R, tx * R, a.dh, dp);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int qi = q0 + tx * R + j;
+      const float4 rw = rows[tx * R + j];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int kp = k0 + ty * R + i;
+        const bool valid =
+            qi < a.Tq && kp < a.Tk && attn::visible(kp, qi + qoff, a.causal, a.window);
+        const float raw = s[i][j];
+        const Entry e = entry(a, valid, attn::softcap(raw, a.softcap), icap, rw.x, rw.z, rw.w,
+                              dp[i][j], [&] { return raw; });
+        ptt[(tx * R + j) * BT + ty * R + i] = e.pt;
+        dst[(tx * R + j) * BT + ty * R + i] = e.p * (e.dp - rw.y) * e.fac;
+      }
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int j = 0; j < BT; ++j) {
+      float x[R], y[R];
+      load_r<R>(ptt + j * BT + ty * R, x);
+      load_r<R>(dst + j * BT + ty * R, y);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float gv = gr[j * D + c * 16 + tx], qv = qr[j * D + c * 16 + tx];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          dv[i][c] = fmaf(x[i], gv, dv[i][c]);
+          dk[i][c] = fmaf(y[i], qv, dk[i][c]);
+        }
+      }
+    }
+  }
+  const int hs = G > 1 ? h : hk, hn = G > 1 ? a.Hq : a.Hkv;  // partials per query head
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int t = k0 + ty * R + i;
+    if (t >= a.Tk) continue;
+    const long long row = (((long long)b * a.Tk + t) * hn + hs) * a.dh;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = c * 16 + tx;
+      if (col >= a.dh) continue;
+      a.dk[row + col] = dk[i][c];
+      a.dv[row + col] = dv[i][c];
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const Args& a, float* part_k, float* part_v, cudaStream_t s) {
+  using T = Tile<D>;
+  const size_t dq_smem = dq_smem_bytes<D>(a.clipped != 0);
+  auto dq = a.clipped ? bwd_dq_cc<D, true> : bwd_dq_cc<D, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
+  if (err != cudaSuccess) return err;
+  dq<<<dim3((a.Tq + T::BT - 1) / T::BT, a.Hq, a.B), THREADS, dq_smem, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int G = a.Hq / a.Hkv;
+  Args kv = a;
+  if (G > 1) kv.dk = part_k, kv.dv = part_v;
+  const size_t kv_smem = dkdv_smem_bytes<D>();
+  err = cudaFuncSetAttribute(bwd_dkdv_cc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kv_smem);
+  if (err != cudaSuccess) return err;
+  bwd_dkdv_cc<D><<<dim3((a.Tk + T::BT - 1) / T::BT, a.Hq, a.B), THREADS, kv_smem, s>>>(kv);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || G == 1) return err;
+  return sum_heads(part_k, part_v, reinterpret_cast<float4*>(a.dk),
+                   reinterpret_cast<float4*>(a.dv), (long long)a.B * a.Tk * a.Hkv * a.dh / 4, G,
+                   a.dh / 4, s);
+}
+
+}  // namespace cc
+
 }  // namespace
 
-// dtype 0: the f32 (3xTF32) route, Dh 32 or 64; dtype 1: the bf16 route, Dh
-// 32, 64, 80, 96 or 128. q, k, v, gate: element strides (16-byte aligned
-// rows and strides); u, dout, dq, dk, dv, dgate contiguous; q, k, v, dout,
-// dq, dk, dv of the dtype, u, gate and dgate f32; stats: the forward's 2 x
-// (B, Hq, Tq) (m, max(Z, 1e-30)); dsum: B * Hq * Tq floats of scratch (D),
-// on the bf16 route three times that (D, each row's c2 and gate, which dq
-// writes for dk/dv's producer); g:
-// B * Tq * Hq * Dh floats of scratch on the f32 route under a gate, else
-// null; part_k, part_v: B * Tk * Hq * Dh floats each of scratch when Hq >
-// Hkv, else null. window < 0: none; softcap <= 0: none. Returns the
+// route 0: the f32 3xTF32 route (Dh 32 or 64; Dh 8 and 16 through the
+// Dh-32 body); route 1: the bf16 route (Dh 32, 64, 128 or 256; Dh 8 and 16
+// through the Dh-32 body, 80 and 96 through the Dh-128 one); route 2: the
+// f32 CUDA-core route (Dh 128 or 256; Dh 80 and 96 through the Dh-128
+// body); a route not built for (dtype, Dh) is refused. dtype: 0 = f32, 1 =
+// bf16 (q, k, v, dout, dq, dk, dv). q, k, v, gate: element strides
+// (16-byte aligned rows and strides); u, dout, dq, dk, dv, dgate
+// contiguous; u, gate and dgate f32; stats: the forward's 2 x (B, Hq, Tq)
+// (m, max(Z, 1e-30)), written with the same query offset; dsum: B * Hq * Tq
+// floats of scratch (D), on the bf16 route three times that (D, each row's
+// c2 and gate, which dq writes for dk/dv's producer); g: B * Tq * Hq * Dh
+// floats of scratch on the 3xTF32 route under a gate, else null; part_k,
+// part_v: B * Tk * Hq * Dh floats each of scratch when Hq > Hkv, else null.
+// window < 0: none; softcap <= 0: none; query i of batch row b sits at
+// position i + q_offs[b] (q_offs not null) or i + q_offset. Returns the
 // cudaError_t of the launches (0 = success).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const float* gate, const float* u,
@@ -2156,11 +2611,12 @@ extern "C" int flash_attention_bwd_launch(
     long long sqb, long long sqt, long long sqh, long long skb, long long skt, long long skh,
     long long svb, long long svt, long long svh, long long sgb, long long sgt, long long sgh,
     int causal, int clipped, float zg, float gamma, float scale, int window, float softcap,
-    int dtype, void* stream) {
+    int q_offset, const int* q_offs, int route, int dtype, void* stream) {
   const bool f32 = dtype == 0;
   if (B < 1 || Tq < 1 || Tk < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || B > 65535 ||
-      Hq > 65535 || (dtype != 0 && dtype != 1) || (gate == nullptr) != (dgate == nullptr) ||
-      (f32 && (gate == nullptr) != (g == nullptr)) || (!f32 && g != nullptr) ||
+      Hq > 65535 || (dtype != 0 && dtype != 1) || (route == 1) == f32 ||
+      (gate == nullptr) != (dgate == nullptr) ||
+      (route == 0 && (gate == nullptr) != (g == nullptr)) || (route != 0 && g != nullptr) ||
       (Hq > Hkv && (part_k == nullptr || part_v == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
@@ -2171,9 +2627,14 @@ extern "C" int flash_attention_bwd_launch(
            gate, u, static_cast<const float*>(dout), stats, dsum, g, static_cast<float*>(dq),
            static_cast<float*>(dk), static_cast<float*>(dv), dgate, B, Tq, Tk, Hq, Hkv,
            sqb, sqt, sqh, skb, skt, skh, sgb, sgt, sgh, causal, clipped, zg, gamma, scale,
-           window, softcap};
-    if (Dh == 32) return (int)launch<32>(a, sq, sk, sv, part_k, part_v, s);
-    if (Dh == 64) return (int)launch<64>(a, sq, sk, sv, part_k, part_v, s);
+           window, softcap, Dh, q_offset, q_offs, svb, svt, svh};
+    if (route == 0) {
+      if (Dh == 8 || Dh == 16 || Dh == 32) return (int)launch<32>(a, sq, sk, sv, part_k, part_v, s);
+      if (Dh == 64) return (int)launch<64>(a, sq, sk, sv, part_k, part_v, s);
+    } else if (route == 2) {
+      if (Dh == 80 || Dh == 96 || Dh == 128) return (int)cc::launch<128>(a, part_k, part_v, s);
+      if (Dh == 256) return (int)cc::launch<256>(a, part_k, part_v, s);
+    }
     return (int)cudaErrorInvalidValue;
   }
   bf::Args a{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
@@ -2182,9 +2643,9 @@ extern "C" int flash_attention_bwd_launch(
              static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
              static_cast<__nv_bfloat16*>(dv), dgate, part_k, part_v, B, Tq, Tk, Hq, Hkv, Dh,
              sqb, sqt, sqh, skb, skt, skh, sgb, sgt, sgh, causal, clipped, zg, gamma, scale,
-             window, softcap};
+             window, softcap, q_offset, q_offs};
   cudaError_t err = cudaErrorInvalidValue;
-  if (Dh == 32) err = bf::launch<32>(a, sv, s);
+  if (Dh == 8 || Dh == 16 || Dh == 32) err = bf::launch<32>(a, sv, s);
   else if (Dh == 64) err = bf::launch<64>(a, sv, s);
   else if (Dh == 80 || Dh == 96 || Dh == 128) err = bf::launch<128>(a, sv, s);
   else if (Dh == 256) err = bf::launch<256>(a, sv, s);

@@ -36,13 +36,16 @@ hand-written kernel ``csrc/flash_attention_bwd.cu`` (wrapper
 ``_launch_bwd``; its launches in ``bwd_launches``, one per call), which
 recomputes S but nothing else of the forward. On CUDA, ``mha_flash`` and
 ``flash_attention`` send inputs that need a gradient through it. The
-backward kernel has two routes (``bwd_route``): bf16 at Dh 32, 64, 80,
-96, 128 and 256 (bf16 wgmma, P~ and dS as hi/lo operand pairs; at Dh 256
-each CTA owns half the head dim's columns) and f32 at Dh 32 and 64
-(3xTF32 wgmma); both causal or not, with or without a local window and a
-logit softcap, GQA, vanilla, clipped and gated. For f32 at Dh 80 to 256
-and a query offset the wrappers raise under a gradient (ROADMAP 1.3: the
-backward's missing routes); nothing switches to the plain version. On CPU tensors ``FlashAttention`` runs the same
+backward kernel takes every (dtype, head dim) the forward takes, Dh 8, 16,
+32, 64, 80, 96, 128 and 256 in f32 and bf16, on three routes
+(``bwd_route``): bf16 (bf16 wgmma, P~ and dS as hi/lo operand pairs; Dh 8
+and 16 through the Dh-32 body, 80 and 96 through the Dh-128 body over
+zero-filled TMA boxes; at Dh 256 each CTA owns half the head dim's
+columns), 3xtf32 (f32 at Dh 8 to 64: 3xTF32 wgmma; Dh 8 and 16 through the
+Dh-32 body) and cuda-core (f32 at Dh 80 to 256: fmaf chains on CUDA cores,
+Dh 80 and 96 through the Dh-128 body); each causal or not, with or without
+a local window, a logit softcap and a scalar or per-row query offset, GQA,
+vanilla, clipped and gated. On CPU tensors ``FlashAttention`` runs the same
 algorithm plainly: the forward ``mha_flash_ref`` with the row statistics
 of ``attention_stats_ref``, and backward ``attention_bwd_saved_ref``.
 ``attention_bwd_ref`` is the gradient written out as formulas from q, k,
@@ -54,6 +57,7 @@ differentiate it.)
 from __future__ import annotations
 
 import ctypes
+import operator
 from typing import Optional
 
 import torch
@@ -68,10 +72,12 @@ launches = 0
 bwd_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
-# the backward kernel's routes: q/k/v dtype -> (route, head dims)
-_BWD_ROUTES = {torch.bfloat16: ("bf16", (32, 64, 80, 96, 128, 256)),
-               torch.float32: ("3xtf32", (32, 64))}
+_HEAD_DIMS = (8, 16, 32, 64, 80, 96, 128, 256)
+# the backward kernel's routes: q/k/v dtype -> {head dim: route}, and the
+# code the C entry point dispatches on
+_BWD_ROUTES = {torch.bfloat16: {dh: "bf16" for dh in _HEAD_DIMS},
+               torch.float32: {dh: "3xtf32" if dh <= 64 else "cuda-core" for dh in _HEAD_DIMS}}
+_BWD_ROUTE_CODE = {"3xtf32": 0, "bf16": 1, "cuda-core": 2}
 _lib: Optional[ctypes.CDLL] = None
 _bwd_lib: Optional[ctypes.CDLL] = None
 
@@ -97,7 +103,8 @@ def _bwd_kernel_lib() -> ctypes.CDLL:
         fn = lib.flash_attention_bwd_launch
         fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
-                       + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_int]
+                       + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_float]
+                       + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _bwd_lib = lib
@@ -108,24 +115,27 @@ def route(dtype: torch.dtype, dh: int) -> str:
     """The kernel's route for q/k/v of ``dtype`` and head dim ``dh``, fixed
     by the two alone: "tensor-core" (bf16 at every head dim the kernel
     takes: wgmma products over a TMA-fed K/V ring, P carried as a hi/lo
-    pair of bf16 operands; Dh 80 and 96 run the Dh-128 body over TMA boxes
-    zero-filled past Dh, and at Dh 256 a CTA owns half of the output's
-    columns) or "cuda-core" (f32, whose tolerance rules out bf16
-    products)."""
+    pair of bf16 operands; Dh 8 and 16 run the Dh-32 body and Dh 80 and 96
+    the Dh-128 body over TMA boxes zero-filled past Dh, and at Dh 256 a CTA
+    owns half of the output's columns) or "cuda-core" (f32, whose tolerance
+    rules out bf16 products; Dh 8 runs the Dh-16 body over columns staged
+    as zeros past Dh)."""
     return "tensor-core" if dtype == torch.bfloat16 else "cuda-core"
 
 
 def bwd_route(dtype: torch.dtype, dh: int) -> Optional[str]:
     """The backward kernel's route for q/k/v of ``dtype`` and head dim
-    ``dh``, fixed by the two alone: "bf16" (bf16 at Dh 32, 64, 80, 96, 128
-    or 256: bf16 wgmma products, the f32 factors P~ and dS carried as hi/lo
-    pairs of bf16 operands; Dh 80 and 96 run the Dh-128 body over TMA boxes
-    zero-filled past Dh, and at Dh 256 a CTA owns half of the gradients'
-    columns), "3xtf32" (f32 at Dh 32 or 64: each f32 operand split into
-    TF32 hi + lo), or None where it has none (f32 at Dh 80 to 256: ROADMAP
-    1.3)."""
-    name, dhs = _BWD_ROUTES.get(dtype, (None, ()))
-    return name if dh in dhs else None
+    ``dh``, fixed by the two alone: "bf16" (bf16 at every head dim the
+    forward takes: bf16 wgmma products, the f32 factors P~ and dS carried
+    as hi/lo pairs of bf16 operands; Dh 8 and 16 run the Dh-32 body and Dh
+    80 and 96 the Dh-128 body over TMA boxes zero-filled past Dh, and at Dh
+    256 a CTA owns half of the gradients' columns), "3xtf32" (f32 at Dh 8,
+    16, 32 or 64: each f32 operand split into TF32 hi + lo; Dh 8 and 16
+    through the Dh-32 body), "cuda-core" (f32 at Dh 80, 96, 128 or 256:
+    fmaf chains on CUDA cores, where the 3xTF32 layout's hi/lo tiles do not
+    fit in shared memory; Dh 80 and 96 through the Dh-128 body), or None
+    for a head dim the forward does not take."""
+    return _BWD_ROUTES.get(dtype, {}).get(dh)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -164,10 +174,30 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(out_dtype or q.dtype)
 
 
-def _scores(q, k, causal, window=None, softcap=None):
+def _positions_mask(b, tq, tk, causal, window, q_offset, dev):
+    """The visible (query, key) pairs: (Tq, Tk) for an int ``q_offset``,
+    (B, 1, 1, Tq, Tk) for a per-row (B,) tensor (broadcast against the
+    (B, Hkv, G, Tq, Tk) scores). Query i sits at position i + off: key j
+    is visible iff j <= i + off (causal) and j > i + off - window."""
+    off = torch.as_tensor(q_offset, dtype=torch.int64, device=dev)
+    per_row = off.ndim > 0
+    if per_row:
+        off = torch.broadcast_to(off.reshape(-1), (b,)).reshape(b, 1, 1)
+    q_pos = off + torch.arange(tq, device=dev)[:, None]
+    k_pos = torch.arange(tk, device=dev)[None, :]
+    mask = torch.ones(q_pos.shape[:-1] + (tk,), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window is not None:
+        mask = mask & (k_pos > q_pos - window)
+    return mask[:, None, None] if per_row else mask
+
+
+def _scores(q, k, causal, window=None, softcap=None, q_offset=0):
     """(B, Hkv, G, Tq, Tk) f32 scores (q Dh^-0.5 rounded in q's dtype, as
     the forward), softcapped and then masked (hidden entries at NEG_INF);
-    the (Tq, Tk) mask; and t = s_c / cap of the softcapped scores (None
+    the mask (``_positions_mask``: (Tq, Tk), or (B, 1, 1, Tq, Tk) for a
+    per-row ``q_offset``); and t = s_c / cap of the softcapped scores (None
     without a softcap), whose 1 - t^2 is the softcap's derivative."""
     b, tq, hq, dh = q.shape
     tk, hkv = k.shape[1], k.shape[2]
@@ -178,13 +208,7 @@ def _scores(q, k, causal, window=None, softcap=None):
     if softcap is not None:
         t = torch.tanh(s / torch.full((), softcap, device=dev))
         s = softcap * t
-    q_pos = torch.arange(tq, device=dev)[:, None]
-    k_pos = torch.arange(tk, device=dev)[None, :]
-    mask = torch.ones((tq, tk), dtype=torch.bool, device=dev)
-    if causal:
-        mask = mask & (k_pos <= q_pos)
-    if window is not None:
-        mask = mask & (k_pos > q_pos - window)
+    mask = _positions_mask(b, tq, tk, causal, window, q_offset, dev)
     return torch.where(mask, s, NEG_INF), mask, t
 
 
@@ -198,11 +222,16 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       gate_pi: Optional[torch.Tensor], dout: torch.Tensor, *,
                       causal: bool = True, window: Optional[int] = None,
                       softcap: Optional[float] = None, gamma: float = 0.0,
-                      zeta: float = 1.0):
-    """The plain backward of ``mha_flash`` (no query offset), as formulas
-    in f32, materializing (Tq, Tk): q (B, Tq, Hq, Dh), k/v (B, Tk, Hkv,
-    Dh), gate (B, Tq, Hq) or None, dout like q. Returns (dq, dk, dv, dgate)
-    in the inputs' dtypes (dgate None without a gate).
+                      zeta: float = 1.0, q_offset=0, flip: Optional[torch.Tensor] = None):
+    """The plain backward of ``mha_flash``, as formulas in f32,
+    materializing (Tq, Tk): q (B, Tq, Hq, Dh), k/v (B, Tk, Hkv, Dh), gate
+    (B, Tq, Hq) or None, dout like q, ``q_offset`` an int or a per-row (B,)
+    tensor (query i at position i + off, as the forward). Returns (dq, dk,
+    dv, dgate) in the inputs' dtypes (dgate None without a gate).
+    ``flip`` (clipped only): a bool (B, Hkv, G, Tq, Tk) of visible entries
+    whose clip indicator 1[unclipped] is taken the other way, for entries
+    within f32 rounding of the clip's edge, where two f32 computations of p
+    may fall on either side.
 
     With s = (q Dh^-0.5) k^T (q scaled in its dtype, as the forward), s_c =
     c tanh(s / c) under a softcap c (else s), p the softmax of s_c over the
@@ -218,7 +247,7 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = dh ** -0.5
     qs = (q * scale).float().reshape(b, tq, hkv, g, dh)
     kf, vf = k.float(), v.float()
-    s, mask, t = _scores(q, k, causal, window, softcap)
+    s, mask, t = _scores(q, k, causal, window, softcap, q_offset)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     p = torch.where(mask, p, 0.0)
     p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
@@ -231,7 +260,10 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         x = (zeta - gamma) * p + gamma
         pt = torch.where(mask, torch.clamp(x, 0.0, 1.0), 0.0)
-        dp = torch.where(mask & (x > 0) & (x < 1), (zeta - gamma) * dpt, 0.0)
+        inside = mask & (x > 0) & (x < 1)
+        if flip is not None:
+            inside = inside ^ (flip & mask)
+        dp = torch.where(inside, (zeta - gamma) * dpt, 0.0)
     dsum = (p * dp).sum(-1, keepdim=True)
     ds = _softcap_grad(p * (dp - dsum), t)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", pt, gd)
@@ -245,14 +277,15 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_stats_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
-                        window: Optional[int] = None, softcap: Optional[float] = None
-                        ) -> torch.Tensor:
+                        window: Optional[int] = None, softcap: Optional[float] = None,
+                        q_offset=0) -> torch.Tensor:
     """The plain version of the row statistics the forward kernel saves for
     the backward: (2, B, Hq, Tq) f32, m = the row's largest visible
-    (softcapped) score and max(Z, 1e-30), Z = sum over visible keys of
-    exp(s - m); q (B, Tq, Hq, Dh), k (B, Tk, Hkv, Dh), no query offset."""
+    (softcapped) score (NEG_INF for a row that sees no key) and max(Z,
+    1e-30), Z = sum over visible keys of exp(s - m); q (B, Tq, Hq, Dh), k
+    (B, Tk, Hkv, Dh), ``q_offset`` an int or a per-row (B,) tensor."""
     b, tq, hq, _ = q.shape
-    s, mask, _ = _scores(q, k, causal, window, softcap)
+    s, mask, _ = _scores(q, k, causal, window, softcap, q_offset)
     m = s.amax(-1, keepdim=True)
     z = torch.where(mask, torch.exp(s - m), 0.0).sum(-1)
     return torch.stack([m[..., 0], torch.clamp(z, min=1e-30)]).reshape(2, b, hq, tq)
@@ -262,11 +295,11 @@ def attention_bwd_saved_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             gate_pi: Optional[torch.Tensor], u: torch.Tensor,
                             dout: torch.Tensor, stats: torch.Tensor, *, causal: bool = True,
                             window: Optional[int] = None, softcap: Optional[float] = None,
-                            gamma: float = 0.0, zeta: float = 1.0):
+                            gamma: float = 0.0, zeta: float = 1.0, q_offset=0):
     """The backward kernel's algorithm, plainly, in f32, materializing (Tq,
     Tk): from the forward's row statistics ``stats`` ((2, B, Hq, Tq): m,
     max(Z, 1e-30)) and its ungated output ``u`` (B, Tq, Hq, Dh) beside q,
-    k, v, gate and dout as ``attention_bwd_ref``. p = exp(s_c - m) / Z from
+    k, v, gate, dout and ``q_offset`` as ``attention_bwd_ref``. p = exp(s_c - m) / Z from
     the saved (m, Z); D = rowsum(p dp) is gate (dO . u) (vanilla, gated),
     or, clipped, the sum over S and dP~ = g v^T, and then dq = Dh^-0.5 (A -
     D B) with A = (p dp f) k and B = (p f) k, f = 1 - (s_c / c)^2 the
@@ -276,7 +309,7 @@ def attention_bwd_saved_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hkv = k.shape[2]
     g = hq // hkv
     scale = dh ** -0.5
-    s, mask, t = _scores(q, k, causal, window, softcap)
+    s, mask, t = _scores(q, k, causal, window, softcap, q_offset)
     st = stats.float().reshape(2, b, hkv, g, tq)[..., None]
     p = torch.where(mask, torch.exp(s - st[0]) / st[1], 0.0)
     do = dout.float().reshape(b, tq, hkv, g, dh)
@@ -311,51 +344,42 @@ def _needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
 
 
-def _check_bwd(q, k, q_offset) -> None:
-    """Raise for what the backward kernel does not take (ROADMAP 1.3)."""
-    dh = q.shape[-1]
-    why = []
-    if k.dtype != q.dtype:
-        why.append(f"q {q.dtype} with k {k.dtype}")
-    elif bwd_route(q.dtype, dh) is None:
-        why.append(f"{q.dtype} at Dh {dh}")
-    if isinstance(q_offset, torch.Tensor) or q_offset != 0:
-        why.append("a query offset")
-    if why:
-        takes = "; ".join(f"{dt} at Dh {dhs}" for dt, (_, dhs) in _BWD_ROUTES.items())
-        raise NotImplementedError(
-            f"the flash-attention backward kernel takes {takes}, with or without "
-            f"window and softcap, and no query offset; not {', '.join(why)} "
-            f"(ROADMAP 1.3: the backward's missing routes)")
+def _row_offsets(q_offset, b, dev):
+    """(int offset, per-row (B,) int32 tensor or None) for the kernels:
+    a tensor ``q_offset`` goes per row, an int as it is."""
+    if isinstance(q_offset, torch.Tensor):
+        offs = q_offset.to(device=dev, dtype=torch.int32).reshape(-1)
+        return 0, torch.broadcast_to(offs, (b,)).contiguous()
+    return operator.index(q_offset), None
 
 
-def _launch_saved(q, k, v, gate_pi, causal, window, softcap, gamma, zeta):
+def _launch_saved(q, k, v, gate_pi, causal, window, softcap, gamma, zeta, q_offset=0):
     """The forward kernel writing what the backward reads: returns (out, u,
     stats), stats the (2, B, Hq, Tq) rows' (m, max(Z, 1e-30)), u the
-    ungated output in f32. f32 inputs (CUDA-core route): u is out itself
-    without a gate; bf16 inputs (tensor-core route): u is always an f32
-    buffer of its own, since the bf16 out is too coarse for D_i = gate_i
-    (dO_i . u_i), which enters every dS of the row."""
+    ungated output in f32; ``q_offset`` an int or a per-row (B,) tensor.
+    f32 inputs (CUDA-core route): u is out itself without a gate; bf16
+    inputs (tensor-core route): u is always an f32 buffer of its own, since
+    the bf16 out is too coarse for D_i = gate_i (dO_i . u_i), which enters
+    every dS of the row."""
     b, tq, hq, dh = q.shape
-    if bwd_route(q.dtype, dh) is None:
-        raise TypeError(f"the forward saves statistics for the backward's routes only, "
-                        f"not {q.dtype} at Dh {dh}")
     f32 = dict(dtype=torch.float32, device=q.device)
     stats = torch.empty((2, b, hq, tq), **f32)
     u = None if gate_pi is None and q.dtype == torch.float32 else \
         torch.empty((b, tq, hq, dh), **f32)
-    out = _launch(q, k, v, gate_pi, 0, causal=causal, window=window, softcap=softcap,
+    out = _launch(q, k, v, gate_pi, q_offset, causal=causal, window=window, softcap=softcap,
                   gamma=gamma, zeta=zeta, stats=stats, u=u)
     return out, (out if u is None else u), stats
 
 
 def _launch_bwd(q, k, v, gate_pi, u, dout, stats, causal: bool, window: Optional[int],
-                softcap: Optional[float], gamma: float, zeta: float):
+                softcap: Optional[float], gamma: float, zeta: float, q_offset=0):
     """Launch the backward kernel over model-layout tensors: q, k, v, dout
     f32 or bf16 (views with the forward's stride rules), u (f32; out itself
-    on the f32 route without a gate) and stats from ``_launch_saved``;
-    returns (dq, dk, dv, dgate) as new contiguous tensors, dq, dk, dv in
-    the inputs' dtype and dgate in the gate's (None without a gate)."""
+    on the f32 route without a gate) and stats from ``_launch_saved`` with
+    the same ``q_offset`` (an int or a per-row (B,) tensor); returns (dq,
+    dk, dv, dgate) as new contiguous tensors, dq, dk, dv in the inputs'
+    dtype and dgate in the gate's (None without a gate). Keys no query
+    sees get dk = dv = 0, queries that see no key dq = 0."""
     b, tq, hq, dh = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     rt = bwd_route(q.dtype, dh)
@@ -394,7 +418,7 @@ def _launch_bwd(q, k, v, gate_pi, u, dout, stats, causal: bool, window: Optional
     # scratch: D of every row (on the bf16 route also each row's c2 = m
     # log2(e) + log2(Z) and gate, which the dq launch writes for dk/dv's
     # producer); on the 3xTF32 route gate dO under a gate; per-query-head
-    # f32 dk, dv partials under GQA
+    # f32 dk, dv partials under GQA (every route)
     dsum = torch.empty((3, b, hq, tq) if rt == "bf16" else (b, hq, tq), **f32)
     gbuf = None if g is None or rt != "3xtf32" else torch.empty((b, tq, hq, dh), **f32)
     parts = [None, None] if hq == hkv else [torch.empty((b, tk, hq, dh), **f32)
@@ -402,6 +426,7 @@ def _launch_bwd(q, k, v, gate_pi, u, dout, stats, causal: bool, window: Optional
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     gs = g.stride() if g is not None else (0, 0, 0)
     clipped = not (gamma == 0.0 and zeta == 1.0)
+    off, offs = _row_offsets(q_offset, b, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _bwd_kernel_lib().flash_attention_bwd_launch(
@@ -411,7 +436,7 @@ def _launch_bwd(q, k, v, gate_pi, u, dout, stats, causal: bool, window: Optional
             b, tq, tk, hq, hkv, dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *gs,
             int(causal), int(clipped), float(zeta - gamma), float(gamma), float(dh ** -0.5),
             -1 if window is None else int(window), 0.0 if softcap is None else float(softcap),
-            _DTYPE_CODE[q.dtype], stream)
+            off, ptr(offs), _BWD_ROUTE_CODE[rt], _DTYPE_CODE[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: cudaError {err}")
     global bwd_launches
@@ -427,22 +452,24 @@ class FlashAttention(torch.autograd.Function):
     (and u: ``mha_flash_ref`` without the gate, in f32). It keeps q, k, v,
     the gate, u (on the f32 route without a gate out itself, the tensor the
     o-projection keeps alive anyway; else one more (B, Tq, Hq, Dh) f32
-    buffer) and the statistics. Backward: ``_launch_bwd`` on CUDA tensors,
+    buffer), the statistics and the query offset (an int or a per-row (B,)
+    tensor). Backward: ``_launch_bwd`` on CUDA tensors,
     ``attention_bwd_saved_ref`` on CPU ones; dout is made contiguous
-    first. Raises for what the backward kernel does not take
-    (``_check_bwd``)."""
+    first. Every (dtype, head dim) the forward takes has a backward route
+    (``bwd_route``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, gate_pi, causal, window, softcap, gamma, zeta, q_offset):
-        _check_bwd(q, k, q_offset)
-        kw = dict(causal=causal, window=window, softcap=softcap, gamma=gamma, zeta=zeta)
+        kw = dict(causal=causal, window=window, softcap=softcap, gamma=gamma, zeta=zeta,
+                  q_offset=q_offset)
         if q.is_cuda:
             out, u, stats = _launch_saved(q, k, v, gate_pi, **kw)
         else:
             out = mha_flash_ref(q, k, v, gate_pi, **kw)
             u = out if gate_pi is None and q.dtype == torch.float32 else \
                 mha_flash_ref(q, k, v, None, out_dtype=torch.float32, **kw)
-            stats = attention_stats_ref(q, k, causal=causal, window=window, softcap=softcap)
+            stats = attention_stats_ref(q, k, causal=causal, window=window, softcap=softcap,
+                                        q_offset=q_offset)
         ctx.save_for_backward(q, k, v, gate_pi, u, stats)
         ctx.kw = kw
         return out
@@ -488,11 +515,7 @@ def _launch(q, k, v, gate_pi, q_offset, causal: bool, window: Optional[int],
         if t.stride(-1) != 1 or any(st % vec for st in t.stride()[:-1]) or \
                 t.data_ptr() % 16:
             raise ValueError(f"{name} needs a unit last stride and 16-byte aligned rows")
-    offs = None
-    if isinstance(q_offset, torch.Tensor):
-        offs = q_offset.to(device=q.device, dtype=torch.int32).reshape(-1)
-        offs = torch.broadcast_to(offs, (b,)).contiguous()
-        q_offset = 0
+    q_offset, offs = _row_offsets(q_offset, b, q.device)
     g = None
     if gate_pi is not None:
         if gate_pi.shape != (b, tq, hq):
@@ -508,7 +531,7 @@ def _launch(q, k, v, gate_pi, q_offset, causal: bool, window: Optional[int],
             None if g is None else g.data_ptr(),
             None if offs is None else offs.data_ptr(), out.data_ptr(),
             b, tq, tk, hq, hkv, dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], *gs, int(q_offset), int(causal),
+            *out.stride()[:3], *gs, q_offset, int(causal),
             -1 if window is None else int(window), 0.0 if softcap is None else float(softcap),
             int(clipped), float(zeta - gamma), float(gamma), float(dh ** -0.5),
             None if stats is None else stats.data_ptr(), None if u is None else u.data_ptr(),

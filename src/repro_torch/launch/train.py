@@ -22,9 +22,10 @@ tensor (every mesh dimension a placement shards has size 1) each DTensor's
 local shard is the whole tensor, and the step runs on the local shards,
 which is the plain loop's computation, bitwise. A mesh that splits a
 tensor raises ``NotImplementedError``: multi-card training (ROADMAP 5.5)
-cannot be measured on one H100. Nothing routes around the kernels: a
-config the flash backward does not take (f32 at Dh 80 to 256, a query
-offset) raises there (ROADMAP 1.3).
+cannot be measured on one H100. Nothing routes around the kernels: every
+registered arch, its smoke config (f32, Dh 8 or 16) and its full one,
+trains through the flash backward on the card; a head dim the flash
+kernels do not take raises there.
 """
 from __future__ import annotations
 

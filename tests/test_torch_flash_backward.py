@@ -18,12 +18,15 @@ on the CPU, in float32.
   * ``FlashAttention.apply`` on CPU tensors (plain forward with the saved
     statistics, then ``attention_bwd_saved_ref``) against torch autograd
     through ``mha_flash_ref``, with a non-contiguous dout;
-  * the refusals under a gradient (f32 at Dh 80, 128 and 256, a query
-    offset), naming ROADMAP 1.3, and that an all-clipped case
-    has exactly zero gradients (the vacuous case the clipped checks guard
-    against). The routes the backward takes beyond f32 Dh 32/64 (bf16, Dh
-    80/96/128/256, softcap, window) are tested in
-    ``test_torch_flash_backward_routes.py``.
+  * what the backward once refused under a gradient (f32 at Dh 80, 128
+    and 256, a query offset), each now a gradient: ``FlashAttention.apply``
+    on CPU tensors against ``attention_bwd_ref`` and against ``jax.vjp`` of
+    the reference's ``repro.core.attention.dense_attention``; and that an
+    all-clipped case has exactly zero gradients (the vacuous case the
+    clipped checks guard against). The routes the backward takes beyond f32
+    Dh 32/64 (bf16, Dh 80/96/128/256, softcap, window) are tested in
+    ``test_torch_flash_backward_routes.py``, Dh 8 and 16 and the query
+    offset in ``test_torch_flash_offsets.py``.
 
 The kernel itself runs only on the card; ``chip_smoke.py`` phase 6 holds it
 against ``attention_bwd_ref`` there."""
@@ -35,6 +38,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.attention import AttentionConfig, dense_attention
+from repro.core.softmax import ClippedSoftmaxConfig
 from repro.kernels.ref import attention_ref as jref
 from repro_torch.testing import one_torch_thread  # noqa: F401 (an autouse fixture)
 
@@ -225,14 +230,63 @@ def test_function_matches_autograd_of_plain(variant, causal, heads):
         torch.testing.assert_close(a, b, rtol=0, atol=FN_ATOL)
 
 
+def dense_vjp(x, kw, q_offset=0):
+    """(dq, dk, dv, dgate) of ``jax.vjp`` of the reference's
+    ``dense_attention`` (the attention the reference trains through, which
+    XLA differentiates) at the forward's settings ``kw`` and ``q_offset``
+    (an int or a per-row (B,) array), f32 numpy arrays; dgate None without
+    a gate."""
+    hq, dh = x["q"].shape[2:]
+    cfg = AttentionConfig(n_heads=hq, n_kv_heads=x["k"].shape[2], d_head=dh,
+                          causal=kw["causal"], window=kw.get("window"),
+                          logit_softcap=kw.get("softcap"),
+                          softmax=ClippedSoftmaxConfig(gamma=kw["gamma"], zeta=kw["zeta"]))
+    off = jnp.asarray(q_offset, jnp.int32)
+
+    def fwd(q, k, v, gate):
+        return dense_attention(q, k, v, cfg, q_offset=off, gate_pi=gate)
+
+    args = [jnp.asarray(x[n]) for n in ("q", "k", "v")]
+    gate = None if x["gate"] is None else jnp.asarray(x["gate"])
+    _, vjp = jax.vjp(fwd, *args, gate)
+    return [None if r is None else np.asarray(r) for r in vjp(jnp.asarray(x["dout"]))]
+
+
 @pytest.mark.parametrize("bad", ("f32-dh80", "f32-dh128", "f32-dh256", "q_offset"))
 def test_backward_refuses_what_the_kernel_lacks(bad):
-    dt = torch.bfloat16 if bad.startswith("bf16") else torch.float32
+    """What the backward kernel once refused under a gradient (f32 at Dh
+    80, 128 and 256, where it had no route, and a query offset) now takes
+    one: ``FlashAttention.apply`` on CPU tensors (the kernel's algorithm on
+    the forward's saved statistics, plainly), clipped and gated, against
+    ``attention_bwd_ref`` and against ``jax.vjp`` of the reference's
+    ``dense_attention`` at rtol 1e-4. The offset case puts its 16 queries at
+    positions 5..20 of 24 keys: the last three keys are seen by no query
+    and their dk, dv are exactly zero."""
     dh = int(bad.split("dh")[1]) if "dh" in bad else 32
-    q, k, v = (torch.randn(1, 8, 2, dh, dtype=dt, requires_grad=True) for _ in range(3))
-    q_offset = 3 if bad == "q_offset" else 0
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.3"):
-        tfa.FlashAttention.apply(q, k, v, None, True, None, None, 0.0, 1.0, q_offset)
+    off, tk = (5, 24) if bad == "q_offset" else (0, 16)
+    x, kw = _inputs("clipped_gated", True, 4, 2, t=16, dh=dh, seed=dh)
+    rng = np.random.default_rng(dh + 1)
+    for n in ("k", "v"):
+        x[n] = (rng.standard_normal((2, tk, 2, dh)) * (2.0 if n == "k" else 1.0)
+                ).astype(np.float32)
+    kw["gamma"] = -ALPHA / tk
+    ins = [_t(x[n], grad=True) for n in ("q", "k", "v", "gate")]
+    out = tfa.FlashAttention.apply(*ins, True, None, None, kw["gamma"], kw["zeta"], off)
+    got = torch.autograd.grad(out, ins, _t(x["dout"]))
+    plain = tfa.attention_bwd_ref(*(_t(x[n]) for n in ("q", "k", "v", "gate", "dout")),
+                                  **kw, q_offset=off)
+    want = dense_vjp(x, kw, off)
+    s, mask, _ = tfa._scores(_t(x["q"]), _t(x["k"]), True, q_offset=off)
+    p = torch.softmax(s, dim=-1)
+    xx = (kw["zeta"] - kw["gamma"]) * p + kw["gamma"]
+    assert ((xx > 0) & (xx < 1) & mask).any()   # non-vacuous: some entries pass a gradient
+    for name, a, b, c in zip(("dq", "dk", "dv", "dgate"), got, plain, want):
+        assert np.abs(c).max() > 0.1, name
+        torch.testing.assert_close(a, b, rtol=0, atol=FN_ATOL, msg=name)
+        np.testing.assert_allclose(a.numpy(), c, rtol=RTOL, atol=ATOL, err_msg=name)
+    if off:
+        assert torch.count_nonzero(got[1][:, off + 16:]) == 0
+        assert torch.count_nonzero(got[2][:, off + 16:]) == 0
 
 
 def test_all_clipped_rows_give_zero_gradients():

@@ -266,12 +266,15 @@ def test_function_bf16_matches_autograd_of_plain(dh, mode, variant):
 
 
 def test_routes():
-    """bwd_route names one route per (dtype, Dh) the kernel takes, None
-    for the rest (which FlashAttention refuses, naming ROADMAP 1.3)."""
-    assert [tfa.bwd_route(torch.bfloat16, d) for d in (32, 64, 80, 96, 128, 256)] == \
-        ["bf16"] * 6
-    assert [tfa.bwd_route(torch.float32, d) for d in (32, 64, 80, 96, 128, 256)] == \
-        ["3xtf32"] * 2 + [None] * 4
+    """bwd_route names one route per (dtype, Dh) the forward takes (Dh 8,
+    16, 32, 64, 80, 96, 128, 256): bf16 for bf16, 3xTF32 for f32 up to Dh
+    64, CUDA cores for f32 above; None for a head dim the forward refuses
+    (48)."""
+    dhs = (8, 16, 32, 64, 80, 96, 128, 256)
+    assert [tfa.bwd_route(torch.bfloat16, d) for d in dhs] == ["bf16"] * 8
+    assert [tfa.bwd_route(torch.float32, d) for d in dhs] == \
+        ["3xtf32"] * 4 + ["cuda-core"] * 4
+    assert tfa.bwd_route(torch.float32, 48) is None and tfa.bwd_route(torch.bfloat16, 48) is None
 
 
 @pytest.mark.parametrize("dtype,dh,planes", [(torch.bfloat16, 128, 3), (torch.bfloat16, 32, 3),
